@@ -1,0 +1,102 @@
+"""Per-kernel ConfigurationSpaces — the paper's pragma parameter spaces,
+re-targeted at the CUDA kernels' schedule knobs.
+
+Two flavors per kernel:
+
+  * ``target="gpu"``  — tile sequences that suit the CUDA kernels
+    (``csrc/syr2k.cu``, ``csrc/matmul.cu``): output tiles of 8..128 in
+    steps a 16x16 thread block covers with at most 8x8 registers per thread,
+    including extents that are not multiples of 16 so ragged tiles are part
+    of the search; contraction chunks of 4..256, the large ones limited by
+    the device's shared memory per block (the wrappers reject them before
+    launch, and the campaign records a penalty);
+  * ``target="host"`` — the paper's literal 11-entry tile sequences
+    ('4'...'2048'), identical to ``repro.kernels.spaces``'s host flavour, for
+    the CPU backend (plain versions) and the parity tests.
+
+Space sizes mirror the paper: syr2k 2*2*2*11^3 = 10,648 (with the
+pack_b-in-pack_a InCondition); 3mm 2^7 * 11^3 = 170,368.
+"""
+
+from __future__ import annotations
+
+from repro_torch.core.space import (
+    Categorical,
+    ConfigurationSpace,
+    InCondition,
+    Ordinal,
+)
+
+__all__ = ["kernel_space", "KERNEL_SPACES", "TARGETS"]
+
+TARGETS = ("gpu", "host")
+
+# the paper's tile sequences (Sec. 4.1)
+HOST_TILES_A = (4, 8, 16, 20, 32, 50, 64, 80, 96, 100, 128)
+HOST_TILES_B = (4, 8, 16, 20, 32, 50, 64, 80, 100, 128, 2048)
+HOST_TILES_C = (4, 8, 16, 20, 32, 50, 64, 80, 100, 128, 256)
+# CUDA-kernel sequences (11 entries, like the paper): output tiles up to the
+# kernels' 128-wide register tile, contraction chunks up to 256
+GPU_TILES = (8, 16, 24, 32, 40, 48, 64, 80, 96, 112, 128)
+GPU_TILES_K = (4, 8, 16, 24, 32, 48, 64, 96, 128, 192, 256)
+
+
+def _tiles(target: str, which: str):
+    if target not in TARGETS:
+        raise ValueError(f"target must be one of {TARGETS}, got {target!r}")
+    if target == "host":
+        return {"a": HOST_TILES_A, "b": HOST_TILES_B, "c": HOST_TILES_C}[which]
+    return {"a": GPU_TILES, "b": GPU_TILES_K, "c": GPU_TILES}[which]
+
+
+def _tile_defaults(target: str) -> tuple[int, int, int]:
+    """(row tile, contraction chunk, column tile) defaults: the host flavour
+    keeps repro's, the GPU flavour uses the ops.DEFAULTS tiles."""
+    if target == "host":
+        return _tiles(target, "a")[8], _tiles(target, "b")[-1], _tiles(target, "c")[-1]
+    return 64, 32, 64
+
+
+def syr2k_space(target: str = "gpu", seed: int = 1234) -> ConfigurationSpace:
+    ti, tk, tj = _tile_defaults(target)
+    pack = target == "gpu"
+    cs = ConfigurationSpace(seed=seed)
+    cs.add_hyperparameters([
+        Categorical("pack_a", (True, False), default=pack),
+        Categorical("pack_b", (True, False), default=pack),
+        Categorical("interchange", (True, False), default=False),
+        Ordinal("bi", _tiles(target, "a"), default=ti),
+        Ordinal("bk", _tiles(target, "b"), default=tk),
+        Ordinal("bj", _tiles(target, "c"), default=tj),
+    ])
+    # the paper's CS.InCondition: consider packing B only when A is packed
+    cs.add_condition(InCondition("pack_b", "pack_a", (True,)))
+    return cs
+
+
+def mm3_space(target: str = "gpu", seed: int = 1234) -> ConfigurationSpace:
+    ti, tk, tj = _tile_defaults(target)
+    cs = ConfigurationSpace(seed=seed)
+    cs.add_hyperparameters([
+        Categorical("pack1", (True, False), default=True),
+        Categorical("pack2", (True, False), default=True),
+        Categorical("pack3", (True, False), default=True),
+        Categorical("inter1", (True, False), default=False),
+        Categorical("inter2", (True, False), default=False),
+        Categorical("inter3", (True, False), default=False),
+        Categorical("fuse_second", (True, False), default=False),
+        Ordinal("bm", _tiles(target, "a"), default=ti),
+        Ordinal("bk", _tiles(target, "b"), default=tk),
+        Ordinal("bn", _tiles(target, "c"), default=tj),
+    ])
+    return cs
+
+
+KERNEL_SPACES = {
+    "syr2k": syr2k_space,
+    "mm3": mm3_space,
+}
+
+
+def kernel_space(name: str, target: str = "gpu", seed: int = 1234) -> ConfigurationSpace:
+    return KERNEL_SPACES[name](target=target, seed=seed)
