@@ -33,21 +33,23 @@ BUILD_ROOT = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
-# source name -> {C function: argtypes}; every function returns cudaError_t
-KERNELS: dict[str, dict[str, list]] = {
+# source name -> {C function: (argtypes, restype)}. The launchers return a
+# cudaError_t; *_smem_bytes return the bytes of dynamic shared memory a block
+# needs (-1 for a tile the kernel cannot hold), from the kernel's own layout.
+KERNELS: dict[str, dict[str, tuple[list, type]]] = {
     "syr2k": {
-        # C, A, B, O, N, M, alpha, beta, bi, bj, bk,
-        # pack_a, pack_b, interchange, smem_bytes, stream
-        "syr2k_launch": [_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I,
-                         _I, _I, _I, _S, _P],
+        # C, A, B, O, N, M, alpha, beta, bi, bj, bk, pack_a, pack_b, interchange, stream
+        "syr2k_launch": ([_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _I, _I, _I, _P], _I),
+        # bi, bj, bk, pack_a, pack_b
+        "syr2k_smem_bytes": ([_I, _I, _I, _I, _I], _L),
     },
     "matmul": {
-        # A, B, O, M, K, N, bm, bn, bk, pack, interchange,
-        # in_bf16, out_bf16, smem_bytes, stream
-        "matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _S, _P],
+        # A, B, O, M, K, N, bm, bn, bk, pack, interchange, in_bf16, out_bf16, stream
+        "matmul_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        # bm, bn, bk
+        "matmul_smem_bytes": ([_I, _I, _I], _L),
     },
 }
 
@@ -117,9 +119,9 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _loaded:
             lib = ctypes.CDLL(str(_target(name)))
-            for fn, argtypes in KERNELS[name].items():
+            for fn, (argtypes, restype) in KERNELS[name].items():
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = restype
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
             _loaded[name] = lib

@@ -37,10 +37,13 @@
 //               the TPU grid (i, j, k) runs j fastest; i with it.
 // Ragged edges are masked (staged zeros, masked stores); nothing is padded.
 //
-// Interface: matmul_launch() launches on the given stream, does not
-// synchronise, and returns cudaGetLastError(). Tile extents are runtime
-// values; dtype pair, PACK and INTERCHANGE are template parameters
-// (16 instantiations).
+// Interface: matmul_smem_bytes() gives the dynamic shared memory a block
+// needs for a tile (-1 for a tile the register tile cannot hold), from the
+// same layout() the kernel carves its buffers from; the wrapper checks it
+// against the device's limit before launch. matmul_launch() launches on the
+// given stream, does not synchronise, and returns cudaGetLastError(). Tile
+// extents are runtime values; dtype pair, PACK and INTERCHANGE are template
+// parameters (16 instantiations).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,6 +63,26 @@ struct Args {
   const void* A; const void* B; void* O;
   int M, K, N, bm, bn, bk;
 };
+
+// Shared-memory layout of one block, in floats: the A chunk then the B
+// chunk, each k-major, bk rows of the tile extent padded to whole groups
+// (pm, pn) plus PAD.
+struct Layout {
+  int pm, pn, lda, ldb;  // padded tile extents, leading dimensions
+  int b;                 // offset of the B chunk (A's is 0)
+  int floats;            // total
+};
+
+__host__ __device__ inline Layout layout(int bm, int bn, int bk) {
+  Layout L;
+  L.pm = (bm + GROUP - 1) / GROUP * GROUP;
+  L.pn = (bn + GROUP - 1) / GROUP * GROUP;
+  L.lda = L.pm + PAD;
+  L.ldb = L.pn + PAD;
+  L.b = bk * L.lda;
+  L.floats = L.b + bk * L.ldb;
+  return L;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -131,11 +154,11 @@ __global__ void __launch_bounds__(TD * TD) matmul_kernel(Args p) {
   const int ti = INTERCHANGE ? blockIdx.x : blockIdx.y;
   const int tj = INTERCHANGE ? blockIdx.y : blockIdx.x;
   const int i0 = ti * p.bm, j0 = tj * p.bn;
-  const int Gm = (p.bm + GROUP - 1) / GROUP, Gn = (p.bn + GROUP - 1) / GROUP;
-  const int pm = Gm * GROUP, pn = Gn * GROUP;
-  const int lda = pm + PAD, ldb = pn + PAD;
-  float* sA = smem;                 // [bk][lda], k-major
-  float* sB = smem + p.bk * lda;    // [bk][ldb]
+  const Layout L = layout(p.bm, p.bn, p.bk);
+  const int pm = L.pm, pn = L.pn, lda = L.lda, ldb = L.ldb;
+  const int Gm = pm / GROUP, Gn = pn / GROUP;
+  float* sA = smem;          // [bk][lda], k-major
+  float* sB = smem + L.b;    // [bk][ldb]
   const int tx = threadIdx.x, ty = threadIdx.y;
 
   float acc[R][R];
@@ -242,11 +265,16 @@ cudaError_t launch_knobs(const Args& p, int pack, int ic, size_t smem, cudaStrea
 
 }  // namespace
 
+extern "C" long long matmul_smem_bytes(int bm, int bn, int bk) {
+  if (bm < 1 || bn < 1 || bk < 1 || bm > GROUP * MAXG || bn > GROUP * MAXG) return -1;
+  return (long long)sizeof(float) * layout(bm, bn, bk).floats;
+}
+
 extern "C" int matmul_launch(const void* A, const void* B, void* O, int M, int K, int N,
                              int bm, int bn, int bk, int pack, int interchange,
-                             int in_bf16, int out_bf16, size_t smem, void* stream) {
-  if (bm < 1 || bn < 1 || bk < 1 || bm > GROUP * MAXG || bn > GROUP * MAXG)
-    return (int)cudaErrorInvalidValue;
+                             int in_bf16, int out_bf16, void* stream) {
+  const long long smem = matmul_smem_bytes(bm, bn, bk);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
   Args p{A, B, O, M, K, N, bm, bn, bk};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;

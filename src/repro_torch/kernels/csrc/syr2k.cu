@@ -3,13 +3,17 @@
 // Replaces: src/repro/kernels/syr2k.py:_syr2k_kernel (the Pallas TPU kernel
 // behind repro.kernels.syr2k.syr2k, the paper's Sec. 4.1 case study).
 //
-// What bounds it on an H100: at the paper's LARGE size (N=1200, M=1000) the
-// work is 4*N^2*M = 5.76 GFLOP of f32 multiply-adds, 86 us at the 67 TFLOP/s
-// f32 rate of the CUDA cores, against 21 MB of compulsory traffic (A, B, C
-// read once, O written once), 6 us at 3.35 TB/s. So it is compute-bound, on
-// the CUDA cores: the reference and the JAX suite hold syr2k to 5e-3, and a
-// TF32 tensor-core sum over M=1000 terms keeps about three digits, so the
-// kernel stays in full f32 FFMA on purpose.
+// What bounds it on an H100: the function needs one product, since
+// B*A^T = (A*B^T)^T: at the paper's LARGE size (N=1200, M=1000) that is
+// 2*N^2*M = 2.88 GFLOP of f32 multiply-adds, 43 us at the 67 TFLOP/s f32
+// rate of the CUDA cores, against 21 MB of compulsory traffic (A, B, C read
+// once, O written once), 6 us at 3.35 TB/s. So it is compute-bound, on the
+// CUDA cores: the reference and the JAX suite hold syr2k to 5e-3, and a TF32
+// tensor-core sum over M=1000 terms keeps about three digits, so the kernel
+// stays in full f32 FFMA on purpose. This kernel computes both products
+// (4*N^2*M flops), twice the work the bound counts: each block owns one
+// tile of O and would otherwise need the transposed tile's product from
+// another block.
 //
 // Design: one thread block of 16x16 threads per bi x bj tile of O (tiles up
 // to 128 x 128). Thread (tx, ty) owns rows 64h + 4ty + u and columns
@@ -35,9 +39,13 @@
 // element is summed in the same order (k ascending, one fused multiply-add
 // per term) whatever the knobs, so all configurations give the same bits.
 //
-// Interface: syr2k_launch() launches on the given stream, does not
-// synchronise, and returns cudaGetLastError(). Tile extents are runtime
-// values; only the three knobs are template parameters (8 instantiations).
+// Interface: syr2k_smem_bytes() gives the dynamic shared memory a block
+// needs for a tile and knobs (-1 for a tile the register tile cannot hold),
+// from the same layout() the kernel carves its buffers from; the wrapper
+// checks it against the device's limit before launch. syr2k_launch()
+// launches on the given stream, does not synchronise, and returns
+// cudaGetLastError(). Tile extents are runtime values; only the three knobs
+// are template parameters (8 instantiations).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,6 +63,29 @@ struct Args {
   const float* C; const float* A; const float* B; float* O;
   int N, M; float alpha, beta; int bi, bj, bk;
 };
+
+// Shared-memory layout of one block, in floats: [A_i | A_j] if PACK_A, then
+// [B_i | B_j] if PACK_B, each a k-major chunk of bk rows of the tile extent
+// padded to whole groups (pi, pj) plus PAD.
+struct Layout {
+  int pi, pj, ldi, ldj;  // padded tile extents, leading dimensions
+  int ai, aj, bi, bj;    // offsets of the four chunks
+  int floats;            // total
+};
+
+__host__ __device__ inline Layout layout(int bi, int bj, int bk, bool pack_a, bool pack_b) {
+  Layout L;
+  L.pi = (bi + GROUP - 1) / GROUP * GROUP;
+  L.pj = (bj + GROUP - 1) / GROUP * GROUP;
+  L.ldi = L.pi + PAD;
+  L.ldj = L.pj + PAD;
+  L.ai = 0;
+  L.aj = L.ai + (pack_a ? bk * L.ldi : 0);
+  L.bi = L.aj + (pack_a ? bk * L.ldj : 0);
+  L.bj = L.bi + (pack_b ? bk * L.ldi : 0);
+  L.floats = L.bj + (pack_b ? bk * L.ldj : 0);
+  return L;
+}
 
 // Stage rows [r0, r0 + rows_pad) x cols [k0, k0 + kc) of X (N x M) into
 // s[k * ld + r], k-major; rows past the tile (r >= rows) or past N are zero.
@@ -104,16 +135,14 @@ __global__ void __launch_bounds__(TD * TD) syr2k_kernel(Args p) {
   const int ti = INTERCHANGE ? blockIdx.x : blockIdx.y;
   const int tj = INTERCHANGE ? blockIdx.y : blockIdx.x;
   const int i0 = ti * p.bi, j0 = tj * p.bj;
-  const int Gi = (p.bi + GROUP - 1) / GROUP, Gj = (p.bj + GROUP - 1) / GROUP;
-  const int pi = Gi * GROUP, pj = Gj * GROUP;     // padded tile extents
-  const int ldi = pi + PAD, ldj = pj + PAD;
+  const Layout L = layout(p.bi, p.bj, p.bk, PACK_A, PACK_B);
+  const int pi = L.pi, pj = L.pj, ldi = L.ldi, ldj = L.ldj;
+  const int Gi = pi / GROUP, Gj = pj / GROUP;
   const int tx = threadIdx.x, ty = threadIdx.y;
-
-  // shared layout: [A_i | A_j] if PACK_A, then [B_i | B_j] if PACK_B
-  float* sAi = smem;
-  float* sAj = sAi + (PACK_A ? p.bk * ldi : 0);
-  float* sBi = sAj + (PACK_A ? p.bk * ldj : 0);
-  float* sBj = sBi + (PACK_B ? p.bk * ldi : 0);
+  float* sAi = smem + L.ai;
+  float* sAj = smem + L.aj;
+  float* sBi = smem + L.bi;
+  float* sBj = smem + L.bj;
 
   // global rows of this thread's rows/cols, clamped into range so an
   // unstaged read never leaves the array (masked rows are never stored)
@@ -211,12 +240,16 @@ cudaError_t launch_ic(const Args& p, int ic, size_t smem, cudaStream_t s) {
 
 }  // namespace
 
+extern "C" long long syr2k_smem_bytes(int bi, int bj, int bk, int pack_a, int pack_b) {
+  if (bi < 1 || bj < 1 || bk < 1 || bi > GROUP * MAXG || bj > GROUP * MAXG) return -1;
+  return (long long)sizeof(float) * layout(bi, bj, bk, pack_a, pack_b).floats;
+}
+
 extern "C" int syr2k_launch(const void* C, const void* A, const void* B, void* O,
                             int N, int M, float alpha, float beta, int bi, int bj, int bk,
-                            int pack_a, int pack_b, int interchange, size_t smem,
-                            void* stream) {
-  if (bi < 1 || bj < 1 || bk < 1 || bi > GROUP * MAXG || bj > GROUP * MAXG)
-    return (int)cudaErrorInvalidValue;
+                            int pack_a, int pack_b, int interchange, void* stream) {
+  const long long smem = syr2k_smem_bytes(bi, bj, bk, pack_a, pack_b);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
   Args p{(const float*)C, (const float*)A, (const float*)B, (float*)O,
          N, M, alpha, beta, bi, bj, bk};
   cudaStream_t s = (cudaStream_t)stream;

@@ -21,25 +21,20 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.util import (
     ConfigRejected,
-    cdiv,
     check_operand,
     max_shared_memory_per_block,
 )
 
-__all__ = ["tiled_matmul", "tiled_matmul_plain", "matmul_smem_bytes", "MAX_TILE"]
+__all__ = ["tiled_matmul", "tiled_matmul_plain", "matmul_smem_bytes"]
 
-GROUP = 64            # csrc/matmul.cu GROUP: rows one 16x16-thread block covers per group
-PAD = 4               # csrc/matmul.cu PAD: row padding of a staged chunk
-MAX_TILE = 2 * GROUP  # MAXG * GROUP: widest tile one block's registers hold
-MAX_GRID_Y = 65535
 DTYPES = (torch.float32, torch.bfloat16)
 
 
 def matmul_smem_bytes(bm: int, bn: int, bk: int) -> int:
-    """Dynamic shared memory of one block: the f32 A and B chunks, k-major,
-    bk rows of (tile extent padded to 64) + 4 floats each."""
-    pm, pn = cdiv(bm, GROUP) * GROUP, cdiv(bn, GROUP) * GROUP
-    return 4 * bk * ((pm + PAD) + (pn + PAD))
+    """Dynamic shared memory (bytes) one block of ``csrc/matmul.cu`` needs
+    for this tile, or -1 for a tile its register tile cannot hold. The
+    kernel's own layout answers, so the library is built first."""
+    return build.load("matmul").matmul_smem_bytes(bm, bn, bk)
 
 
 def tiled_matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bk: int, pack: bool,
@@ -85,16 +80,13 @@ def tiled_matmul(
     check_operand("b", b, (K, N), (a.dtype,), dev)
     if out_dtype not in DTYPES:
         raise TypeError(f"tiled_matmul out_dtype {out_dtype} not in {DTYPES}")
-    if bm > MAX_TILE or bn > MAX_TILE:
-        raise ConfigRejected(f"matmul tile {bm}x{bn} exceeds the kernel's "
-                             f"{MAX_TILE}x{MAX_TILE} register tile")
     smem = matmul_smem_bytes(bm, bn, bk)
+    if smem < 0:
+        raise ConfigRejected(f"matmul tile {bm}x{bn} does not fit the kernel's register tile")
     limit = max_shared_memory_per_block(dev)
     if smem > limit:
         raise ConfigRejected(f"matmul bm={bm} bn={bn} bk={bk} needs {smem} B of "
                              f"shared memory, the device allows {limit} B per block")
-    if max(cdiv(M, bm), cdiv(N, bn)) > MAX_GRID_Y:
-        raise ConfigRejected(f"matmul grid over {M}x{N} with bm={bm}, bn={bn} is too tall")
 
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     lib = build.load("matmul")
@@ -103,7 +95,7 @@ def tiled_matmul(
         err = lib.matmul_launch(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N, bm, bn, bk,
             int(pack), int(interchange), int(a.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), smem, stream)
+            int(out_dtype == torch.bfloat16), stream)
     build.check(lib, err, "tiled_matmul")
     tiled_matmul.launches += 1
     return out

@@ -20,26 +20,18 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.util import (
     ConfigRejected,
-    cdiv,
     check_operand,
     max_shared_memory_per_block,
 )
 
-__all__ = ["syr2k", "syr2k_plain", "syr2k_smem_bytes", "MAX_TILE"]
-
-GROUP = 64            # csrc/syr2k.cu GROUP: rows one 16x16-thread block covers per group
-PAD = 4               # csrc/syr2k.cu PAD: row padding of a staged chunk
-MAX_TILE = 2 * GROUP  # MAXG * GROUP: widest tile one block's registers hold
-MAX_GRID_Y = 65535
+__all__ = ["syr2k", "syr2k_plain", "syr2k_smem_bytes"]
 
 
 def syr2k_smem_bytes(bi: int, bj: int, bk: int, pack_a: bool, pack_b: bool) -> int:
-    """Dynamic shared memory of one block: each packed operand stages a
-    k-major chunk of bk rows of (tile rows padded to 64) + 4 floats for the
-    i tile and one for the j tile."""
-    pi, pj = cdiv(bi, GROUP) * GROUP, cdiv(bj, GROUP) * GROUP
-    per_operand = bk * (pi + PAD) + bk * (pj + PAD)
-    return 4 * per_operand * (int(pack_a) + int(pack_b))
+    """Dynamic shared memory (bytes) one block of ``csrc/syr2k.cu`` needs for
+    this tile and these knobs, or -1 for a tile its register tile cannot
+    hold. The kernel's own layout answers, so the library is built first."""
+    return build.load("syr2k").syr2k_smem_bytes(bi, bj, bk, int(pack_a), int(pack_b))
 
 
 def syr2k_plain(C, A, B, alpha: float = 1.5, beta: float = 1.2) -> torch.Tensor:
@@ -74,17 +66,14 @@ def syr2k(
     dev = C.device
     for name, t, shape in (("C", C, (N, N)), ("A", A, (N, M)), ("B", B, (N, M))):
         check_operand(name, t, shape, (torch.float32,), dev)
-    if bi > MAX_TILE or bj > MAX_TILE:
-        raise ConfigRejected(f"syr2k tile {bi}x{bj} exceeds the kernel's "
-                             f"{MAX_TILE}x{MAX_TILE} register tile")
     smem = syr2k_smem_bytes(bi, bj, bk, pack_a, pack_b)
+    if smem < 0:
+        raise ConfigRejected(f"syr2k tile {bi}x{bj} does not fit the kernel's register tile")
     limit = max_shared_memory_per_block(dev)
     if smem > limit:
         raise ConfigRejected(f"syr2k bi={bi} bj={bj} bk={bk} pack_a={pack_a} "
                              f"pack_b={pack_b} needs {smem} B of shared memory, "
                              f"the device allows {limit} B per block")
-    if max(cdiv(N, bi), cdiv(N, bj)) > MAX_GRID_Y:
-        raise ConfigRejected(f"syr2k grid over N={N} with bi={bi}, bj={bj} is too tall")
 
     out = torch.empty_like(C)
     lib = build.load("syr2k")
@@ -93,7 +82,7 @@ def syr2k(
         err = lib.syr2k_launch(
             C.data_ptr(), A.data_ptr(), B.data_ptr(), out.data_ptr(),
             N, M, float(alpha), float(beta), bi, bj, bk,
-            int(pack_a), int(pack_b), int(interchange), smem, stream)
+            int(pack_a), int(pack_b), int(interchange), stream)
     build.check(lib, err, "syr2k")
     syr2k.launches += 1
     return out

@@ -16,8 +16,8 @@ from repro.kernels.matmul import tiled_matmul as jax_tiled_matmul
 from repro.kernels.syr2k import syr2k as jax_syr2k
 from repro_torch.kernels import ops, problems, ref
 from repro_torch.kernels.m3mm import mm3
-from repro_torch.kernels.matmul import matmul_smem_bytes, tiled_matmul, tiled_matmul_plain
-from repro_torch.kernels.syr2k import syr2k, syr2k_plain, syr2k_smem_bytes
+from repro_torch.kernels.matmul import tiled_matmul, tiled_matmul_plain
+from repro_torch.kernels.syr2k import syr2k, syr2k_plain
 from repro_torch.kernels.util import pad_to, resolve_device, unpad
 
 SYR2K_TOL = dict(atol=5e-3, rtol=5e-3)     # tests/test_kernels.py:90-91
@@ -65,16 +65,6 @@ def test_syr2k_op_defaults_and_inactive_pack_b():
     _close(ops.syr2k_op(C, A, B, config={"pack_a": False, "bi": 8}), want, SYR2K_TOL)
 
 
-def test_syr2k_smem_accounting():
-    # per packed operand: k-major chunks of (rows padded to 64) + 4 floats,
-    # one for the i tile and one for the j tile
-    assert syr2k_smem_bytes(64, 64, 32, False, False) == 0
-    assert syr2k_smem_bytes(64, 64, 32, True, False) == 4 * 32 * 68 * 2
-    assert syr2k_smem_bytes(64, 64, 32, True, True) == 4 * 32 * 68 * 4
-    assert syr2k_smem_bytes(48, 80, 24, True, True) == 4 * 2 * (24 * 68 + 24 * 132)
-    assert syr2k_smem_bytes(8, 8, 8, True, False) == 4 * 2 * 8 * 68
-
-
 # ---------------------------------------------------------------------------
 # tiled matmul and mm3
 # ---------------------------------------------------------------------------
@@ -118,12 +108,6 @@ def test_tiled_matmul_plain_rounds_per_chunk():
         o = (o.float() + part.float()).bfloat16()
     got = tiled_matmul_plain(a, b, bk=16, pack=False, out_dtype=torch.bfloat16)
     assert torch.equal(got, o)
-
-
-def test_matmul_smem_accounting():
-    assert matmul_smem_bytes(64, 64, 32) == 4 * 32 * (68 + 68)
-    assert matmul_smem_bytes(48, 80, 24) == 4 * 24 * (68 + 132)
-    assert matmul_smem_bytes(128, 8, 8) == 4 * 8 * (132 + 68)
 
 
 @pytest.mark.parametrize("fuse", [False, True])
