@@ -4,17 +4,26 @@
     python3 chip_smoke.py
 
 Drives the port's main path — the paper's autotuning loop with the CUDA
-kernels as the tuned programs — and checks each kernel on the card:
+kernels as the tuned programs, for all six of the paper's benchmarks — and
+checks each kernel on the card:
 
   1. device: name, count, power limit; TF32 switched off for the yardsticks;
-  2. build: both kernels from src/repro_torch/kernels/csrc/ with nvcc (sm_90a);
+  2. build: every source in src/repro_torch/kernels/csrc/ with nvcc (sm_90a),
+     one nvcc per source, all started together; ptxas registers and spills;
   3. kernel vs plain PyTorch version at the paper's LARGE sizes, over the
-     knob combinations, with the tolerance stated beside each error;
+     knob combinations, with the tolerance stated beside each error (0 for
+     the min-plus kernel, the blocked Floyd-Warshall and the two helpers,
+     which must agree bit for bit), and the gpu-space points each wrapper
+     rejects before launch;
   4. times at the default config (CUDA events, after warm-up): kernel,
-     plain version, one PyTorch library call, and the roofline bound;
-  5. the main path: `repro_torch.launch.autotune.main` campaigns for syr2k
-     and mm3 at LARGE, whose kernel launch counts, OK share and best config
-     are checked.
+     plain version, one PyTorch library call where there is one, and the
+     roofline bound; for lu, floyd_warshall and heat3d also the kernel
+     launches, the host wall time and the device time (torch.profiler) per
+     call;
+  5. the main path: `repro_torch.launch.autotune.main` campaigns at LARGE
+     for syr2k, mm3, lu, covariance, floyd_warshall and heat3d, each with
+     its wrappers' launch counts set to 0 just before and read just after,
+     whose launch counts, OK share and best config are checked.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Any failed phase raises and the
@@ -41,6 +50,12 @@ SRC = os.path.join(ROOT, "src")
 # and HBM3 bandwidth — the roofline every bound_ms below is taken against
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# f32 minimum: the CUDA C Programming Guide's arithmetic-instruction
+# throughput table gives compute capability 9.0 128 f32 add/multiply/FMA
+# results but 64 compare/minimum/maximum results per clock and SM, so min is
+# a quarter of the 67 TFLOP/s (which counts an FFMA as two operations);
+# Floyd-Warshall's add issues beside it, on the FMA pipe
+PEAK_F32_MIN = PEAK_F32_FLOPS / 4
 
 # Tolerances scaled to the outputs they hold. syr2k's entries are sums of
 # 1000 unscaled products (|O| up to a few hundred); the JAX suite's atol
@@ -51,9 +66,28 @@ PEAK_HBM_BYTES = 3.35e12
 SYR2K_TOL = dict(atol=5e-3, rtol=1e-4)
 F32_TOL = dict(atol=1e-5, rtol=1e-4)
 BF16_TOL = dict(atol=1e-3, rtol=1.6e-2)
+# covariance of standard normal data: ~1 on the diagonal, ~0.03 off it; each
+# entry sums 1400 products. lu's entries run up to N=2000 on the diagonal;
+# against its plain version (the same blocked schedule, the GEMM in cuBLAS)
+# only the trailing GEMMs' summation order differs; against the unblocked
+# lu_ref the triangular solves and the updates associate differently, so it
+# keeps the JAX suite's 5e-3. Floyd-Warshall's path lengths are sums of a
+# few edges in [1, 10): against the unblocked reference they differ by the
+# rounding of the adds' association. heat3d's values lie in [0, 1].
+COV_TOL = F32_TOL
+LU_TOL = dict(atol=1e-5, rtol=1e-6)
+LU_REF_TOL = dict(atol=5e-3, rtol=1e-5)
+FW_REF_TOL = dict(atol=1e-5, rtol=1e-6)
+HEAT_TOL = dict(atol=1e-6, rtol=0.0)
+EXACT = dict(atol=0.0, rtol=0.0)
 
-SYR2K_EVALS = 60
-MM3_EVALS = 40
+# the kernels line's names -> the wrapper that counts their launches
+WRAPPER_OF = {"syr2k": "syr2k", "matmul": "tiled_matmul", "covariance": "covariance",
+              "minplus": "minplus_update", "heat3d": "heat3d",
+              "lu_factor_diag": "lu_factor_diag", "closure": "closure_in_block"}
+# (kernel, evaluations) of phase 5; heat3d's space has 12 points
+CAMPAIGNS = (("syr2k", 60), ("mm3", 40), ("lu", 30), ("covariance", 30),
+             ("floyd_warshall", 30), ("heat3d", 12))
 
 
 def phase(name: str) -> None:
@@ -98,9 +132,47 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def host_ms(fn, iters: int = 5) -> float:
+    """Mean host wall milliseconds per call of ``fn``, each call followed by
+    a synchronize, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def device_time(fn) -> tuple[float, dict]:
+    """Device kernel milliseconds of one call of ``fn`` under torch.profiler
+    (after one unprofiled warm-up call), and {kernel name: (count, ms)}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {e.key: (e.count, e.self_device_time_total / 1e3)
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    return sum(ms for _, ms in by_name.values()), by_name
+
+
+def launches_per_call(fn, wrappers) -> dict:
+    """Kernel launches of one call of ``fn``, per wrapper."""
+    before = {w.__name__: w.launches for w in wrappers}
+    fn()
+    return {w.__name__: w.launches - before[w.__name__] for w in wrappers}
 
 
 def rejected_points(name: str, dims, limit: int) -> tuple[int, int]:
@@ -117,7 +189,40 @@ def rejected_points(name: str, dims, limit: int) -> tuple[int, int]:
     def refused(nbytes: int) -> bool:
         return nbytes < 0 or nbytes > limit
 
+    from repro_torch.kernels.covariance import covariance_smem_bytes
+    from repro_torch.kernels.floyd_warshall import MAX_TILE, minplus_smem_bytes
+    from repro_torch.kernels.heat3d import heat3d_smem_bytes
+    from repro_torch.kernels.lu import lu_factor_diag_smem_bytes
+    from repro_torch.kernels.spaces import kernel_space
+
     tiles = list(itertools.product(GPU_TILES, GPU_TILES_K, GPU_TILES))
+    if name == "covariance":
+        N, M = dims
+        bad = sum(refused(covariance_smem_bytes(min(bi, M), min(bj, M), min(bk, N)))
+                  for (bi, bk, bj) in tiles)
+        return bad * 4, len(tiles) * 4  # x fuse_center x interchange
+    if name == "lu":
+        (N,) = dims
+        cs = kernel_space("lu")
+        pts = list(itertools.product(cs["bs"].sequence, cs["bm"].sequence, cs["bn"].sequence))
+        # the first (largest) trailing update and the diagonal factor
+        bad = sum(refused(matmul_smem_bytes(min(bm, N - bs), min(bn, N - bs), bs))
+                  or refused(lu_factor_diag_smem_bytes(bs)) for (bs, bm, bn) in pts)
+        return bad * 2, len(pts) * 2  # x pack
+    if name == "floyd_warshall":
+        (N,) = dims
+        cs = kernel_space("floyd_warshall")
+        pts = list(itertools.product(cs["bs"].sequence, cs["bi"].sequence, cs["bj"].sequence))
+        # the trailing update and the two panels (panel tile clamped to MAX_TILE)
+        bad = sum(any(refused(minplus_smem_bytes(a, b, bs)) for a, b in
+                      ((bi, bj), (min(bs, MAX_TILE), bj), (bi, min(bs, MAX_TILE))))
+                  for (bs, bi, bj) in pts)
+        return bad * 4, len(pts) * 4  # x unroll
+    if name == "heat3d":
+        N, _ = dims
+        cs = kernel_space("heat3d")
+        pts = list(itertools.product(cs["bi"].sequence, cs["fuse_t"].choices))
+        return sum(refused(heat3d_smem_bytes(min(bi, N), ft)) for bi, ft in pts), len(pts)
     if name == "syr2k":
         N, M = dims
         # 2x2x2 points per tile triple (pack_a, pack_b, interchange), as the
@@ -166,6 +271,17 @@ def main() -> int:
 
     from repro_torch.core.database import OK, PerformanceDatabase
     from repro_torch.kernels import build, ops, problems, ref
+    from repro_torch.kernels.covariance import covariance, covariance_plain
+    from repro_torch.kernels.floyd_warshall import (
+        closure_in_block,
+        closure_plain,
+        floyd_warshall,
+        floyd_warshall_plain,
+        minplus_update,
+        minplus_update_plain,
+    )
+    from repro_torch.kernels.heat3d import heat3d, heat3d_plain
+    from repro_torch.kernels.lu import lu, lu_factor_diag, lu_factor_diag_plain, lu_plain
     from repro_torch.kernels.matmul import tiled_matmul, tiled_matmul_plain
     from repro_torch.kernels.syr2k import syr2k, syr2k_plain
     from repro_torch.kernels.util import max_shared_memory_per_block
@@ -195,7 +311,8 @@ def main() -> int:
     # ---- 2. build -------------------------------------------------------------
     phase("2. build")
     build_sec = build.build_all()
-    print(f"  nvcc sm_90a build of syr2k.cu + matmul.cu (in parallel): {build_sec:.1f} s")
+    print(f"  nvcc sm_90a build of {', '.join(f'{n}.cu' for n in build.KERNELS)} "
+          f"(one nvcc each, in parallel): {build_sec:.1f} s")
     for name in build.KERNELS:
         report = build.ptxas_report(name)
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
@@ -204,12 +321,13 @@ def main() -> int:
         print(f"  ptxas {name}: {len(regs)} kernel instantiations, registers per "
               f"thread {min(regs, default=0)}..{max(regs, default=0)}, spills: "
               f"{spills or 'none'}")
-    build.load("syr2k")
-    build.load("matmul")
+    for name in build.KERNELS:
+        build.load(name)
 
     # ---- 3. kernel vs plain at LARGE ------------------------------------------
     phase("3. kernel vs plain version on the card, LARGE")
-    errs = {"syr2k": 0.0, "matmul": 0.0}
+    errs = {"syr2k": 0.0, "matmul": 0.0, "covariance": 0.0, "minplus": 0.0,
+            "heat3d": 0.0, "lu_factor_diag": 0.0, "closure": 0.0}
     syr2k_dims = problems.LARGE_SHAPES["syr2k"]
     C, A, B = problems.problem_inputs("syr2k", syr2k_dims, dev)
     want = syr2k_plain(C, A, B)
@@ -245,10 +363,89 @@ def main() -> int:
     got = ops.mm3_op(Am, Bm, Cm, Dm, config=dict(fuse_second=True, pack2=False, inter3=True))
     errs["matmul"] = max(errs["matmul"], compare(
         "mm3 f32 fuse_second pack2=False inter3", got, ref.mm3_ref(Am, Bm, Cm, Dm), F32_TOL))
-    for name, dims in (("syr2k", syr2k_dims), ("mm3", (P, Q, R, S, T))):
-        bad, total = rejected_points(name, dims, smem_limit)
+
+    # covariance: fuse_center x interchange, a ragged tile, bk not dividing N
+    cov_dims = problems.LARGE_SHAPES["covariance"]
+    (data,) = problems.problem_inputs("covariance", cov_dims, dev)
+    want = covariance_plain(data)
+    cfgs = [dict(bi=64, bj=64, bk=32, fuse_center=fc, interchange=ic)
+            for fc in (True, False) for ic in (False, True)]
+    cfgs += [dict(bi=48, bj=80, bk=24, fuse_center=True),  # 1400 % 24 != 0
+             dict(bi=128, bj=112, bk=48, fuse_center=False, interchange=True)]
+    for cfg in cfgs:
+        got = covariance(data, **cfg)
+        torch.cuda.synchronize()
+        errs["covariance"] = max(errs["covariance"], compare(
+            f"covariance {cov_dims} {cfg}", got, want, COV_TOL))
+
+    # min-plus and the blocked Floyd-Warshall: bit for bit against the plain
+    # versions with the same bs; the blocked result also against the
+    # unblocked reference
+    (fw_n,) = problems.LARGE_SHAPES["floyd_warshall"]
+    (W,) = problems.problem_inputs("floyd_warshall", (fw_n,), dev)
+    fw_ref = ref.floyd_warshall_ref(W)
+    for bs in (16, 64, 256):
+        want_mp = minplus_update_plain(W, W[:, :bs].contiguous(), W[:bs].contiguous())
+        want_fw = floyd_warshall_plain(W, bs=bs)
+        for unroll in (1, 8):
+            got = minplus_update(W, W[:, :bs].contiguous(), W[:bs].contiguous(),
+                                 bi=64, bj=80, unroll=unroll)
+            torch.cuda.synchronize()
+            errs["minplus"] = max(errs["minplus"], compare(
+                f"minplus {fw_n}x{bs} (x) {bs}x{fw_n} bi=64 bj=80 unroll={unroll}",
+                got, want_mp, EXACT))
+            got = floyd_warshall(W, bs=bs, bi=64, bj=64, unroll=unroll,
+                                 allow_semiring_reassociation=True)
+            torch.cuda.synchronize()
+            errs["minplus"] = max(errs["minplus"], compare(
+                f"floyd_warshall N={fw_n} bs={bs} unroll={unroll} vs blocked plain",
+                got, want_fw, EXACT))
+        compare(f"floyd_warshall N={fw_n} bs={bs} vs unblocked floyd_warshall_ref",
+                got, fw_ref, FW_REF_TOL)
+    for off, bs in ((0, 64), (fw_n // 2 - 64, 128), (fw_n - 256, 256)):
+        D = W.clone()
+        closure_in_block(D, off, bs)
+        torch.cuda.synchronize()
+        errs["closure"] = max(errs["closure"], compare(
+            f"closure_in_block off={off} bs={bs}", D[off:off + bs, off:off + bs],
+            closure_plain(W[off:off + bs, off:off + bs]), EXACT))
+
+    # heat3d, including bi=1 with fuse_t=2 (where the JAX kernel's halo is short)
+    heat_n, tsteps = problems.LARGE_SHAPES["heat3d"]
+    (H,) = problems.problem_inputs("heat3d", (heat_n, tsteps), dev)
+    heat_ref = ref.heat3d_ref(H, tsteps)
+    for bi, ft in ((8, 1), (8, 2), (1, 2), (7, 2), (32, 1)):
+        got = heat3d(H, tsteps, bi=bi, fuse_t=ft)
+        torch.cuda.synchronize()
+        errs["heat3d"] = max(errs["heat3d"], compare(
+            f"heat3d N={heat_n} tsteps={tsteps} bi={bi} fuse_t={ft} vs heat3d_ref",
+            got, heat_ref, HEAT_TOL))
+
+    # lu: bs dividing N and not, pack on and off, against the plain blocked
+    # lu with the same bs and against the unblocked reference
+    (lu_n,) = problems.LARGE_SHAPES["lu"]
+    (Alu,) = problems.problem_inputs("lu", (lu_n,), dev)
+    lu_ref_out = ref.lu_ref(Alu)
+    for bs in (8, 32, 128):
+        for pack in (True, False):
+            got = lu(Alu, bs=bs, bm=64, bn=48, pack=pack)
+            torch.cuda.synchronize()
+            compare(f"lu N={lu_n} bs={bs} pack={pack} vs blocked plain", got,
+                    lu_plain(Alu, bs=bs, pack=pack), LU_TOL)
+        compare(f"lu N={lu_n} bs={bs} vs unblocked lu_ref", got, lu_ref_out, LU_REF_TOL)
+    for off, bs in ((0, 64), (lu_n // 2 - 64, 128), (lu_n - 8, 8)):
+        M = Alu.clone()
+        lu_factor_diag(M, off, bs)
+        torch.cuda.synchronize()
+        errs["lu_factor_diag"] = max(errs["lu_factor_diag"], compare(
+            f"lu_factor_diag off={off} bs={bs}", M[off:off + bs, off:off + bs],
+            lu_factor_diag_plain(Alu[off:off + bs, off:off + bs]), EXACT))
+
+    for name in ("syr2k", "mm3", "lu", "covariance", "floyd_warshall", "heat3d"):
+        bad, total = rejected_points(name, problems.LARGE_SHAPES[name], smem_limit)
         print(f"  gpu space {name}: {bad} of {total} points rejected before launch "
-              f"at LARGE (shared memory over {smem_limit} B)")
+              f"at LARGE (shared memory over {smem_limit} B, or a tile past the "
+              f"register tile)")
 
     # ---- 4. times at the default config ----------------------------------------
     phase("4. times at the default config, LARGE (L2-warm: the working set "
@@ -289,51 +486,169 @@ def main() -> int:
           f"library (3x torch.matmul, f32, no TF32) {rows['matmul']['library_ms']:.4f} ms",
           flush=True)
 
+    # the second slice's kernels: covariance, lu (its trailing GEMMs run
+    # through matmul.cu), floyd_warshall (min-plus), heat3d, and the helpers
+    M_cov = cov_dims[1]
+    b_ms, b_by = bound(float(M_cov) * (M_cov + 1) * cov_dims[0],
+                       4.0 * (cov_dims[0] * M_cov + M_cov * M_cov))
+    rows["covariance"] = dict(
+        ms=time_ms(lambda: ops.covariance_op(data)),
+        plain_ms=time_ms(lambda: covariance_plain(data)),
+        library_ms=time_ms(lambda: torch.cov(data.T)),
+        bound_ms=b_ms, bound_by=b_by)
+    print(f"  covariance {ops.DEFAULTS['covariance']}: kernel {rows['covariance']['ms']:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}; counted: M(M+1)N flops, the symmetric half), plain "
+          f"{rows['covariance']['plain_ms']:.4f} ms, library (torch.cov(data.T), f32, no TF32) "
+          f"{rows['covariance']['library_ms']:.4f} ms", flush=True)
+
+    def per_call(name, fn, wrappers, event_ms):
+        n = launches_per_call(fn, wrappers)
+        wall = host_ms(fn)
+        print(f"  {name}: kernel launches per call {n}, host wall per call "
+              f"(perf_counter around call + synchronize) {wall:.4f} ms, CUDA-event time "
+              f"{event_ms:.4f} ms", flush=True)
+        dev_ms, kernels_by_name = device_time(fn)
+        if dev_ms == 0.0:
+            print(f"  {name}: device busy time per call: not measured (the profiler "
+                  f"recorded no device time)")
+            return
+        top = sorted(kernels_by_name.items(), key=lambda kv: -kv[1][1])[:4]
+        print(f"  {name}: device kernels per call (torch.profiler) "
+              f"{sum(c for c, _ in kernels_by_name.values())}, busy {dev_ms:.4f} ms "
+              f"({dev_ms / wall:.1%} of the host wall); largest: "
+              + "; ".join(f"{k[:60]} x{c} {t:.4f} ms" for k, (c, t) in top), flush=True)
+
+    lu_bs = ops.DEFAULTS["lu"]["bs"]
+    b_ms, b_by = bound(2.0 / 3.0 * lu_n ** 3, 4.0 * 2 * lu_n * lu_n)
+    lu_row = dict(ms=time_ms(lambda: ops.lu_op(Alu)),
+                  plain_ms=time_ms(lambda: lu_plain(Alu, bs=lu_bs), iters=5, warmup=1),
+                  library_ms=time_ms(lambda: torch.linalg.lu_factor_ex(Alu, pivot=False)),
+                  bound_ms=b_ms, bound_by=b_by)
+    print(f"  lu {ops.DEFAULTS['lu']}: kernel {lu_row['ms']:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}; counted: 2/3 N^3 flops), plain {lu_row['plain_ms']:.4f} ms, library "
+          f"(torch.linalg.lu_factor_ex(A, pivot=False)) {lu_row['library_ms']:.4f} ms")
+    per_call("lu", lambda: ops.lu_op(Alu), (lu_factor_diag, tiled_matmul), lu_row["ms"])
+
+    fw_bs = ops.DEFAULTS["floyd_warshall"]["bs"]
+    b_ms, b_by = bound(float(fw_n) ** 3, 4.0 * 2 * fw_n * fw_n, peak=PEAK_F32_MIN)
+    rows["minplus"] = dict(
+        ms=time_ms(lambda: ops.floyd_warshall_op(W)),
+        plain_ms=time_ms(lambda: floyd_warshall_plain(W, bs=fw_bs), iters=3, warmup=1),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    print(f"  floyd_warshall {ops.DEFAULTS['floyd_warshall']}: kernel "
+          f"{rows['minplus']['ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; counted: N^3 f32 minima at "
+          f"{PEAK_F32_MIN / 1e12:.2f} T/s, the add beside each on the FMA pipe), plain "
+          f"{rows['minplus']['plain_ms']:.4f} ms, library: none (no PyTorch call computes "
+          f"min-plus closure)")
+    per_call("floyd_warshall", lambda: ops.floyd_warshall_op(W),
+             (closure_in_block, minplus_update), rows["minplus"]["ms"])
+    Np = -(-fw_n // fw_bs) * fw_bs
+    Wp = torch.nn.functional.pad(W, (0, Np - fw_n, 0, Np - fw_n), value=1e18)
+    col, row = Wp[:, :fw_bs].contiguous(), Wp[:fw_bs].contiguous()
+    mp_cfg = {k: v for k, v in ops.DEFAULTS["floyd_warshall"].items() if k != "bs"}
+    print(f"  one trailing min-plus update {Np}x{fw_bs} (x) {fw_bs}x{Np} {mp_cfg}: "
+          f"{time_ms(lambda: minplus_update(Wp, col, row, **mp_cfg)):.4f} ms, bound "
+          f"{bound(float(Np) * Np * fw_bs, 4.0 * 3 * Np * Np, peak=PEAK_F32_MIN)[0]:.4f} ms")
+
+    b_ms, b_by = bound(13.0 * 2 * tsteps * (heat_n - 2) ** 3, 4.0 * 2 * heat_n ** 3)
+    rows["heat3d"] = dict(
+        ms=time_ms(lambda: ops.heat3d_op(H, tsteps), iters=10),
+        plain_ms=time_ms(lambda: heat3d_plain(H, tsteps), iters=3, warmup=1),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    print(f"  heat3d {ops.DEFAULTS['heat3d']}: kernel {rows['heat3d']['ms']:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}; counted: 13 flops per interior point and step), plain "
+          f"{rows['heat3d']['plain_ms']:.4f} ms, library: none")
+    per_call("heat3d", lambda: ops.heat3d_op(H, tsteps), (heat3d,), rows["heat3d"]["ms"])
+
+    blk = Alu[:lu_bs, :lu_bs].contiguous()
+    b_ms, b_by = bound(2.0 / 3.0 * lu_bs ** 3, 4.0 * 2 * lu_bs * lu_bs)
+    rows["lu_factor_diag"] = dict(
+        ms=time_ms(lambda: lu_factor_diag(blk.clone(), 0, lu_bs)),
+        plain_ms=time_ms(lambda: lu_factor_diag_plain(blk)),
+        library_ms=time_ms(lambda: torch.linalg.lu_factor_ex(blk, pivot=False)),
+        bound_ms=b_ms, bound_by=b_by)
+    clo = W[:fw_bs, :fw_bs].contiguous()
+    b_ms, b_by = bound(float(fw_bs) ** 3, 4.0 * 2 * fw_bs * fw_bs, peak=PEAK_F32_MIN)
+    rows["closure"] = dict(
+        ms=time_ms(lambda: closure_in_block(clo.clone(), 0, fw_bs)),
+        plain_ms=time_ms(lambda: closure_plain(clo)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    for name, bs in (("lu_factor_diag", lu_bs), ("closure", fw_bs)):
+        r = rows[name]
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"  {name} helper, one {bs}x{bs} block (with the clone it works on): kernel "
+              f"{r['ms']:.4f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms, library {lib}", flush=True)
+
     # ---- 5. the main path --------------------------------------------------------
     phase("5. main path: repro_torch.launch.autotune campaigns at LARGE")
+    paths = {  # kernel -> wrappers whose counts its campaign must raise
+        "syr2k": (syr2k,), "mm3": (tiled_matmul,),
+        "lu": (tiled_matmul, lu_factor_diag), "covariance": (covariance,),
+        "floyd_warshall": (minplus_update, closure_in_block), "heat3d": (heat3d,)}
+
+    def best_check(kernel, best):
+        if kernel == "syr2k":
+            return ops.syr2k_op(C, A, B, config=best), syr2k_plain(C, A, B), SYR2K_TOL
+        if kernel == "mm3":
+            return ops.mm3_op(Am, Bm, Cm, Dm, config=best), ref.mm3_ref(Am, Bm, Cm, Dm), F32_TOL
+        if kernel == "lu":
+            cfg = dict(ops.DEFAULTS["lu"], **best)
+            return ops.lu_op(Alu, config=best), lu_plain(Alu, bs=cfg["bs"], pack=cfg["pack"]), LU_TOL
+        if kernel == "covariance":
+            return ops.covariance_op(data, config=best), covariance_plain(data), COV_TOL
+        if kernel == "floyd_warshall":
+            cfg = dict(ops.DEFAULTS["floyd_warshall"], **best)
+            return ops.floyd_warshall_op(W, config=best), floyd_warshall_plain(W, bs=cfg["bs"]), EXACT
+        return ops.heat3d_op(H, tsteps, config=best), heat_ref, HEAT_TOL
+
     launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        for kernel, wrapper, evals, wname in (("syr2k", syr2k, SYR2K_EVALS, "syr2k"),
-                                              ("mm3", tiled_matmul, MM3_EVALS, "matmul")):
+        for kernel, evals in CAMPAIGNS:
             db = os.path.join(tmp, kernel)
-            wrapper.launches = 0
+            wrappers = paths[kernel]
+            for w in wrappers:
+                w.launches = 0
             summary = run_campaign(kernel, evals, db)
-            launches[wname] = wrapper.launches
+            counts = {w.__name__: w.launches for w in wrappers}
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
             recs = PerformanceDatabase(db).records
             n_ok = sum(r.status == OK for r in recs)
             t, wall = summary["timings"], summary["wall_sec"]
             tuner = t["ask_sec"] + t["tell_sec"]
             timed = sum(sum(r.info.get("times_sec", ())) for r in recs)
-            print(f"  {kernel}: {len(recs)} records, {n_ok} ok, {wrapper.__name__} "
-                  f"launches {wrapper.launches}; best {summary['best_objective_sec'] * 1e3:.4f} ms "
-                  f"at eval {summary['found_at_eval']} {summary['best_config']}; wall "
+            print(f"  {kernel}: {len(recs)} records, {n_ok} ok, launches {counts}; best "
+                  f"{summary['best_objective_sec'] * 1e3:.4f} ms at eval "
+                  f"{summary['found_at_eval']} {summary['best_config']}; wall "
                   f"{wall:.2f} s ({len(recs) / wall:.1f} evals/s), ask {t['ask_sec']:.2f} s, "
                   f"tell {t['tell_sec']:.3f} s, wait {t['wait_sec']:.2f} s (tuner share "
                   f"{tuner / wall:.1%}); CUDA-event time of the timed runs "
                   f"{timed:.3f} s ({timed / wall:.1%} of wall)", flush=True)
             if len(recs) != evals:
                 raise AssertionError(f"{kernel}: {len(recs)} records for {evals} evaluations")
-            if wrapper.launches < n_ok:
-                raise AssertionError(f"{kernel}: {wrapper.launches} launches < {n_ok} ok evals")
+            for name, n in counts.items():
+                if n < n_ok:
+                    raise AssertionError(f"{kernel}: {name} launched {n} times < {n_ok} ok evals")
             if n_ok * 2 < evals:
                 raise AssertionError(f"{kernel}: only {n_ok} of {evals} evaluations ok")
-            best = summary["best_config"]
-            if kernel == "syr2k":
-                got, want = ops.syr2k_op(C, A, B, config=best), syr2k_plain(C, A, B)
-                tol = SYR2K_TOL
-            else:
-                got, want = ops.mm3_op(Am, Bm, Cm, Dm, config=best), ref.mm3_ref(Am, Bm, Cm, Dm)
-                tol = F32_TOL
+            got, want, tol = best_check(kernel, summary["best_config"])
             torch.cuda.synchronize()
             compare(f"{kernel} best config vs plain", got, want, tol)
 
+    def entry(name, source, replaces):
+        return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
+                    replaces=replaces, launches=launches[WRAPPER_OF[name]],
+                    max_abs_err=errs[name], **rows[name])
+
     kernels = [
-        dict(name="syr2k", route="cuda", source="src/repro_torch/kernels/csrc/syr2k.cu",
-             replaces="src/repro/kernels/syr2k.py:32", launches=launches["syr2k"],
-             max_abs_err=errs["syr2k"], **rows["syr2k"]),
-        dict(name="matmul", route="cuda", source="src/repro_torch/kernels/csrc/matmul.cu",
-             replaces="src/repro/kernels/matmul.py:34", launches=launches["matmul"],
-             max_abs_err=errs["matmul"], **rows["matmul"]),
+        entry("syr2k", "syr2k.cu", "src/repro/kernels/syr2k.py:32"),
+        entry("matmul", "matmul.cu", "src/repro/kernels/matmul.py:34"),
+        entry("covariance", "covariance.cu", "src/repro/kernels/covariance.py:28"),
+        entry("minplus", "floyd_warshall.cu", "src/repro/kernels/floyd_warshall.py:40"),
+        entry("heat3d", "heat3d.cu", "src/repro/kernels/heat3d.py:71"),
+        entry("lu_factor_diag", "lu.cu", "src/repro/kernels/lu.py:33"),
+        entry("closure", "floyd_warshall.cu", "src/repro/kernels/floyd_warshall.py:93"),
     ]
     for k in kernels:
         if k["launches"] < 1:

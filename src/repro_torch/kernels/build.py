@@ -9,7 +9,7 @@ unchanged one is loaded as it is. A missing ``nvcc`` or a failed compile
 raises: there is no fallback.
 
     from repro_torch.kernels import build
-    seconds = build.build_all()          # both kernels, compiled in parallel
+    seconds = build.build_all()          # every kernel, compiled in parallel
     lib = build.load("syr2k")            # ctypes.CDLL, argtypes declared
 """
 
@@ -50,6 +50,32 @@ KERNELS: dict[str, dict[str, tuple[list, type]]] = {
         "matmul_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
         # bm, bn, bk
         "matmul_smem_bytes": ([_I, _I, _I], _L),
+    },
+    "covariance": {
+        # data, mean, O, N, M, bi, bj, bk, fuse_center, interchange, stream
+        "covariance_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        # bi, bj, bk
+        "covariance_smem_bytes": ([_I, _I, _I], _L),
+    },
+    "floyd_warshall": {
+        # D, A, B, O, n, m, bs, bi, bj, unroll, stream
+        "minplus_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        # bi, bj, bs
+        "minplus_smem_bytes": ([_I, _I, _I], _L),
+        # D, ld, off, bs, stream: the in-block closure, in place
+        "closure_launch": ([_P, _I, _I, _I, _P], _I),
+    },
+    "heat3d": {
+        # A, O, T, n0, n1, n2, bi, fuse_t, passes, stream
+        "heat3d_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        # bi, fuse_t
+        "heat3d_smem_bytes": ([_I, _I], _L),
+    },
+    "lu": {
+        # A, ld, off, bs, stream: the diagonal-block factor, in place
+        "lu_factor_diag_launch": ([_P, _I, _I, _I, _P], _I),
+        # bs
+        "lu_factor_diag_smem_bytes": ([_I], _L),
     },
 }
 

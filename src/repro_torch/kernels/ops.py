@@ -14,6 +14,25 @@ chosen for the CUDA kernels on an H100 at the paper's LARGE sizes:
   * no interchange: consecutive blocks share a row tile, as the TPU grid's
     order does.
 
+For the kernels of the second slice, at their LARGE sizes:
+
+  * lu (N=2000): a 64-wide panel, so 32 block steps (at bs=32, 63: every
+    step costs a diagonal-factor launch, two triangular solves and a GEMM
+    launch from the host), and 64x64 trailing tiles with the whole 64-deep
+    contraction staged (pack): 35 KB of shared memory per block, and 900 to
+    4 blocks as the trailing matrix shrinks;
+  * covariance (1400 x 1200): as syr2k, 64x64 output tiles (361 blocks,
+    2.7 waves) and 32-row chunks of the data, centred while staged
+    (fuse_center), so no separate centring pass reads and writes the data;
+  * floyd_warshall (N=2800): 64-wide blocks, so 44 rounds of 4 launches
+    (bs=16 would be 175 rounds, bs=256 a 256-step single-block closure per
+    round), 64x64 tiles (1,936 blocks in the trailing update), and the k
+    loop unrolled by 4 so that the next k's shared-memory loads overlap
+    this k's 64 add/min pairs;
+  * heat3d (N=120, 500 steps): 8-row slabs (15 x 64 = 960 blocks of 256
+    threads a pass) and fuse_t=2, which halves the passes and their
+    launches (500, not 1000) at the cost of recomputing a one-deep halo.
+
 These are reasoned, not tuned: the campaign's job is to beat them.
 """
 
@@ -21,16 +40,25 @@ from __future__ import annotations
 
 from typing import Any, Mapping
 
+from repro_torch.kernels.covariance import covariance
+from repro_torch.kernels.floyd_warshall import floyd_warshall
+from repro_torch.kernels.heat3d import heat3d
+from repro_torch.kernels.lu import lu
 from repro_torch.kernels.m3mm import mm3
 from repro_torch.kernels.syr2k import syr2k
 
-__all__ = ["syr2k_op", "mm3_op", "DEFAULTS"]
+__all__ = ["syr2k_op", "mm3_op", "lu_op", "heat3d_op", "covariance_op",
+           "floyd_warshall_op", "DEFAULTS"]
 
 DEFAULTS: dict[str, dict[str, Any]] = {
     "syr2k": dict(bi=64, bj=64, bk=32, interchange=False,
                   pack_a=True, pack_b=True),
     "mm3": dict(bm=64, bn=64, bk=32, pack1=True, pack2=True, pack3=True,
                 inter1=False, inter2=False, inter3=False, fuse_second=False),
+    "lu": dict(bs=64, bm=64, bn=64, pack=True),
+    "heat3d": dict(bi=8, fuse_t=2),
+    "covariance": dict(bi=64, bj=64, bk=32, fuse_center=True, interchange=False),
+    "floyd_warshall": dict(bs=64, bi=64, bj=64, unroll=4),
 }
 
 
@@ -52,3 +80,20 @@ def syr2k_op(C, A, B, alpha=1.5, beta=1.2, config=None):
 
 def mm3_op(A, B, C, D, config=None):
     return mm3(A, B, C, D, **_merged("mm3", config))
+
+
+def lu_op(A, config=None):
+    return lu(A, **_merged("lu", config))
+
+
+def heat3d_op(A, tsteps, config=None):
+    return heat3d(A, tsteps, **_merged("heat3d", config))
+
+
+def covariance_op(data, config=None):
+    return covariance(data, **_merged("covariance", config))
+
+
+def floyd_warshall_op(path, config=None):
+    return floyd_warshall(path, **_merged("floyd_warshall", config),
+                          allow_semiring_reassociation=True)

@@ -15,7 +15,11 @@ Two flavors per kernel:
     the CPU backend (plain versions) and the parity tests.
 
 Space sizes mirror the paper: syr2k 2*2*2*11^3 = 10,648 (with the
-pack_b-in-pack_a InCondition); 3mm 2^7 * 11^3 = 170,368.
+pack_b-in-pack_a InCondition); 3mm 2^7 * 11^3 = 170,368. The ``gpu``
+flavours of lu (2*5*11*11 = 1,210), covariance (2*2*11^3 = 5,324), heat3d
+(6*2 = 12) and floyd_warshall (5*11*11*4 = 2,420) take the JAX package's own
+lists for ``bs``, ``bi`` (heat3d), ``fuse_t`` and ``unroll``, and the CUDA
+tile sequences where it has TPU tiles; their defaults are ``ops.DEFAULTS``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from repro_torch.core.space import (
     InCondition,
     Ordinal,
 )
+from repro_torch.kernels.ops import DEFAULTS
 
 __all__ = ["kernel_space", "KERNEL_SPACES", "TARGETS"]
 
@@ -92,9 +97,76 @@ def mm3_space(target: str = "gpu", seed: int = 1234) -> ConfigurationSpace:
     return cs
 
 
+def lu_space(target: str = "gpu", seed: int = 1234) -> ConfigurationSpace:
+    panel = (8, 16, 32, 64, 128) if target == "gpu" else (4, 8, 16, 32, 64)
+    if target == "gpu":
+        d = DEFAULTS["lu"]
+    else:
+        d = dict(pack=True, bs=panel[2], bm=_tiles(target, "a")[8],
+                 bn=_tiles(target, "c")[-1])
+    cs = ConfigurationSpace(seed=seed)
+    cs.add_hyperparameters([
+        Categorical("pack", (True, False), default=d["pack"]),
+        Ordinal("bs", panel, default=d["bs"]),
+        Ordinal("bm", _tiles(target, "a"), default=d["bm"]),
+        Ordinal("bn", _tiles(target, "c"), default=d["bn"]),
+    ])
+    return cs
+
+
+def heat3d_space(target: str = "gpu", seed: int = 1234) -> ConfigurationSpace:
+    if target not in TARGETS:
+        raise ValueError(f"target must be one of {TARGETS}, got {target!r}")
+    d = DEFAULTS["heat3d"] if target == "gpu" else dict(bi=8, fuse_t=1)
+    cs = ConfigurationSpace(seed=seed)
+    cs.add_hyperparameters([
+        Ordinal("bi", (1, 2, 4, 8, 16, 32), default=d["bi"]),
+        Categorical("fuse_t", (1, 2), default=d["fuse_t"]),
+    ])
+    return cs
+
+
+def covariance_space(target: str = "gpu", seed: int = 1234) -> ConfigurationSpace:
+    if target == "gpu":
+        d = DEFAULTS["covariance"]
+    else:
+        d = dict(fuse_center=True, interchange=False, bi=_tiles(target, "a")[8],
+                 bk=_tiles(target, "b")[-1], bj=_tiles(target, "c")[-1])
+    cs = ConfigurationSpace(seed=seed)
+    cs.add_hyperparameters([
+        Categorical("fuse_center", (True, False), default=d["fuse_center"]),
+        Categorical("interchange", (True, False), default=d["interchange"]),
+        Ordinal("bi", _tiles(target, "a"), default=d["bi"]),
+        Ordinal("bk", _tiles(target, "b"), default=d["bk"]),
+        Ordinal("bj", _tiles(target, "c"), default=d["bj"]),
+    ])
+    return cs
+
+
+def floyd_warshall_space(target: str = "gpu", seed: int = 1234) -> ConfigurationSpace:
+    blocks = (16, 32, 64, 128, 256) if target == "gpu" else (4, 8, 16, 32, 64, 100)
+    if target == "gpu":
+        d = DEFAULTS["floyd_warshall"]
+    else:
+        d = dict(bs=blocks[2], bi=_tiles(target, "a")[8], bj=_tiles(target, "c")[-1],
+                 unroll=1)
+    cs = ConfigurationSpace(seed=seed)
+    cs.add_hyperparameters([
+        Ordinal("bs", blocks, default=d["bs"]),
+        Ordinal("bi", _tiles(target, "a"), default=d["bi"]),
+        Ordinal("bj", _tiles(target, "c"), default=d["bj"]),
+        Ordinal("unroll", (1, 2, 4, 8), default=d["unroll"]),
+    ])
+    return cs
+
+
 KERNEL_SPACES = {
     "syr2k": syr2k_space,
     "mm3": mm3_space,
+    "lu": lu_space,
+    "heat3d": heat3d_space,
+    "covariance": covariance_space,
+    "floyd_warshall": floyd_warshall_space,
 }
 
 

@@ -5,11 +5,12 @@ programs.
     PYTHONPATH=src python -m repro_torch.launch.autotune --kernel syr2k \\
         --max-evals 200 --learner RF --db results/syr2k_rf_gpu
 
---backend gpu (the default) times the hand-written CUDA kernel at the
-paper's LARGE sizes with CUDA events, over the ``gpu`` space; every
-evaluation is a kernel launch. --backend cpu times the plain PyTorch
-versions at small bench sizes over the paper's ``host`` space (for tests and
-machines without a card).
+--kernel takes the paper's six benchmarks: syr2k, mm3, lu, covariance,
+heat3d and floyd_warshall. --backend gpu (the default) times the
+hand-written CUDA kernels of the benchmark's path at the paper's LARGE
+sizes with CUDA events, over the ``gpu`` space; every evaluation launches
+them. --backend cpu times the plain PyTorch versions at small bench sizes
+over the paper's ``host`` space (for tests and machines without a card).
 
 --parallel N keeps N candidate evaluations in flight (constant-liar
 batching; on the card the timed runs themselves are serialised so they never
@@ -28,6 +29,9 @@ import torch
 from repro_torch.core import TimingEvaluator, autotune
 from repro_torch.core.database import PerformanceDatabase
 from repro_torch.core.findmin import importance_report
+from repro_torch.kernels.covariance import covariance
+from repro_torch.kernels.floyd_warshall import minplus_update
+from repro_torch.kernels.heat3d import heat3d
 from repro_torch.kernels.matmul import tiled_matmul
 from repro_torch.kernels.problems import BENCH_DIMS, LARGE_SHAPES, gpu_problem
 from repro_torch.kernels.spaces import KERNEL_SPACES, kernel_space
@@ -40,7 +44,9 @@ not ported yet (the JAX package's repro.launch.autotune has them):
   --prune-infeasible      waits for repro_torch.analyze"""
 
 # the wrapper whose launch count proves a campaign went through the kernel
-KERNEL_WRAPPERS = {"syr2k": syr2k, "mm3": tiled_matmul}
+KERNEL_WRAPPERS = {"syr2k": syr2k, "mm3": tiled_matmul, "lu": tiled_matmul,
+                   "covariance": covariance, "heat3d": heat3d,
+                   "floyd_warshall": minplus_update}
 
 
 def main(argv=None) -> int:
