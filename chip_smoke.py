@@ -23,7 +23,20 @@ checks each kernel on the card:
   5. the main path: `repro_torch.launch.autotune.main` campaigns at LARGE
      for syr2k, mm3, lu, covariance, floyd_warshall and heat3d, each with
      its wrappers' launch counts set to 0 just before and read just after,
-     whose launch counts, OK share and best config are checked.
+     whose launch counts, OK share and best config are checked;
+  6. the serving path: `repro_torch.launch.serve` on qwen2-0.5b at full
+     width in f32 (batch 4, prompt 256, 32 new tokens, random weights from a
+     seed) through the dispatch service, with the launch counts set to 0
+     just before and read just after: flash_attention per prefill forward,
+     decode_attention and matmul per decode step are asserted; memory,
+     prefill, TTFT, ms per decode step beside its bound, tokens/s and the
+     device's busy share of one decode step; a PagedKVCache round whose
+     tokens must equal each request's solo greedy_decode; and a short run on
+     the card against the same weights on the CPU (plain versions there).
+
+Phases 3 and 4 also hold flash_attention and decode_attention against their
+plain versions at LARGE and at the model's shapes, and time them beside
+scaled_dot_product_attention (a yardstick only: the port never calls it).
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Any failed phase raises and the
@@ -81,10 +94,27 @@ FW_REF_TOL = dict(atol=1e-5, rtol=1e-6)
 HEAT_TOL = dict(atol=1e-6, rtol=0.0)
 EXACT = dict(atol=0.0, rtol=0.0)
 
+# Attention outputs are softmax-weighted averages of standard normal values
+# (|O| up to ~4); the kernels and their plain versions differ only in the
+# order of the f32 sums and in expf against torch.exp (an ulp), so they are
+# held to 2e-5 + 1e-4*|want|; bf16 outputs, rounded alike from f32 on both
+# sides, differ by at most one bf16 ulp (2^-7 relative at worst: rtol 8e-3,
+# with atol 1e-4 for outputs near 0; measured 6.1e-5 at (4, 200, 128)
+# causal on an H100 80GB HBM3 at 700 W). The serving logits of 24 f32
+# layers on the card (CUDA kernels, cuBLAS) against the CPU (plain versions,
+# CPU BLAS) differ by the summation orders of every product on the way:
+# held to 1e-3 + 1e-3*|want| (|logits| ~ 1), with the greedy tokens equal.
+ATTN_TOL = dict(atol=2e-5, rtol=1e-4)
+ATTN_BF16_TOL = dict(atol=1e-4, rtol=8e-3)
+LOGIT_TOL = dict(atol=1e-3, rtol=1e-3)
+
 # the kernels line's names -> the wrapper that counts their launches
 WRAPPER_OF = {"syr2k": "syr2k", "matmul": "tiled_matmul", "covariance": "covariance",
               "minplus": "minplus_update", "heat3d": "heat3d",
-              "lu_factor_diag": "lu_factor_diag", "closure": "closure_in_block"}
+              "lu_factor_diag": "lu_factor_diag", "closure": "closure_in_block",
+              "flash_attention": "flash_attention", "decode_attention": "decode_attention"}
+# the serving phase: qwen2-0.5b at full width, f32
+SERVE = dict(arch="qwen2-0.5b", batch=4, prompt_len=256, gen=32, seed=0)
 # (kernel, evaluations) of phase 5; heat3d's space has 12 points
 CAMPAIGNS = (("syr2k", 60), ("mm3", 40), ("lu", 30), ("covariance", 30),
              ("floyd_warshall", 30), ("heat3d", 12))
@@ -218,6 +248,18 @@ def rejected_points(name: str, dims, limit: int) -> tuple[int, int]:
                       ((bi, bj), (min(bs, MAX_TILE), bj), (bi, min(bs, MAX_TILE))))
                   for (bs, bi, bj) in pts)
         return bad * 4, len(pts) * 4  # x unroll
+    if name == "flash_attention":
+        from repro_torch.kernels.flash_attention import flash_attention_smem_bytes
+        hd = dims[3]
+        cs = kernel_space(name)
+        pts = list(itertools.product(cs["bq"].sequence, cs["bk"].sequence))
+        return sum(refused(flash_attention_smem_bytes(bq, bk, hd)) for bq, bk in pts), len(pts)
+    if name == "decode_attention":
+        from repro_torch.kernels.decode_attention import decode_attention_smem_bytes
+        _, G, S, hd = dims
+        cs = kernel_space(name)
+        pts = cs["bk"].sequence
+        return sum(refused(decode_attention_smem_bytes(G, min(bk, S), hd)) for bk in pts), len(pts)
     if name == "heat3d":
         N, _ = dims
         cs = kernel_space("heat3d")
@@ -254,6 +296,302 @@ def run_campaign(kernel: str, evals: int, db: str) -> dict:
     summary = json.loads("{" + body)
     print("  " + head.strip().splitlines()[-1], flush=True)
     return summary
+
+
+def attention_inputs(BH: int, Sq: int, Sk: int, hd: int, dev, seed: int = 0):
+    """q (BH, Sq, hd), k and v (BH, Sk, hd): standard normal f32 from numpy."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+                 for shape in ((BH, Sq, hd), (BH, Sk, hd), (BH, Sk, hd)))
+
+
+def check_attention(dev, errs: dict) -> None:
+    """Phase 3 for flash_attention and decode_attention: the kernels against
+    their plain versions at LARGE and at the model's shapes."""
+    import torch
+
+    from repro_torch.kernels import problems
+    from repro_torch.kernels.decode_attention import (
+        CacheRows,
+        decode_attention,
+        decode_attention_plain,
+    )
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    def flash_case(label, q, k, v, causal, bq, bk, tol=ATTN_TOL):
+        got = flash_attention(q, k, v, causal=causal, bq=bq, bk=bk)
+        torch.cuda.synchronize()
+        err = compare(f"flash_attention {label} causal={causal} bq={bq} bk={bk}", got,
+                      flash_attention_plain(q, k, v, causal=causal), tol)
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+
+    BH, S, _, hd = problems.LARGE_SHAPES["flash_attention"]
+    q, k, v = attention_inputs(BH, S, S, hd, dev)
+    for causal, bq, bk in ((True, 64, 64), (True, 128, 32), (True, 32, 128), (False, 64, 64)):
+        flash_case(f"LARGE ({BH}, {S}, {hd})", q, k, v, causal, bq, bk)
+    del q, k, v
+    # the model's prefill: batch 4 x 2 kv heads, prompt 256, hd 64
+    q, k, v = attention_inputs(8, 256, 256, 64, dev, seed=1)
+    for bq, bk in ((64, 64), (16, 16), (128, 128), (48, 80)):
+        flash_case("model (8, 256, 64)", q, k, v, True, bq, bk)
+    q, k, v = attention_inputs(3, 250, 131, 64, dev, seed=2)       # ragged edges
+    for causal in (True, False):
+        flash_case("ragged Sq=250 Sk=131 hd=64", q, k, v, causal, 64, 64)
+    q, k, v = (t.to(torch.bfloat16) for t in attention_inputs(4, 200, 200, 128, dev, seed=3))
+    flash_case("bf16 (4, 200, 128)", q, k, v, True, 64, 64, ATTN_BF16_TOL)
+
+    def decode_case(label, q, k, v, cp, ring, window, bk, hg):
+        got = decode_attention(q, k, v, cp, ring=ring, window=window, bk=bk, hg=hg)
+        torch.cuda.synchronize()
+        err = compare(f"decode_attention {label} ring={ring} window={window} bk={bk} hg={hg}",
+                      got, decode_attention_plain(q, k, v, cp, ring=ring, window=window),
+                      ATTN_TOL)
+        errs["decode_attention"] = max(errs["decode_attention"], err)
+        return got
+
+    BH, G, S, hd = problems.LARGE_SHAPES["decode_attention"]
+    q, _, _ = attention_inputs(BH, G, 1, hd, dev, seed=4)
+    _, k, v = attention_inputs(BH, 1, S, hd, dev, seed=5)
+    full = torch.full((BH,), S - 1, dtype=torch.int32, device=dev)
+    for bk, hg in ((128, 1), (64, 2), (32, 4)):
+        decode_case(f"LARGE ({BH}, {G}, {S}, {hd}) full cache", q, k, v, full, False, 0, bk, hg)
+    # the model's decode: batch 4 x 2 kv heads, G = 7, hd 64, bucket 384;
+    # per-row positions, one row empty (cur_pos = -1), one past the bucket
+    q, _, _ = attention_inputs(8, 7, 1, 64, dev, seed=6)
+    _, k, v = attention_inputs(8, 1, 384, 64, dev, seed=7)
+    cp = torch.tensor([-1, 0, 17, 127, 128, 255, 383, 500], dtype=torch.int32, device=dev)
+    for ring, window in ((False, 0), (True, 0), (False, 100), (True, 100)):
+        for bk, hg in ((128, 1), (64, 2), (256, 4)):
+            got = decode_case("model (8, 7, 384, 64)", q, k, v, cp, ring, window, bk, hg)
+            if bool(got[0].ne(0).any()):
+                raise AssertionError("decode_attention: the cur_pos = -1 row is not exactly 0")
+    # the model's cache layout, read in place: (B, S, K, hd) as (B*K, S, hd) rows
+    _, kc, vc = attention_inputs(4, 1, 384 * 2, 64, dev, seed=8)
+    kc, vc = kc.reshape(4, 384, 2, 64), vc.reshape(4, 384, 2, 64)
+    got = decode_attention(q, CacheRows(kc), CacheRows(vc), cp, bk=128, hg=2)
+    torch.cuda.synchronize()
+    errs["decode_attention"] = max(errs["decode_attention"], compare(
+        "decode_attention model cache layout (4, 384, 2, 64) in place", got,
+        decode_attention_plain(q, CacheRows(kc).rows(), CacheRows(vc).rows(), cp), ATTN_TOL))
+
+
+def time_attention(rows: dict) -> None:
+    """Phase 4 for flash_attention and decode_attention at LARGE (the rows of
+    the kernels line) and at the model's shapes (printed): kernel, plain
+    version, scaled_dot_product_attention in f32 (a yardstick the port never
+    calls) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, problems
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.model_kernels import (
+        decode_attention_builder,
+        flash_attention_builder,
+    )
+
+    dev = torch.device("cuda")
+    flash = flash_attention_builder(ops.DEFAULTS["flash_attention"], causal=True)
+    decode = decode_attention_builder(ops.DEFAULTS["decode_attention"])
+
+    def flash_row(BH, S, hd, seed):
+        q, k, v = attention_inputs(BH, S, S, hd, dev, seed)
+        b_ms, b_by = bound(4.0 * BH * S * S * hd * 0.5, 4.0 * BH * (2 * S + 2 * S) * hd)
+        return dict(ms=time_ms(lambda: flash(q, k, v)),
+                    plain_ms=time_ms(lambda: flash_attention_plain(q, k, v), iters=5),
+                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True)),
+                    bound_ms=b_ms, bound_by=b_by)
+
+    def decode_row(BH, G, S, hd, cp, seed):
+        q, _, _ = attention_inputs(BH, G, 1, hd, dev, seed)
+        _, k, v = attention_inputs(BH, 1, S, hd, dev, seed + 1)
+        cp = torch.as_tensor(cp, dtype=torch.int32, device=dev).expand(BH).contiguous()
+        # the slots this run's positions read (a causal cache holds cur_pos + 1)
+        slots = int(torch.clamp(cp + 1, 0, S).sum())
+        b_ms, b_by = bound(4.0 * G * hd * slots, 4.0 * (2 * slots * hd + 2 * BH * G * hd))
+        # SDPA on the same keys: the valid prefix of every row (a boolean mask)
+        mask = (torch.arange(S, device=dev)[None, None, :] <= cp[:, None, None])
+        return dict(ms=time_ms(lambda: decode(q, k, v, cp)),
+                    plain_ms=time_ms(lambda: decode_attention_plain(q, k, v, cp)),
+                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask)),
+                    bound_ms=b_ms, bound_by=b_by)
+
+    def show(name, shape, cfg, r, what):
+        print(f"  {name} {shape} {cfg}: kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; counted: {what}), plain {r['plain_ms']:.4f} ms, library "
+              f"(scaled_dot_product_attention, f32) {r['library_ms']:.4f} ms "
+              f"({r['ms'] / r['library_ms']:.2f}x)", flush=True)
+
+    BH, S, _, hd = problems.LARGE_SHAPES["flash_attention"]
+    rows["flash_attention"] = flash_row(BH, S, hd, 0)
+    flash_what = "4*BH*S^2*hd/2 causal flops at 67 TFLOP/s; q, k, v read and o written once"
+    show("flash_attention LARGE causal", (BH, S, hd), ops.DEFAULTS["flash_attention"],
+         rows["flash_attention"], flash_what)
+    show("flash_attention model prefill causal", (8, 256, 64),
+         ops.DEFAULTS["flash_attention"], flash_row(8, 256, 64, 1), flash_what)
+    BH, G, S, hd = problems.LARGE_SHAPES["decode_attention"]
+    rows["decode_attention"] = decode_row(BH, G, S, hd, S - 1, 2)
+    dec_what = "the k and v slots each row's cur_pos reads, q read and o written once"
+    show("decode_attention LARGE full cache", (BH, G, S, hd),
+         ops.DEFAULTS["decode_attention"], rows["decode_attention"], dec_what)
+    show("decode_attention model decode, cur_pos 260", (8, 7, 288, 64),
+         ops.DEFAULTS["decode_attention"], decode_row(8, 7, 288, 64, 260, 4), dec_what)
+
+
+def tree_to(tree: dict, device) -> dict:
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def tree_bytes(tree: dict) -> int:
+    return sum(tree_bytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+               for v in tree.values())
+
+
+def serving(launches: dict, dev) -> None:
+    """Phase 6: the serving path at full width on ``dev``. Adds the main
+    path's launch counts to ``launches``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dispatch import DispatchService
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.matmul import tiled_matmul
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+    from repro_torch.serve import PagedKVCache, greedy_decode, make_serve_step, prefill
+
+    wrappers = (flash_attention, decode_attention, tiled_matmul)
+    B, P, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    cfg = dataclasses.replace(get_config(SERVE["arch"]), dtype=torch.float32)
+    L, G = cfg.n_layers, cfg.n_heads // cfg.n_kv_heads
+
+    # -- the main path, through the serving entry point
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    r = serve_cli.serve(SERVE["arch"], batch=B, prompt_len=P, gen=gen, seed=SERVE["seed"],
+                        device=dev)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    peak = torch.cuda.max_memory_allocated()
+    serve_cli.report(r)
+    toks = r["tokens"]
+    if tuple(toks.shape) != (B, gen) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"serve: tokens of shape {tuple(toks.shape)} outside the vocab")
+    # one prefill forward, then P replayed and gen generated decode steps
+    steps = P + gen
+    want = {"flash_attention": G * L, "decode_attention": L * steps,
+            "tiled_matmul": (L + 1) * (1 + steps)}
+    print(f"  launches over the serve run: {counts} (expected {want}: {G} query groups x "
+          f"{L} layers in the prefill forward; {L} decode_attention and {L} + 1 matmuls "
+          f"per decode step, {steps} steps; {L} + 1 matmuls in the forward)")
+    if counts != want:
+        raise AssertionError(f"serve launch counts {counts} != {want}")
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    if r["stats"]["build_failed"] or r["stats"]["store_default"] == 0:
+        raise AssertionError(f"serve dispatch stats {r['stats']}")
+
+    # -- per call, on the same weights (init_params from the same seed)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SERVE["seed"]))
+    svc = DispatchService()
+    g = torch.Generator(device=dev).manual_seed(SERVE["seed"] + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev)
+    fwd = lambda: forward(params, {"tokens": prompt}, cfg, service=svc)  # noqa: E731
+    n_fwd = launches_per_call(fwd, wrappers)
+    cache = init_cache(cfg, B, P + gen, device=dev)
+    tok = prompt[:, -1:]
+    step = lambda: decode_step(params, cache, tok, P, cfg, service=svc)  # noqa: E731
+    n_step = launches_per_call(step, wrappers)
+    print(f"  launches per prefill forward {n_fwd}, per decode step {n_step}")
+    if n_fwd != {"flash_attention": G * L, "decode_attention": 0, "tiled_matmul": L + 1} \
+            or n_step != {"flash_attention": 0, "decode_attention": L, "tiled_matmul": L + 1}:
+        raise AssertionError("per-call launch counts differ from 7 x 24 flash per forward, "
+                             "24 decode_attention and 25 matmul per decode step")
+
+    fwd_ms, step_ms = host_ms(fwd, iters=3), host_ms(step, iters=10)
+    weights = tree_bytes(params) - params["embed"].numel() * 4   # the lookup reads B rows
+    kv = 2 * L * B * (P + 1) * cfg.n_kv_heads * cfg.hd * 4
+    step_bound = (weights + kv) / PEAK_HBM_BYTES * 1e3
+    dev_ms, by_name = device_time(step)
+    n_kernels = sum(c for c, _ in by_name.values())
+    busy = "not measured (the profiler recorded no device time)" if dev_ms == 0.0 else \
+        (f"{n_kernels} device kernels, {dev_ms:.4f} ms busy of {step_ms:.4f} ms host wall "
+         f"({dev_ms / step_ms:.1%}; {step_ms / n_kernels * 1e3:.1f} us of host wall per kernel)")
+    print(f"  memory: peak {peak / 1e9:.3f} GB allocated (torch.cuda.max_memory_allocated), "
+          f"weights {tree_bytes(params) / 1e9:.3f} GB f32 of which the contiguous unembed "
+          f"embed_t {params['embed_t'].numel() * 4 / 1e9:.3f} GB, KV cache "
+          f"{r['cache_mb']:.1f} MB")
+    print(f"  prefill forward (prompt {P}, batch {B}): {fwd_ms:.3f} ms host wall; TTFT "
+          f"{r['prefill_ms']:.2f} ms (forward + filling the cache by replaying the prompt "
+          f"through decode_step, the JAX package's prefill)")
+    print(f"  decode: {r['decode_ms_per_step']:.4f} ms per step in the serve run, "
+          f"{step_ms:.4f} ms alone; bound {step_bound:.4f} ms (bytes: {weights / 1e9:.3f} GB "
+          f"of weights and {kv / 1e6:.1f} MB of cache read per step at 3.35 TB/s); "
+          f"{r['tokens_per_sec']:.1f} tok/s over the run")
+    top = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:5]
+    print(f"  one decode step on the device (torch.profiler): {busy}; largest: "
+          + "; ".join(f"{k[:50]} x{c} {t:.4f} ms" for k, (c, t) in top), flush=True)
+
+    # -- a PagedKVCache round against each request's solo greedy_decode
+    rounds, lens = 16, (64, 128, 200, 256)
+    pc = PagedKVCache(cfg, max_batch=8, max_len=max(lens) + rounds + 1, page_size=128,
+                      device=dev)
+    svc.attach_kv_cache(pc)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=g, device=dev) for n in lens]
+    solo = [greedy_decode(params, cfg, p, steps=rounds + 1, max_len=pc.alloc, service=svc)[0]
+            for p in prompts]
+    serve = make_serve_step(cfg, service=svc)
+    slots, out = [1, 2, 5, 7], []
+    for slot, p in zip(slots, prompts):
+        logits, pcache = prefill(params, {"tokens": p}, cfg, max_len=pc.alloc, service=svc)
+        pc.admit(slot, pcache, p.shape[1])
+        out.append([int(torch.argmax(logits[0, -1]))])
+    cur = torch.tensor([[t[-1]] for t in out], device=dev)
+    buckets = []
+    for _ in range(rounds):
+        bucket = pc.seq_bucket(slots)
+        buckets.append(bucket)
+        view = pc.view(slots, bucket)
+        nxt, _, view = serve(params, view, cur, pc.pos_vector(slots) + 1)
+        pc.writeback(slots, bucket, view)
+        pc.advance(slots)
+        for i, t in enumerate(out):
+            t.append(int(nxt[i, 0]))
+        cur = nxt
+    for n, got, want_ in zip(lens, out, solo):
+        if got != want_.tolist():
+            raise AssertionError(f"paged round, prompt {n}: {got} != solo {want_.tolist()}")
+    print(f"  PagedKVCache: 4 requests (prompts {lens}) in 8 slots, page 128, {rounds} "
+          f"rounds (buckets {sorted(set(buckets))}): tokens equal each request's solo "
+          f"greedy_decode; {json.dumps(svc.telemetry()['kv_cache'])}", flush=True)
+
+    # -- the card against the CPU, same weights, a short run
+    p1 = prompt[:1, :32]
+    want_logits, _ = forward(params, {"tokens": p1}, cfg, service=svc)
+    want_toks = greedy_decode(params, cfg, p1, steps=8, max_len=40, service=svc)
+    cpu = torch.device("cpu")
+    params_cpu = tree_to(params, cpu)
+    del params, cache, pc
+    svc_cpu = DispatchService()
+    got_logits, _ = forward(params_cpu, {"tokens": p1.to(cpu)}, cfg, service=svc_cpu)
+    got_toks = greedy_decode(params_cpu, cfg, p1.to(cpu), steps=8, max_len=40, service=svc_cpu)
+    compare("serve logits, card vs CPU (qwen2-0.5b full width, prompt 32)",
+            want_logits.cpu(), got_logits, LOGIT_TOL)
+    if not torch.equal(want_toks.cpu(), got_toks):
+        raise AssertionError(f"greedy tokens card {want_toks.tolist()} != CPU {got_toks.tolist()}")
+    print(f"  greedy tokens (8), card and CPU: {want_toks[0].tolist()} (equal)", flush=True)
 
 
 def main() -> int:
@@ -325,9 +663,10 @@ def main() -> int:
         build.load(name)
 
     # ---- 3. kernel vs plain at LARGE ------------------------------------------
-    phase("3. kernel vs plain version on the card, LARGE")
+    phase("3. kernel vs plain version on the card, LARGE (and the model's shapes)")
     errs = {"syr2k": 0.0, "matmul": 0.0, "covariance": 0.0, "minplus": 0.0,
-            "heat3d": 0.0, "lu_factor_diag": 0.0, "closure": 0.0}
+            "heat3d": 0.0, "lu_factor_diag": 0.0, "closure": 0.0,
+            "flash_attention": 0.0, "decode_attention": 0.0}
     syr2k_dims = problems.LARGE_SHAPES["syr2k"]
     C, A, B = problems.problem_inputs("syr2k", syr2k_dims, dev)
     want = syr2k_plain(C, A, B)
@@ -441,7 +780,10 @@ def main() -> int:
             f"lu_factor_diag off={off} bs={bs}", M[off:off + bs, off:off + bs],
             lu_factor_diag_plain(Alu[off:off + bs, off:off + bs]), EXACT))
 
-    for name in ("syr2k", "mm3", "lu", "covariance", "floyd_warshall", "heat3d"):
+    check_attention(dev, errs)
+
+    for name in ("syr2k", "mm3", "lu", "covariance", "floyd_warshall", "heat3d",
+                 "flash_attention", "decode_attention"):
         bad, total = rejected_points(name, problems.LARGE_SHAPES[name], smem_limit)
         print(f"  gpu space {name}: {bad} of {total} points rejected before launch "
               f"at LARGE (shared memory over {smem_limit} B, or a tile past the "
@@ -580,6 +922,8 @@ def main() -> int:
               f"{r['ms']:.4f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), plain "
               f"{r['plain_ms']:.4f} ms, library {lib}", flush=True)
 
+    time_attention(rows)
+
     # ---- 5. the main path --------------------------------------------------------
     phase("5. main path: repro_torch.launch.autotune campaigns at LARGE")
     paths = {  # kernel -> wrappers whose counts its campaign must raise
@@ -636,6 +980,10 @@ def main() -> int:
             torch.cuda.synchronize()
             compare(f"{kernel} best config vs plain", got, want, tol)
 
+    # ---- 6. the serving path ------------------------------------------------------
+    phase("6. serving path: repro_torch.launch.serve, qwen2-0.5b full width, f32")
+    serving(launches, dev)
+
     def entry(name, source, replaces):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
                     replaces=replaces, launches=launches[WRAPPER_OF[name]],
@@ -649,6 +997,10 @@ def main() -> int:
         entry("heat3d", "heat3d.cu", "src/repro/kernels/heat3d.py:71"),
         entry("lu_factor_diag", "lu.cu", "src/repro/kernels/lu.py:33"),
         entry("closure", "floyd_warshall.cu", "src/repro/kernels/floyd_warshall.py:93"),
+        entry("flash_attention", "flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:37"),
+        entry("decode_attention", "decode_attention.cu",
+              "src/repro/kernels/decode_attention.py:62"),
     ]
     for k in kernels:
         if k["launches"] < 1:

@@ -1,0 +1,26 @@
+"""qwen2-0.5b [dense] — 24L d_model=896 14H (GQA kv=2) d_ff=4864
+vocab=151936; QKV bias. [arXiv:2407.10671; hf]"""
+
+from repro_torch.models.common import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2-0.5b",
+    family="dense",
+    n_layers=24,
+    d_model=896,
+    n_heads=14,
+    n_kv_heads=2,
+    head_dim=64,
+    d_ff=4864,
+    vocab_size=151936,
+    qkv_bias=True,
+    rope_theta=1.0e6,
+    tie_embeddings=True,
+)
+
+
+def reduced() -> ArchConfig:
+    import dataclasses
+    return dataclasses.replace(
+        CONFIG, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+        d_ff=128, vocab_size=256)

@@ -71,6 +71,20 @@ KERNELS: dict[str, dict[str, tuple[list, type]]] = {
         # bi, fuse_t
         "heat3d_smem_bytes": ([_I, _I], _L),
     },
+    "flash_attention": {
+        # q, k, v, o, BH, Sq, Sk, hd, bq, bk, scale, causal, bf16, stream
+        "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
+        # bq, bk, hd
+        "flash_attention_smem_bytes": ([_I, _I, _I], _L),
+    },
+    "decode_attention": {
+        # q, k, v, cur_pos, o, BH, G, S, hd, Kh, stride_b, stride_s, stride_h,
+        # bk, hg, ring, window, scale, bf16, stream
+        "decode_attention_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
+                                     _I, _I, _I, _I, _F, _I, _P], _I),
+        # G, bk, hd
+        "decode_attention_smem_bytes": ([_I, _I, _I], _L),
+    },
     "lu": {
         # A, ld, off, bs, stream: the diagonal-block factor, in place
         "lu_factor_diag_launch": ([_P, _I, _I, _I, _P], _I),

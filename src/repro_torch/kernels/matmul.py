@@ -1,5 +1,5 @@
-"""Tunable tiled matmul — the building block under mm3 (and, later, lu and
-the model's projections).
+"""Tunable tiled matmul — the building block under mm3, lu's trailing
+update and the model's dispatched output projection and unembed.
 
 :func:`tiled_matmul` launches the hand-written CUDA kernel ``csrc/matmul.cu``
 for tensors on the card, and takes the plain PyTorch version
@@ -25,7 +25,8 @@ from repro_torch.kernels.util import (
     max_shared_memory_per_block,
 )
 
-__all__ = ["tiled_matmul", "tiled_matmul_plain", "matmul_smem_bytes"]
+__all__ = ["tiled_matmul", "tiled_matmul_plain", "tiled_matmul_check",
+           "matmul_smem_bytes"]
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -53,6 +54,38 @@ def tiled_matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bk: int, pack: bool,
     return o
 
 
+def tiled_matmul_check(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
+                       bk: int = 128,
+                       out_dtype: torch.dtype | None = None) -> tuple[int, int, int]:
+    """The wrapper's checks before a launch, without launching: operands
+    (shape, dtype, device, contiguity) and, on the card, the tile against
+    the register tile and the device's shared memory per block. Raises
+    :class:`ConfigRejected` for a tile the kernel cannot run; returns the
+    clamped ``(bm, bn, bk)``."""
+    M, K = a.shape
+    K2, N = b.shape
+    if K != K2:
+        raise ValueError(f"tiled_matmul shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    if int(bm) < 1 or int(bn) < 1 or int(bk) < 1:
+        raise ConfigRejected(f"tiled_matmul tiles must be positive, got {bm}x{bn}x{bk}")
+    bm, bn, bk = min(int(bm), max(M, 1)), min(int(bn), max(N, 1)), min(int(bk), max(K, 1))
+    if a.device.type == "cpu":
+        return bm, bn, bk
+    dev = a.device
+    check_operand("a", a, (M, K), DTYPES, dev)
+    check_operand("b", b, (K, N), (a.dtype,), dev)
+    if (out_dtype or a.dtype) not in DTYPES:
+        raise TypeError(f"tiled_matmul out_dtype {out_dtype} not in {DTYPES}")
+    smem = matmul_smem_bytes(bm, bn, bk)
+    if smem < 0:
+        raise ConfigRejected(f"matmul tile {bm}x{bn} does not fit the kernel's register tile")
+    limit = max_shared_memory_per_block(dev)
+    if smem > limit:
+        raise ConfigRejected(f"matmul bm={bm} bn={bn} bk={bk} needs {smem} B of "
+                             f"shared memory, the device allows {limit} B per block")
+    return bm, bn, bk
+
+
 def tiled_matmul(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -66,28 +99,14 @@ def tiled_matmul(
 ) -> torch.Tensor:
     """C = A @ B. Shapes need not be multiples of the tiles (the kernel masks
     the ragged edges)."""
+    bm, bn, bk = tiled_matmul_check(a, b, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype)
     M, K = a.shape
-    K2, N = b.shape
-    if K != K2:
-        raise ValueError(f"tiled_matmul shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    N = b.shape[1]
     out_dtype = out_dtype or a.dtype
-    bm, bn, bk = min(bm, max(M, 1)), min(bn, max(N, 1)), min(bk, max(K, 1))
     if a.device.type == "cpu":
         return tiled_matmul_plain(a, b, bk=bk, pack=pack, out_dtype=out_dtype)
 
     dev = a.device
-    check_operand("a", a, (M, K), DTYPES, dev)
-    check_operand("b", b, (K, N), (a.dtype,), dev)
-    if out_dtype not in DTYPES:
-        raise TypeError(f"tiled_matmul out_dtype {out_dtype} not in {DTYPES}")
-    smem = matmul_smem_bytes(bm, bn, bk)
-    if smem < 0:
-        raise ConfigRejected(f"matmul tile {bm}x{bn} does not fit the kernel's register tile")
-    limit = max_shared_memory_per_block(dev)
-    if smem > limit:
-        raise ConfigRejected(f"matmul bm={bm} bn={bn} bk={bk} needs {smem} B of "
-                             f"shared memory, the device allows {limit} B per block")
-
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     lib = build.load("matmul")
     with torch.cuda.device(dev):

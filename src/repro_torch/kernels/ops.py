@@ -33,6 +33,18 @@ For the kernels of the second slice, at their LARGE sizes:
     threads a pass) and fuse_t=2, which halves the passes and their
     launches (500, not 1000) at the cost of recomputing a one-deep halo.
 
+For the serving path's kernels:
+
+  * flash_attention: 64x64 tiles. At the LARGE shape (BH=16, S=4096,
+    hd=128) that is 1,024 blocks and 116 KB of shared memory a block; at
+    the model's prefill (BH=8, S=256, hd=64), 32 blocks per call (the
+    model's G = 7 query groups are 7 calls);
+  * decode_attention: 128-slot KV blocks, one row per block (``hg=1``:
+    BH blocks, which is few, 16 at LARGE and 8 for the model; splitting
+    the key axis across blocks is a later design);
+  * matmul (the model's output projection and unembed): mm3's tiles and
+    f32 accumulation in registers (``pack=True``).
+
 These are reasoned, not tuned: the campaign's job is to beat them.
 """
 
@@ -59,6 +71,9 @@ DEFAULTS: dict[str, dict[str, Any]] = {
     "heat3d": dict(bi=8, fuse_t=2),
     "covariance": dict(bi=64, bj=64, bk=32, fuse_center=True, interchange=False),
     "floyd_warshall": dict(bs=64, bi=64, bj=64, unroll=4),
+    "flash_attention": dict(impl="pallas", bq=64, bk=64),
+    "decode_attention": dict(impl="pallas", bk=128, hg=1),
+    "matmul": dict(bm=64, bn=64, bk=32, pack=True, interchange=False),
 }
 
 

@@ -20,6 +20,11 @@ flavours of lu (2*5*11*11 = 1,210), covariance (2*2*11^3 = 5,324), heat3d
 (6*2 = 12) and floyd_warshall (5*11*11*4 = 2,420) take the JAX package's own
 lists for ``bs``, ``bi`` (heat3d), ``fuse_t`` and ``unroll``, and the CUDA
 tile sequences where it has TPU tiles; their defaults are ``ops.DEFAULTS``.
+
+The serving path's kernels (flash_attention, decode_attention, matmul) keep
+the JAX package's knobs and its ``impl`` axis; the ``gpu`` flavour takes
+tiles the CUDA kernels run and defaults to the kernel (``impl="pallas"``),
+the ``host`` flavour is the JAX package's host flavour.
 """
 
 from __future__ import annotations
@@ -160,6 +165,85 @@ def floyd_warshall_space(target: str = "gpu", seed: int = 1234) -> Configuration
     return cs
 
 
+# ---------------------------------------------------------------------------
+# model-kernel spaces: the serving path's schedule knobs
+# ---------------------------------------------------------------------------
+
+# flash-attention q/k tiles: multiples of the CUDA kernel's 16x16 thread block
+# up to its 128-row register tile; the host entries are the JAX package's
+FLASH_TILES_GPU = (16, 32, 64, 128)
+FLASH_TILES_HOST = (16, 32, 64, 128, 256, 512)
+# decode KV blocks (up to one slot per thread of the CUDA kernel's 256);
+# paged-cache page sizes, an axis of the host flavour only (below)
+DECODE_TILES_GPU = (32, 64, 128, 256)
+DECODE_TILES_HOST = (8, 16, 32, 64, 128, 256)
+PAGE_SIZES_HOST = (8, 16, 32, 64, 128)
+# the implementation axis: the host flavour keeps the JAX package's two
+# values; the gpu flavour holds only the kernel, so that no campaign on the
+# card can put the chunked torch variant on the serving path
+IMPLS_HOST = ("pallas", "xla")
+IMPLS_GPU = ("pallas",)
+
+
+def _model_defaults(name: str, target: str, host: dict) -> dict:
+    if target not in TARGETS:
+        raise ValueError(f"target must be one of {TARGETS}, got {target!r}")
+    return DEFAULTS[name] if target == "gpu" else host
+
+
+def flash_attention_space(target: str = "gpu", seed: int = 1234) -> ConfigurationSpace:
+    """``bq``/``bk`` tiles plus the implementation axis: the hand-written
+    kernel (``"pallas"``) vs the chunked torch variant (``"xla"``, which
+    reads only ``bq``; host flavour only)."""
+    d = _model_defaults("flash_attention", target, dict(impl="xla", bq=128, bk=128))
+    tiles = FLASH_TILES_GPU if target == "gpu" else FLASH_TILES_HOST
+    cs = ConfigurationSpace(seed=seed)
+    cs.add_hyperparameters([
+        Categorical("impl", IMPLS_GPU if target == "gpu" else IMPLS_HOST,
+                    default=d["impl"]),
+        Ordinal("bq", tiles, default=d["bq"]),
+        Ordinal("bk", tiles, default=d["bk"]),
+    ])
+    return cs
+
+
+def decode_attention_space(target: str = "gpu", seed: int = 1234) -> ConfigurationSpace:
+    """KV block ``bk``, rows per block ``hg`` and the ``impl`` axis. The
+    host flavour, the JAX package's, also holds the paged KV cache's
+    ``page`` size, which only the JAX package's cost model and feasibility
+    pass read; the gpu flavour leaves it out until the port has a reader
+    (store records that carry it still resolve: lookup does not consult
+    the space)."""
+    gpu = target == "gpu"
+    d = _model_defaults("decode_attention", target,
+                        dict(impl="xla", bk=128, hg=1, page=PAGE_SIZES_HOST[-1]))
+    cs = ConfigurationSpace(seed=seed)
+    cs.add_hyperparameters([
+        Categorical("impl", IMPLS_GPU if gpu else IMPLS_HOST, default=d["impl"]),
+        Ordinal("bk", DECODE_TILES_GPU if gpu else DECODE_TILES_HOST, default=d["bk"]),
+        Ordinal("hg", (1, 2, 4, 8), default=d["hg"]),
+    ])
+    if not gpu:
+        cs.add_hyperparameters([Ordinal("page", PAGE_SIZES_HOST, default=d["page"])])
+    return cs
+
+
+def matmul_space(target: str = "gpu", seed: int = 1234) -> ConfigurationSpace:
+    """Tiled-matmul space for the model's output projection and unembed."""
+    d = _model_defaults("matmul", target, dict(
+        pack=False, interchange=False, bm=_tiles("host", "a")[8],
+        bk=_tiles("host", "b")[-1], bn=_tiles("host", "c")[-1]))
+    cs = ConfigurationSpace(seed=seed)
+    cs.add_hyperparameters([
+        Categorical("pack", (True, False), default=d["pack"]),
+        Categorical("interchange", (True, False), default=d["interchange"]),
+        Ordinal("bm", _tiles(target, "a"), default=d["bm"]),
+        Ordinal("bk", _tiles(target, "b"), default=d["bk"]),
+        Ordinal("bn", _tiles(target, "c"), default=d["bn"]),
+    ])
+    return cs
+
+
 KERNEL_SPACES = {
     "syr2k": syr2k_space,
     "mm3": mm3_space,
@@ -167,6 +251,9 @@ KERNEL_SPACES = {
     "heat3d": heat3d_space,
     "covariance": covariance_space,
     "floyd_warshall": floyd_warshall_space,
+    "flash_attention": flash_attention_space,
+    "decode_attention": decode_attention_space,
+    "matmul": matmul_space,
 }
 
 

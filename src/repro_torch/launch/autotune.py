@@ -6,7 +6,9 @@ programs.
         --max-evals 200 --learner RF --db results/syr2k_rf_gpu
 
 --kernel takes the paper's six benchmarks: syr2k, mm3, lu, covariance,
-heat3d and floyd_warshall. --backend gpu (the default) times the
+heat3d and floyd_warshall; and the serving path's kernels, flash_attention,
+decode_attention and matmul (at a 16-head 4k-context shape and a
+2000x2300x2600 product on the card). --backend gpu (the default) times the
 hand-written CUDA kernels of the benchmark's path at the paper's LARGE
 sizes with CUDA events, over the ``gpu`` space; every evaluation launches
 them. --backend cpu times the plain PyTorch versions at small bench sizes
@@ -30,6 +32,8 @@ from repro_torch.core import TimingEvaluator, autotune
 from repro_torch.core.database import PerformanceDatabase
 from repro_torch.core.findmin import importance_report
 from repro_torch.kernels.covariance import covariance
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.floyd_warshall import minplus_update
 from repro_torch.kernels.heat3d import heat3d
 from repro_torch.kernels.matmul import tiled_matmul
@@ -39,14 +43,15 @@ from repro_torch.kernels.syr2k import syr2k
 
 NOT_YET_PORTED = """\
 not ported yet (the JAX package's repro.launch.autotune has them):
-  --warm-start, --store   wait for repro_torch.dispatch (the tuning store)
+  --warm-start, --store   not wired to repro_torch.dispatch's tuning store yet
   --cascade               waits for repro_torch.fidelity
   --prune-infeasible      waits for repro_torch.analyze"""
 
 # the wrapper whose launch count proves a campaign went through the kernel
 KERNEL_WRAPPERS = {"syr2k": syr2k, "mm3": tiled_matmul, "lu": tiled_matmul,
                    "covariance": covariance, "heat3d": heat3d,
-                   "floyd_warshall": minplus_update}
+                   "floyd_warshall": minplus_update, "flash_attention": flash_attention,
+                   "decode_attention": decode_attention, "matmul": tiled_matmul}
 
 
 def main(argv=None) -> int:

@@ -246,3 +246,181 @@ def test_new_kernels_reject_oversized_tiles_before_launch(cuda):
         minplus_update(D, D[:, :16].contiguous(), D[:16].contiguous(), bi=192, bj=64)
     with pytest.raises(TypeError):
         covariance(data.double())
+
+
+# ---------------------------------------------------------------------------
+# the serving path: flash_attention, decode_attention, dispatch, one step
+# ---------------------------------------------------------------------------
+
+# softmax-weighted averages of standard normal values; kernel and plain
+# version differ in summation order only (chip_smoke.py's ATTN_TOL)
+ATTN_TOL = dict(atol=2e-5, rtol=1e-4)
+# bf16 attention outputs, rounded from f32 alike by the kernel and its plain
+# version, differ by at most one bf16 ulp (2^-7 relative at worst); the
+# measured error on an H100 is 6.1e-5 at (4, 200, 128) causal
+ATTN_BF16_TOL = dict(atol=1e-4, rtol=8e-3)
+
+
+def _normal(cuda, *shapes, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(cuda) for s in shapes]
+
+
+@pytest.mark.parametrize("Sq,Sk,hd,causal,bq,bk", [
+    (77, 131, 64, False, 32, 16),
+    (100, 100, 128, True, 128, 64),
+    (50, 70, 16, True, 16, 128),
+    (65, 65, 32, False, 64, 64),
+    (256, 256, 64, True, 64, 64),
+])
+def test_flash_attention_matches_plain(cuda, Sq, Sk, hd, causal, bq, bk):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v = _normal(cuda, (3, Sq, hd), (3, Sk, hd), (3, Sk, hd))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, bq=bq, bk=bk)
+    assert flash_attention.launches == before + 1
+    _close(got, flash_attention_plain(q, k, v, causal=causal), ATTN_TOL)
+    bf = [t.to(torch.bfloat16) for t in (q, k, v)]
+    got = flash_attention(*bf, causal=causal, bq=bq, bk=bk)
+    assert got.dtype == torch.bfloat16
+    _close(got, flash_attention_plain(*bf, causal=causal), ATTN_BF16_TOL)
+
+
+@pytest.mark.parametrize("ring,window", [(False, 0), (True, 0), (False, 9), (True, 9)])
+@pytest.mark.parametrize("bk,hg", [(16, 1), (64, 2), (256, 4)])
+def test_decode_attention_matches_plain(cuda, ring, window, bk, hg):
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+
+    BH, G, S, hd = 6, 7, 40, 64
+    q, k, v = _normal(cuda, (BH, G, hd), (BH, S, hd), (BH, S, hd), seed=1)
+    cp = torch.tensor([-1, 0, 13, S - 1, S + 25, 20], dtype=torch.int32, device=cuda)
+    got = decode_attention(q, k, v, cp, ring=ring, window=window, bk=bk, hg=hg)
+    _close(got, decode_attention_plain(q, k, v, cp, ring=ring, window=window), ATTN_TOL)
+    assert torch.count_nonzero(got[0]) == 0   # cur_pos = -1: exactly 0
+
+
+def test_decode_attention_reads_the_model_cache_in_place(cuda):
+    from repro_torch.kernels.decode_attention import (
+        CacheRows,
+        decode_attention,
+        decode_attention_plain,
+    )
+
+    B, S, K, G, hd = 3, 50, 2, 7, 64
+    q, kc, vc = _normal(cuda, (B * K, G, hd), (B, S, K, hd), (B, S, K, hd), seed=2)
+    cp = torch.tensor([4, 4, 49, 49, 20, 20], dtype=torch.int32, device=cuda)
+    got = decode_attention(q, CacheRows(kc), CacheRows(vc), cp, bk=16, hg=2)
+    want = decode_attention_plain(q, CacheRows(kc).rows(), CacheRows(vc).rows(), cp)
+    _close(got, want, ATTN_TOL)
+
+
+def test_attention_smem_accounting(cuda):
+    from repro_torch.kernels.decode_attention import decode_attention_smem_bytes
+    from repro_torch.kernels.flash_attention import flash_attention_smem_bytes
+
+    # Q [bq][hd+4], K^T [hd][bk+1], V [bk][hd], P [bq][bk+1]
+    assert flash_attention_smem_bytes(64, 64, 128) == 4 * (64 * 132 + 128 * 65 + 64 * 128
+                                                           + 64 * 65)
+    assert flash_attention_smem_bytes(16, 32, 64) == 4 * (16 * 68 + 64 * 33 + 32 * 64 + 16 * 33)
+    assert flash_attention_smem_bytes(8, 64, 64) == -1      # not a multiple of 16
+    assert flash_attention_smem_bytes(64, 256, 64) == -1    # past the 128 register tile
+    assert flash_attention_smem_bytes(64, 64, 96) == -1     # head size
+    # q [G][hd], K [bk][hd+4], V [bk][hd], S [G][bk+1], m/l/alpha [3][G]
+    assert decode_attention_smem_bytes(7, 128, 64) == 4 * (7 * 64 + 128 * 68 + 128 * 64
+                                                           + 7 * 129 + 21)
+    assert decode_attention_smem_bytes(7, 512, 64) == -1
+    assert decode_attention_smem_bytes(17, 64, 128) == -1   # G past 8 * 256 / hd
+
+
+def test_attention_oversized_tiles_are_rejected_before_launch(cuda):
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = _normal(cuda, (2, 300, 128), (2, 300, 128), (2, 300, 128))
+    f0 = flash_attention.launches
+    with pytest.raises(ConfigRejected):
+        flash_attention(q, k, v, bq=128, bk=128)   # 265 KB of shared memory
+    with pytest.raises(ConfigRejected):
+        flash_attention(q, k, v, bq=40, bk=64)     # not a multiple of 16
+    assert flash_attention.launches == f0
+    qd, kd, vd = _normal(cuda, (2, 8, 128), (2, 300, 128), (2, 300, 128))
+    d0 = decode_attention.launches
+    with pytest.raises(ConfigRejected):
+        decode_attention(qd, kd, vd, 299, bk=256)  # 278 KB of shared memory
+    assert decode_attention.launches == d0
+
+
+# an untileable bq, and the chunked torch variant, which does not run on the card
+@pytest.mark.parametrize("poison", [dict(impl="pallas", bq=8, bk=64),
+                                    dict(impl="xla", bq=64, bk=64)])
+def test_dispatch_degrades_a_poisoned_record_to_the_kernel(cuda, tmp_path, poison):
+    from repro_torch.dispatch import DispatchService, TuningRecord, TuningStore
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.model_kernels import flash_attention_signature
+
+    q, k, v = _normal(cuda, (4, 64, 64), (4, 64, 64), (4, 64, 64))
+    store = TuningStore(str(tmp_path))
+    store.put(TuningRecord("flash_attention", flash_attention_signature(4, 64, 64, 64),
+                           "gpu", poison, 1e-6))
+    svc = DispatchService(store)
+    before = flash_attention.launches
+    got = svc.call("flash_attention", q, k, v, causal=True)
+    assert svc.stats["build_failed"] == 1 and flash_attention.launches == before + 1
+    assert store.quarantines("flash_attention")[0]["reason"] == "build_failed"
+    _close(got, flash_attention_plain(q, k, v), ATTN_TOL)
+
+
+def test_dispatch_operand_fault_keeps_a_sound_record(cuda, tmp_path):
+    from repro_torch.dispatch import DispatchService, TuningRecord, TuningStore
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.model_kernels import flash_attention_signature
+
+    q, v = _normal(cuda, (4, 64, 64), (4, 64, 64))
+    (wide,) = _normal(cuda, (4, 64, 128))
+    k = wide[..., ::2]                   # the record's shape, not contiguous
+    signature = flash_attention_signature(4, 64, 64, 64)
+    store = TuningStore(str(tmp_path))
+    store.put(TuningRecord("flash_attention", signature, "gpu",
+                           dict(impl="pallas", bq=32, bk=64), 1e-6))
+    svc = DispatchService(store)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        svc.call("flash_attention", q, k, v, causal=True)
+    assert svc.stats["store_exact"] == 1 and svc.stats["build_failed"] == 0
+    assert store.quarantines() == [] and flash_attention.launches == before
+    assert store.get("flash_attention", signature, "gpu") is not None
+
+
+def test_one_decode_step_launches_the_kernels(cuda):
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.dispatch import DispatchService
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+
+    cfg = dataclasses.replace(get_reduced("qwen2-0.5b"), dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    svc = DispatchService()
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), device=cuda)
+    f0, m0 = flash_attention.launches, tiled_matmul.launches
+    logits, _ = forward(params, {"tokens": toks}, cfg, service=svc)
+    G = cfg.n_heads // cfg.n_kv_heads
+    assert flash_attention.launches == f0 + G * cfg.n_layers
+    assert tiled_matmul.launches == m0 + cfg.n_layers + 1
+    cache = init_cache(cfg, 2, 12, device=cuda)
+    d0, m0 = decode_attention.launches, tiled_matmul.launches
+    step_logits, _ = decode_step(params, cache, toks[:, :1], 0, cfg, service=svc)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == d0 + cfg.n_layers
+    assert tiled_matmul.launches == m0 + cfg.n_layers + 1
+    assert torch.isfinite(logits).all() and torch.isfinite(step_logits).all()
+    # the same step without the service: the same logits, no kernel
+    plain, _ = decode_step(params, init_cache(cfg, 2, 12, device=cuda), toks[:, :1], 0, cfg)
+    _close(step_logits, plain, dict(atol=1e-4, rtol=1e-4))
+    # one request: the flattened K/V and query groups are strided views at
+    # B = 1, which the wrappers must not be handed
+    one, _ = forward(params, {"tokens": toks[:1]}, cfg, service=svc)
+    _close(one, logits[:1], dict(atol=1e-4, rtol=1e-4))
