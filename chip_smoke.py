@@ -9,17 +9,21 @@ checks each kernel on the card:
 
   1. device: name, count, power limit; TF32 switched off for the yardsticks;
   2. build: every source in src/repro_torch/kernels/csrc/ with nvcc (sm_90a),
-     one nvcc per source, all started together; ptxas registers and spills;
+     one nvcc per source, all started together; ptxas registers and spills,
+     per instantiation for syr2k and matmul (the main paths' spill nothing);
   3. kernel vs plain PyTorch version at the paper's LARGE sizes, over the
      knob combinations, with the tolerance stated beside each error (0 for
      the min-plus kernel, the blocked Floyd-Warshall and the two helpers,
-     which must agree bit for bit), and the gpu-space points each wrapper
-     rejects before launch;
+     which must agree bit for bit; syr2k on NaN-poisoned outputs, with the
+     same bits from every configuration; the matmul also at the model's
+     skinny shapes), and the gpu-space points each wrapper rejects before
+     launch;
   4. times at the default config (CUDA events, after warm-up): kernel,
      plain version, one PyTorch library call where there is one, and the
-     roofline bound; for lu, floyd_warshall and heat3d also the kernel
-     launches, the host wall time and the device time (torch.profiler) per
-     call;
+     roofline bound (and the flops syr2k computes beside it); the matmul
+     also at the serving path's shapes (device time, torch.profiler); for
+     lu, floyd_warshall and heat3d also the kernel launches, the host wall
+     time and the device time (torch.profiler) per call;
   5. the main path: `repro_torch.launch.autotune.main` campaigns at LARGE
      for syr2k, mm3, lu, covariance, floyd_warshall and heat3d, each with
      its wrappers' launch counts set to 0 just before and read just after,
@@ -115,6 +119,17 @@ WRAPPER_OF = {"syr2k": "syr2k", "matmul": "tiled_matmul", "covariance": "covaria
               "flash_attention": "flash_attention", "decode_attention": "decode_attention"}
 # the serving phase: qwen2-0.5b at full width, f32
 SERVE = dict(arch="qwen2-0.5b", batch=4, prompt_len=256, gen=32, seed=0)
+# the instantiations the main paths run at their defaults (ptxas template
+# arguments): syr2k<PACK_A, PACK_B, RT, VEC16> at 64x64 tiles of M = 1000;
+# matmul<input, PACK, TM, TN, VEC16> at 64x64 tiles (mm3, lu) and at the
+# model's 8-row decode tiles; phase 2 asserts that they spill nothing
+MAIN_PATH_INSTANCES = {"syr2k": ([1, 1, 4, 1],),
+                       "matmul": (["float", 1, 4, 4, 1], ["float", 1, 1, 4, 1])}
+# the serving path's matmul shapes (qwen2-0.5b, batch 4, prompt 256): name,
+# (M, K, N), launches per decode step (or per prefill forward)
+SERVE_MATMULS = (("decode unembed", (4, 896, 151936), "1 per decode step"),
+                 ("decode output projection", (4, 896, 896), "24 per decode step"),
+                 ("prefill unembed", (1024, 896, 151936), "1 per prefill forward"))
 # (kernel, evaluations) of phase 5; heat3d's space has 12 points
 CAMPAIGNS = (("syr2k", 60), ("mm3", 40), ("lu", 30), ("covariance", 30),
              ("floyd_warshall", 30), ("heat3d", 12))
@@ -142,6 +157,34 @@ def compare(name, got, want, tol) -> float:
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
     return abs_err
+
+
+def poison_next(shape, device) -> None:
+    """Free a NaN-filled f32 block of ``shape``: the caching allocator hands
+    it to the next allocation of that size, so an output element that a
+    kernel never writes reads NaN and fails the finite check."""
+    import torch
+
+    torch.full(shape, float("nan"), device=device)
+
+
+def model_operands(M: int, K: int, N: int, device, seed: int = 0):
+    """x (M, K) and w (K, N), standard normal scaled by 1/sqrt(columns) as
+    ref.init_mm3 scales mm3's operands, made on the device from a seed."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(M, K, device=device, generator=g) / K ** 0.5,
+            torch.randn(K, N, device=device, generator=g) / N ** 0.5)
+
+
+def syr2k_computed_flops(N: int, M: int, bi: int, bj: int) -> float:
+    """Flops syr2k.cu executes: 4*M per element of every block's tile, padded
+    to multiples of 8, over the blocks not wholly above the diagonal."""
+    pi, pj = -(-bi // 8) * 8, -(-bj // 8) * 8
+    blocks = sum(1 for ti in range(-(-N // bi)) for tj in range(-(-N // bj))
+                 if min((ti + 1) * bi, N) - 1 >= tj * bj)
+    return 4.0 * M * pi * pj * blocks
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -236,7 +279,7 @@ def rejected_points(name: str, dims, limit: int) -> tuple[int, int]:
         cs = kernel_space("lu")
         pts = list(itertools.product(cs["bs"].sequence, cs["bm"].sequence, cs["bn"].sequence))
         # the first (largest) trailing update and the diagonal factor
-        bad = sum(refused(matmul_smem_bytes(min(bm, N - bs), min(bn, N - bs), bs))
+        bad = sum(refused(matmul_smem_bytes(min(bm, N - bs), min(bn, N - bs), bs, limit=limit))
                   or refused(lu_factor_diag_smem_bytes(bs)) for (bs, bm, bn) in pts)
         return bad * 2, len(pts) * 2  # x pack
     if name == "floyd_warshall":
@@ -270,12 +313,12 @@ def rejected_points(name: str, dims, limit: int) -> tuple[int, int]:
         # 2x2x2 points per tile triple (pack_a, pack_b, interchange), as the
         # paper counts them; without pack_a, pack_b is inactive (not packed)
         packs = [(True, True), (True, False), (False, False), (False, False)]
-        bad = sum(refused(syr2k_smem_bytes(min(bi, N), min(bj, N), min(bk, M), pa, pb))
+        bad = sum(refused(syr2k_smem_bytes(min(bi, N), min(bj, N), min(bk, M), pa, pb, limit))
                   for (bi, bk, bj) in tiles for (pa, pb) in packs) * 2
         return bad, len(tiles) * 8
     P, Q, R, S, T = dims
     shapes = [(P, Q, R), (R, S, T), (P, R, T)]
-    bad = sum(any(refused(matmul_smem_bytes(min(bm, m), min(bn, n), min(bk, k)))
+    bad = sum(any(refused(matmul_smem_bytes(min(bm, m), min(bn, n), min(bk, k), limit=limit))
                   for (m, k, n) in shapes) for (bm, bk, bn) in tiles)
     return bad * 2 ** 7, len(tiles) * 2 ** 7
 
@@ -540,6 +583,10 @@ def serving(launches: dict, dev) -> None:
           f"{step_ms:.4f} ms alone; bound {step_bound:.4f} ms (bytes: {weights / 1e9:.3f} GB "
           f"of weights and {kv / 1e6:.1f} MB of cache read per step at 3.35 TB/s); "
           f"{r['tokens_per_sec']:.1f} tok/s over the run")
+    mm_n = sum(c for k, (c, _) in by_name.items() if "matmul_kernel" in k)
+    mm_ms = sum(t for k, (_, t) in by_name.items() if "matmul_kernel" in k)
+    print(f"  one decode step on the device: the tiled matmul (csrc/matmul.cu) x{mm_n} "
+          f"{mm_ms:.4f} ms of {dev_ms:.4f} ms")
     top = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:5]
     print(f"  one decode step on the device (torch.profiler): {busy}; largest: "
           + "; ".join(f"{k[:50]} x{c} {t:.4f} ms" for k, (c, t) in top), flush=True)
@@ -659,6 +706,18 @@ def main() -> int:
         print(f"  ptxas {name}: {len(regs)} kernel instantiations, registers per "
               f"thread {min(regs, default=0)}..{max(regs, default=0)}, spills: "
               f"{spills or 'none'}")
+    for name in ("syr2k", "matmul"):
+        entries = build.ptxas_entries(build.ptxas_report(name))
+        for e in entries:
+            print(f"  ptxas {e['kernel']}<{', '.join(map(str, e['args']))}>: "
+                  f"{e['registers']} registers, spills {e['spill_stores']} B stored, "
+                  f"{e['spill_loads']} B loaded")
+        for args in MAIN_PATH_INSTANCES[name]:
+            found = [e for e in entries if e["args"] == args]
+            if not found:
+                raise AssertionError(f"{name}: no ptxas entry for the main path's instance {args}")
+            if any(e["spill_stores"] + e["spill_loads"] for e in found):
+                raise AssertionError(f"{name}: the main path's instance {args} spills")
     for name in build.KERNELS:
         build.load(name)
 
@@ -676,11 +735,20 @@ def main() -> int:
             for ic in (False, True)]
     cfgs += [dict(bi=48, bj=80, bk=24, pack_a=True, pack_b=False),
              dict(bi=128, bj=112, bk=16, pack_a=True, pack_b=True, interchange=True),
-             dict(bi=8, bj=24, bk=256, pack_a=False, pack_b=False)]
+             dict(bi=8, bj=24, bk=256, pack_a=False, pack_b=False),
+             # rectangles straddling the diagonal
+             dict(bi=128, bj=8, bk=32, pack_a=True, pack_b=True),
+             dict(bi=8, bj=128, bk=32, pack_a=True, pack_b=True, interchange=True)]
+    first = None
     for cfg in cfgs:
+        poison_next(C.shape, dev)  # an element the kernel never writes stays NaN
         got = syr2k(C, A, B, **cfg)
         torch.cuda.synchronize()
         errs["syr2k"] = max(errs["syr2k"], compare(f"syr2k {cfg}", got, want, SYR2K_TOL))
+        first = got if first is None else first
+        if not torch.equal(got, first):
+            raise AssertionError(f"syr2k {cfg}: bits differ from {cfgs[0]}")
+    print(f"  syr2k: all {len(cfgs)} configurations give identical bits, on NaN-poisoned outputs")
 
     P, Q, R, S, T = problems.LARGE_SHAPES["mm3"]
     Am, Bm, Cm, Dm = problems.problem_inputs("mm3", (P, Q, R, S, T), dev)
@@ -699,9 +767,28 @@ def main() -> int:
     wantm = tiled_matmul_plain(Am, Bm, bk=24, pack=False, out_dtype=torch.float32)
     errs["matmul"] = max(errs["matmul"], compare(
         "matmul f32 ragged bm=48 bn=80 bk=24 pack=False interchange", got, wantm, F32_TOL))
+    # column tiles off 16-byte words (N % 4 == 0, bn % 4 != 0): scalar stores
+    for pack in (True, False):
+        poison_next((P, R), dev)
+        got = tiled_matmul(Am, Bm, bm=64, bn=50, bk=32, pack=pack)
+        torch.cuda.synchronize()
+        errs["matmul"] = max(errs["matmul"], compare(
+            f"matmul f32 bm=64 bn=50 bk=32 pack={pack}", got,
+            tiled_matmul_plain(Am, Bm, bk=32, pack=pack, out_dtype=torch.float32), F32_TOL))
     got = ops.mm3_op(Am, Bm, Cm, Dm, config=dict(fuse_second=True, pack2=False, inter3=True))
     errs["matmul"] = max(errs["matmul"], compare(
         "mm3 f32 fuse_second pack2=False inter3", got, ref.mm3_ref(Am, Bm, Cm, Dm), F32_TOL))
+    # skinny M at the model's shapes: the decode unembed and output projection
+    for (M_, K_, N_) in ((1, 896, 151936), (4, 896, 151936), (7, 896, 151936),
+                         (1, 896, 896), (4, 896, 896), (7, 896, 896)):
+        a, b = model_operands(M_, K_, N_, dev)
+        poison_next((M_, N_), dev)
+        got = tiled_matmul(a, b, bm=64, bn=64, bk=32)
+        torch.cuda.synchronize()
+        errs["matmul"] = max(errs["matmul"], compare(
+            f"matmul f32 skinny ({M_}, {K_}) @ ({K_}, {N_}) bm=64 bn=64 bk=32", got,
+            tiled_matmul_plain(a, b, bk=32, pack=True, out_dtype=torch.float32), F32_TOL))
+        del a, b, got
 
     # covariance: fuse_center x interchange, a ragged tile, bk not dividing N
     cov_dims = problems.LARGE_SHAPES["covariance"]
@@ -796,9 +883,10 @@ def main() -> int:
     alpha, beta = 1.5, 1.2
     sy_cfg = ops.DEFAULTS["syr2k"]
     rows = {}
-    # one product suffices (B A^T = (A B^T)^T): 2 N^2 M flops, though the
-    # kernel computes both
+    # one product suffices (S = A B^T + B A^T is symmetric): 2 N^2 M flops;
+    # the kernel skips the blocks above the diagonal
     b_ms, b_by = bound(2.0 * N * N * M, 4.0 * (2 * N * M + 2 * N * N))
+    done = syr2k_computed_flops(N, M, min(sy_cfg["bi"], N), min(sy_cfg["bj"], N))
     rows["syr2k"] = dict(
         ms=time_ms(lambda: ops.syr2k_op(C, A, B, alpha, beta)),
         plain_ms=time_ms(lambda: syr2k_plain(C, A, B, alpha, beta)),
@@ -808,6 +896,10 @@ def main() -> int:
     print(f"  syr2k {sy_cfg}: kernel {rows['syr2k']['ms']:.4f} ms, "
           f"bound {b_ms:.4f} ms ({b_by}), plain {rows['syr2k']['plain_ms']:.4f} ms, "
           f"library (2x torch.addmm, f32, no TF32) {rows['syr2k']['library_ms']:.4f} ms")
+    print(f"  syr2k flops: the kernel computes {done / 1e9:.4f} GFLOP (blocks on or below the "
+          f"diagonal, tiles padded to 8), {done / (2.0 * N * N * M):.3f}x the bound's "
+          f"2*N^2*M = {2.0 * N * N * M / 1e9:.4f} GFLOP (both products everywhere: "
+          f"{4.0 * N * N * M / 1e9:.4f})")
 
     def mm3_plain():
         E = tiled_matmul_plain(Am, Bm, bk=32, pack=True, out_dtype=torch.float32)
@@ -827,6 +919,24 @@ def main() -> int:
           f"bound {b_ms:.4f} ms ({b_by}), plain {rows['matmul']['plain_ms']:.4f} ms, "
           f"library (3x torch.matmul, f32, no TF32) {rows['matmul']['library_ms']:.4f} ms",
           flush=True)
+    # the serving path's shapes, at the serving default (ops.DEFAULTS["matmul"])
+    mm_cfg = {k: v for k, v in ops.DEFAULTS["matmul"].items() if k in ("bm", "bn", "bk", "pack",
+                                                                      "interchange")}
+    for label, (M_, K_, N_), per in SERVE_MATMULS:
+        a, b = model_operands(M_, K_, N_, dev, seed=1)
+        s_ms, s_by = bound(2.0 * M_ * K_ * N_, 4.0 * (M_ * K_ + K_ * N_ + M_ * N_))
+        k_ev = time_ms(lambda: tiled_matmul(a, b, **mm_cfg), iters=10)
+        k_dev = device_time(lambda: [tiled_matmul(a, b, **mm_cfg) for _ in range(10)])[0] / 10
+        l_ev = time_ms(lambda: torch.matmul(a, b), iters=10)
+        l_dev = device_time(lambda: [torch.matmul(a, b) for _ in range(10)])[0] / 10
+        p_ms = time_ms(lambda: tiled_matmul_plain(a, b, bk=mm_cfg["bk"], pack=True,
+                                                  out_dtype=torch.float32), iters=10)
+        print(f"  matmul serving {label} ({M_}, {K_}) @ ({K_}, {N_}) f32 {mm_cfg}, {per}: "
+              f"kernel {k_dev:.4f} ms on the device (torch.profiler; CUDA events "
+              f"{k_ev:.4f} ms), bound {s_ms:.4f} ms ({s_by}), plain {p_ms:.4f} ms, library "
+              f"(torch.matmul, f32) {l_dev:.4f} ms on the device (CUDA events {l_ev:.4f} ms)",
+              flush=True)
+        del a, b
 
     # the second slice's kernels: covariance, lu (its trailing GEMMs run
     # through matmul.cu), floyd_warshall (min-plus), heat3d, and the helpers

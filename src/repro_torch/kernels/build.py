@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds, not minutes). The build runs
 at first use, from the sources in this checkout only, into
 ``kernels/build/<name>-<hash>/`` (listed in ``.gitignore``); the hash covers
-the source and the compiler flags, so an edited kernel is rebuilt and an
-unchanged one is loaded as it is. A missing ``nvcc`` or a failed compile
+the source, the shared headers ``csrc/*.cuh`` and the compiler flags, so an
+edited kernel or header is rebuilt and an unchanged one is loaded as it is. A missing ``nvcc`` or a failed compile
 raises: there is no fallback.
 
     from repro_torch.kernels import build
@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +26,7 @@ import time
 from pathlib import Path
 
 __all__ = ["KERNELS", "NVCC_FLAGS", "build_all", "check", "load", "nvcc_path",
-           "ptxas_report"]
+           "ptxas_entries", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
@@ -37,19 +38,22 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 
 # source name -> {C function: (argtypes, restype)}. The launchers return a
 # cudaError_t; *_smem_bytes return the bytes of dynamic shared memory a block
-# needs (-1 for a tile the kernel cannot hold), from the kernel's own layout.
+# needs (-1 for a tile the kernel cannot hold), from the kernel's own layout;
+# syr2k's and matmul's take the device's limit, which sets their rings' depth.
 KERNELS: dict[str, dict[str, tuple[list, type]]] = {
     "syr2k": {
-        # C, A, B, O, N, M, alpha, beta, bi, bj, bk, pack_a, pack_b, interchange, stream
-        "syr2k_launch": ([_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _I, _I, _I, _P], _I),
-        # bi, bj, bk, pack_a, pack_b
-        "syr2k_smem_bytes": ([_I, _I, _I, _I, _I], _L),
+        # C, A, B, O, N, M, alpha, beta, bi, bj, bk, pack_a, pack_b, interchange,
+        # smem limit, stream
+        "syr2k_launch": ([_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        # bi, bj, bk, pack_a, pack_b, smem limit
+        "syr2k_smem_bytes": ([_I, _I, _I, _I, _I, _I], _L),
     },
     "matmul": {
-        # A, B, O, M, K, N, bm, bn, bk, pack, interchange, in_bf16, out_bf16, stream
-        "matmul_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-        # bm, bn, bk
-        "matmul_smem_bytes": ([_I, _I, _I], _L),
+        # A, B, O, M, K, N, bm, bn, bk, pack, interchange, in_bf16, out_bf16,
+        # smem limit, stream
+        "matmul_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        # bm, bn, bk, in_bf16, smem limit
+        "matmul_smem_bytes": ([_I, _I, _I, _I, _I], _L),
     },
     "covariance": {
         # data, mean, O, N, M, bi, bj, bk, fuse_center, interchange, stream
@@ -107,8 +111,13 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, named by a hash of the source, every shared header
+    in ``csrc/`` (a source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_ROOT / f"{name}-{digest}" / f"lib{name}.so"
 
 
@@ -173,6 +182,38 @@ def ptxas_report(name: str) -> str:
     shared memory and spills per kernel instantiation)."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_NAME = re.compile(r"(?=(\d{1,3})([A-Za-z_]\w*?_kernel)I)")
+_TEMPLATE_ARG = re.compile(r"L[bi](\d+)E|(f)(?=L)|13__nv_(bfloat16)")
+
+
+def ptxas_entries(report: str) -> list[dict]:
+    """One dict per kernel instantiation of a ``ptxas -v`` report:
+    ``kernel`` (the unmangled name), ``args`` (its template arguments, as
+    ``float``/``bfloat16`` and integers, bools as 0/1), ``registers``,
+    ``spill_stores`` and ``spill_loads`` (bytes)."""
+    out: list[dict] = []
+    for line in report.splitlines():
+        if m := _ENTRY.search(line):
+            mangled = m.group(1)
+            # the name is a length-prefixed <n><identifier> ending in _kernel;
+            # the anonymous namespace before it may end in digits too
+            name = next((m.group(2) for m in _NAME.finditer(mangled)
+                         if int(m.group(1)) == len(m.group(2))), None)
+            body = mangled.split("_kernelI", 1)[1] if "_kernelI" in mangled else ""
+            args = [int(a) if a else ("float" if f else "bfloat16")
+                    for a, f, b in _TEMPLATE_ARG.findall(body)]
+            out.append(dict(kernel=name or mangled, args=args,
+                            registers=0, spill_stores=0, spill_loads=0))
+        elif out and (m := _SPILL.search(line)):
+            out[-1]["spill_stores"], out[-1]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif out and (m := _REGS.search(line)):
+            out[-1]["registers"] = int(m.group(1))
+    return out
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -3,288 +3,281 @@
 //
 // Replaces: src/repro/kernels/matmul.py:_mm_kernel_pack and _mm_kernel_nopack
 // (the Pallas TPU kernels behind repro.kernels.matmul.tiled_matmul; mm3 is
-// three calls of it, src/repro/kernels/m3mm.py).
+// three calls of it, src/repro/kernels/m3mm.py; lu's trailing update and the
+// model's output projection and unembed call it too).
 //
 // What bounds it on an H100: the three products of mm3 at the paper's LARGE
 // size (P..T = 800, 900, 1000, 1100, 1200) are 2*(PQR + RST + PRT) = 6.0
 // GFLOP, 90 us at the 67 TFLOP/s f32 rate of the CUDA cores, against 36 MB
 // of f32 operands and results over the three launches (11 us at 3.35 TB/s):
-// compute-bound. The products accumulate in f32 on the CUDA cores (FFMA),
-// like the f32 reference they are held to; tensor cores (TF32/bf16 wgmma)
-// are a later optimisation.
+// compute-bound, on f32 FFMA like the f32 reference it is held to. The
+// model's decode unembed, (4, 896) @ (896, 151936), is the other extreme:
+// 1.1 GFLOP against 545 MB of B, bound by HBM bytes (0.163 ms).
 //
-// Design: one 16x16-thread block per bm x bn tile of O (tiles up to 128 x
-// 128); thread (tx, ty) owns rows 64h + 4ty + u and columns 64g + 4tx + v
-// (h, g < 2; u, v < 4): up to 8x8 f32 accumulators in registers. A loop
-// inside the block walks K in bk-wide chunks: the A chunk (transposed to
-// k-major) and the B chunk are staged in shared memory as f32 (bf16 is
-// widened with __bfloat162float while staging) with 16-byte aligned rows,
-// and every thread runs its register tile over the chunk, reading its four
-// rows and four columns of one k as one float4 each (the k loop unrolled by
-// 4). While staging, consecutive threads take consecutive rows of A (and
-// columns of B), so the shared-memory stores are free of bank conflicts, and
-// each thread keeps 8 loads in flight.
-// Every output element is summed in the same order (k ascending, one fused
-// multiply-add per term) whatever the tiles. The schedule knobs change the
-// code:
+// Design: the shared main loop of gemm_f32.cuh. One block per bm x bn tile
+// of O, the tile padded to multiples of 8 (pm x pn); (pm/TM) x (pn/TN)
+// threads, each with a TM x TN register tile: RT x RT (RT = 4 up to 64-wide
+// tiles, 8 past), or 1 x 4 for an 8-row tile. Thread (ty, tx) owns rows
+// ty + TY*u (interleaved, so a warp's reads of A's k-contiguous rows are
+// free of bank conflicts) and columns 4tx + 4TX*h + w (four contiguous, so
+// each read of B is one float4, and each store of an f32 O too where N and
+// bn are multiples of 4; else four scalar stores). The block walks K in
+// bk-deep chunks through a ring of shared-memory stages: A's chunk as pm rows
+// of bk k-contiguous elements, B's as bk rows of pn n-contiguous ones, both
+// in the input dtype, copied by cp.async (16-byte pieces where aligned,
+// VEC16) and widened to f32 as the inner loop reads them. At a skinny M (the
+// decode's unembed and output projection: bm clamped to 4, pm = 8) a tile is
+// a 128-thread block that streams 8 KB of B a chunk with two more chunks in
+// flight: the unembed's 2,374 such blocks keep HBM busy; the output
+// projection's 14 (896 / 64 columns) leave most SMs idle, and with no split
+// of K allowed each runs its 28 chunks in turn.
+// The schedule knobs:
 //   PACK=true   accumulate the whole K range in f32 registers and store O
 //               once, in its dtype (the TPU kernel's f32 VMEM accumulator);
 //   PACK=false  after every bk chunk, load the O tile, add the chunk's partial
 //               product rounded to O's dtype, and store it again in O's dtype
 //               (the TPU kernel's read-modify-write of the output block: the
 //               knob's precision trade-off in bf16);
-//   INTERCHANGE which tile axis blockIdx.x walks: j (columns) by default, as
+//   interchange which tile axis blockIdx.x walks: j (columns) by default, as
 //               the TPU grid (i, j, k) runs j fastest; i with it.
-// Ragged edges are masked (staged zeros, masked stores); nothing is padded.
+// Ragged edges are zero-filled while staged and masked when stored. Every
+// output element is summed in the same order (k ascending, one fmaf per
+// term) whatever the tiles.
 //
 // Interface: matmul_smem_bytes() gives the dynamic shared memory a block
-// needs for a tile (-1 for a tile the register tile cannot hold), from the
-// same layout() the kernel carves its buffers from; the wrapper checks it
-// against the device's limit before launch. matmul_launch() launches on the
-// given stream, does not synchronise, and returns cudaGetLastError(). Tile
-// extents are runtime values; dtype pair, PACK and INTERCHANGE are template
-// parameters (16 instantiations).
+// needs for a tile under a device limit (the ring as deep as fits, -1 for a
+// tile past 128), from the same layout() the launcher passes the kernel; the
+// wrapper checks it against the limit before launch. matmul_launch()
+// launches on the given stream, does not synchronise, and returns
+// cudaGetLastError(). Tile extents, the ring's depth, interchange and the
+// output dtype are runtime values; the input dtype, PACK, the register tile
+// (1x4, 4x4, 8x8) and the copy form are template parameters (24
+// instantiations).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gemm_f32.cuh"
 
 namespace {
 
-constexpr int TD = 16;          // threads per tile dimension
-constexpr int VEC = 4;          // consecutive rows (cols) per thread and group
-constexpr int GROUP = TD * VEC; // rows covered by one group: 64
-constexpr int MAXG = 2;         // groups per tile dimension: tiles up to 128
-constexpr int PAD = 4;          // row padding of staged chunks (keeps float4 alignment)
-constexpr int R = MAXG * VEC;   // max rows (cols) per thread
-constexpr int INFLIGHT = 8;     // staging loads each thread keeps in flight
+// Shared-memory layout of one block: `stages` stages, each A's chunk (pm
+// rows, pitch_a bytes apart) then B's (round_up(bk, 4) rows, pitch_b bytes).
+struct Layout {
+  int pm, pn, tm, tn;       // padded tile extents, register tile per thread
+  int pitch_a, pitch_b;     // row pitches, bytes
+  int a_bytes, stage;       // A's chunk, one whole stage
+  int stages;
+  long long bytes;          // total dynamic shared memory
+};
+
+Layout layout(int bm, int bn, int bk, int size, long long limit) {
+  Layout L;
+  L.pm = gemm::round_up(bm, gemm::ALIGN);
+  L.pn = gemm::round_up(bn, gemm::ALIGN);
+  // an 8-row tile (a skinny M) gives each thread one row of four columns,
+  // so that 8 x pn/4 threads stream B; otherwise RT x RT
+  L.tm = L.pm == gemm::ALIGN ? 1 : gemm::reg_tile(L.pm, L.pn);
+  L.tn = L.pm == gemm::ALIGN ? 4 : L.tm;
+  L.pitch_a = gemm::kpitch(bk, size);
+  L.pitch_b = gemm::round_up(L.pn * size, 16);
+  L.a_bytes = L.pm * L.pitch_a;
+  L.stage = L.a_bytes + gemm::round_up(bk, 4) * L.pitch_b;
+  L.stages = gemm::ring_stages(L.stage, 0, limit);
+  L.bytes = (long long)L.stages * L.stage;
+  return L;
+}
 
 struct Args {
   const void* A; const void* B; void* O;
   int M, K, N, bm, bn, bk;
-};
-
-// Shared-memory layout of one block, in floats: the A chunk then the B
-// chunk, each k-major, bk rows of the tile extent padded to whole groups
-// (pm, pn) plus PAD.
-struct Layout {
-  int pm, pn, lda, ldb;  // padded tile extents, leading dimensions
-  int b;                 // offset of the B chunk (A's is 0)
-  int floats;            // total
-};
-
-__host__ __device__ inline Layout layout(int bm, int bn, int bk) {
+  int interchange, out_bf16, vec_out;
   Layout L;
-  L.pm = (bm + GROUP - 1) / GROUP * GROUP;
-  L.pn = (bn + GROUP - 1) / GROUP * GROUP;
-  L.lda = L.pm + PAD;
-  L.ldb = L.pn + PAD;
-  L.b = bk * L.lda;
-  L.floats = L.b + bk * L.ldb;
-  return L;
+};
+
+__device__ __forceinline__ float round_out(bool bf16, float v) {
+  return bf16 ? __bfloat162float(__float2bfloat16(v)) : v;
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+__device__ __forceinline__ float load_out(const void* O, bool bf16, size_t i) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(O)[i])
+              : static_cast<const float*>(O)[i];
 }
 
-// Both staging loops: consecutive threads take consecutive rows of A (or
-// columns of B), so the shared-memory stores are free of bank conflicts; each
-// thread issues INFLIGHT independent loads before it stores them, so their
-// L2 round trips overlap. The padded extents are 64 or 128: an index splits
-// with a shift and a mask.
-
-// A rows [r0, r0 + rows_pad) x cols [k0, k0 + kc) (A is M x K) into
-// s[k * ld + r] as f32, k-major; rows past the tile or past M are zero.
-template <typename T>
-__device__ __forceinline__ void stage_rows_kmajor(float* s, int ld, const T* X, int M, int K,
-                                                  int r0, int rows, int rows_pad, int k0, int kc) {
-  const int tid = threadIdx.y * TD + threadIdx.x;
-  const int shift = __ffs(rows_pad) - 1, mask = rows_pad - 1;
-  const int total = rows_pad * kc;
-  for (int base = tid; base < total; base += TD * TD * INFLIGHT) {
-    float v[INFLIGHT];
-#pragma unroll
-    for (int u = 0; u < INFLIGHT; ++u) {
-      const int idx = base + u * TD * TD, k = idx >> shift, r = idx & mask, g = r0 + r;
-      v[u] = (idx < total && r < rows && g < M) ? to_f32(X[(size_t)g * K + k0 + k]) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < INFLIGHT; ++u) {
-      const int idx = base + u * TD * TD;
-      if (idx < total) s[(idx >> shift) * ld + (idx & mask)] = v[u];
-    }
-  }
+__device__ __forceinline__ void store_out(void* O, bool bf16, size_t i, float v) {
+  if (bf16) static_cast<__nv_bfloat16*>(O)[i] = __float2bfloat16(v);
+  else static_cast<float*>(O)[i] = v;
 }
 
-// B rows [k0, k0 + kc) x cols [c0, c0 + cols_pad) (B is K x N) into
-// s[k * ld + c] as f32; columns past the tile or past N are zero.
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* s, int ld, const T* X, int N,
-                                           int c0, int cols, int cols_pad, int k0, int kc) {
-  const int tid = threadIdx.y * TD + threadIdx.x;
-  const int shift = __ffs(cols_pad) - 1, mask = cols_pad - 1;
-  const int total = cols_pad * kc;
-  for (int base = tid; base < total; base += TD * TD * INFLIGHT) {
-    float v[INFLIGHT];
-#pragma unroll
-    for (int u = 0; u < INFLIGHT; ++u) {
-      const int idx = base + u * TD * TD, k = idx >> shift, c = idx & mask, g = c0 + c;
-      v[u] = (idx < total && c < cols && g < N) ? to_f32(X[(size_t)(k0 + k) * N + g]) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < INFLIGHT; ++u) {
-      const int idx = base + u * TD * TD;
-      if (idx < total) s[(idx >> shift) * ld + (idx & mask)] = v[u];
-    }
-  }
-}
-
-template <typename TI, typename TO, bool PACK, bool INTERCHANGE>
-__global__ void __launch_bounds__(TD * TD) matmul_kernel(Args p) {
+template <typename TI, bool PACK, int TM, int TN, bool VEC16>
+__global__ void __launch_bounds__(gemm::MAX_THREADS) matmul_kernel(Args p) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const TI* A = (const TI*)p.A;
-  const TI* B = (const TI*)p.B;
-  TO* O = (TO*)p.O;
-  const int ti = INTERCHANGE ? blockIdx.x : blockIdx.y;
-  const int tj = INTERCHANGE ? blockIdx.y : blockIdx.x;
+  char* smem = reinterpret_cast<char*>(smem4);
+  const Layout& L = p.L;
+  const TI* A = static_cast<const TI*>(p.A);
+  const TI* B = static_cast<const TI*>(p.B);
+  const bool bf16 = p.out_bf16;
+  const int ti = p.interchange ? blockIdx.x : blockIdx.y;
+  const int tj = p.interchange ? blockIdx.y : blockIdx.x;
   const int i0 = ti * p.bm, j0 = tj * p.bn;
-  const Layout L = layout(p.bm, p.bn, p.bk);
-  const int pm = L.pm, pn = L.pn, lda = L.lda, ldb = L.ldb;
-  const int Gm = pm / GROUP, Gn = pn / GROUP;
-  float* sA = smem;          // [bk][lda], k-major
-  float* sB = smem + L.b;    // [bk][ldb]
-  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int TY = L.pm / TM, TX = L.pn / TN, nthreads = TY * TX;
+  const int tid = threadIdx.x, ty = tid / TX, tx = tid - ty * TX;
+  constexpr int SZ = sizeof(TI);
 
-  float acc[R][R];
+  float acc[TM][TN];
 #pragma unroll
-  for (int a = 0; a < R; ++a)
+  for (int u = 0; u < TM; ++u)
 #pragma unroll
-    for (int b = 0; b < R; ++b) acc[a][b] = 0.f;
+    for (int v = 0; v < TN; ++v) acc[u][v] = 0.f;
 
-  for (int k0 = 0; k0 < p.K; k0 += p.bk) {
-    const int kc = min(p.bk, p.K - k0);
-    __syncthreads();  // previous chunk fully consumed
-    // consecutive threads take consecutive rows (A) or columns (B):
-    // conflict-free shared stores
-    stage_rows_kmajor(sA, lda, A, p.M, p.K, i0, p.bm, pm, k0, kc);
-    stage_rows(sB, ldb, B, p.N, j0, p.bn, pn, k0, kc);
-    __syncthreads();
+  // A's chunk is pm rows of kcp k; B's kcp rows of pn columns (kcp = bk
+  // rounded up to 4, less in a ragged last chunk, which plans anew)
+  const int kfull = gemm::round_up(p.bk, 4);
+  const gemm::Plan plan_a = gemm::plan_box<TI, VEC16>(L.pm, kfull, tid, nthreads);
+  const gemm::Plan plan_b = gemm::plan_box<TI, VEC16>(kfull, L.pn, tid, nthreads);
+  auto load = [&](int c, int slot) {
+    char* sA = smem + slot * L.stage;
+    char* sB = sA + L.a_bytes;
+    const int k0 = c * p.bk, kc = min(p.bk, p.K - k0), kcp = gemm::round_up(kc, 4);
+    const bool full = kcp == kfull;
+    gemm::copy_box<TI, VEC16>(full ? plan_a : gemm::plan_box<TI, VEC16>(L.pm, kcp, tid, nthreads),
+                              sA, L.pitch_a, A + (size_t)i0 * p.K + k0, p.K,
+                              min(L.pm, p.M - i0), kc, tid, nthreads);
+    gemm::copy_box<TI, VEC16>(full ? plan_b : gemm::plan_box<TI, VEC16>(kcp, L.pn, tid, nthreads),
+                              sB, L.pitch_b, B + (size_t)k0 * p.N + j0, p.N,
+                              kc, min(L.pn, p.N - j0), tid, nthreads);
+  };
 
-    if (!PACK) {
+  // O's row of register row u, and the first of the four columns of group h
+  auto row = [&](int u) { return ty + TY * u; };
+  auto col = [&](int h) { return 4 * tx + 4 * TX * h; };
+
+  auto store_tile = [&](bool accumulate) {
 #pragma unroll
-      for (int a = 0; a < R; ++a)
+    for (int u = 0; u < TM; ++u) {
+      const int r = row(u), gr = i0 + r;
+      if (r >= p.bm || gr >= p.M) continue;
 #pragma unroll
-        for (int b = 0; b < R; ++b) acc[a][b] = 0.f;
-    }
-#pragma unroll 4
-    for (int k = 0; k < kc; ++k) {
-      float av[R], bv[R];
-#pragma unroll
-      for (int h = 0; h < MAXG; ++h) {
-        if (h < Gm) {
-          const float4 q = *reinterpret_cast<const float4*>(sA + k * lda + GROUP * h + VEC * ty);
-          av[VEC * h + 0] = q.x; av[VEC * h + 1] = q.y; av[VEC * h + 2] = q.z; av[VEC * h + 3] = q.w;
+      for (int h = 0; h < TN / 4; ++h) {
+        const int c = col(h), gc = j0 + c;
+        const size_t o = (size_t)gr * p.N + gc;
+        if (!accumulate && p.vec_out && c + 3 < p.bn && gc + 3 < p.N) {
+          *reinterpret_cast<float4*>(static_cast<float*>(p.O) + o) =
+              make_float4(acc[u][4 * h], acc[u][4 * h + 1], acc[u][4 * h + 2], acc[u][4 * h + 3]);
+          continue;
         }
-        if (h < Gn) {
-          const float4 q = *reinterpret_cast<const float4*>(sB + k * ldb + GROUP * h + VEC * tx);
-          bv[VEC * h + 0] = q.x; bv[VEC * h + 1] = q.y; bv[VEC * h + 2] = q.z; bv[VEC * h + 3] = q.w;
-        }
-      }
 #pragma unroll
-      for (int hm = 0; hm < MAXG; ++hm)
-#pragma unroll
-        for (int hn = 0; hn < MAXG; ++hn)
-          if (hm < Gm && hn < Gn) {
-#pragma unroll
-            for (int u = 0; u < VEC; ++u)
-#pragma unroll
-              for (int v = 0; v < VEC; ++v) {
-                const int a = VEC * hm + u, b = VEC * hn + v;
-                acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-              }
-          }
-    }
-
-    if (!PACK) {  // read-modify-write of the O tile in O's dtype
-#pragma unroll
-      for (int a = 0; a < R; ++a) {
-        const int r = GROUP * (a / VEC) + VEC * ty + a % VEC, gr = i0 + r;
-        if (a / VEC >= Gm || r >= p.bm || gr >= p.M) continue;
-#pragma unroll
-        for (int b = 0; b < R; ++b) {
-          const int c = GROUP * (b / VEC) + VEC * tx + b % VEC, gc = j0 + c;
-          if (b / VEC >= Gn || c >= p.bn || gc >= p.N) continue;
-          const size_t o = (size_t)gr * p.N + gc;
-          const float old = k0 == 0 ? 0.f : to_f32(O[o]);
-          O[o] = from_f32<TO>(old + to_f32(from_f32<TO>(acc[a][b])));
+        for (int w = 0; w < 4; ++w) {
+          if (c + w >= p.bn || gc + w >= p.N) continue;
+          float v = acc[u][4 * h + w];
+          if (accumulate) v = load_out(p.O, bf16, o + w) + round_out(bf16, v);
+          store_out(p.O, bf16, o + w, v);
         }
       }
     }
-  }
+  };
 
-  if (PACK) {
+  auto compute = [&](int c, int slot) {
+    const char* sA = smem + slot * L.stage;
+    const char* sB = sA + L.a_bytes;
+    const int k0 = c * p.bk, kcp = gemm::round_up(min(p.bk, p.K - k0), 4);
+    const char* pa = sA + ty * L.pitch_a;
+    const int ua = TY * L.pitch_a;
+    const char* pb = sB + col(0) * SZ;
+    const int hb = 4 * TX * SZ;
+#pragma unroll 2
+    for (int k = 0; k < kcp; k += 4) {
+      // all of this step's reads (four k of A's rows, B's four rows) before
+      // its multiply-adds, so that a block of few warps waits on them once
+      float a[TM][4], b[4][TN];
 #pragma unroll
-    for (int a = 0; a < R; ++a) {
-      const int r = GROUP * (a / VEC) + VEC * ty + a % VEC, gr = i0 + r;
-      if (a / VEC >= Gm || r >= p.bm || gr >= p.M) continue;
+      for (int u = 0; u < TM; ++u)
+        gemm::unpack(a[u], gemm::load4(reinterpret_cast<const TI*>(pa + u * ua + k * SZ)));
 #pragma unroll
-      for (int b = 0; b < R; ++b) {
-        const int c = GROUP * (b / VEC) + VEC * tx + b % VEC, gc = j0 + c;
-        if (b / VEC >= Gn || c >= p.bn || gc >= p.N) continue;
-        O[(size_t)gr * p.N + gc] = from_f32<TO>(acc[a][b]);
-      }
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int h = 0; h < TN / 4; ++h) {
+          float q[4];
+          gemm::unpack(q, gemm::load4(reinterpret_cast<const TI*>(pb + (k + t) * L.pitch_b
+                                                                  + h * hb)));
+#pragma unroll
+          for (int w = 0; w < 4; ++w) b[t][4 * h + w] = q[w];
+        }
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int u = 0; u < TM; ++u)
+#pragma unroll
+          for (int v = 0; v < TN; ++v) acc[u][v] = fmaf(a[u][t], b[t][v], acc[u][v]);
     }
-  }
+    if (!PACK) {  // read-modify-write of the O tile in O's dtype, then a fresh chunk
+      store_tile(k0 > 0);
+#pragma unroll
+      for (int u = 0; u < TM; ++u)
+#pragma unroll
+        for (int v = 0; v < TN; ++v) acc[u][v] = 0.f;
+    }
+  };
+
+  gemm::run_ring((p.K + p.bk - 1) / p.bk, L.stages, load, compute);
+  if (PACK) store_tile(false);
 }
 
-template <typename TI, typename TO, bool PK, bool IC>
-cudaError_t launch(const Args& p, size_t smem, cudaStream_t stream) {
+template <typename TI, bool PK, int TM, int TN, bool V16>
+cudaError_t launch(const Args& p, cudaStream_t stream) {
   const int mi = (p.M + p.bm - 1) / p.bm, nj = (p.N + p.bn - 1) / p.bn;
-  const dim3 grid = IC ? dim3(mi, nj) : dim3(nj, mi);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(matmul_kernel<TI, TO, PK, IC>,
+  const dim3 grid = p.interchange ? dim3(mi, nj) : dim3(nj, mi);
+  const int threads = (p.L.pm / TM) * (p.L.pn / TN);
+  if (p.L.bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(matmul_kernel<TI, PK, TM, TN, V16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                                         (int)p.L.bytes);
     if (e != cudaSuccess) return e;
   }
-  matmul_kernel<TI, TO, PK, IC><<<grid, dim3(TD, TD), smem, stream>>>(p);
+  matmul_kernel<TI, PK, TM, TN, V16><<<grid, threads, p.L.bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename TI, typename TO>
-cudaError_t launch_knobs(const Args& p, int pack, int ic, size_t smem, cudaStream_t s) {
-  if (pack) return ic ? launch<TI, TO, true, true>(p, smem, s) : launch<TI, TO, true, false>(p, smem, s);
-  return ic ? launch<TI, TO, false, true>(p, smem, s) : launch<TI, TO, false, false>(p, smem, s);
+template <typename TI, bool PK, int TM, int TN>
+cudaError_t launch_vec(const Args& p, bool vec16, cudaStream_t s) {
+  return vec16 ? launch<TI, PK, TM, TN, true>(p, s) : launch<TI, PK, TM, TN, false>(p, s);
+}
+
+template <typename TI, bool PK>
+cudaError_t launch_rt(const Args& p, bool vec16, cudaStream_t s) {
+  if (p.L.tm == 1) return launch_vec<TI, PK, 1, 4>(p, vec16, s);
+  if (p.L.tm == 8) return launch_vec<TI, PK, 8, 8>(p, vec16, s);
+  return launch_vec<TI, PK, 4, 4>(p, vec16, s);
+}
+
+template <typename TI>
+cudaError_t launch_pack(const Args& p, int pack, bool vec16, cudaStream_t s) {
+  return pack ? launch_rt<TI, true>(p, vec16, s) : launch_rt<TI, false>(p, vec16, s);
 }
 
 }  // namespace
 
-extern "C" long long matmul_smem_bytes(int bm, int bn, int bk) {
-  if (bm < 1 || bn < 1 || bk < 1 || bm > GROUP * MAXG || bn > GROUP * MAXG) return -1;
-  return (long long)sizeof(float) * layout(bm, bn, bk).floats;
+extern "C" long long matmul_smem_bytes(int bm, int bn, int bk, int in_bf16, int limit) {
+  if (bm < 1 || bn < 1 || bk < 1 || bm > gemm::MAX_TILE || bn > gemm::MAX_TILE) return -1;
+  return layout(bm, bn, bk, in_bf16 ? 2 : 4, limit).bytes;
 }
 
 extern "C" int matmul_launch(const void* A, const void* B, void* O, int M, int K, int N,
                              int bm, int bn, int bk, int pack, int interchange,
-                             int in_bf16, int out_bf16, void* stream) {
-  const long long smem = matmul_smem_bytes(bm, bn, bk);
-  if (smem < 0) return (int)cudaErrorInvalidValue;
-  Args p{A, B, O, M, K, N, bm, bn, bk};
+                             int in_bf16, int out_bf16, int limit, void* stream) {
+  const long long smem = matmul_smem_bytes(bm, bn, bk, in_bf16, limit);
+  if (smem < 0 || smem > limit) return (int)cudaErrorInvalidValue;
+  const int size = in_bf16 ? 2 : 4;
+  // 16-byte pieces: aligned bases, row strides and chunk steps (K, N, bk
+  // and bn whole 16-byte words), so no piece straddles a chunk or an edge
+  const bool vec16 = gemm::aligned16(A) && gemm::aligned16(B) && (K * size) % 16 == 0
+                     && (N * size) % 16 == 0 && (bk * size) % 16 == 0
+                     && (bn * size) % 16 == 0;
+  // float4 stores of O: every tile's first column (tj*bn) and row (gr*N)
+  // start on a 16-byte word
+  const int vec_out = !out_bf16 && gemm::aligned16(O) && N % 4 == 0 && bn % 4 == 0;
+  Args p{A, B, O, M, K, N, bm, bn, bk, interchange, out_bf16, vec_out,
+         layout(bm, bn, bk, size, limit)};
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e;
-  if (in_bf16) {
-    e = out_bf16 ? launch_knobs<__nv_bfloat16, __nv_bfloat16>(p, pack, interchange, smem, s)
-                 : launch_knobs<__nv_bfloat16, float>(p, pack, interchange, smem, s);
-  } else {
-    e = out_bf16 ? launch_knobs<float, __nv_bfloat16>(p, pack, interchange, smem, s)
-                 : launch_knobs<float, float>(p, pack, interchange, smem, s);
-  }
+  const cudaError_t e = in_bf16 ? launch_pack<__nv_bfloat16>(p, pack, vec16, s)
+                                : launch_pack<float>(p, pack, vec16, s);
   return (int)e;
 }
 

@@ -31,11 +31,18 @@ __all__ = ["tiled_matmul", "tiled_matmul_plain", "tiled_matmul_check",
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def matmul_smem_bytes(bm: int, bn: int, bk: int) -> int:
+def matmul_smem_bytes(bm: int, bn: int, bk: int, dtype: torch.dtype = torch.float32,
+                      limit: int | None = None) -> int:
     """Dynamic shared memory (bytes) one block of ``csrc/matmul.cu`` needs
-    for this tile, or -1 for a tile its register tile cannot hold. The
-    kernel's own layout answers, so the library is built first."""
-    return build.load("matmul").matmul_smem_bytes(bm, bn, bk)
+    for this tile and input ``dtype`` (staged as it is) under a per-block
+    ``limit`` (default: the current card's), or -1 for a tile its register
+    tile cannot hold. The kernel's ring takes as many stages (3 down to 1) as
+    fit the limit, so a result above it means even one stage does not fit.
+    The kernel's own layout answers, so the library is built first."""
+    if limit is None:
+        limit = max_shared_memory_per_block(torch.device("cuda"))
+    return build.load("matmul").matmul_smem_bytes(bm, bn, bk, int(dtype == torch.bfloat16),
+                                                  int(limit))
 
 
 def tiled_matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bk: int, pack: bool,
@@ -76,10 +83,10 @@ def tiled_matmul_check(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: i
     check_operand("b", b, (K, N), (a.dtype,), dev)
     if (out_dtype or a.dtype) not in DTYPES:
         raise TypeError(f"tiled_matmul out_dtype {out_dtype} not in {DTYPES}")
-    smem = matmul_smem_bytes(bm, bn, bk)
+    limit = max_shared_memory_per_block(dev)
+    smem = matmul_smem_bytes(bm, bn, bk, a.dtype, limit)
     if smem < 0:
         raise ConfigRejected(f"matmul tile {bm}x{bn} does not fit the kernel's register tile")
-    limit = max_shared_memory_per_block(dev)
     if smem > limit:
         raise ConfigRejected(f"matmul bm={bm} bn={bn} bk={bk} needs {smem} B of "
                              f"shared memory, the device allows {limit} B per block")
@@ -114,7 +121,7 @@ def tiled_matmul(
         err = lib.matmul_launch(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N, bm, bn, bk,
             int(pack), int(interchange), int(a.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), stream)
+            int(out_dtype == torch.bfloat16), max_shared_memory_per_block(dev), stream)
     build.check(lib, err, "tiled_matmul")
     tiled_matmul.launches += 1
     return out

@@ -4,13 +4,15 @@ Each op takes an optional ``config`` dict in the schema the autotuner
 searches (see spaces.py), merged over :data:`DEFAULTS`. The defaults are
 chosen for the CUDA kernels on an H100 at the paper's LARGE sizes:
 
-  * 64x64 output tiles: at N=1200 (syr2k) or 800-1200 (mm3) that is 208-361
-    blocks of 256 threads, one and a half to three waves over 132 SMs, with
-    16 accumulators per thread; 128x128 tiles give 56-100 blocks and leave
-    SMs idle, tiles below 32 re-read the operands many more times;
+  * 64x64 output tiles: 256 threads of 4x4 accumulators a block; mm3's
+    products launch 208-300 blocks, syr2k 361 of which the 190 on or below
+    the diagonal work (the others exit at once), one to two and a half
+    blocks per SM over 132 SMs; 128x128 tiles give 55-100 working blocks
+    and leave SMs idle, tiles below 32 re-read the operands many more times;
   * a 32-deep contraction chunk with every operand staged in shared memory
-    (``pack*=True``): 34 KB (syr2k) or 17 KB (each mm3 matmul) per block,
-    small enough for several resident blocks per SM;
+    (``pack*=True``): a three-stage ring of 108 KB (syr2k's four chunks) or
+    51 KB (each mm3 matmul) per block, so two syr2k or four matmul blocks
+    fit an SM's 228 KB;
   * no interchange: consecutive blocks share a row tile, as the TPU grid's
     order does.
 
@@ -43,7 +45,9 @@ For the serving path's kernels:
     BH blocks, which is few, 16 at LARGE and 8 for the model; splitting
     the key axis across blocks is a later design);
   * matmul (the model's output projection and unembed): mm3's tiles and
-    f32 accumulation in registers (``pack=True``).
+    f32 accumulation in registers (``pack=True``); at the decode's 4 rows
+    the 64-row tile clamps to 4, an 8-row tile of 128 threads (one row of
+    four columns each) that streams its 64 columns of the weight.
 
 These are reasoned, not tuned: the campaign's job is to beat them.
 """

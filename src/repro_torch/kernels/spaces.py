@@ -4,11 +4,13 @@ re-targeted at the CUDA kernels' schedule knobs.
 Two flavors per kernel:
 
   * ``target="gpu"``  — tile sequences that suit the CUDA kernels
-    (``csrc/syr2k.cu``, ``csrc/matmul.cu``): output tiles of 8..128 in
-    steps a 16x16 thread block covers with at most 8x8 registers per thread,
-    including extents that are not multiples of 16 so ragged tiles are part
-    of the search; contraction chunks of 4..256, the large ones limited by
-    the device's shared memory per block (the wrappers reject them before
+    (``csrc/syr2k.cu``, ``csrc/matmul.cu``): output tiles of 8..128, which
+    the kernels pad to multiples of 8 and cover with one thread per 4x4
+    (past 64: 8x8) accumulators, including extents that are not multiples of
+    16 so ragged tiles are part of the search; contraction chunks of 4..256,
+    staged through a ring of up to three shared-memory stages that gives up
+    stages first, so only chunks whose single stage exceeds the device's
+    shared memory per block are refused (the wrappers reject them before
     launch, and the campaign records a penalty);
   * ``target="host"`` — the paper's literal 11-entry tile sequences
     ('4'...'2048'), identical to ``repro.kernels.spaces``'s host flavour, for

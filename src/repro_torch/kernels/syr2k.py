@@ -27,11 +27,18 @@ from repro_torch.kernels.util import (
 __all__ = ["syr2k", "syr2k_plain", "syr2k_smem_bytes"]
 
 
-def syr2k_smem_bytes(bi: int, bj: int, bk: int, pack_a: bool, pack_b: bool) -> int:
+def syr2k_smem_bytes(bi: int, bj: int, bk: int, pack_a: bool, pack_b: bool,
+                     limit: int | None = None) -> int:
     """Dynamic shared memory (bytes) one block of ``csrc/syr2k.cu`` needs for
-    this tile and these knobs, or -1 for a tile its register tile cannot
-    hold. The kernel's own layout answers, so the library is built first."""
-    return build.load("syr2k").syr2k_smem_bytes(bi, bj, bk, int(pack_a), int(pack_b))
+    this tile and these knobs under a per-block ``limit`` (default: the
+    current card's), or -1 for a tile its register tile cannot hold. The
+    kernel's ring takes as many stages (3 down to 1) as fit the limit, so a
+    result above it means even one stage does not fit. The kernel's own
+    layout answers, so the library is built first."""
+    if limit is None:
+        limit = max_shared_memory_per_block(torch.device("cuda"))
+    return build.load("syr2k").syr2k_smem_bytes(bi, bj, bk, int(pack_a), int(pack_b),
+                                                int(limit))
 
 
 def syr2k_plain(C, A, B, alpha: float = 1.5, beta: float = 1.2) -> torch.Tensor:
@@ -66,10 +73,10 @@ def syr2k(
     dev = C.device
     for name, t, shape in (("C", C, (N, N)), ("A", A, (N, M)), ("B", B, (N, M))):
         check_operand(name, t, shape, (torch.float32,), dev)
-    smem = syr2k_smem_bytes(bi, bj, bk, pack_a, pack_b)
+    limit = max_shared_memory_per_block(dev)
+    smem = syr2k_smem_bytes(bi, bj, bk, pack_a, pack_b, limit)
     if smem < 0:
         raise ConfigRejected(f"syr2k tile {bi}x{bj} does not fit the kernel's register tile")
-    limit = max_shared_memory_per_block(dev)
     if smem > limit:
         raise ConfigRejected(f"syr2k bi={bi} bj={bj} bk={bk} pack_a={pack_a} "
                              f"pack_b={pack_b} needs {smem} B of shared memory, "
@@ -82,7 +89,7 @@ def syr2k(
         err = lib.syr2k_launch(
             C.data_ptr(), A.data_ptr(), B.data_ptr(), out.data_ptr(),
             N, M, float(alpha), float(beta), bi, bj, bk,
-            int(pack_a), int(pack_b), int(interchange), stream)
+            int(pack_a), int(pack_b), int(interchange), limit, stream)
     build.check(lib, err, "syr2k")
     syr2k.launches += 1
     return out

@@ -58,3 +58,51 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc_path()
+
+
+def test_target_hash_covers_the_shared_headers(monkeypatch, tmp_path):
+    # a source may include any csrc/*.cuh: editing one rebuilds every source
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build._target("k")
+    assert build._target("k") == first
+    (tmp_path / "shared.cuh").write_text("// v2\n")
+    second = build._target("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new\n")
+    assert build._target("k") not in (first, second)
+
+
+@pytest.mark.parametrize("name", list(build.KERNELS))
+def test_included_headers_exist(name):
+    src = (build.CSRC / f"{name}.cu").read_text()
+    for header in re.findall(r'#include "([^"]+)"', src):
+        assert (build.CSRC / header).is_file(), f"csrc/{name}.cu includes a missing {header}"
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112syr2k_kernelILb1ELb1ELi4ELb1EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112syr2k_kernelILb1ELb1ELi4ELb1EEEvNS_4ArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 106 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113matmul_kernelI13__nv_bfloat16Lb0ELi4ELi4ELb0EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113matmul_kernelI13__nv_bfloat16Lb0ELi4ELi4ELb0EEEvNS_4ArgsE
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__bcca10_9_matmul_cu_a1044b9513matmul_kernelIfLb1ELi1ELi4ELb1EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Used 40 registers, used 1 barriers
+"""
+
+
+def test_ptxas_entries_reads_each_instantiation():
+    got = build.ptxas_entries(PTXAS_LOG)
+    assert got == [
+        dict(kernel="syr2k_kernel", args=[1, 1, 4, 1], registers=106, spill_stores=0,
+             spill_loads=0),
+        dict(kernel="matmul_kernel", args=["bfloat16", 0, 4, 4, 0], registers=80,
+             spill_stores=4, spill_loads=8),
+        dict(kernel="matmul_kernel", args=["float", 1, 1, 4, 1], registers=40,
+             spill_stores=0, spill_loads=0),
+    ]
+    assert build.ptxas_entries("") == []

@@ -25,7 +25,7 @@ from repro_torch.kernels.heat3d import heat3d, heat3d_plain, heat3d_step, heat3d
 from repro_torch.kernels.lu import lu, lu_factor_diag, lu_factor_diag_plain, lu_plain
 from repro_torch.kernels.matmul import matmul_smem_bytes, tiled_matmul, tiled_matmul_plain
 from repro_torch.kernels.syr2k import syr2k, syr2k_plain, syr2k_smem_bytes
-from repro_torch.kernels.util import ConfigRejected
+from repro_torch.kernels.util import ConfigRejected, max_shared_memory_per_block
 
 # scaled to the outputs, as in chip_smoke.py: syr2k entries are ~30 here;
 # the matmul's (1/sqrt(columns)-scaled inputs) ~0.1, where bf16, rounded
@@ -64,6 +64,37 @@ def test_syr2k_matches_plain_and_counts_launches(cuda):
     assert syr2k.launches == before + len(cfgs)
 
 
+@pytest.mark.parametrize("cfg", [
+    dict(bi=128, bj=8, bk=16, pack_a=True, pack_b=True),
+    dict(bi=8, bj=128, bk=32, pack_a=True, pack_b=True, interchange=True),
+    dict(bi=24, bj=56, bk=12, pack_a=True),
+    dict(bi=64, bj=40, bk=64, pack_a=False, pack_b=False, interchange=True),
+])
+def test_syr2k_rectangles_on_poisoned_outputs(cuda, cfg):
+    # ragged N, bi != bj: every element is written once, by the block holding
+    # it at (max, min) of its indices, whatever the tiles
+    C, A, B = problems.problem_inputs("syr2k", (203, 130), cuda)
+    want = syr2k_plain(C, A, B)
+    torch.full((203, 203), float("nan"), device=cuda)  # the next output's block
+    got = syr2k(C, A, B, **cfg)
+    assert torch.isfinite(got).all()
+    _close(got, want, SYR2K_TOL)
+    assert torch.equal(got, syr2k(C, A, B, bi=64, bj=64, bk=32, pack_a=True, pack_b=True))
+
+
+@pytest.mark.parametrize("M", [1, 4, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N", [(96, 1000), (130, 90)])
+def test_matmul_skinny_rows(cuda, M, dtype, K, N):
+    # the model's decode: bm=64 clamps to M rows, an 8-row tile; 96 x 1000
+    # stages by 16-byte copies, the ragged 130 x 90 element by element
+    a, b = (t.to(dtype) for t in problems.problem_inputs("mm3", (M, K, N, 1, 1), cuda)[:2])
+    torch.full((M, N), float("nan"), device=cuda)
+    got = tiled_matmul(a, b, bm=64, bn=64, bk=32)
+    want = tiled_matmul_plain(a, b, bk=32, pack=True, out_dtype=dtype)
+    _close(got, want, F32_TOL if dtype == torch.float32 else BF16_TOL)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pack", [True, False])
 def test_matmul_matches_plain(cuda, dtype, pack):
@@ -75,6 +106,20 @@ def test_matmul_matches_plain(cuda, dtype, pack):
     _close(got, want, F32_TOL if dtype == torch.float32 else BF16_TOL)
 
 
+@pytest.mark.parametrize("bn", [50, 30])
+@pytest.mark.parametrize("pack", [True, False])
+def test_matmul_tiles_not_a_multiple_of_4_columns(cuda, bn, pack):
+    # N % 4 == 0 but bn % 4 != 0: the second column tile starts off a 16-byte
+    # word, so the output is stored element by element (a float4 store there
+    # would fault)
+    a, b = problems.problem_inputs("mm3", (70, 96, 200, 1, 1), cuda)[:2]
+    torch.full((70, 200), float("nan"), device=cuda)
+    got = tiled_matmul(a, b, bm=32, bn=bn, bk=32, pack=pack)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _close(got, tiled_matmul_plain(a, b, bk=32, pack=pack, out_dtype=torch.float32), F32_TOL)
+
+
 def test_mm3_fuse_second_matches_reference(cuda):
     arrs = problems.problem_inputs("mm3", (80, 70, 60, 50, 40), cuda)
     got = ops.mm3_op(*arrs, config=dict(bm=24, bn=40, bk=16, fuse_second=True, pack3=False))
@@ -82,22 +127,40 @@ def test_mm3_fuse_second_matches_reference(cuda):
     _close(got, (A @ B) @ (C @ D), F32_TOL)
 
 
+LIMIT = 232448  # an H100's opt-in shared memory per block
+
+
 def test_syr2k_smem_accounting(cuda):
-    # per packed operand: k-major chunks of (rows padded to 64) + 4 floats,
-    # one for the i tile and one for the j tile; -1 past the register tile
-    assert syr2k_smem_bytes(64, 64, 32, False, False) == 0
-    assert syr2k_smem_bytes(64, 64, 32, True, False) == 4 * 32 * 68 * 2
-    assert syr2k_smem_bytes(64, 64, 32, True, True) == 4 * 32 * 68 * 4
-    assert syr2k_smem_bytes(48, 80, 24, True, True) == 4 * 2 * (24 * 68 + 24 * 132)
-    assert syr2k_smem_bytes(8, 8, 8, True, False) == 4 * 2 * 8 * 68
-    assert syr2k_smem_bytes(256, 64, 8, True, True) == -1
+    # a stage: one chunk per packed operand and side, pi (pj) rows padded to
+    # 8, each bk floats padded to 32 bytes plus 16; three stages where they
+    # fit the limit, at least the pi x (pj + 1) f32 tile of the transposed
+    # store; -1 past the register tile
+    assert syr2k_smem_bytes(64, 64, 32, False, False, LIMIT) == 4 * 64 * 65
+    assert syr2k_smem_bytes(64, 64, 32, True, False, LIMIT) == 3 * 2 * 64 * 144
+    assert syr2k_smem_bytes(64, 64, 32, True, True, LIMIT) == 3 * 4 * 64 * 144
+    assert syr2k_smem_bytes(48, 80, 24, True, True, LIMIT) == 3 * 2 * (48 + 80) * 112
+    assert syr2k_smem_bytes(8, 8, 8, True, False, LIMIT) == 3 * 2 * 8 * 48
+    assert syr2k_smem_bytes(256, 64, 8, True, True, LIMIT) == -1
+    # the ring gives up stages before the tile is refused
+    stage = 4 * 64 * 144
+    assert syr2k_smem_bytes(64, 64, 32, True, True, 2 * stage + 100) == 2 * stage
+    assert syr2k_smem_bytes(64, 64, 32, True, True, stage + 100) == stage
+    assert syr2k_smem_bytes(64, 64, 32, True, True, stage - 100) == stage  # refused
+    assert syr2k_smem_bytes(64, 64, 32, True, True) == syr2k_smem_bytes(
+        64, 64, 32, True, True, max_shared_memory_per_block(cuda))
 
 
 def test_matmul_smem_accounting(cuda):
-    assert matmul_smem_bytes(64, 64, 32) == 4 * 32 * (68 + 68)
-    assert matmul_smem_bytes(48, 80, 24) == 4 * 24 * (68 + 132)
-    assert matmul_smem_bytes(128, 8, 8) == 4 * 8 * (132 + 68)
-    assert matmul_smem_bytes(64, 136, 8) == -1
+    # a stage: A's chunk (pm rows of bk elements, padded to 32 bytes plus 16)
+    # and B's (bk rows of pn elements), in the input dtype; three stages
+    assert matmul_smem_bytes(64, 64, 32, limit=LIMIT) == 3 * (64 * 144 + 32 * 256)
+    assert matmul_smem_bytes(48, 80, 24, limit=LIMIT) == 3 * (48 * 112 + 24 * 320)
+    assert matmul_smem_bytes(128, 8, 8, limit=LIMIT) == 3 * (128 * 48 + 8 * 32)
+    assert matmul_smem_bytes(4, 64, 32, limit=LIMIT) == 3 * (8 * 144 + 32 * 256)
+    assert matmul_smem_bytes(64, 64, 32, torch.bfloat16, LIMIT) == 3 * (64 * 80 + 32 * 128)
+    assert matmul_smem_bytes(64, 136, 8, limit=LIMIT) == -1
+    stage = 64 * 144 + 32 * 256
+    assert matmul_smem_bytes(64, 64, 32, limit=stage + 1) == stage
 
 
 def test_oversized_tiles_are_rejected_before_launch(cuda):
@@ -106,7 +169,7 @@ def test_oversized_tiles_are_rejected_before_launch(cuda):
     with pytest.raises(ConfigRejected):
         tiled_matmul(a, b, bm=256, bn=64, bk=32)
     with pytest.raises(ConfigRejected):
-        tiled_matmul(a, b, bm=128, bn=128, bk=300)  # 300 * 2 * 132 floats > 227 KB
+        tiled_matmul(a, b, bm=128, bn=128, bk=300)  # one stage: 311 KB > 227 KB
     assert tiled_matmul.launches == before
     res = TimingEvaluator(problems.gpu_problem("syr2k", (300, 200), cuda))(
         dict(bi=128, bj=128, bk=256, pack_a=True, pack_b=True))

@@ -16,7 +16,7 @@ from repro.kernels.matmul import tiled_matmul as jax_tiled_matmul
 from repro.kernels.syr2k import syr2k as jax_syr2k
 from repro_torch.kernels import ops, problems, ref
 from repro_torch.kernels.m3mm import mm3
-from repro_torch.kernels.matmul import tiled_matmul, tiled_matmul_plain
+from repro_torch.kernels.matmul import tiled_matmul, tiled_matmul_check, tiled_matmul_plain
 from repro_torch.kernels.syr2k import syr2k, syr2k_plain
 from repro_torch.kernels.util import pad_to, resolve_device, unpad
 
@@ -85,6 +85,23 @@ def test_tiled_matmul_matches_pallas(dtype, pack, interchange):
     assert got.dtype == tdt and got.shape == (100, 90)
     tol = F32_TOL if dtype == "float32" else (BF16_TOL if pack else BF16_RMW_TOL)
     _close(got, np.asarray(want.astype(jnp.float32)), tol)
+
+
+@pytest.mark.parametrize("M", [1, 4])
+@pytest.mark.parametrize("pack", [True, False])
+def test_tiled_matmul_skinny_rows_match_pallas(M, pack):
+    """A few rows under a 64-row tile, as in the model's decode: bm clamps to
+    M in both packages."""
+    rng = np.random.default_rng(11 + M)
+    a = rng.standard_normal((M, 96), dtype=np.float32)
+    b = rng.standard_normal((96, 200), dtype=np.float32)
+    cfg = dict(bm=64, bn=64, bk=32, pack=pack)
+    want = jax_tiled_matmul(_jax(a), _jax(b), interpret=True, **cfg)
+    at, bt = ref.to_device((a, b), "cpu")
+    assert tiled_matmul_check(at, bt, bm=64, bn=64, bk=32) == (M, 64, 32)
+    got = tiled_matmul(at, bt, **cfg)
+    assert got.shape == (M, 200) and got.dtype == torch.float32
+    _close(got, want, F32_TOL)
 
 
 def test_tiled_matmul_out_dtype_and_clamping():
