@@ -14,14 +14,16 @@ checks each kernel on the card:
   3. kernel vs plain PyTorch version at the paper's LARGE sizes, over the
      knob combinations, with the tolerance stated beside each error (0 for
      the min-plus kernel, the blocked Floyd-Warshall and the two helpers,
-     which must agree bit for bit; syr2k on NaN-poisoned outputs, with the
-     same bits from every configuration; the matmul also at the model's
-     skinny shapes), and the gpu-space points each wrapper rejects before
-     launch;
+     which must agree bit for bit; syr2k and covariance on NaN-poisoned
+     outputs, with the same bits from every configuration, covariance's
+     exactly symmetric; the matmul also at the model's skinny shapes), and
+     the gpu-space points each wrapper rejects before launch;
   4. times at the default config (CUDA events, after warm-up): kernel,
      plain version, one PyTorch library call where there is one, and the
-     roofline bound (and the flops syr2k computes beside it); the matmul
-     also at the serving path's shapes (device time, torch.profiler); for
+     roofline bound (and the flops syr2k and covariance compute beside
+     it); the matmul also at the serving path's shapes (device time,
+     torch.profiler); decode_attention's split of the key axis and its
+     workspace, and its device time at the model's shape; for
      lu, floyd_warshall and heat3d also the kernel launches, the host wall
      time and the device time (torch.profiler) per call;
   5. the main path: `repro_torch.launch.autotune.main` campaigns at LARGE
@@ -40,7 +42,10 @@ checks each kernel on the card:
 
 Phases 3 and 4 also hold flash_attention and decode_attention against their
 plain versions at LARGE and at the model's shapes, and time them beside
-scaled_dot_product_attention (a yardstick only: the port never calls it).
+scaled_dot_product_attention (a yardstick only: the port never calls it);
+decode_attention with per-row positions that leave whole splits of the key
+axis empty, rows at cur_pos = -1 exactly 0, and repeated calls (also after a
+call at another BH) bit-identical.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Any failed phase raises and the
@@ -122,9 +127,13 @@ SERVE = dict(arch="qwen2-0.5b", batch=4, prompt_len=256, gen=32, seed=0)
 # the instantiations the main paths run at their defaults (ptxas template
 # arguments): syr2k<PACK_A, PACK_B, RT, VEC16> at 64x64 tiles of M = 1000;
 # matmul<input, PACK, TM, TN, VEC16> at 64x64 tiles (mm3, lu) and at the
-# model's 8-row decode tiles; phase 2 asserts that they spill nothing
+# model's 8-row decode tiles; covariance<FUSE_CENTER, RT, VEC16> at 64x64
+# tiles of M = 1200; decode<dtype, hd, VEC16> at the model's f32 cache, hd
+# 64; phase 2 asserts that they spill nothing
 MAIN_PATH_INSTANCES = {"syr2k": ([1, 1, 4, 1],),
-                       "matmul": (["float", 1, 4, 4, 1], ["float", 1, 1, 4, 1])}
+                       "matmul": (["float", 1, 4, 4, 1], ["float", 1, 1, 4, 1]),
+                       "covariance": ([1, 4, 1],),
+                       "decode_attention": (["float", 64, 1],)}
 # the serving path's matmul shapes (qwen2-0.5b, batch 4, prompt 256): name,
 # (M, K, N), launches per decode step (or per prefill forward)
 SERVE_MATMULS = (("decode unembed", (4, 896, 151936), "1 per decode step"),
@@ -178,13 +187,15 @@ def model_operands(M: int, K: int, N: int, device, seed: int = 0):
             torch.randn(K, N, device=device, generator=g) / N ** 0.5)
 
 
-def syr2k_computed_flops(N: int, M: int, bi: int, bj: int) -> float:
-    """Flops syr2k.cu executes: 4*M per element of every block's tile, padded
-    to multiples of 8, over the blocks not wholly above the diagonal."""
+def lower_tile_flops(n: int, bi: int, bj: int, per_element: float) -> float:
+    """Flops a kernel that pairs mirrored tiles of an n x n output executes
+    (syr2k.cu, covariance.cu): ``per_element`` per element of every block's
+    tile, padded to multiples of 8, over the blocks not wholly above the
+    diagonal."""
     pi, pj = -(-bi // 8) * 8, -(-bj // 8) * 8
-    blocks = sum(1 for ti in range(-(-N // bi)) for tj in range(-(-N // bj))
-                 if min((ti + 1) * bi, N) - 1 >= tj * bj)
-    return 4.0 * M * pi * pj * blocks
+    blocks = sum(1 for ti in range(-(-n // bi)) for tj in range(-(-n // bj))
+                 if min((ti + 1) * bi, n) - 1 >= tj * bj)
+    return per_element * pi * pj * blocks
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -271,7 +282,7 @@ def rejected_points(name: str, dims, limit: int) -> tuple[int, int]:
     tiles = list(itertools.product(GPU_TILES, GPU_TILES_K, GPU_TILES))
     if name == "covariance":
         N, M = dims
-        bad = sum(refused(covariance_smem_bytes(min(bi, M), min(bj, M), min(bk, N)))
+        bad = sum(refused(covariance_smem_bytes(min(bi, M), min(bj, M), min(bk, N), limit))
                   for (bi, bk, bj) in tiles)
         return bad * 4, len(tiles) * 4  # x fuse_center x interchange
     if name == "lu":
@@ -386,21 +397,53 @@ def check_attention(dev, errs: dict) -> None:
     q, k, v = (t.to(torch.bfloat16) for t in attention_inputs(4, 200, 200, 128, dev, seed=3))
     flash_case("bf16 (4, 200, 128)", q, k, v, True, 64, 64, ATTN_BF16_TOL)
 
-    def decode_case(label, q, k, v, cp, ring, window, bk, hg):
+    def decode_case(label, q, k, v, cp, ring, window, bk, hg, tol=ATTN_TOL):
         got = decode_attention(q, k, v, cp, ring=ring, window=window, bk=bk, hg=hg)
         torch.cuda.synchronize()
+        kr, vr = (t.rows() if isinstance(t, CacheRows) else t for t in (k, v))
         err = compare(f"decode_attention {label} ring={ring} window={window} bk={bk} hg={hg}",
-                      got, decode_attention_plain(q, k, v, cp, ring=ring, window=window),
-                      ATTN_TOL)
+                      got, decode_attention_plain(q, kr, vr, cp, ring=ring, window=window), tol)
         errs["decode_attention"] = max(errs["decode_attention"], err)
+        if bool((cp < 0).any()) and bool(got[cp < 0].ne(0).any()):
+            raise AssertionError("decode_attention: a cur_pos = -1 row is not exactly 0")
+        again = decode_attention(q, k, v, cp, ring=ring, window=window, bk=bk, hg=hg)
+        if not torch.equal(got, again):
+            raise AssertionError(f"decode_attention {label}: a second call gives other bits")
         return got
 
     BH, G, S, hd = problems.LARGE_SHAPES["decode_attention"]
     q, _, _ = attention_inputs(BH, G, 1, hd, dev, seed=4)
     _, k, v = attention_inputs(BH, 1, S, hd, dev, seed=5)
     full = torch.full((BH,), S - 1, dtype=torch.int32, device=dev)
-    for bk, hg in ((128, 1), (64, 2), (32, 4)):
+    for bk, hg in ((128, 1), (64, 2), (32, 4), (256, 1)):
         decode_case(f"LARGE ({BH}, {G}, {S}, {hd}) full cache", q, k, v, full, False, 0, bk, hg)
+    # the key axis split across blocks, per-row positions: an empty row
+    # (cur_pos = -1), rows whose valid slots all lie in the first split, rows
+    # ending inside a split, full rows and rows past the cache
+    mixed = torch.tensor([-1, 0, 5, 127, 128, 1000, 2047, 2048, 3000, S - 2, S - 1, S, S + 700,
+                          2 * S + 5, 64, -1], dtype=torch.int32, device=dev)
+    for ring, window in ((False, 0), (True, 0), (False, 1000), (True, 300)):
+        decode_case(f"LARGE ({BH}, {G}, {S}, {hd}) per-row positions", q, k, v, mixed, ring,
+                    window, 128, 1)
+    first = decode_attention(q, k, v, mixed, bk=128)
+    qm, _, _ = attention_inputs(8, 7, 1, 64, dev, seed=9)
+    _, km, vm = attention_inputs(8, 1, 288, 64, dev, seed=10)
+    decode_attention(qm, km, vm, 260, bk=128)  # another BH, other row groups and counters
+    if not torch.equal(first, decode_attention(q, k, v, mixed, bk=128)):
+        raise AssertionError("decode_attention: bits differ after a call at another BH")
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    decode_case(f"LARGE bf16 ({BH}, {G}, {S}, {hd}) per-row positions", qb, kb, vb, mixed,
+                False, 0, 128, 1, ATTN_BF16_TOL)
+    del qb, kb, vb
+    # the model's bucket of 288 at cur_pos 260 (three splits of 128, the last
+    # 32 slots: S not a multiple of the split) and a bucket below bk
+    for ring in (False, True):
+        decode_case("model (8, 7, 288, 64) cur_pos 260", qm, km, vm,
+                    torch.full((8,), 260, dtype=torch.int32, device=dev), ring, 0, 128, 1)
+    decode_case("model (8, 7, 100, 64), S < bk", qm, km[:, :100].contiguous(),
+                vm[:, :100].contiguous(), torch.tensor([-1, 0, 5, 50, 99, 150, 20, 77],
+                                                       dtype=torch.int32, device=dev),
+                True, 0, 128, 1)
     # the model's decode: batch 4 x 2 kv heads, G = 7, hd 64, bucket 384;
     # per-row positions, one row empty (cur_pos = -1), one past the bucket
     q, _, _ = attention_inputs(8, 7, 1, 64, dev, seed=6)
@@ -408,17 +451,16 @@ def check_attention(dev, errs: dict) -> None:
     cp = torch.tensor([-1, 0, 17, 127, 128, 255, 383, 500], dtype=torch.int32, device=dev)
     for ring, window in ((False, 0), (True, 0), (False, 100), (True, 100)):
         for bk, hg in ((128, 1), (64, 2), (256, 4)):
-            got = decode_case("model (8, 7, 384, 64)", q, k, v, cp, ring, window, bk, hg)
-            if bool(got[0].ne(0).any()):
-                raise AssertionError("decode_attention: the cur_pos = -1 row is not exactly 0")
+            decode_case("model (8, 7, 384, 64)", q, k, v, cp, ring, window, bk, hg)
     # the model's cache layout, read in place: (B, S, K, hd) as (B*K, S, hd) rows
     _, kc, vc = attention_inputs(4, 1, 384 * 2, 64, dev, seed=8)
     kc, vc = kc.reshape(4, 384, 2, 64), vc.reshape(4, 384, 2, 64)
-    got = decode_attention(q, CacheRows(kc), CacheRows(vc), cp, bk=128, hg=2)
-    torch.cuda.synchronize()
-    errs["decode_attention"] = max(errs["decode_attention"], compare(
-        "decode_attention model cache layout (4, 384, 2, 64) in place", got,
-        decode_attention_plain(q, CacheRows(kc).rows(), CacheRows(vc).rows(), cp), ATTN_TOL))
+    for bk, hg in ((128, 2), (32, 1)):
+        decode_case("model cache layout (4, 384, 2, 64) in place", q, CacheRows(kc),
+                    CacheRows(vc), cp, False, 0, bk, hg)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, kc, vc))
+    decode_case("model cache layout bf16 (4, 384, 2, 64) in place", qb, CacheRows(kb),
+                CacheRows(vb), cp, True, 100, 128, 1, ATTN_BF16_TOL)
 
 
 def time_attention(rows: dict) -> None:
@@ -485,6 +527,32 @@ def time_attention(rows: dict) -> None:
          ops.DEFAULTS["decode_attention"], rows["decode_attention"], dec_what)
     show("decode_attention model decode, cur_pos 260", (8, 7, 288, 64),
          ops.DEFAULTS["decode_attention"], decode_row(8, 7, 288, 64, 260, 4), dec_what)
+    # where a call's kernel is shorter than the host's wrapper, back-to-back
+    # calls time the host: the device time per launch (torch.profiler), at
+    # LARGE and at the model's shape, at the default bk and at 128
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    for (BH_, G_, S_, hd_, cp_) in ((BH, G, S, hd, S - 1), (8, 7, 288, 64, 260)):
+        q, _, _ = attention_inputs(BH_, G_, 1, hd_, dev, 4)
+        _, k, v = attention_inputs(BH_, 1, S_, hd_, dev, 5)
+        cp = torch.full((BH_,), cp_, dtype=torch.int32, device=dev)
+        for bk in sorted({ops.DEFAULTS["decode_attention"]["bk"], 128}):
+            dev_ms = device_time(
+                lambda: [decode_attention(q, k, v, cp, bk=bk) for _ in range(20)])[0]
+            print(f"  decode_attention ({BH_}, {G_}, {S_}, {hd_}), cur_pos {cp_}, bk={bk}: "
+                  f"{dev_ms / 20:.4f} ms per launch on the device (torch.profiler)", flush=True)
+        del q, k, v
+    from repro_torch.kernels.decode_attention import decode_attention_plan
+
+    d_cfg = ops.DEFAULTS["decode_attention"]
+    for label, (BH_, G_, S_, hd_) in (("LARGE", (BH, G, S, hd)), ("model", (8, 7, 288, 64))):
+        bk_ = min(d_cfg["bk"], S_)
+        nsplit, ws = decode_attention_plan(BH_, G_, S_, hd_, bk_, d_cfg["hg"], dev)
+        print(f"  decode_attention {label} ({BH_}, {G_}, {S_}, {hd_}) {d_cfg}: key axis in "
+              f"{nsplit} splits of {-(-(-(-S_ // bk_)) // nsplit)} x {bk_} slots, "
+              f"{nsplit * -(-BH_ // d_cfg['hg'])} blocks on "
+              f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs, workspace "
+              f"{ws} B of f32 partials + {-(-BH_ // d_cfg['hg']) * 4} B of counters", flush=True)
 
 
 def tree_to(tree: dict, device) -> dict:
@@ -583,10 +651,11 @@ def serving(launches: dict, dev) -> None:
           f"{step_ms:.4f} ms alone; bound {step_bound:.4f} ms (bytes: {weights / 1e9:.3f} GB "
           f"of weights and {kv / 1e6:.1f} MB of cache read per step at 3.35 TB/s); "
           f"{r['tokens_per_sec']:.1f} tok/s over the run")
-    mm_n = sum(c for k, (c, _) in by_name.items() if "matmul_kernel" in k)
-    mm_ms = sum(t for k, (_, t) in by_name.items() if "matmul_kernel" in k)
-    print(f"  one decode step on the device: the tiled matmul (csrc/matmul.cu) x{mm_n} "
-          f"{mm_ms:.4f} ms of {dev_ms:.4f} ms")
+    for label, kname in (("the tiled matmul (csrc/matmul.cu)", "matmul_kernel"),
+                         ("decode_attention (csrc/decode_attention.cu)", "decode_kernel")):
+        n = sum(c for k, (c, _) in by_name.items() if kname in k)
+        ms = sum(t for k, (_, t) in by_name.items() if kname in k)
+        print(f"  one decode step on the device: {label} x{n} {ms:.4f} ms of {dev_ms:.4f} ms")
     top = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:5]
     print(f"  one decode step on the device (torch.profiler): {busy}; largest: "
           + "; ".join(f"{k[:50]} x{c} {t:.4f} ms" for k, (c, t) in top), flush=True)
@@ -706,7 +775,7 @@ def main() -> int:
         print(f"  ptxas {name}: {len(regs)} kernel instantiations, registers per "
               f"thread {min(regs, default=0)}..{max(regs, default=0)}, spills: "
               f"{spills or 'none'}")
-    for name in ("syr2k", "matmul"):
+    for name in MAIN_PATH_INSTANCES:
         entries = build.ptxas_entries(build.ptxas_report(name))
         for e in entries:
             print(f"  ptxas {e['kernel']}<{', '.join(map(str, e['args']))}>: "
@@ -790,19 +859,33 @@ def main() -> int:
             tiled_matmul_plain(a, b, bk=32, pack=True, out_dtype=torch.float32), F32_TOL))
         del a, b, got
 
-    # covariance: fuse_center x interchange, a ragged tile, bk not dividing N
+    # covariance: fuse_center x interchange, ragged tiles (1200 % 64 != 0),
+    # bi != bj across the diagonal, bk not dividing N, each on a NaN-poisoned
+    # output; exactly symmetric, with the same bits from every configuration
     cov_dims = problems.LARGE_SHAPES["covariance"]
     (data,) = problems.problem_inputs("covariance", cov_dims, dev)
     want = covariance_plain(data)
     cfgs = [dict(bi=64, bj=64, bk=32, fuse_center=fc, interchange=ic)
             for fc in (True, False) for ic in (False, True)]
     cfgs += [dict(bi=48, bj=80, bk=24, fuse_center=True),  # 1400 % 24 != 0
-             dict(bi=128, bj=112, bk=48, fuse_center=False, interchange=True)]
+             dict(bi=48, bj=80, bk=24, fuse_center=False, interchange=True),
+             dict(bi=128, bj=112, bk=48, fuse_center=False, interchange=True),
+             dict(bi=128, bj=8, bk=256, fuse_center=True, interchange=True),
+             dict(bi=8, bj=128, bk=192, fuse_center=True)]
+    first = None
     for cfg in cfgs:
+        poison_next((cov_dims[1], cov_dims[1]), dev)
         got = covariance(data, **cfg)
         torch.cuda.synchronize()
         errs["covariance"] = max(errs["covariance"], compare(
             f"covariance {cov_dims} {cfg}", got, want, COV_TOL))
+        if not torch.equal(got, got.T):
+            raise AssertionError(f"covariance {cfg}: the output is not exactly symmetric")
+        first = got if first is None else first
+        if not torch.equal(got, first):
+            raise AssertionError(f"covariance {cfg}: bits differ from {cfgs[0]}")
+    print(f"  covariance: all {len(cfgs)} configurations give identical, exactly symmetric "
+          f"bits, on NaN-poisoned outputs")
 
     # min-plus and the blocked Floyd-Warshall: bit for bit against the plain
     # versions with the same bs; the blocked result also against the
@@ -886,7 +969,7 @@ def main() -> int:
     # one product suffices (S = A B^T + B A^T is symmetric): 2 N^2 M flops;
     # the kernel skips the blocks above the diagonal
     b_ms, b_by = bound(2.0 * N * N * M, 4.0 * (2 * N * M + 2 * N * N))
-    done = syr2k_computed_flops(N, M, min(sy_cfg["bi"], N), min(sy_cfg["bj"], N))
+    done = lower_tile_flops(N, min(sy_cfg["bi"], N), min(sy_cfg["bj"], N), 4.0 * M)
     rows["syr2k"] = dict(
         ms=time_ms(lambda: ops.syr2k_op(C, A, B, alpha, beta)),
         plain_ms=time_ms(lambda: syr2k_plain(C, A, B, alpha, beta)),
@@ -952,6 +1035,15 @@ def main() -> int:
           f"bound {b_ms:.4f} ms ({b_by}; counted: M(M+1)N flops, the symmetric half), plain "
           f"{rows['covariance']['plain_ms']:.4f} ms, library (torch.cov(data.T), f32, no TF32) "
           f"{rows['covariance']['library_ms']:.4f} ms", flush=True)
+    cov_cfg = ops.DEFAULTS["covariance"]
+    done = lower_tile_flops(M_cov, min(cov_cfg["bi"], M_cov), min(cov_cfg["bj"], M_cov),
+                            2.0 * cov_dims[0])
+    print(f"  covariance flops: the kernel computes {done / 1e9:.4f} GFLOP ({done / 2e9:.4f} G "
+          f"FFMA; blocks on or below the diagonal, tiles padded to 8), "
+          f"{done / (float(M_cov) * (M_cov + 1) * cov_dims[0]):.3f}x the bound's M(M+1)N = "
+          f"{float(M_cov) * (M_cov + 1) * cov_dims[0] / 1e9:.4f} GFLOP (both halves: "
+          f"{2.0 * M_cov * M_cov * cov_dims[0] / 1e9:.4f}); "
+          f"{done / (rows['covariance']['ms'] * 1e-3) / 1e12:.2f} TFLOP/s executed", flush=True)
 
     def per_call(name, fn, wrappers, event_ms):
         n = launches_per_call(fn, wrappers)

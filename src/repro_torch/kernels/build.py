@@ -39,7 +39,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # source name -> {C function: (argtypes, restype)}. The launchers return a
 # cudaError_t; *_smem_bytes return the bytes of dynamic shared memory a block
 # needs (-1 for a tile the kernel cannot hold), from the kernel's own layout;
-# syr2k's and matmul's take the device's limit, which sets their rings' depth.
+# syr2k's, matmul's and covariance's take the device's limit, which sets
+# their rings' depth.
 KERNELS: dict[str, dict[str, tuple[list, type]]] = {
     "syr2k": {
         # C, A, B, O, N, M, alpha, beta, bi, bj, bk, pack_a, pack_b, interchange,
@@ -56,10 +57,11 @@ KERNELS: dict[str, dict[str, tuple[list, type]]] = {
         "matmul_smem_bytes": ([_I, _I, _I, _I, _I], _L),
     },
     "covariance": {
-        # data, mean, O, N, M, bi, bj, bk, fuse_center, interchange, stream
-        "covariance_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-        # bi, bj, bk
-        "covariance_smem_bytes": ([_I, _I, _I], _L),
+        # data, mean, O, N, M, bi, bj, bk, fuse_center, interchange, smem limit,
+        # stream
+        "covariance_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        # bi, bj, bk, smem limit
+        "covariance_smem_bytes": ([_I, _I, _I, _I], _L),
     },
     "floyd_warshall": {
         # D, A, B, O, n, m, bs, bi, bj, unroll, stream
@@ -82,12 +84,16 @@ KERNELS: dict[str, dict[str, tuple[list, type]]] = {
         "flash_attention_smem_bytes": ([_I, _I, _I], _L),
     },
     "decode_attention": {
-        # q, k, v, cur_pos, o, BH, G, S, hd, Kh, stride_b, stride_s, stride_h,
-        # bk, hg, ring, window, scale, bf16, stream
-        "decode_attention_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
-                                     _I, _I, _I, _I, _F, _I, _P], _I),
-        # G, bk, hd
-        "decode_attention_smem_bytes": ([_I, _I, _I], _L),
+        # q, k, v, cur_pos, o, workspace, counters, BH, G, S, hd, Kh, stride_b,
+        # stride_s, stride_h, bk, hg, nsplit, ring, window, scale, bf16, stream
+        "decode_attention_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
+                                     _L, _I, _I, _I, _I, _I, _F, _I, _P], _I),
+        # G, bk, hd, bf16
+        "decode_attention_smem_bytes": ([_I, _I, _I, _I], _L),
+        # BH, S, bk, hg, SM count -> splits of the key axis
+        "decode_attention_splits": ([_I, _I, _I, _I, _I], _I),
+        # BH, G, hd, nsplit -> bytes of f32 partials
+        "decode_attention_workspace_bytes": ([_I, _I, _I, _I], _L),
     },
     "lu": {
         # A, ld, off, bs, stream: the diagonal-block factor, in place

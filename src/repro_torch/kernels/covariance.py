@@ -8,9 +8,9 @@ version :func:`covariance_plain` only for tensors on the CPU. Knob mapping
 
   * ``bi``/``bj``   -> output (attribute x attribute) tile;
   * ``bk``          -> chunk of the reduction over the N data points;
-  * ``fuse_center`` -> subtract the column means inside the kernel, while it
-                       stages each chunk, instead of in a separate centering
-                       pass before it;
+  * ``fuse_center`` -> subtract the column means inside the kernel, from each
+                       chunk in shared memory as it lands, instead of in a
+                       separate centering pass before it;
   * ``interchange`` -> which output tile axis the block raster walks first.
 
 The means come from a plain ``data.mean(0)`` in both cases, as in the JAX
@@ -32,11 +32,16 @@ from repro_torch.kernels.util import (
 __all__ = ["covariance", "covariance_plain", "covariance_smem_bytes"]
 
 
-def covariance_smem_bytes(bi: int, bj: int, bk: int) -> int:
+def covariance_smem_bytes(bi: int, bj: int, bk: int, limit: int | None = None) -> int:
     """Dynamic shared memory (bytes) one block of ``csrc/covariance.cu``
-    needs for this tile, or -1 for a tile its register tile cannot hold.
-    The kernel's own layout answers, so the library is built first."""
-    return build.load("covariance").covariance_smem_bytes(bi, bj, bk)
+    needs for this tile under a per-block ``limit`` (default: the current
+    card's), or -1 for a tile its register tile cannot hold. The kernel's
+    ring takes as many stages (3 down to 1) as fit the limit, so a result
+    above it means even one stage does not fit. The kernel's own layout
+    answers, so the library is built first."""
+    if limit is None:
+        limit = max_shared_memory_per_block(torch.device("cuda"))
+    return build.load("covariance").covariance_smem_bytes(bi, bj, bk, int(limit))
 
 
 def covariance_plain(data: torch.Tensor) -> torch.Tensor:
@@ -66,10 +71,10 @@ def covariance(
 
     dev = data.device
     check_operand("data", data, (N, M), (torch.float32,), dev)
-    smem = covariance_smem_bytes(bi, bj, bk)
+    limit = max_shared_memory_per_block(dev)
+    smem = covariance_smem_bytes(bi, bj, bk, limit)
     if smem < 0:
         raise ConfigRejected(f"covariance tile {bi}x{bj} does not fit the kernel's register tile")
-    limit = max_shared_memory_per_block(dev)
     if smem > limit:
         raise ConfigRejected(f"covariance bi={bi} bj={bj} bk={bk} needs {smem} B of "
                              f"shared memory, the device allows {limit} B per block")
@@ -82,7 +87,7 @@ def covariance(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.covariance_launch(
             src.data_ptr(), mean.data_ptr(), out.data_ptr(), N, M, bi, bj, bk,
-            int(fuse_center), int(interchange), stream)
+            int(fuse_center), int(interchange), limit, stream)
     build.check(lib, err, "covariance")
     covariance.launches += 1
     return out

@@ -1,6 +1,7 @@
-// The main loop shared by syr2k.cu and matmul.cu: f32 FFMA products on the
-// CUDA cores of an H100, fed by a ring of shared-memory stages that cp.async
-// fills while the previous chunk's multiply-adds run.
+// The main loop shared by syr2k.cu, matmul.cu and covariance.cu: f32 FFMA
+// products on the CUDA cores of an H100, fed by a ring of shared-memory
+// stages that cp.async fills while the previous chunk's multiply-adds run.
+// decode_attention.cu streams its cache through the same ring and copies.
 //
 // What bounds these products: at the paper's LARGE sizes they are
 // compute-bound on the CUDA cores (f32 FFMA, 67 TFLOP/s), not on HBM; the
@@ -21,7 +22,7 @@
 //     box, so the inner loop runs over whole float4s.
 //   * A ring of up to MAX_STAGES = 3 chunks (run_ring): chunks c+1 and c+2
 //     are copied while chunk c is multiplied, with one cp.async.wait_group
-//     and one barrier per chunk. The depth is the deepest that fits the
+//     and one barrier per chunk (covariance.cu runs up to six small stages). The depth is the deepest that fits the
 //     device's shared memory per block, read at run time (ring_stages); a
 //     tile that fits only one stage runs unpipelined rather than being
 //     refused. Each thread's share of a chunk's copies is planned once per
@@ -56,6 +57,7 @@ constexpr int ALIGN = 8;         // tile extents are padded to multiples of 8
 constexpr int MAX_TILE = 128;    // largest tile extent (16 threads x RT = 8)
 constexpr int MAX_THREADS = 256; // (128 / 8)^2
 constexpr int MAX_STAGES = 3;
+constexpr int MAX_DEEP_STAGES = 6;  // run_ring's deepest ring (covariance.cu's small stages)
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -67,13 +69,14 @@ __host__ __device__ inline int reg_tile(int pm, int pn) { return (pm > 64 || pn 
 // odd one, so that 8 consecutive rows start in 8 different bank quads.
 __host__ __device__ inline int kpitch(int bk, int size) { return round_up(bk * size, 32) + 16; }
 
-// The deepest ring (MAX_STAGES down to 1) whose stages, or the epilogue's
+// The deepest ring (max_stages down to 1) whose stages, or the epilogue's
 // `floor` bytes if larger, fit in `limit`; 1 if none does (the caller then
 // reports the bytes and the wrapper refuses the tile). Deeper rings bought
 // nothing on the skinny products and cost the unembed blocks per SM, so the
-// depth stops at 3.
-__host__ __device__ inline int ring_stages(long long stage, long long floor, long long limit) {
-  int s = MAX_STAGES;
+// depth stops at 3 there.
+__host__ __device__ inline int ring_stages(long long stage, long long floor, long long limit,
+                                           int max_stages = MAX_STAGES) {
+  int s = max_stages;
   while (s > 1 && (s * stage > limit || floor > limit)) --s;
   return s;
 }
@@ -163,8 +166,12 @@ __device__ __forceinline__ void copy_box(const Plan& q, char* s, int pitch, cons
 // next load reuses. With one stage the loop is unpipelined (two barriers per
 // chunk). On return every copy has landed and every thread is past the last
 // compute, so the caller may reuse the ring's memory.
-template <typename Load, typename Compute>
-__device__ __forceinline__ void run_ring(int nchunks, int stages, Load&& load,
+// landed(c, slot) runs in each thread after its own copies of chunk c have
+// landed (cp.async.wait_group makes them visible to the thread that issued
+// them) and before the barrier that publishes them to the block: a thread may
+// rewrite the pieces it copied itself there (covariance.cu centres them).
+template <typename Load, typename Landed, typename Compute>
+__device__ __forceinline__ void run_ring(int nchunks, int stages, Load&& load, Landed&& landed,
                                          Compute&& compute) {
   for (int s = 0; s < stages - 1; ++s) {
     if (s < nchunks) load(s, s);
@@ -176,8 +183,14 @@ __device__ __forceinline__ void run_ring(int nchunks, int stages, Load&& load,
       load(c, 0);
       cp_async_commit();
     }
-    if (stages >= 3) cp_async_wait<1>();  // at most chunk c+1 still pending
-    else cp_async_wait<0>();
+    switch (stages) {  // chunks c+1 .. c+stages-2 may still be pending
+      case 6: cp_async_wait<4>(); break;
+      case 5: cp_async_wait<3>(); break;
+      case 4: cp_async_wait<2>(); break;
+      case 3: cp_async_wait<1>(); break;
+      default: cp_async_wait<0>();
+    }
+    landed(c, c % stages);
     __syncthreads();
     if (stages >= 2) {
       const int n = c + stages - 1;
@@ -188,6 +201,12 @@ __device__ __forceinline__ void run_ring(int nchunks, int stages, Load&& load,
   }
   cp_async_wait<0>();
   __syncthreads();
+}
+
+template <typename Load, typename Compute>
+__device__ __forceinline__ void run_ring(int nchunks, int stages, Load&& load,
+                                         Compute&& compute) {
+  run_ring(nchunks, stages, load, [](int, int) {}, compute);
 }
 
 // ---- reads -----------------------------------------------------------------
@@ -216,6 +235,22 @@ __device__ __forceinline__ float4 ldg4(const float* X, int valid) {
   if (VEC16) return __ldg(reinterpret_cast<const float4*>(X));
   return make_float4(valid > 0 ? __ldg(X) : 0.f, valid > 1 ? __ldg(X + 1) : 0.f,
                      valid > 2 ? __ldg(X + 2) : 0.f, valid > 3 ? __ldg(X + 3) : 0.f);
+}
+
+// Raise `kernel`'s dynamic shared-memory limit to `bytes` where it passes the
+// default 48 KB, once per device and size: cudaFuncSetAttribute on every
+// launch would cost the host microseconds per call (a decode step launches
+// decode_attention 24 times). `done` is the caller's per-instantiation record.
+template <typename F>
+inline cudaError_t allow_smem(F* kernel, long long bytes, long long (&done)[16]) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 16 && done[dev] >= bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess && dev < 16) done[dev] = bytes;
+  return e;
 }
 
 // True when p is 16-byte aligned: one condition of the 16-byte copy form, whose

@@ -16,8 +16,9 @@ Same contract as ``repro.kernels.decode_attention.decode_attention``:
   * ``cur_pos`` (BH,) int32 per-row positions (a scalar broadcasts);
   * ``ring``/``window`` — the mask is ``_decode_mask``'s; masked slots get
     ``p = 0``, so a row with ``cur_pos = -1`` returns exactly 0;
-  * ``bk`` -> the KV block of the online-softmax loop, ``hg`` -> how many
-    rows one block of the kernel walks.
+  * ``bk`` -> the KV block of the online-softmax loop: the kernel splits the
+    key axis across blocks in whole ``bk`` blocks (:func:`decode_attention_plan`),
+    ``hg`` -> how many rows one block of the kernel walks.
 
 Also here, as torch functions: :func:`chunked_decode_xla` (the JAX package's
 ``impl="xla"`` variant: the same recurrence over ``bk`` chunks in tensor
@@ -28,6 +29,7 @@ scores as the JAX package writes it).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -40,7 +42,7 @@ from repro_torch.kernels.util import (
 
 __all__ = ["CacheRows", "decode_attention", "decode_attention_plain",
            "decode_attention_smem_bytes", "decode_attention_check",
-           "chunked_decode_xla", "decode_ref", "decode_mask"]
+           "decode_attention_plan", "chunked_decode_xla", "decode_ref", "decode_mask"]
 
 _NEG = -1.0e30
 DTYPES = (torch.float32, torch.bfloat16)
@@ -95,11 +97,52 @@ def decode_mask(slots: torch.Tensor, cp: torch.Tensor, *, s_real: int, ring: boo
     return kpos, valid
 
 
-def decode_attention_smem_bytes(G: int, bk: int, hd: int) -> int:
+def decode_attention_smem_bytes(G: int, bk: int, hd: int,
+                                dtype: torch.dtype = torch.float32) -> int:
     """Dynamic shared memory (bytes) one block of ``csrc/decode_attention.cu``
-    needs for (G, bk, hd), or -1 for what the kernel does not take. The
-    kernel's own layout answers, so the library is built first."""
-    return build.load("decode_attention").decode_attention_smem_bytes(G, bk, hd)
+    needs for (G, bk, hd) and the cache's ``dtype``, or -1 for what the
+    kernel does not take. The kernel's own layout answers, so the library is
+    built first."""
+    return build.load("decode_attention").decode_attention_smem_bytes(
+        G, bk, hd, int(dtype == torch.bfloat16))
+
+
+def decode_attention_plan(BH: int, G: int, S: int, hd: int, bk: int, hg: int,
+                          device: torch.device) -> tuple[int, int]:
+    """``(nsplit, workspace bytes)`` of a launch: the key axis split into
+    whole ``bk`` blocks for about four blocks per SM of ``device`` (at most
+    32 splits), from the shapes alone (never ``cur_pos``, which lives on the
+    device), and the f32 partials of the splits (0 for one split). The
+    kernel library answers; the answer is cached per shape and device, since
+    the wrapper asks at every decode step."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _plan(BH, G, S, hd, bk, hg, index)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(BH: int, G: int, S: int, hd: int, bk: int, hg: int, index: int) -> tuple[int, int]:
+    lib = build.load("decode_attention")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    nsplit = lib.decode_attention_splits(BH, S, bk, hg, sms)
+    return nsplit, lib.decode_attention_workspace_bytes(BH, G, hd, nsplit)
+
+
+# (device index, stream) -> (f32 partials, int32 arrival counters). The kernel
+# leaves every counter at 0, so a buffer serves every later launch on its
+# stream; one stream's launches run in order, so they may share it.
+_WORKSPACES: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(dev: torch.device, stream: int, nbytes: int,
+               groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (dev.index, stream)
+    ws, counters = _WORKSPACES.get(key, (None, None))
+    if ws is None or ws.numel() * 4 < nbytes:
+        ws = torch.empty((nbytes + 3) // 4, dtype=torch.float32, device=dev)
+    if counters is None or counters.numel() < groups:
+        counters = torch.zeros(groups, dtype=torch.int32, device=dev)
+    _WORKSPACES[key] = (ws, counters)
+    return ws, counters
 
 
 def decode_attention_plain(q, k, v, cur_pos, *, ring: bool = False, window: int = 0,
@@ -144,7 +187,7 @@ def decode_attention_check(q, k, v, cur_pos=None, *, bk: int = 128,
     for name, t in (("k", k), ("v", v)):
         t = t.cache if isinstance(t, CacheRows) else t
         check_operand(name, t, tuple(t.shape), (q.dtype,), dev)
-    smem = decode_attention_smem_bytes(G, bk, hd)
+    smem = decode_attention_smem_bytes(G, bk, hd, q.dtype)
     if smem < 0:
         raise ConfigRejected(f"decode_attention G={G} bk={bk} hd={hd}: the kernel takes bk "
                              f"up to 256, hd 16/32/64/128 and G up to 8*256/hd")
@@ -191,12 +234,15 @@ def decode_attention(
     cp = _positions(cur_pos, BH, dev)
     out = torch.empty((BH, G, hd), dtype=q.dtype, device=dev)
     lib = build.load("decode_attention")
+    nsplit, ws_bytes = decode_attention_plan(BH, G, S, hd, bk, hg, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        ws, counters = _workspace(dev, stream, ws_bytes, -(-BH // hg))
         err = lib.decode_attention_launch(
             q.data_ptr(), kt.data_ptr(), vt.data_ptr(), cp.data_ptr(), out.data_ptr(),
-            BH, G, S, hd, Kh, sb, ss, sh, bk, hg, int(bool(ring)), window, float(scale),
-            int(q.dtype == torch.bfloat16), stream)
+            ws.data_ptr(), counters.data_ptr(), BH, G, S, hd, Kh, sb, ss, sh, bk, hg,
+            nsplit, int(bool(ring)), window, float(scale), int(q.dtype == torch.bfloat16),
+            stream)
     build.check(lib, err, "decode_attention")
     decode_attention.launches += 1
     return out

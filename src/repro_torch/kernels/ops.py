@@ -23,9 +23,11 @@ For the kernels of the second slice, at their LARGE sizes:
     launch from the host), and 64x64 trailing tiles with the whole 64-deep
     contraction staged (pack): 35 KB of shared memory per block, and 900 to
     4 blocks as the trailing matrix shrinks;
-  * covariance (1400 x 1200): as syr2k, 64x64 output tiles (361 blocks,
-    2.7 waves) and 32-row chunks of the data, centred while staged
-    (fuse_center), so no separate centring pass reads and writes the data;
+  * covariance (1400 x 1200): as syr2k, 64x64 output tiles (361 blocks of
+    which the 190 on or below the diagonal work, one product per mirrored
+    pair) and 32-row chunks of the data in a six-stage ring (97 KB, two
+    blocks an SM), centred in shared memory as they land (fuse_center), so
+    no separate centring pass reads and writes the data;
   * floyd_warshall (N=2800): 64-wide blocks, so 44 rounds of 4 launches
     (bs=16 would be 175 rounds, bs=256 a 256-step single-block closure per
     round), 64x64 tiles (1,936 blocks in the trailing update), and the k
@@ -41,9 +43,13 @@ For the serving path's kernels:
     hd=128) that is 1,024 blocks and 116 KB of shared memory a block; at
     the model's prefill (BH=8, S=256, hd=64), 32 blocks per call (the
     model's G = 7 query groups are 7 calls);
-  * decode_attention: 128-slot KV blocks, one row per block (``hg=1``:
-    BH blocks, which is few, 16 at LARGE and 8 for the model; splitting
-    the key axis across blocks is a later design);
+  * decode_attention: 32-slot KV blocks, one row per block (``hg=1``). The
+    kernel splits the key axis across blocks in whole ``bk`` blocks (about
+    four blocks per SM, at most 32 splits), so ``bk`` sets how finely a
+    short cache can split: 32, the kernel's ring chunk, gives the model's
+    bucket of 288 nine splits (72 blocks) where 128 gives three (24 blocks,
+    each walking four chunks in turn), and LARGE 32 splits of four blocks
+    (512 blocks) either way (``chip_smoke.py`` phase 4 times both);
   * matmul (the model's output projection and unembed): mm3's tiles and
     f32 accumulation in registers (``pack=True``); at the decode's 4 rows
     the 64-row tile clamps to 4, an 8-row tile of 128 threads (one row of
@@ -76,7 +82,7 @@ DEFAULTS: dict[str, dict[str, Any]] = {
     "covariance": dict(bi=64, bj=64, bk=32, fuse_center=True, interchange=False),
     "floyd_warshall": dict(bs=64, bi=64, bj=64, unroll=4),
     "flash_attention": dict(impl="pallas", bq=64, bk=64),
-    "decode_attention": dict(impl="pallas", bk=128, hg=1),
+    "decode_attention": dict(impl="pallas", bk=32, hg=1),
     "matmul": dict(bm=64, bn=64, bk=32, pack=True, interchange=False),
 }
 

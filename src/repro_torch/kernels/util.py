@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -49,9 +51,11 @@ def unpad(x: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     return x[tuple(slice(0, s) for s in shape)]
 
 
+@functools.lru_cache(maxsize=64)
 def max_shared_memory_per_block(device: torch.device) -> int:
     """Opt-in dynamic shared memory one block may use on ``device``, read at
-    run time (H100 SXM and PCIe parts differ, and so may later cards)."""
+    run time (H100 SXM and PCIe parts differ, and so may later cards), once
+    per device: the wrappers ask before every launch."""
     props = torch.cuda.get_device_properties(device)
     return int(getattr(props, "shared_memory_per_block_optin",
                        props.shared_memory_per_block))

@@ -25,6 +25,8 @@ from repro_torch.kernels.decode_attention import (
     CacheRows,
     chunked_decode_xla,
     decode_attention,
+    decode_attention_plain,
+    decode_mask,
     decode_ref,
 )
 from repro_torch.kernels.flash_attention import flash_attention
@@ -110,6 +112,50 @@ def test_decode_matches_pallas_xla_and_ref(ring, window, G, hd):
     ref = decode_ref(*_t(q, k, v, cur), **kw)
     _close(ref, jax_decode_ref(*_j(q, k, v, cur), **kw))
     _close(got[:5], ref[:5])
+
+
+def _split_and_combine(q, k, v, cur, *, splits, bk, ring, window):
+    """The CUDA kernel's rule in torch: the key axis in ``splits`` splits of
+    whole ``bk`` blocks, each a partial (m, l, acc) with p = 0 on masked
+    slots (a split with no valid slot gives m = -1e30, l = 0, acc = 0), then
+    merged: M = max m_s, L = sum l_s exp(m_s - M),
+    O = sum acc_s exp(m_s - M) / max(L, 1e-30). Returns O and the number of
+    (row, split) pairs that held no valid slot."""
+    BH, G, hd = q.shape
+    S = k.shape[1]
+    span = -(-(-(-S // bk)) // splits) * bk
+    cp = cur.reshape(BH, 1, 1)
+    parts, empty = [], 0
+    for s in range(splits):
+        a, b = s * span, min(S, (s + 1) * span)
+        slots = torch.arange(a, max(a, b), dtype=torch.int32).reshape(1, 1, -1)
+        _, valid = decode_mask(slots, cp, s_real=S, ring=ring, window=window)
+        sc = torch.einsum("bgh,bsh->bgs", q, k[:, a:b]) * hd ** -0.5
+        sc = torch.where(valid, sc, -1.0e30)
+        m = torch.cat([sc, torch.full((BH, G, 1), -1.0e30)], -1).amax(-1, keepdim=True)
+        p = torch.where(valid, torch.exp(sc - m), 0.0)
+        parts.append((m, p.sum(-1, keepdim=True), torch.einsum("bgs,bsh->bgh", p, v[:, a:b])))
+        empty += int((~valid.any(-1)).any(-1).sum())
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    L = sum(l * torch.exp(m - M) for m, l, _ in parts)
+    O = sum(acc * torch.exp(m - M) for m, _, acc in parts)
+    return O / L.clamp_min(1e-30), empty
+
+
+@pytest.mark.parametrize("ring,window", [(False, 0), (True, 0), (False, 7), (True, 7)])
+@pytest.mark.parametrize("splits", [1, 3, 5])
+def test_decode_split_and_combine_matches_pallas_and_plain(splits, ring, window):
+    # (6, 7, 40, 16) in 8-slot blocks: 5 splits of 8 slots, 3 of 16, 16 and
+    # 8 (40 is not a multiple of the split), 1 of 40
+    q, k, v, cur = _decode_inputs(6, 7, 40, 16, ring, seed=splits)
+    got, empty = _split_and_combine(*_t(q, k, v, cur), splits=splits, bk=8, ring=ring,
+                                    window=window)
+    want = jax_decode_attention(*_j(q, k, v, cur), bk=8, hg=1, ring=ring, window=window,
+                                interpret=True)
+    _close(got, want)
+    _close(got, decode_attention_plain(*_t(q, k, v, cur), ring=ring, window=window))
+    assert torch.count_nonzero(got[5]) == 0          # cur_pos = -1: exactly 0
+    assert empty >= (splits if splits > 1 else 1)    # splits with no valid slot add nothing
 
 
 def test_decode_scalar_position_broadcasts():

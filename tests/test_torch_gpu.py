@@ -209,10 +209,45 @@ def test_covariance_matches_plain(cuda, cfg):
 
 
 def test_covariance_smem_accounting(cuda):
-    # two k-major chunks: bk rows of (tile padded to 64) + 4 floats each
-    assert covariance_smem_bytes(64, 64, 32) == 4 * 32 * (68 + 68)
-    assert covariance_smem_bytes(48, 80, 24) == 4 * 24 * (68 + 132)
-    assert covariance_smem_bytes(136, 64, 8) == -1
+    # the column means (pi + pj floats), then stages of two slabs, bk rows of
+    # the tile padded to 8 floats each: six where six fit 110 KB, else three
+    # as the limit allows; at least the pi x (pj + 1) f32 tile of the
+    # transposed store; -1 past the register tile
+    assert covariance_smem_bytes(64, 64, 32, LIMIT) == 4 * 128 + 6 * 4 * 32 * 128
+    assert covariance_smem_bytes(48, 80, 24, LIMIT) == 4 * 128 + 6 * 4 * 24 * 128
+    assert covariance_smem_bytes(64, 64, 64, LIMIT) == 4 * 128 + 3 * 4 * 64 * 128
+    assert covariance_smem_bytes(128, 128, 64, LIMIT) == 4 * 256 + 3 * 4 * 64 * 256
+    assert covariance_smem_bytes(8, 8, 4, LIMIT) == 4 * 16 + 6 * 4 * 4 * 16
+    assert covariance_smem_bytes(136, 64, 8, LIMIT) == -1
+    # the ring gives up stages before the tile is refused
+    stage, mean = 4 * 32 * 128, 4 * 128
+    assert covariance_smem_bytes(64, 64, 32, mean + 2 * stage + 100) == mean + 2 * stage
+    assert covariance_smem_bytes(64, 64, 32, mean + stage + 100) == mean + stage
+    assert covariance_smem_bytes(64, 64, 32, stage - 100) == mean + stage  # refused
+    assert covariance_smem_bytes(64, 64, 32) == covariance_smem_bytes(
+        64, 64, 32, max_shared_memory_per_block(cuda))
+
+
+@pytest.mark.parametrize("interchange", [False, True])
+@pytest.mark.parametrize("fuse_center", [True, False])
+def test_covariance_symmetric_tiles_on_poisoned_outputs(cuda, interchange, fuse_center):
+    # ragged M, bi != bj, rectangles across the diagonal: every element is
+    # written once, by the block holding it at (max, min) of its indices, in
+    # one summation order, so O is exactly symmetric and its bits do not
+    # depend on the tiles, the chunk or the raster
+    (data,) = problems.problem_inputs("covariance", (77, 203), cuda)
+    want = covariance_plain(data)
+    outs = []
+    for cfg in (dict(bi=48, bj=80, bk=24), dict(bi=128, bj=8, bk=16),
+                dict(bi=8, bj=128, bk=77), dict(bi=30, bj=50, bk=7), dict(bi=64, bj=64, bk=32)):
+        torch.full((203, 203), float("nan"), device=cuda)  # the next output's block
+        got = covariance(data, fuse_center=fuse_center, interchange=interchange, **cfg)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), cfg
+        assert torch.equal(got, got.T), cfg
+        _close(got, want, COV_TOL)
+        outs.append(got)
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
 @pytest.mark.parametrize("unroll", [1, 2, 4, 8])
@@ -378,6 +413,97 @@ def test_decode_attention_reads_the_model_cache_in_place(cuda):
     _close(got, want, ATTN_TOL)
 
 
+def _decode_cases(cuda, BH, G, S, hd, seed):
+    q, k, v = _normal(cuda, (BH, G, hd), (BH, S, hd), (BH, S, hd), seed=seed)
+    # an empty row, rows whose valid slots all lie in the first split, a full
+    # row, one past the cache, one mid-way
+    cp = torch.tensor([-1, 0, 5, S - 1, S + 25, S // 2 + 3][:BH], dtype=torch.int32,
+                      device=cuda)
+    return q, k, v, cp
+
+
+@pytest.mark.parametrize("ring,window", [(False, 0), (True, 0), (False, 9), (True, 300)])
+@pytest.mark.parametrize("S,bk,hg", [(1000, 32, 1), (1000, 64, 2), (777, 128, 1), (40, 64, 1)])
+def test_decode_attention_split_key_axis(cuda, ring, window, S, bk, hg):
+    # S = 1000 and 777 split into whole bk blocks, the last one ragged; S = 40
+    # below bk is one split; splits with no valid slot skip their loads
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+        decode_attention_plan,
+    )
+
+    BH, G, hd = 6, 7, 64
+    q, k, v, cp = _decode_cases(cuda, BH, G, S, hd, seed=S + bk)
+    nsplit, ws = decode_attention_plan(BH, G, S, hd, min(bk, S), hg, cuda)
+    assert (nsplit > 1) == (S > bk) and (ws > 0) == (nsplit > 1)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, cp, ring=ring, window=window, bk=bk, hg=hg)
+    assert decode_attention.launches == before + 1
+    _close(got, decode_attention_plain(q, k, v, cp, ring=ring, window=window), ATTN_TOL)
+    assert torch.count_nonzero(got[0]) == 0   # cur_pos = -1: exactly 0
+    # the same bits again: the partials merge in a fixed order
+    assert torch.equal(got, decode_attention(q, k, v, cp, ring=ring, window=window, bk=bk,
+                                             hg=hg))
+
+
+@pytest.mark.parametrize("G,hd", [(128, 16), (3, 16), (64, 32), (1, 32), (16, 128), (5, 128)])
+def test_decode_attention_head_sizes(cuda, G, hd):
+    # every head size at its largest G (8 * 256 / hd: eight heads a thread
+    # in the P V pass) and at a small one, split and not, f32 and bf16
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+
+    for S, bk in ((300, 32), (20, 32)):
+        q, k, v, cp = _decode_cases(cuda, 6, G, S, hd, seed=G + hd + S)
+        got = decode_attention(q, k, v, cp, ring=True, window=50, bk=bk)
+        _close(got, decode_attention_plain(q, k, v, cp, ring=True, window=50), ATTN_TOL)
+        assert torch.count_nonzero(got[0]) == 0
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        got = decode_attention(qb, kb, vb, cp, bk=bk)
+        _close(got, decode_attention_plain(qb, kb, vb, cp), ATTN_BF16_TOL)
+
+
+def test_decode_attention_counters_return_to_zero(cuda):
+    # a call at one BH, one at another (other row groups, other counters),
+    # then the first again: identical bits, so every counter was left at 0
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    first = _decode_cases(cuda, 6, 8, 1000, 128, seed=3)
+    other = _decode_cases(cuda, 3, 8, 1000, 128, seed=4)
+    a = decode_attention(*first, bk=32)
+    b = decode_attention(*other, bk=32)
+    c = decode_attention(*first, bk=32)
+    b2 = decode_attention(*other, bk=64, hg=2)
+    torch.cuda.synchronize()
+    assert torch.equal(a, c)
+    _close(b, b2, ATTN_TOL)
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_decode_attention_split_cache_rows_and_bf16(cuda, ring):
+    from repro_torch.kernels.decode_attention import (
+        CacheRows,
+        decode_attention,
+        decode_attention_plain,
+    )
+
+    B, S, K, G, hd = 3, 600, 2, 7, 64
+    q, kc, vc = _normal(cuda, (B * K, G, hd), (B, S, K, hd), (B, S, K, hd), seed=5)
+    cp = torch.tensor([-1, 4, 599, 650, 300, 31], dtype=torch.int32, device=cuda)
+    got = decode_attention(q, CacheRows(kc), CacheRows(vc), cp, ring=ring, bk=64, hg=2)
+    want = decode_attention_plain(q, CacheRows(kc).rows(), CacheRows(vc).rows(), cp, ring=ring)
+    _close(got, want, ATTN_TOL)
+    assert torch.count_nonzero(got[0]) == 0
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, kc, vc))
+    got = decode_attention(qb, CacheRows(kb), CacheRows(vb), cp, ring=ring, bk=32)
+    assert got.dtype == torch.bfloat16
+    _close(got, decode_attention_plain(qb, CacheRows(kb).rows(), CacheRows(vb).rows(), cp,
+                                       ring=ring), ATTN_BF16_TOL)
+    assert torch.count_nonzero(got[0]) == 0
+    assert torch.equal(got, decode_attention(qb, CacheRows(kb), CacheRows(vb), cp, ring=ring,
+                                             bk=32))
+
+
 def test_attention_smem_accounting(cuda):
     from repro_torch.kernels.decode_attention import decode_attention_smem_bytes
     from repro_torch.kernels.flash_attention import flash_attention_smem_bytes
@@ -389,9 +515,15 @@ def test_attention_smem_accounting(cuda):
     assert flash_attention_smem_bytes(8, 64, 64) == -1      # not a multiple of 16
     assert flash_attention_smem_bytes(64, 256, 64) == -1    # past the 128 register tile
     assert flash_attention_smem_bytes(64, 64, 96) == -1     # head size
-    # q [G][hd], K [bk][hd+4], V [bk][hd], S [G][bk+1], m/l/alpha [3][G]
-    assert decode_attention_smem_bytes(7, 128, 64) == 4 * (7 * 64 + 128 * 68 + 128 * 64
-                                                           + 7 * 129 + 21)
+    # q [G][hd + 4], S [G][33], m/l/alpha [3][G] in f32, rounded up to 16
+    # bytes; then three ring stages of 32 slots of K (rows padded to an odd
+    # number of 16-byte words) and V, in the cache's dtype, or the P V
+    # pass's 256 / (hd / 4) slot groups' f32 sums of G x hd if larger; bk
+    # does not enter
+    head = -(-4 * (7 * 68 + 7 * 33 + 3 * 7) // 16) * 16
+    assert decode_attention_smem_bytes(7, 128, 64) == head + 3 * 32 * (272 + 256)
+    assert decode_attention_smem_bytes(7, 32, 64) == head + 3 * 32 * (272 + 256)
+    assert decode_attention_smem_bytes(7, 128, 64, torch.bfloat16) == head + 4 * 16 * 7 * 64
     assert decode_attention_smem_bytes(7, 512, 64) == -1
     assert decode_attention_smem_bytes(17, 64, 128) == -1   # G past 8 * 256 / hd
 
@@ -407,10 +539,12 @@ def test_attention_oversized_tiles_are_rejected_before_launch(cuda):
     with pytest.raises(ConfigRejected):
         flash_attention(q, k, v, bq=40, bk=64)     # not a multiple of 16
     assert flash_attention.launches == f0
-    qd, kd, vd = _normal(cuda, (2, 8, 128), (2, 300, 128), (2, 300, 128))
+    qd, kd, vd = _normal(cuda, (2, 17, 128), (2, 300, 128), (2, 300, 128))
     d0 = decode_attention.launches
     with pytest.raises(ConfigRejected):
-        decode_attention(qd, kd, vd, 299, bk=256)  # 278 KB of shared memory
+        decode_attention(qd, kd, vd, 299, bk=128)  # G past 8 * 256 / hd
+    with pytest.raises(ConfigRejected):
+        decode_attention(qd[:, :8].contiguous(), kd, vd, 299, bk=512)  # bk past 256
     assert decode_attention.launches == d0
 
 
