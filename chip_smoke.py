@@ -10,14 +10,17 @@ checks each kernel on the card:
   1. device: name, count, power limit; TF32 switched off for the yardsticks;
   2. build: every source in src/repro_torch/kernels/csrc/ with nvcc (sm_90a),
      one nvcc per source, all started together; ptxas registers and spills,
-     per instantiation for syr2k and matmul (the main paths' spill nothing);
+     per instantiation for syr2k, matmul, covariance, flash_attention (hd 16
+     to 256) and decode_attention (the main paths' spill nothing);
   3. kernel vs plain PyTorch version at the paper's LARGE sizes, over the
      knob combinations, with the tolerance stated beside each error (0 for
      the min-plus kernel, the blocked Floyd-Warshall and the two helpers,
      which must agree bit for bit; syr2k and covariance on NaN-poisoned
      outputs, with the same bits from every configuration, covariance's
-     exactly symmetric; the matmul also at the model's skinny shapes), and
-     the gpu-space points each wrapper rejects before launch;
+     exactly symmetric; the matmul also at the model's skinny shapes; the
+     3xTF32 tensor-core matmul's largest error in each tolerance class, over
+     its matmul, mm3 and lu cases: the probe of that route), and the
+     gpu-space points each wrapper rejects before launch;
   4. times at the default config (CUDA events, after warm-up): kernel,
      plain version, one PyTorch library call where there is one, and the
      roofline bound (and the flops syr2k and covariance compute beside
@@ -41,7 +44,8 @@ checks each kernel on the card:
      the card against the same weights on the CPU (plain versions there).
 
 Phases 3 and 4 also hold flash_attention and decode_attention against their
-plain versions at LARGE and at the model's shapes, and time them beside
+plain versions at LARGE, at head_dim 256 and at the model's shapes, and time
+them beside
 scaled_dot_product_attention (a yardstick only: the port never calls it);
 decode_attention with per-row positions that leave whole splits of the key
 axis empty, rows at cur_pos = -1 exactly 0, and repeated calls (also after a
@@ -72,6 +76,11 @@ SRC = os.path.join(ROOT, "src")
 # and HBM3 bandwidth — the roofline every bound_ms below is taken against
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# the tiled matmul's f32 path past 8 rows runs on the tensor cores in
+# 3xTF32 (csrc/gemm_tf32.cuh): three TF32 products per f32 product, so its
+# peak is a third of the data sheet's 495 TFLOP/s dense TF32
+PEAK_TF32_FLOPS = 495e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 # f32 minimum: the CUDA C Programming Guide's arithmetic-instruction
 # throughput table gives compute capability 9.0 128 f32 add/multiply/FMA
 # results but 64 compare/minimum/maximum results per clock and SM, so min is
@@ -126,13 +135,16 @@ WRAPPER_OF = {"syr2k": "syr2k", "matmul": "tiled_matmul", "covariance": "covaria
 SERVE = dict(arch="qwen2-0.5b", batch=4, prompt_len=256, gen=32, seed=0)
 # the instantiations the main paths run at their defaults (ptxas template
 # arguments): syr2k<PACK_A, PACK_B, RT, VEC16> at 64x64 tiles of M = 1000;
-# matmul<input, PACK, TM, TN, VEC16> at 64x64 tiles (mm3, lu) and at the
-# model's 8-row decode tiles; covariance<FUSE_CENTER, RT, VEC16> at 64x64
-# tiles of M = 1200; decode<dtype, hd, VEC16> at the model's f32 cache, hd
-# 64; phase 2 asserts that they spill nothing
+# matmul_tf32<PACK, VEC16> (f32 on the tensor cores) at 64x64 tiles (mm3,
+# lu, the prefill unembed) and matmul<input, PACK, TM, TN, VEC16> (FFMA) at
+# the model's 8-row decode tiles; covariance<FUSE_CENTER, RT, VEC16> at
+# 64x64 tiles of M = 1200; flash<dtype, hd, CAUSAL> and decode<dtype, hd,
+# VEC16> at the model's f32, hd 64; phase 2 asserts that they spill nothing
+# (the other instantiations' spills are printed)
 MAIN_PATH_INSTANCES = {"syr2k": ([1, 1, 4, 1],),
-                       "matmul": (["float", 1, 4, 4, 1], ["float", 1, 1, 4, 1]),
+                       "matmul": ([1, 1], ["float", 1, 1, 4, 1]),
                        "covariance": ([1, 4, 1],),
+                       "flash_attention": (["float", 64, 1],),
                        "decode_attention": (["float", 64, 1],)}
 # the serving path's matmul shapes (qwen2-0.5b, batch 4, prompt 256): name,
 # (M, K, N), launches per decode step (or per prefill forward)
@@ -148,8 +160,10 @@ def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
-def compare(name, got, want, tol) -> float:
-    """Print and check max abs/rel error of ``got`` against ``want``."""
+def compare(name, got, want, tol, probe=None) -> float:
+    """Print and check max abs/rel error of ``got`` against ``want``. With
+    ``probe`` = (dict, tolerance class), also record there the largest
+    max_abs_err and error / tolerance of the class."""
     import torch
 
     g, w = got.float(), want.float()
@@ -160,6 +174,10 @@ def compare(name, got, want, tol) -> float:
     abs_err = diff.max().item()
     rel_err = (diff / w.abs().clamp_min(1e-6)).max().item()
     ok = bool((diff <= tol["atol"] + tol["rtol"] * w.abs()).all())
+    if probe is not None:
+        share = (diff / (tol["atol"] + tol["rtol"] * w.abs())).max().item()
+        prev = probe[0].get(probe[1], (0.0, 0.0))
+        probe[0][probe[1]] = (max(prev[0], abs_err), max(prev[1], share))
     print(f"  {name}: max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e} "
           f"tol=atol {tol['atol']:g} + rtol {tol['rtol']:g}*|want| -> "
           f"{'ok' if ok else 'MISS'}", flush=True)
@@ -217,6 +235,10 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    """(least ms, "operations" or "bytes"): the larger of ``flops`` at
+    ``peak`` (PEAK_F32_FLOPS on the CUDA cores, PEAK_3XTF32_FLOPS for the
+    matmul's tensor-core path, PEAK_F32_MIN for minima) and ``nbytes`` at
+    PEAK_HBM_BYTES."""
     t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
@@ -396,6 +418,16 @@ def check_attention(dev, errs: dict) -> None:
         flash_case("ragged Sq=250 Sk=131 hd=64", q, k, v, causal, 64, 64)
     q, k, v = (t.to(torch.bfloat16) for t in attention_inputs(4, 200, 200, 128, dev, seed=3))
     flash_case("bf16 (4, 200, 128)", q, k, v, True, 64, 64, ATTN_BF16_TOL)
+    # head_dim 256 (gemma3-1b's): causal and not, tiles that take one or two
+    # ring stages, ragged edges, bf16
+    q, k, v = attention_inputs(4, 1000, 1000, 256, dev, seed=11)
+    for causal, bq, bk in ((True, 64, 64), (False, 64, 64), (True, 32, 128), (True, 128, 32)):
+        flash_case("hd 256 (4, 1000, 256)", q, k, v, causal, bq, bk)
+    q, k, v = attention_inputs(3, 250, 131, 256, dev, seed=12)
+    for causal in (True, False):
+        flash_case("ragged Sq=250 Sk=131 hd=256", q, k, v, causal, 64, 64)
+    q, k, v = (t.to(torch.bfloat16) for t in attention_inputs(4, 200, 200, 256, dev, seed=13))
+    flash_case("bf16 (4, 200, 256)", q, k, v, True, 64, 64, ATTN_BF16_TOL)
 
     def decode_case(label, q, k, v, cp, ring, window, bk, hg, tol=ATTN_TOL):
         got = decode_attention(q, k, v, cp, ring=ring, window=window, bk=bk, hg=hg)
@@ -435,6 +467,17 @@ def check_attention(dev, errs: dict) -> None:
     decode_case(f"LARGE bf16 ({BH}, {G}, {S}, {hd}) per-row positions", qb, kb, vb, mixed,
                 False, 0, 128, 1, ATTN_BF16_TOL)
     del qb, kb, vb
+    # head_dim 256 at G = 8 (the most it takes): the key axis split, per-row
+    # positions, ring and window, f32 and bf16
+    q2, _, _ = attention_inputs(BH, 8, 1, 256, dev, seed=14)
+    _, k2, v2 = attention_inputs(BH, 1, S, 256, dev, seed=15)
+    for ring, window in ((False, 0), (True, 0), (False, 1000), (True, 300)):
+        decode_case(f"hd 256 ({BH}, 8, {S}, 256) per-row positions", q2, k2, v2, mixed, ring,
+                    window, 32, 1)
+    q2, k2, v2 = (t.to(torch.bfloat16) for t in (q2, k2, v2))
+    decode_case(f"hd 256 bf16 ({BH}, 8, {S}, 256) per-row positions", q2, k2, v2, mixed, True,
+                0, 32, 1, ATTN_BF16_TOL)
+    del q2, k2, v2
     # the model's bucket of 288 at cur_pos 260 (three splits of 128, the last
     # 32 slots: S not a multiple of the split) and a bucket below bk
     for ring in (False, True):
@@ -518,8 +561,18 @@ def time_attention(rows: dict) -> None:
     flash_what = "4*BH*S^2*hd/2 causal flops at 67 TFLOP/s; q, k, v read and o written once"
     show("flash_attention LARGE causal", (BH, S, hd), ops.DEFAULTS["flash_attention"],
          rows["flash_attention"], flash_what)
+    show("flash_attention hd 256 causal", (8, 2048, 256), ops.DEFAULTS["flash_attention"],
+         flash_row(8, 2048, 256, 3), flash_what)
     show("flash_attention model prefill causal", (8, 256, 64),
          ops.DEFAULTS["flash_attention"], flash_row(8, 256, 64, 1), flash_what)
+    # device time per launch (torch.profiler): at the model's shape a launch
+    # is shorter than the host's wrapper call
+    for (BH_, S_, hd_) in ((BH, S, hd), (8, 2048, 256), (8, 256, 64)):
+        q, k, v = attention_inputs(BH_, S_, S_, hd_, dev, 5)
+        dev_ms = device_time(lambda: [flash(q, k, v) for _ in range(10)])[0]
+        print(f"  flash_attention ({BH_}, {S_}, {hd_}) causal: {dev_ms / 10:.4f} ms per launch "
+              f"on the device (torch.profiler)", flush=True)
+        del q, k, v
     BH, G, S, hd = problems.LARGE_SHAPES["decode_attention"]
     rows["decode_attention"] = decode_row(BH, G, S, hd, S - 1, 2)
     dec_what = "the k and v slots each row's cur_pos reads, q read and o written once"
@@ -795,6 +848,7 @@ def main() -> int:
     errs = {"syr2k": 0.0, "matmul": 0.0, "covariance": 0.0, "minplus": 0.0,
             "heat3d": 0.0, "lu_factor_diag": 0.0, "closure": 0.0,
             "flash_attention": 0.0, "decode_attention": 0.0}
+    probe = {}  # tolerance class -> (largest max_abs_err, largest error / tolerance)
     syr2k_dims = problems.LARGE_SHAPES["syr2k"]
     C, A, B = problems.problem_inputs("syr2k", syr2k_dims, dev)
     want = syr2k_plain(C, A, B)
@@ -829,25 +883,36 @@ def main() -> int:
                 got = tiled_matmul(a, b, **cfg)
                 torch.cuda.synchronize()
                 wantm = tiled_matmul_plain(a, b, bk=32, pack=pack, out_dtype=dtype)
-                tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+                f32 = dtype == torch.float32
                 errs["matmul"] = max(errs["matmul"], compare(
-                    f"matmul {P}x{Q}@{Q}x{R} {str(dtype)[6:]} {cfg}", got, wantm, tol))
+                    f"matmul {P}x{Q}@{Q}x{R} {str(dtype)[6:]} {cfg}", got, wantm,
+                    F32_TOL if f32 else BF16_TOL, (probe, "F32_TOL") if f32 else None))
     got = tiled_matmul(Am, Bm, bm=48, bn=80, bk=24, pack=False, interchange=True)
     wantm = tiled_matmul_plain(Am, Bm, bk=24, pack=False, out_dtype=torch.float32)
     errs["matmul"] = max(errs["matmul"], compare(
-        "matmul f32 ragged bm=48 bn=80 bk=24 pack=False interchange", got, wantm, F32_TOL))
-    # column tiles off 16-byte words (N % 4 == 0, bn % 4 != 0): scalar stores
-    for pack in (True, False):
+        "matmul f32 ragged bm=48 bn=80 bk=24 pack=False interchange", got, wantm, F32_TOL,
+        (probe, "F32_TOL")))
+    # column tiles off 16-byte words (N % 4 == 0, bn % 4 != 0): scalar stores;
+    # row tiles of 24 and 40 (padded to the tensor cores' warp pieces),
+    # chunks off the mma's k step of 8, a 128-deep chunk
+    for bm, bn, bk, pack in ((64, 50, 32, True), (64, 50, 32, False), (24, 40, 12, True),
+                             (40, 128, 20, False), (128, 128, 128, True)):
         poison_next((P, R), dev)
-        got = tiled_matmul(Am, Bm, bm=64, bn=50, bk=32, pack=pack)
+        got = tiled_matmul(Am, Bm, bm=bm, bn=bn, bk=bk, pack=pack)
         torch.cuda.synchronize()
         errs["matmul"] = max(errs["matmul"], compare(
-            f"matmul f32 bm=64 bn=50 bk=32 pack={pack}", got,
-            tiled_matmul_plain(Am, Bm, bk=32, pack=pack, out_dtype=torch.float32), F32_TOL))
+            f"matmul f32 bm={bm} bn={bn} bk={bk} pack={pack}", got,
+            tiled_matmul_plain(Am, Bm, bk=bk, pack=pack, out_dtype=torch.float32), F32_TOL,
+            (probe, "F32_TOL")))
     got = ops.mm3_op(Am, Bm, Cm, Dm, config=dict(fuse_second=True, pack2=False, inter3=True))
     errs["matmul"] = max(errs["matmul"], compare(
-        "mm3 f32 fuse_second pack2=False inter3", got, ref.mm3_ref(Am, Bm, Cm, Dm), F32_TOL))
+        "mm3 f32 fuse_second pack2=False inter3", got, ref.mm3_ref(Am, Bm, Cm, Dm), F32_TOL,
+        (probe, "F32_TOL")))
+    errs["matmul"] = max(errs["matmul"], compare(
+        "mm3 f32 default config", ops.mm3_op(Am, Bm, Cm, Dm), ref.mm3_ref(Am, Bm, Cm, Dm),
+        F32_TOL, (probe, "F32_TOL")))
     # skinny M at the model's shapes: the decode unembed and output projection
+    # (8-row tiles: the FFMA loop, not the tensor cores)
     for (M_, K_, N_) in ((1, 896, 151936), (4, 896, 151936), (7, 896, 151936),
                          (1, 896, 896), (4, 896, 896), (7, 896, 896)):
         a, b = model_operands(M_, K_, N_, dev)
@@ -940,8 +1005,19 @@ def main() -> int:
             got = lu(Alu, bs=bs, bm=64, bn=48, pack=pack)
             torch.cuda.synchronize()
             compare(f"lu N={lu_n} bs={bs} pack={pack} vs blocked plain", got,
-                    lu_plain(Alu, bs=bs, pack=pack), LU_TOL)
-        compare(f"lu N={lu_n} bs={bs} vs unblocked lu_ref", got, lu_ref_out, LU_REF_TOL)
+                    lu_plain(Alu, bs=bs, pack=pack), LU_TOL, (probe, "LU_TOL"))
+        compare(f"lu N={lu_n} bs={bs} vs unblocked lu_ref", got, lu_ref_out, LU_REF_TOL,
+                (probe, "LU_REF_TOL"))
+    compare(f"lu N={lu_n} default config vs blocked plain", ops.lu_op(Alu),
+            lu_plain(Alu, bs=ops.DEFAULTS["lu"]["bs"], pack=ops.DEFAULTS["lu"]["pack"]), LU_TOL,
+            (probe, "LU_TOL"))
+    # the tensor-core route's probe: its largest error in each class (the
+    # f32 matmul, mm3 and lu cases above; the skinny rows run the FFMA loop)
+    for cls, (abs_err, share) in probe.items():
+        print(f"  3xTF32 matmul probe, {cls} {globals()[cls]}: largest max_abs_err "
+              f"{abs_err:.3e}, {share:.3f} of the tolerance", flush=True)
+    if any(share > 1.0 for _, share in probe.values()):
+        raise AssertionError("the 3xTF32 matmul misses a tolerance")
     for off, bs in ((0, 64), (lu_n // 2 - 64, 128), (lu_n - 8, 8)):
         M = Alu.clone()
         lu_factor_diag(M, off, bs)
@@ -992,14 +1068,15 @@ def main() -> int:
     mm_flops = 2.0 * (P * Q * R + R * S * T + P * R * T)
     mm_bytes = 4.0 * ((P * Q + Q * R + P * R) + (R * S + S * T + R * T)
                       + (P * R + R * T + P * T))
-    b_ms, b_by = bound(mm_flops, mm_bytes)
+    b_ms, b_by = bound(mm_flops, mm_bytes, peak=PEAK_3XTF32_FLOPS)  # on the tensor cores
     rows["matmul"] = dict(
         ms=time_ms(lambda: ops.mm3_op(Am, Bm, Cm, Dm)),
         plain_ms=time_ms(mm3_plain),
         library_ms=time_ms(lambda: torch.matmul(torch.matmul(Am, Bm), torch.matmul(Cm, Dm))),
         bound_ms=b_ms, bound_by=b_by)
     print(f"  matmul x3 (mm3 f32) {ops.DEFAULTS['mm3']}: kernel {rows['matmul']['ms']:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}), plain {rows['matmul']['plain_ms']:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}, 3xTF32 at {PEAK_3XTF32_FLOPS / 1e12:.0f} TFLOP/s; "
+          f"{bound(mm_flops, mm_bytes)[0]:.4f} ms at the f32 FFMA rate), plain {rows['matmul']['plain_ms']:.4f} ms, "
           f"library (3x torch.matmul, f32, no TF32) {rows['matmul']['library_ms']:.4f} ms",
           flush=True)
     # the serving path's shapes, at the serving default (ops.DEFAULTS["matmul"])
@@ -1007,7 +1084,10 @@ def main() -> int:
                                                                       "interchange")}
     for label, (M_, K_, N_), per in SERVE_MATMULS:
         a, b = model_operands(M_, K_, N_, dev, seed=1)
-        s_ms, s_by = bound(2.0 * M_ * K_ * N_, 4.0 * (M_ * K_ + K_ * N_ + M_ * N_))
+        # past 8 rows the f32 path runs on the tensor cores (3xTF32)
+        tc = min(mm_cfg["bm"], M_) > 8
+        s_ms, s_by = bound(2.0 * M_ * K_ * N_, 4.0 * (M_ * K_ + K_ * N_ + M_ * N_),
+                           peak=PEAK_3XTF32_FLOPS if tc else PEAK_F32_FLOPS)
         k_ev = time_ms(lambda: tiled_matmul(a, b, **mm_cfg), iters=10)
         k_dev = device_time(lambda: [tiled_matmul(a, b, **mm_cfg) for _ in range(10)])[0] / 10
         l_ev = time_ms(lambda: torch.matmul(a, b), iters=10)
@@ -1016,7 +1096,8 @@ def main() -> int:
                                                   out_dtype=torch.float32), iters=10)
         print(f"  matmul serving {label} ({M_}, {K_}) @ ({K_}, {N_}) f32 {mm_cfg}, {per}: "
               f"kernel {k_dev:.4f} ms on the device (torch.profiler; CUDA events "
-              f"{k_ev:.4f} ms), bound {s_ms:.4f} ms ({s_by}), plain {p_ms:.4f} ms, library "
+              f"{k_ev:.4f} ms), bound {s_ms:.4f} ms ({s_by}, "
+              f"{'3xTF32 tensor cores' if tc else 'f32 FFMA'}), plain {p_ms:.4f} ms, library "
               f"(torch.matmul, f32) {l_dev:.4f} ms on the device (CUDA events {l_ev:.4f} ms)",
               flush=True)
         del a, b

@@ -39,8 +39,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # source name -> {C function: (argtypes, restype)}. The launchers return a
 # cudaError_t; *_smem_bytes return the bytes of dynamic shared memory a block
 # needs (-1 for a tile the kernel cannot hold), from the kernel's own layout;
-# syr2k's, matmul's and covariance's take the device's limit, which sets
-# their rings' depth.
+# syr2k's, matmul's, covariance's and flash_attention's take the device's
+# limit, which sets their rings' depth.
 KERNELS: dict[str, dict[str, tuple[list, type]]] = {
     "syr2k": {
         # C, A, B, O, N, M, alpha, beta, bi, bj, bk, pack_a, pack_b, interchange,
@@ -78,10 +78,12 @@ KERNELS: dict[str, dict[str, tuple[list, type]]] = {
         "heat3d_smem_bytes": ([_I, _I], _L),
     },
     "flash_attention": {
-        # q, k, v, o, BH, Sq, Sk, hd, bq, bk, scale, causal, bf16, stream
-        "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
-        # bq, bk, hd
-        "flash_attention_smem_bytes": ([_I, _I, _I], _L),
+        # q, k, v, o, BH, Sq, Sk, hd, bq, bk, scale, causal, bf16, smem limit,
+        # stream
+        "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+                                   _I),
+        # bq, bk, hd, bf16, smem limit
+        "flash_attention_smem_bytes": ([_I, _I, _I, _I, _I], _L),
     },
     "decode_attention": {
         # q, k, v, cur_pos, o, workspace, counters, BH, G, S, hd, Kh, stride_b,

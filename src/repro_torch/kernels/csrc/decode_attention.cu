@@ -83,13 +83,15 @@
 //
 // Interface: decode_attention_smem_bytes() gives the dynamic shared memory
 // a block needs for (G, bk, hd, dtype) (-1 for what the kernel does not
-// take: bk from 1 to 256, hd one of 16, 32, 64, 128, G at most 8 * 256 /
-// hd), from the same layout() the launcher passes the kernel; the wrapper
-// checks it against the device's limit before launch.
+// take: bk from 1 to 256, hd one of 16, 32, 64, 128, 256, G at most 8 *
+// 256 / hd, so 8 at hd 256), from the same layout() the launcher passes the
+// kernel; the wrapper checks it against the device's limit before launch
+// (at hd 256 and G = 8 in f32 the three ring stages take 198 KB, one block
+// an SM).
 // decode_attention_splits() and decode_attention_workspace_bytes() size the
 // split and the workspace; decode_attention_launch() launches on the given
 // stream, does not synchronise, and returns cudaGetLastError(). dtype, hd
-// and the copy form are template parameters (16 instantiations).
+// and the copy form are template parameters (20 instantiations).
 
 #include "gemm_f32.cuh"
 
@@ -452,6 +454,7 @@ cudaError_t launch_hd(const Args& p, int hd, bool vec16, cudaStream_t s) {
     case 32: return launch_vec<T, 32>(p, vec16, s);
     case 64: return launch_vec<T, 64>(p, vec16, s);
     case 128: return launch_vec<T, 128>(p, vec16, s);
+    case 256: return launch_vec<T, 256>(p, vec16, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -461,7 +464,7 @@ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 }  // namespace
 
 extern "C" long long decode_attention_smem_bytes(int G, int bk, int hd, int bf16) {
-  if (hd != 16 && hd != 32 && hd != 64 && hd != 128) return -1;
+  if (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256) return -1;
   if (G < 1 || G > 8 * NT / hd || bk < 1 || bk > MAXBK) return -1;
   return layout(G, hd, bf16 ? 2 : 4).bytes;
 }

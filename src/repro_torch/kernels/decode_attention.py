@@ -190,7 +190,7 @@ def decode_attention_check(q, k, v, cur_pos=None, *, bk: int = 128,
     smem = decode_attention_smem_bytes(G, bk, hd, q.dtype)
     if smem < 0:
         raise ConfigRejected(f"decode_attention G={G} bk={bk} hd={hd}: the kernel takes bk "
-                             f"up to 256, hd 16/32/64/128 and G up to 8*256/hd")
+                             f"up to 256, hd 16/32/64/128/256 and G up to 8*256/hd")
     limit = max_shared_memory_per_block(dev)
     if smem > limit:
         raise ConfigRejected(f"decode_attention G={G} bk={bk} hd={hd} needs {smem} B of "

@@ -14,7 +14,8 @@ Same contract as ``repro.kernels.flash_attention.flash_attention``:
     is ``acc / max(l, 1e-30)`` in the input dtype;
   * ``bq``/``bk`` -> the query tile and the key block of the online-softmax
     loop; clamped to the sequence lengths (rounded up to the kernel's
-    16-row step).
+    16-row step);
+  * head sizes 16, 32, 64, 128 and 256 on the card (the CPU takes any).
 """
 
 from __future__ import annotations
@@ -34,15 +35,22 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_smem_byt
 
 _NEG = -1.0e30
 DTYPES = (torch.float32, torch.bfloat16)
-STEP = 16  # the kernel's tiles are whole multiples of its 16x16 thread block
+STEP = 16  # the kernel's tiles: multiples of 16 keys (a half-warp) and query rows
 
 
-def flash_attention_smem_bytes(bq: int, bk: int, hd: int) -> int:
+def flash_attention_smem_bytes(bq: int, bk: int, hd: int, dtype: torch.dtype = torch.float32,
+                               limit: int | None = None) -> int:
     """Dynamic shared memory (bytes) one block of ``csrc/flash_attention.cu``
-    needs for this tile and head size, or -1 for a tile or head size the
-    kernel does not take. The kernel's own layout answers, so the library is
-    built first."""
-    return build.load("flash_attention").flash_attention_smem_bytes(bq, bk, hd)
+    needs for this tile, head size and input ``dtype`` (staged as it is)
+    under a per-block ``limit`` (default: the current card's), or -1 for a
+    tile or head size the kernel does not take. The kernel's ring takes two
+    stages where they fit the limit, else one, so a result above it means
+    even one stage does not fit. The kernel's own layout answers, so the
+    library is built first."""
+    if limit is None:
+        limit = max_shared_memory_per_block(torch.device("cuda"))
+    return build.load("flash_attention").flash_attention_smem_bytes(
+        bq, bk, hd, int(dtype == torch.bfloat16), int(limit))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -87,11 +95,12 @@ def flash_attention_check(q, k, v, *, bq: int = 128, bk: int = 128) -> tuple[int
     check_operand("q", q, (BH, Sq, hd), DTYPES, dev)
     check_operand("k", k, (BH, Sk, hd), (q.dtype,), dev)
     check_operand("v", v, (BH, Sk, hd), (q.dtype,), dev)
-    smem = flash_attention_smem_bytes(bq, bk, hd)
+    limit = max_shared_memory_per_block(dev)
+    smem = flash_attention_smem_bytes(bq, bk, hd, q.dtype, limit)
     if smem < 0:
         raise ConfigRejected(f"flash_attention bq={bq} bk={bk} hd={hd}: the kernel takes "
-                             f"tiles that are multiples of {STEP} up to 128, hd 16/32/64/128")
-    limit = max_shared_memory_per_block(dev)
+                             f"tiles that are multiples of {STEP} up to 128, "
+                             f"hd 16/32/64/128/256")
     if smem > limit:
         raise ConfigRejected(f"flash_attention bq={bq} bk={bk} hd={hd} needs {smem} B of "
                              f"shared memory, the device allows {limit} B per block")
@@ -122,7 +131,8 @@ def flash_attention(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Sq, Sk, hd,
-            bq, bk, float(scale), int(causal), int(q.dtype == torch.bfloat16), stream)
+            bq, bk, float(scale), int(causal), int(q.dtype == torch.bfloat16),
+            max_shared_memory_per_block(dev), stream)
     build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -4,14 +4,15 @@ Each op takes an optional ``config`` dict in the schema the autotuner
 searches (see spaces.py), merged over :data:`DEFAULTS`. The defaults are
 chosen for the CUDA kernels on an H100 at the paper's LARGE sizes:
 
-  * 64x64 output tiles: 256 threads of 4x4 accumulators a block; mm3's
+  * 64x64 output tiles: 256 threads of 4x4 accumulators a block (mm3's
+    f32 matmuls: 4 tensor-core warps of 32x32); mm3's
     products launch 208-300 blocks, syr2k 361 of which the 190 on or below
     the diagonal work (the others exit at once), one to two and a half
     blocks per SM over 132 SMs; 128x128 tiles give 55-100 working blocks
     and leave SMs idle, tiles below 32 re-read the operands many more times;
   * a 32-deep contraction chunk with every operand staged in shared memory
     (``pack*=True``): a three-stage ring of 108 KB (syr2k's four chunks) or
-    51 KB (each mm3 matmul) per block, so two syr2k or four matmul blocks
+    54 KB (each mm3 matmul) per block, so two syr2k or four matmul blocks
     fit an SM's 228 KB;
   * no interchange: consecutive blocks share a row tile, as the TPU grid's
     order does.
@@ -39,10 +40,11 @@ For the kernels of the second slice, at their LARGE sizes:
 
 For the serving path's kernels:
 
-  * flash_attention: 64x64 tiles. At the LARGE shape (BH=16, S=4096,
-    hd=128) that is 1,024 blocks and 116 KB of shared memory a block; at
-    the model's prefill (BH=8, S=256, hd=64), 32 blocks per call (the
-    model's G = 7 query groups are 7 calls);
+  * flash_attention: 64x64 tiles, 256 threads a block. At the LARGE shape
+    (BH=16, S=4096, hd=128) that is 1,024 blocks and 112 KB of shared
+    memory a block (two blocks an SM); at hd 256, 208 KB (one); at the
+    model's prefill (BH=8, S=256, hd=64), 32 blocks per call (the model's
+    G = 7 query groups are 7 calls);
   * decode_attention: 32-slot KV blocks, one row per block (``hg=1``). The
     kernel splits the key axis across blocks in whole ``bk`` blocks (about
     four blocks per SM, at most 32 splits), so ``bk`` sets how finely a
@@ -51,9 +53,11 @@ For the serving path's kernels:
     each walking four chunks in turn), and LARGE 32 splits of four blocks
     (512 blocks) either way (``chip_smoke.py`` phase 4 times both);
   * matmul (the model's output projection and unembed): mm3's tiles and
-    f32 accumulation in registers (``pack=True``); at the decode's 4 rows
-    the 64-row tile clamps to 4, an 8-row tile of 128 threads (one row of
-    four columns each) that streams its 64 columns of the weight.
+    f32 accumulation in registers (``pack=True``), on the tensor cores in
+    3xTF32 (4 warps of 32x32 a 64x64 tile); at the decode's 4 rows the
+    64-row tile clamps to 4, an 8-row tile of 128 threads on the FFMA loop
+    (one row of four columns each) that streams its 64 columns of the
+    weight.
 
 These are reasoned, not tuned: the campaign's job is to beat them.
 """

@@ -60,7 +60,7 @@ def _j(*arrays):
 
 @pytest.mark.parametrize("Sq,Sk", [(40, 40), (37, 53), (64, 29)])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
 def test_flash_matches_pallas_and_chunked(Sq, Sk, causal, hd):
     q, k, v = _normal((3, Sq, hd), (3, Sk, hd), (3, Sk, hd), seed=Sq + Sk + hd)
     want = jax_flash_attention(*_j(q, k, v), causal=causal, bq=16, bk=16, interpret=True)
@@ -95,7 +95,7 @@ def _decode_inputs(BH, G, S, hd, ring, seed):
 
 
 @pytest.mark.parametrize("ring,window", [(False, 0), (True, 0), (False, 7), (True, 7)])
-@pytest.mark.parametrize("G,hd", [(7, 16), (2, 64)])
+@pytest.mark.parametrize("G,hd", [(7, 16), (2, 64), (3, 128), (8, 256)])
 def test_decode_matches_pallas_xla_and_ref(ring, window, G, hd):
     q, k, v, cur = _decode_inputs(6, G, 40, hd, ring, seed=G + hd)
     kw = dict(ring=ring, window=window)

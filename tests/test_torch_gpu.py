@@ -151,16 +151,64 @@ def test_syr2k_smem_accounting(cuda):
 
 
 def test_matmul_smem_accounting(cuda):
-    # a stage: A's chunk (pm rows of bk elements, padded to 32 bytes plus 16)
-    # and B's (bk rows of pn elements), in the input dtype; three stages
-    assert matmul_smem_bytes(64, 64, 32, limit=LIMIT) == 3 * (64 * 144 + 32 * 256)
-    assert matmul_smem_bytes(48, 80, 24, limit=LIMIT) == 3 * (48 * 112 + 24 * 320)
-    assert matmul_smem_bytes(128, 8, 8, limit=LIMIT) == 3 * (128 * 48 + 8 * 32)
+    # f32 past 8 rows (tensor cores): A's chunk (bm and bn padded to whole 32
+    # x 32 warp pieces, bk to the mma's 8; A's rows of f32 padded to 32
+    # bytes plus 16) and B's (those k rows of the padded columns plus 8
+    # words); f32 8-row tiles and bf16 (FFMA): pm and pn padded to 8, bk to
+    # 4; three stages where they fit
+    def tc(pm, pn, kf):
+        return pm * (-(-kf * 4 // 32) * 32 + 16) + kf * 4 * (pn + 8)
+
+    assert matmul_smem_bytes(64, 64, 32, limit=LIMIT) == 3 * tc(64, 64, 32)
+    assert matmul_smem_bytes(64, 64, 32, limit=LIMIT) == 3 * (64 * 144 + 32 * 288)
+    assert matmul_smem_bytes(48, 80, 24, limit=LIMIT) == 3 * (64 * 112 + 24 * 416)
+    assert matmul_smem_bytes(128, 8, 8, limit=LIMIT) == 3 * (128 * 48 + 8 * 160)
+    assert matmul_smem_bytes(40, 50, 12, limit=LIMIT) == 3 * tc(64, 64, 16)
     assert matmul_smem_bytes(4, 64, 32, limit=LIMIT) == 3 * (8 * 144 + 32 * 256)
+    assert matmul_smem_bytes(8, 24, 4, limit=LIMIT) == 3 * (8 * 48 + 4 * 96)
     assert matmul_smem_bytes(64, 64, 32, torch.bfloat16, LIMIT) == 3 * (64 * 80 + 32 * 128)
+    assert matmul_smem_bytes(4, 64, 32, torch.bfloat16, LIMIT) == 3 * (8 * 80 + 32 * 128)
+    # a tile whose padded tensor-core layout does not fit takes the FFMA
+    # loop's: one stage of 112 rows of A and 256 rows of 96 columns
+    assert matmul_smem_bytes(112, 96, 256, limit=LIMIT) == 112 * 1040 + 256 * 384
     assert matmul_smem_bytes(64, 136, 8, limit=LIMIT) == -1
-    stage = 64 * 144 + 32 * 256
+    stage = 64 * 144 + 32 * 288
     assert matmul_smem_bytes(64, 64, 32, limit=stage + 1) == stage
+
+
+@pytest.mark.parametrize("bm,bn,bk", [(8, 24, 4), (24, 50, 12), (40, 30, 40), (8, 128, 256),
+                                      (112, 8, 16)])
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_tiles_pad_to_the_mma(cuda, bm, bn, bk, pack, dtype):
+    # row tiles of 8, 24 and 40 pad to the mma's 16 (f32; bf16 keeps the FFMA
+    # loop), column tiles not a multiple of 4, chunks not a multiple of 8,
+    # ragged edges everywhere; on a NaN-poisoned output
+    a, b = (t.to(dtype) for t in problems.problem_inputs("mm3", (130, 70, 90, 1, 1), cuda)[:2])
+    torch.full((130, 90), float("nan"), device=cuda)
+    got = tiled_matmul(a, b, bm=bm, bn=bn, bk=bk, pack=pack, interchange=bm > 32)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all() and got.dtype == dtype
+    _close(got, tiled_matmul_plain(a, b, bk=bk, pack=pack, out_dtype=dtype),
+           F32_TOL if dtype == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.parametrize("pack", [True, False])
+def test_matmul_f32_tiles_past_the_tensor_core_layout(cuda, pack):
+    # 112 x 96 x 256: the tensor cores' layout (padded to 128 x 96 plus 8
+    # words) needs more shared memory than the card has; the FFMA loop runs it
+    a, b = problems.problem_inputs("mm3", (150, 300, 140, 1, 1), cuda)[:2]
+    got = tiled_matmul(a, b, bm=112, bn=96, bk=256, pack=pack, interchange=True)
+    _close(got, tiled_matmul_plain(a, b, bk=256, pack=pack, out_dtype=torch.float32), F32_TOL)
+
+
+def test_matmul_f32_in_bf16_out(cuda):
+    a, b = problems.problem_inputs("mm3", (100, 64, 72, 1, 1), cuda)[:2]
+    for pack in (True, False):
+        got = tiled_matmul(a, b, bm=32, bn=40, bk=16, pack=pack, out_dtype=torch.bfloat16)
+        assert got.dtype == torch.bfloat16
+        _close(got, tiled_matmul_plain(a, b, bk=16, pack=pack, out_dtype=torch.bfloat16),
+               BF16_TOL)
 
 
 def test_oversized_tiles_are_rejected_before_launch(cuda):
@@ -318,7 +366,7 @@ def test_lu_factor_diag_matches_plain(cuda):
         assert torch.equal(M, want)
 
 
-@pytest.mark.parametrize("bs,pack", [(32, True), (28, False), (128, True)])
+@pytest.mark.parametrize("bs,pack", [(32, True), (28, False), (128, True), (64, True), (8, False)])
 def test_lu_matches_plain_and_counts(cuda, bs, pack):
     (A,) = problems.problem_inputs("lu", (300,), cuda)
     A0 = A.clone()
@@ -370,6 +418,8 @@ def _normal(cuda, *shapes, seed=0):
     (50, 70, 16, True, 16, 128),
     (65, 65, 32, False, 64, 64),
     (256, 256, 64, True, 64, 64),
+    (90, 61, 256, True, 64, 64),
+    (33, 200, 256, False, 16, 128),
 ])
 def test_flash_attention_matches_plain(cuda, Sq, Sk, hd, causal, bq, bk):
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
@@ -508,13 +558,25 @@ def test_attention_smem_accounting(cuda):
     from repro_torch.kernels.decode_attention import decode_attention_smem_bytes
     from repro_torch.kernels.flash_attention import flash_attention_smem_bytes
 
-    # Q [bq][hd+4], K^T [hd][bk+1], V [bk][hd], P [bq][bk+1]
-    assert flash_attention_smem_bytes(64, 64, 128) == 4 * (64 * 132 + 128 * 65 + 64 * 128
-                                                           + 64 * 65)
-    assert flash_attention_smem_bytes(16, 32, 64) == 4 * (16 * 68 + 64 * 33 + 32 * 64 + 16 * 33)
-    assert flash_attention_smem_bytes(8, 64, 64) == -1      # not a multiple of 16
-    assert flash_attention_smem_bytes(64, 256, 64) == -1    # past the 128 register tile
-    assert flash_attention_smem_bytes(64, 64, 96) == -1     # head size
+    # Q [bq][hd] and two ring stages of one K or V block [bk][hd], in the
+    # input dtype, unpadded (the chunks are swizzled), then P [bq][bk] f32;
+    # one stage where two do not fit the limit
+    def flash(bq, bk, hd, size, stages):
+        return bq * hd * size + stages * bk * hd * size + 4 * bq * bk
+
+    assert flash_attention_smem_bytes(64, 64, 128, limit=LIMIT) == flash(64, 64, 128, 4, 2)
+    assert flash_attention_smem_bytes(64, 64, 128, limit=LIMIT) == 114688  # two blocks an SM
+    assert flash_attention_smem_bytes(16, 32, 64, limit=LIMIT) == flash(16, 32, 64, 4, 2)
+    assert flash_attention_smem_bytes(64, 64, 256, limit=LIMIT) == flash(64, 64, 256, 4, 2)
+    assert flash_attention_smem_bytes(64, 64, 256, torch.bfloat16, LIMIT) == \
+        flash(64, 64, 256, 2, 2)
+    assert flash_attention_smem_bytes(128, 128, 128, limit=LIMIT) == flash(128, 128, 128, 4, 1)
+    assert flash_attention_smem_bytes(128, 64, 256, limit=LIMIT) == flash(128, 64, 256, 4, 1)
+    assert flash_attention_smem_bytes(128, 128, 256, limit=LIMIT) > LIMIT  # refused
+    assert flash_attention_smem_bytes(8, 64, 64, limit=LIMIT) == -1     # not a multiple of 16
+    assert flash_attention_smem_bytes(64, 256, 64, limit=LIMIT) == -1   # past 128
+    assert flash_attention_smem_bytes(64, 64, 96, limit=LIMIT) == -1    # head size
+    assert flash_attention_smem_bytes(64, 64, 512, limit=LIMIT) == -1
     # q [G][hd + 4], S [G][33], m/l/alpha [3][G] in f32, rounded up to 16
     # bytes; then three ring stages of 32 slots of K (rows padded to an odd
     # number of 16-byte words) and V, in the cache's dtype, or the P V
@@ -524,20 +586,29 @@ def test_attention_smem_accounting(cuda):
     assert decode_attention_smem_bytes(7, 128, 64) == head + 3 * 32 * (272 + 256)
     assert decode_attention_smem_bytes(7, 32, 64) == head + 3 * 32 * (272 + 256)
     assert decode_attention_smem_bytes(7, 128, 64, torch.bfloat16) == head + 4 * 16 * 7 * 64
+    head = -(-4 * (8 * 260 + 8 * 33 + 3 * 8) // 16) * 16
+    assert decode_attention_smem_bytes(8, 32, 256) == head + 3 * 32 * (1040 + 1024)
+    assert decode_attention_smem_bytes(8, 32, 256, torch.bfloat16) == head + 3 * 32 * (528 + 512)
+    assert decode_attention_smem_bytes(8, 32, 256) <= LIMIT
+    assert decode_attention_smem_bytes(9, 32, 256) == -1    # G past 8 * 256 / hd
     assert decode_attention_smem_bytes(7, 512, 64) == -1
     assert decode_attention_smem_bytes(17, 64, 128) == -1   # G past 8 * 256 / hd
+    assert decode_attention_smem_bytes(7, 64, 96) == -1     # head size
 
 
 def test_attention_oversized_tiles_are_rejected_before_launch(cuda):
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
 
-    q, k, v = _normal(cuda, (2, 300, 128), (2, 300, 128), (2, 300, 128))
+    q, k, v = _normal(cuda, (2, 300, 256), (2, 300, 256), (2, 300, 256))
     f0 = flash_attention.launches
     with pytest.raises(ConfigRejected):
-        flash_attention(q, k, v, bq=128, bk=128)   # 265 KB of shared memory
+        flash_attention(q, k, v, bq=128, bk=128)   # 320 KB of shared memory at one stage
     with pytest.raises(ConfigRejected):
         flash_attention(q, k, v, bq=40, bk=64)     # not a multiple of 16
+    with pytest.raises(ConfigRejected):
+        flash_attention(q[..., :96].contiguous(), k[..., :96].contiguous(),
+                        v[..., :96].contiguous())  # head size
     assert flash_attention.launches == f0
     qd, kd, vd = _normal(cuda, (2, 17, 128), (2, 300, 128), (2, 300, 128))
     d0 = decode_attention.launches
@@ -546,6 +617,56 @@ def test_attention_oversized_tiles_are_rejected_before_launch(cuda):
     with pytest.raises(ConfigRejected):
         decode_attention(qd[:, :8].contiguous(), kd, vd, 299, bk=512)  # bk past 256
     assert decode_attention.launches == d0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_head_dim_256(cuda, causal, dtype):
+    # gemma3-1b's head size, ragged Sq and Sk, at every tile of the gpu space
+    # that fits the card's shared memory
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        flash_attention_smem_bytes,
+    )
+    from repro_torch.kernels.spaces import FLASH_TILES_GPU
+
+    q, k, v = (t.to(dtype) for t in _normal(cuda, (3, 150, 256), (3, 137, 256), (3, 137, 256),
+                                            seed=11))
+    want = flash_attention_plain(q, k, v, causal=causal)
+    limit = max_shared_memory_per_block(cuda)
+    ran = 0
+    for bq in FLASH_TILES_GPU:
+        for bk in FLASH_TILES_GPU:
+            if flash_attention_smem_bytes(bq, bk, 256, dtype, limit) > limit:
+                continue
+            got = flash_attention(q, k, v, causal=causal, bq=bq, bk=bk)
+            assert got.dtype == dtype
+            _close(got, want, ATTN_TOL if dtype == torch.float32 else ATTN_BF16_TOL)
+            ran += 1
+    assert ran >= 12 if dtype == torch.float32 else ran == 16
+
+
+@pytest.mark.parametrize("ring,window", [(False, 0), (True, 0), (False, 9), (True, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_head_dim_256(cuda, ring, window, dtype):
+    # G = 8 (the most hd 256 takes), the key axis split across blocks, and
+    # the same bits from a second call
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+        decode_attention_plan,
+    )
+
+    q, k, v, cp = _decode_cases(cuda, 6, 8, 1000, 256, seed=21)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    nsplit, _ = decode_attention_plan(6, 8, 1000, 256, 32, 1, cuda)
+    assert nsplit > 1
+    got = decode_attention(q, k, v, cp, ring=ring, window=window, bk=32)
+    _close(got, decode_attention_plain(q, k, v, cp, ring=ring, window=window),
+           ATTN_TOL if dtype == torch.float32 else ATTN_BF16_TOL)
+    assert torch.count_nonzero(got[0]) == 0   # cur_pos = -1: exactly 0
+    assert torch.equal(got, decode_attention(q, k, v, cp, ring=ring, window=window, bk=32))
 
 
 # an untileable bq, and the chunked torch variant, which does not run on the card
