@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Time the serving path's flash_attention and tiled-matmul kernels of two
-checkouts on one card, in turns.
+"""Time kernels of two checkouts on one card, in turns: the serving path's
+flash_attention and tiled matmul, and the blocked Floyd-Warshall (its
+trailing min-plus update, a phase-2 panel, the whole call) and heat3d (one
+pass, the whole call) at the paper's LARGE sizes.
 
     python3 ab_kernels.py OLD_TREE NEW_TREE [--out FILE]
 
@@ -9,15 +11,18 @@ parent commit unpacked with ``git archive`` into a git-ignored directory).
 The script runs the trees in the order OLD, NEW, NEW, OLD, each in a
 process of its own that imports that tree's ``repro_torch`` and builds its
 kernels, and prints one JSON line per run and case: the kernel's time by
-CUDA events over back-to-back calls (``ms``, after warm-up, L2-warm) and
-its device time per launch under torch.profiler (``device_ms``), at the
-shapes the main paths give the kernels, at the default tiles
-(``ops.DEFAULTS``). A case the tree's wrapper refuses is printed with its
-reason. The card's name and power limit head the output. TF32 is off.
+CUDA events over back-to-back calls (``ms``, after warm-up, L2-warm), its
+device time per call under torch.profiler (``device_ms``) and the device
+kernels it ran per call (``device_kernels``), at the shapes the main paths
+give the kernels, at the default configs (``ops.DEFAULTS``). A phase-2 panel
+is launched as each tree's driver launches it. A case the tree's wrapper
+refuses is printed with its reason. The card's name and power limit head the
+output. TF32 is off.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import subprocess
@@ -32,6 +37,11 @@ CASES = (
     ("matmul prefill unembed", "matmul", (1024, 896, 151936)),
     ("matmul decode unembed", "matmul", (4, 896, 151936)),
     ("matmul decode output projection", "matmul", (4, 896, 896)),
+    ("minplus trailing update", "minplus", (2800, 64)),
+    ("minplus row panel", "minplus_panel", (2800, 64)),
+    ("floyd_warshall blocked", "floyd_warshall", (2800,)),
+    ("heat3d one pass", "heat3d_pass", (120,)),
+    ("heat3d 500 passes", "heat3d", (120, 500)),
 )
 
 
@@ -41,7 +51,7 @@ def _child(tree: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, problems
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.matmul import tiled_matmul
     from repro_torch.kernels.util import ConfigRejected
@@ -71,8 +81,28 @@ def _child(tree: str) -> None:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA) / 1e3 / n
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        return (sum(e.self_device_time_total for e in events) / 1e3 / n,
+                sum(e.count for e in events) / n)
+
+    def minplus_case(kernel, shape):
+        from repro_torch.kernels import floyd_warshall as fw
+
+        N, bs = shape
+        (W,) = problems.problem_inputs("floyd_warshall", (N,), dev)
+        Np = -(-N // bs) * bs
+        Wp = torch.nn.functional.pad(W, (0, Np - N, 0, Np - N), value=1e18)
+        cfg = {k: v for k, v in ops.DEFAULTS["floyd_warshall"].items() if k != "bs"}
+        if kernel == "minplus":
+            col, row = Wp[:, :bs].contiguous(), Wp[:bs].contiguous()
+            return (lambda: fw.minplus_update(Wp, col, row, **cfg)), cfg
+        diag = Wp[:bs, :bs].contiguous()
+        row = Wp[:bs]
+        if "out" in inspect.signature(fw.minplus_update).parameters:  # in place, panel tiles
+            pcfg = dict(bi=bs, bj=fw.PANEL_TILE, unroll=cfg["unroll"])
+            return (lambda: fw.minplus_update(row, diag, row, out=row, **pcfg)), pcfg
+        pcfg = dict(bi=min(bs, fw.MAX_TILE), bj=cfg["bj"], unroll=cfg["unroll"])
+        return (lambda: fw.minplus_update(row, diag, row, **pcfg)), pcfg
 
     for name, kernel, shape in CASES:
         if kernel == "flash_attention":
@@ -80,16 +110,32 @@ def _child(tree: str) -> None:
             q, k, v = (torch.randn(BH, S, hd, device=dev, generator=g) for _ in range(3))
             fn = lambda: flash_attention(q, k, v, causal=True, **fcfg)  # noqa: E731
             cfg = fcfg
-        else:
+        elif kernel == "matmul":
             M, K, N = shape
             a = torch.randn(M, K, device=dev, generator=g) / K ** 0.5
             b = torch.randn(K, N, device=dev, generator=g) / N ** 0.5
             fn = lambda: tiled_matmul(a, b, **mcfg)  # noqa: E731
             cfg = mcfg
+        elif kernel in ("minplus", "minplus_panel"):
+            fn, cfg = minplus_case(kernel, shape)
+        elif kernel == "floyd_warshall":
+            (W,) = problems.problem_inputs("floyd_warshall", shape, dev)
+            fn = lambda: ops.floyd_warshall_op(W)  # noqa: E731
+            cfg = ops.DEFAULTS["floyd_warshall"]
+        else:
+            from repro_torch.kernels.heat3d import heat3d_step
+
+            (H,) = problems.problem_inputs("heat3d", (shape[0], 1), dev)
+            cfg = ops.DEFAULTS["heat3d"]
+            if kernel == "heat3d_pass":
+                fn = lambda: heat3d_step(H, **cfg)  # noqa: E731
+            else:
+                fn = lambda: ops.heat3d_op(H, shape[1])  # noqa: E731
         rec = dict(tree=tree, case=name, shape=shape, config=cfg)
+        big = kernel in ("floyd_warshall", "heat3d") or shape[0] * shape[-1] > 10 ** 7
         try:
-            rec.update(ms=events_ms(fn, 10 if shape[0] * shape[2] > 10 ** 7 else 20),
-                       device_ms=device_ms(fn))
+            rec["ms"] = events_ms(fn, 10 if big else 50)
+            rec["device_ms"], rec["device_kernels"] = device_ms(fn, 3 if big else 10)
         except ConfigRejected as e:
             rec["refused"] = str(e)
         print(json.dumps(rec), flush=True)

@@ -9,13 +9,16 @@ checks each kernel on the card:
 
   1. device: name, count, power limit; TF32 switched off for the yardsticks;
   2. build: every source in src/repro_torch/kernels/csrc/ with nvcc (sm_90a),
-     one nvcc per source, all started together; ptxas registers and spills,
-     per instantiation for syr2k, matmul, covariance, flash_attention (hd 16
-     to 256) and decode_attention (the main paths' spill nothing);
+     one nvcc per source, all started together, each one's seconds; ptxas
+     registers and spills, per instantiation for syr2k, matmul, covariance,
+     floyd_warshall, heat3d, flash_attention (hd 16 to 256) and
+     decode_attention (every multiple of 16 up to 256) (the main paths'
+     spill nothing);
   3. kernel vs plain PyTorch version at the paper's LARGE sizes, over the
      knob combinations, with the tolerance stated beside each error (0 for
-     the min-plus kernel, the blocked Floyd-Warshall and the two helpers,
-     which must agree bit for bit; syr2k and covariance on NaN-poisoned
+     the min-plus kernel on views and in place, the blocked Floyd-Warshall
+     at every bs of the gpu space, heat3d at every point of its space and
+     the two helpers, which must agree bit for bit; syr2k and covariance on NaN-poisoned
      outputs, with the same bits from every configuration, covariance's
      exactly symmetric; the matmul also at the model's skinny shapes; the
      3xTF32 tensor-core matmul's largest error in each tolerance class, over
@@ -28,7 +31,10 @@ checks each kernel on the card:
      torch.profiler); decode_attention's split of the key axis and its
      workspace, and its device time at the model's shape; for
      lu, floyd_warshall and heat3d also the kernel launches, the host wall
-     time and the device time (torch.profiler) per call;
+     time and the device time (torch.profiler) per call; Floyd-Warshall's
+     device time split into panels, trailing updates, closures and copies,
+     heat3d's per pass beside its events time and a library yardstick
+     (1,000 F.conv3d steps, timed together);
   5. the main path: `repro_torch.launch.autotune.main` campaigns at LARGE
      for syr2k, mm3, lu, covariance, floyd_warshall and heat3d, each with
      its wrappers' launch counts set to 0 just before and read just after,
@@ -44,7 +50,9 @@ checks each kernel on the card:
      the card against the same weights on the CPU (plain versions there).
 
 Phases 3 and 4 also hold flash_attention and decode_attention against their
-plain versions at LARGE, at head_dim 256 and at the model's shapes, and time
+plain versions at LARGE, at head_dim 256, at head sizes between the
+instantiations (80, 96, 112, 160, 192; decode also with more query heads
+than one launch takes) and at the model's shapes, and time
 them beside
 scaled_dot_product_attention (a yardstick only: the port never calls it);
 decode_attention with per-row positions that leave whole splits of the key
@@ -139,11 +147,15 @@ SERVE = dict(arch="qwen2-0.5b", batch=4, prompt_len=256, gen=32, seed=0)
 # lu, the prefill unembed) and matmul<input, PACK, TM, TN, VEC16> (FFMA) at
 # the model's 8-row decode tiles; covariance<FUSE_CENTER, RT, VEC16> at
 # 64x64 tiles of M = 1200; flash<dtype, hd, CAUSAL> and decode<dtype, hd,
-# VEC16> at the model's f32, hd 64; phase 2 asserts that they spill nothing
-# (the other instantiations' spills are printed)
+# VEC16> at the model's f32, hd 64; minplus<TM, TN, UNROLL, VEC16> at unroll
+# 4 for the default 64x64 trailing tiles (8x4) and the 64x16 panels (4x4);
+# heat3d<FUSE_T, VEC16> at fuse_t 2 on N = 120; phase 2 asserts that they
+# spill nothing (the other instantiations' spills are printed)
 MAIN_PATH_INSTANCES = {"syr2k": ([1, 1, 4, 1],),
                        "matmul": ([1, 1], ["float", 1, 1, 4, 1]),
                        "covariance": ([1, 4, 1],),
+                       "floyd_warshall": ([8, 4, 4, 1], [4, 4, 4, 1]),
+                       "heat3d": ([2, 1],),
                        "flash_attention": (["float", 64, 1],),
                        "decode_attention": (["float", 64, 1],)}
 # the serving path's matmul shapes (qwen2-0.5b, batch 4, prompt 256): name,
@@ -274,6 +286,28 @@ def device_time(fn) -> tuple[float, dict]:
     return sum(ms for _, ms in by_name.values()), by_name
 
 
+def device_kernels_in_order(fn) -> list[tuple[str, float]]:
+    """(name, device milliseconds) of every device kernel, copy and fill of
+    one call of ``fn`` in the order they ran (torch.profiler's trace, after
+    one unprofiled warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    evs = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return [(e["name"], e["dur"] / 1e3) for e in sorted(evs, key=lambda e: e["ts"])]
+
+
 def launches_per_call(fn, wrappers) -> dict:
     """Kernel launches of one call of ``fn``, per wrapper."""
     before = {w.__name__: w.launches for w in wrappers}
@@ -296,7 +330,7 @@ def rejected_points(name: str, dims, limit: int) -> tuple[int, int]:
         return nbytes < 0 or nbytes > limit
 
     from repro_torch.kernels.covariance import covariance_smem_bytes
-    from repro_torch.kernels.floyd_warshall import MAX_TILE, minplus_smem_bytes
+    from repro_torch.kernels.floyd_warshall import PANEL_TILE, minplus_smem_bytes
     from repro_torch.kernels.heat3d import heat3d_smem_bytes
     from repro_torch.kernels.lu import lu_factor_diag_smem_bytes
     from repro_torch.kernels.spaces import kernel_space
@@ -319,9 +353,9 @@ def rejected_points(name: str, dims, limit: int) -> tuple[int, int]:
         (N,) = dims
         cs = kernel_space("floyd_warshall")
         pts = list(itertools.product(cs["bs"].sequence, cs["bi"].sequence, cs["bj"].sequence))
-        # the trailing update and the two panels (panel tile clamped to MAX_TILE)
-        bad = sum(any(refused(minplus_smem_bytes(a, b, bs)) for a, b in
-                      ((bi, bj), (min(bs, MAX_TILE), bj), (bi, min(bs, MAX_TILE))))
+        # the trailing update and the two panels (one tile across the block)
+        bad = sum(any(refused(minplus_smem_bytes(a, b, bs, limit)) for a, b in
+                      ((bi, bj), (bs, PANEL_TILE), (PANEL_TILE, bs)))
                   for (bs, bi, bj) in pts)
         return bad * 4, len(pts) * 4  # x unroll
     if name == "flash_attention":
@@ -340,7 +374,7 @@ def rejected_points(name: str, dims, limit: int) -> tuple[int, int]:
         N, _ = dims
         cs = kernel_space("heat3d")
         pts = list(itertools.product(cs["bi"].sequence, cs["fuse_t"].choices))
-        return sum(refused(heat3d_smem_bytes(min(bi, N), ft)) for bi, ft in pts), len(pts)
+        return sum(refused(heat3d_smem_bytes((N, N, N), bi, ft)) for bi, ft in pts), len(pts)
     if name == "syr2k":
         N, M = dims
         # 2x2x2 points per tile triple (pack_a, pack_b, interchange), as the
@@ -429,6 +463,15 @@ def check_attention(dev, errs: dict) -> None:
     q, k, v = (t.to(torch.bfloat16) for t in attention_inputs(4, 200, 200, 256, dev, seed=13))
     flash_case("bf16 (4, 200, 256)", q, k, v, True, 64, 64, ATTN_BF16_TOL)
 
+    # head sizes between the instantiations: run zero-padded to the next one
+    for hd_ in (80, 96, 112, 160, 192):
+        q, k, v = attention_inputs(4, 600, 571, hd_, dev, seed=40 + hd_)
+        for causal in (True, False):
+            flash_case(f"hd {hd_} (4, 600/571, {hd_})", q, k, v, causal, 64, 64)
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        flash_case(f"bf16 hd {hd_} (4, 600/571, {hd_})", q, k, v, True, 64, 32, ATTN_BF16_TOL)
+    del q, k, v
+
     def decode_case(label, q, k, v, cp, ring, window, bk, hg, tol=ATTN_TOL):
         got = decode_attention(q, k, v, cp, ring=ring, window=window, bk=bk, hg=hg)
         torch.cuda.synchronize()
@@ -477,6 +520,27 @@ def check_attention(dev, errs: dict) -> None:
     q2, k2, v2 = (t.to(torch.bfloat16) for t in (q2, k2, v2))
     decode_case(f"hd 256 bf16 ({BH}, 8, {S}, 256) per-row positions", q2, k2, v2, mixed, True,
                 0, 32, 1, ATTN_BF16_TOL)
+    del q2, k2, v2
+    # head sizes between the powers of two (instantiations of their own),
+    # and more query heads than one launch takes (groups of heads, one
+    # launch each)
+    for hd_ in (80, 96, 112, 160, 192):
+        q2, _, _ = attention_inputs(BH, 8, 1, hd_, dev, seed=50 + hd_)
+        _, k2, v2 = attention_inputs(BH, 1, S, hd_, dev, seed=60 + hd_)
+        for ring, window in ((False, 0), (True, 0), (False, 1000), (True, 300)):
+            decode_case(f"hd {hd_} ({BH}, 8, {S}, {hd_}) per-row positions", q2, k2, v2,
+                        mixed, ring, window, 32, 1)
+        q2, k2, v2 = (t.to(torch.bfloat16) for t in (q2, k2, v2))
+        decode_case(f"hd {hd_} bf16 ({BH}, 8, {S}, {hd_}) per-row positions", q2, k2, v2,
+                    mixed, True, 0, 64, 1, ATTN_BF16_TOL)
+    for G_, hd_ in ((20, 128), (12, 192), (40, 64)):
+        q2, _, _ = attention_inputs(BH, G_, 1, hd_, dev, seed=70 + G_)
+        _, k2, v2 = attention_inputs(BH, 1, S, hd_, dev, seed=80 + G_)
+        n0 = decode_attention.launches
+        decode_case(f"G={G_} past one launch ({BH}, {G_}, {S}, {hd_})", q2, k2, v2, mixed,
+                    True, 300, 32, 1)
+        print(f"    {(decode_attention.launches - n0) // 2} launches a call (groups of "
+              f"heads)", flush=True)
     del q2, k2, v2
     # the model's bucket of 288 at cur_pos 260 (three splits of 128, the last
     # 32 slots: S not a multiple of the split) and a bucket below bk
@@ -780,6 +844,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops, problems, ref
     from repro_torch.kernels.covariance import covariance, covariance_plain
     from repro_torch.kernels.floyd_warshall import (
+        PANEL_TILE,
         closure_in_block,
         closure_plain,
         floyd_warshall,
@@ -787,7 +852,7 @@ def main() -> int:
         minplus_update,
         minplus_update_plain,
     )
-    from repro_torch.kernels.heat3d import heat3d, heat3d_plain
+    from repro_torch.kernels.heat3d import heat3d, heat3d_plain, heat3d_plan
     from repro_torch.kernels.lu import lu, lu_factor_diag, lu_factor_diag_plain, lu_plain
     from repro_torch.kernels.matmul import tiled_matmul, tiled_matmul_plain
     from repro_torch.kernels.syr2k import syr2k, syr2k_plain
@@ -819,7 +884,9 @@ def main() -> int:
     phase("2. build")
     build_sec = build.build_all()
     print(f"  nvcc sm_90a build of {', '.join(f'{n}.cu' for n in build.KERNELS)} "
-          f"(one nvcc each, in parallel): {build_sec:.1f} s")
+          f"(one nvcc each, in parallel): {build_sec:.1f} s; per source: "
+          + ", ".join(f"{n} {t:.1f} s" for n, t in sorted(build.SECONDS.items(),
+                                                          key=lambda x: -x[1])))
     for name in build.KERNELS:
         report = build.ptxas_report(name)
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
@@ -958,22 +1025,41 @@ def main() -> int:
     (fw_n,) = problems.LARGE_SHAPES["floyd_warshall"]
     (W,) = problems.problem_inputs("floyd_warshall", (fw_n,), dev)
     fw_ref = ref.floyd_warshall_ref(W)
-    for bs in (16, 64, 256):
-        want_mp = minplus_update_plain(W, W[:, :bs].contiguous(), W[:bs].contiguous())
-        want_fw = floyd_warshall_plain(W, bs=bs)
-        for unroll in (1, 8):
-            got = minplus_update(W, W[:, :bs].contiguous(), W[:bs].contiguous(),
-                                 bi=64, bj=80, unroll=unroll)
-            torch.cuda.synchronize()
+    # min-plus on views of the padded matrix, as the driver launches it: the
+    # phase-2 panels in place (one tile across the block), the trailing
+    # update into a second buffer, at the default tiles and two others
+    Np = -(-fw_n // 64) * 64
+    Wp = torch.nn.functional.pad(W, (0, Np - fw_n, 0, Np - fw_n), value=1e18)
+    off = Np // 2
+    for ti, tj, unroll in ((64, 64, 4), (40, 112, 8), (128, 128, 1)):
+        D = Wp.clone()
+        diag = D[off:off + 64, off:off + 64].clone()
+        want_row = minplus_update_plain(D[off:off + 64], diag, D[off:off + 64])
+        row = D[off:off + 64]
+        minplus_update(row, diag, row, bi=64, bj=PANEL_TILE, unroll=unroll, out=row)
+        got_row = row.clone()  # the column panel rewrites the diagonal block
+        want_col = minplus_update_plain(D[:, off:off + 64], D[:, off:off + 64], diag)
+        col = D[:, off:off + 64]
+        minplus_update(col, col, diag, bi=PANEL_TILE, bj=64, unroll=unroll, out=col)
+        E = torch.full_like(D, float("nan"))
+        minplus_update(D, col, row, bi=ti, bj=tj, unroll=unroll, out=E)
+        torch.cuda.synchronize()
+        for label, got, want_ in (("row panel in place", got_row, want_row),
+                                  ("column panel in place", D[:, off:off + 64], want_col),
+                                  (f"trailing {ti}x{tj}", E, minplus_update_plain(D, col, row))):
             errs["minplus"] = max(errs["minplus"], compare(
-                f"minplus {fw_n}x{bs} (x) {bs}x{fw_n} bi=64 bj=80 unroll={unroll}",
-                got, want_mp, EXACT))
-            got = floyd_warshall(W, bs=bs, bi=64, bj=64, unroll=unroll,
+                f"minplus {Np}x64 (x) 64x{Np} views, {label}, unroll={unroll}", got, want_,
+                EXACT))
+        del D, E
+    for bs in (16, 32, 64, 128, 256):  # every bs of the gpu space
+        want_fw = floyd_warshall_plain(W, bs=bs)
+        for bi, bj, unroll in ((64, 64, 4), (24, 128, 1), (112, 40, 8)):
+            got = floyd_warshall(W, bs=bs, bi=bi, bj=bj, unroll=unroll,
                                  allow_semiring_reassociation=True)
             torch.cuda.synchronize()
             errs["minplus"] = max(errs["minplus"], compare(
-                f"floyd_warshall N={fw_n} bs={bs} unroll={unroll} vs blocked plain",
-                got, want_fw, EXACT))
+                f"floyd_warshall N={fw_n} bs={bs} bi={bi} bj={bj} unroll={unroll} vs "
+                f"blocked plain", got, want_fw, EXACT))
         compare(f"floyd_warshall N={fw_n} bs={bs} vs unblocked floyd_warshall_ref",
                 got, fw_ref, FW_REF_TOL)
     for off, bs in ((0, 64), (fw_n // 2 - 64, 128), (fw_n - 256, 256)):
@@ -984,16 +1070,18 @@ def main() -> int:
             f"closure_in_block off={off} bs={bs}", D[off:off + bs, off:off + bs],
             closure_plain(W[off:off + bs, off:off + bs]), EXACT))
 
-    # heat3d, including bi=1 with fuse_t=2 (where the JAX kernel's halo is short)
+    # heat3d at every point of its gpu space (bi = 1 with fuse_t = 2 is where
+    # the JAX kernel's halo is short): the plain version's bits
     heat_n, tsteps = problems.LARGE_SHAPES["heat3d"]
     (H,) = problems.problem_inputs("heat3d", (heat_n, tsteps), dev)
     heat_ref = ref.heat3d_ref(H, tsteps)
-    for bi, ft in ((8, 1), (8, 2), (1, 2), (7, 2), (32, 1)):
-        got = heat3d(H, tsteps, bi=bi, fuse_t=ft)
-        torch.cuda.synchronize()
-        errs["heat3d"] = max(errs["heat3d"], compare(
-            f"heat3d N={heat_n} tsteps={tsteps} bi={bi} fuse_t={ft} vs heat3d_ref",
-            got, heat_ref, HEAT_TOL))
+    for bi in (1, 2, 4, 8, 16, 32):
+        for ft in (1, 2):
+            got = heat3d(H, tsteps, bi=bi, fuse_t=ft)
+            torch.cuda.synchronize()
+            errs["heat3d"] = max(errs["heat3d"], compare(
+                f"heat3d N={heat_n} tsteps={tsteps} bi={bi} fuse_t={ft} "
+                f"{heat3d_plan((heat_n,) * 3, bi, ft)} vs heat3d_plain", got, heat_ref, EXACT))
 
     # lu: bs dividing N and not, pack on and off, against the plain blocked
     # lu with the same bs and against the unblocked reference
@@ -1167,23 +1255,78 @@ def main() -> int:
           f"min-plus closure)")
     per_call("floyd_warshall", lambda: ops.floyd_warshall_op(W),
              (closure_in_block, minplus_update), rows["minplus"]["ms"])
+    # the call's device time by part: each round launches the closure, copies
+    # the diagonal block, then the row panel, the column panel and the
+    # trailing update, in that order
+    parts = {"row panels": [], "column panels": [], "trailing updates": [], "closures": [],
+             "copies and fills": []}
+    n_mp = 0
+    for name, ms in device_kernels_in_order(lambda: ops.floyd_warshall_op(W)):
+        if "minplus_kernel" in name:
+            parts[("row panels", "column panels", "trailing updates")[n_mp % 3]].append(ms)
+            n_mp += 1
+        elif "closure_kernel" in name:
+            parts["closures"].append(ms)
+        else:
+            parts["copies and fills"].append(ms)
+    print(f"  floyd_warshall device time by part (torch.profiler trace, one call, "
+          f"{sum(map(len, parts.values()))} device kernels; 355 before the driver passed views): "
+          + "; ".join(f"{k} x{len(v)} {sum(v):.4f} ms ({sum(v) / max(len(v), 1) * 1e3:.1f} us "
+                      f"each)" for k, v in parts.items()), flush=True)
     Np = -(-fw_n // fw_bs) * fw_bs
     Wp = torch.nn.functional.pad(W, (0, Np - fw_n, 0, Np - fw_n), value=1e18)
     col, row = Wp[:, :fw_bs].contiguous(), Wp[:fw_bs].contiguous()
     mp_cfg = {k: v for k, v in ops.DEFAULTS["floyd_warshall"].items() if k != "bs"}
+    E = torch.empty_like(Wp)
+    tr_ev = time_ms(lambda: minplus_update(Wp, col, row, out=E, **mp_cfg), iters=50)
+    tr_dev = device_time(lambda: [minplus_update(Wp, col, row, out=E, **mp_cfg)
+                                  for _ in range(20)])[0] / 20
     print(f"  one trailing min-plus update {Np}x{fw_bs} (x) {fw_bs}x{Np} {mp_cfg}: "
-          f"{time_ms(lambda: minplus_update(Wp, col, row, **mp_cfg)):.4f} ms, bound "
-          f"{bound(float(Np) * Np * fw_bs, 4.0 * 3 * Np * Np, peak=PEAK_F32_MIN)[0]:.4f} ms")
+          f"{tr_dev:.4f} ms on the device (CUDA events {tr_ev:.4f} ms), bound "
+          f"{bound(float(Np) * Np * fw_bs, 4.0 * 3 * Np * Np, peak=PEAK_F32_MIN)[0]:.4f} ms "
+          f"(N^2 bs minima at {PEAK_F32_MIN / 1e12:.2f} T/s)")
+    Dp, diag = Wp.clone(), Wp[:fw_bs, :fw_bs].clone()
+    rp = Dp[:fw_bs]
+    pn_cfg = dict(bi=fw_bs, bj=PANEL_TILE, unroll=mp_cfg["unroll"])
+    pn_ev = time_ms(lambda: minplus_update(rp, diag, rp, out=rp, **pn_cfg), iters=50)
+    pn_dev = device_time(lambda: [minplus_update(rp, diag, rp, out=rp, **pn_cfg)
+                                  for _ in range(20)])[0] / 20
+    print(f"  one row panel {fw_bs}x{fw_bs} (x) {fw_bs}x{Np} in place {pn_cfg}: "
+          f"{pn_dev:.4f} ms on the device (CUDA events {pn_ev:.4f} ms), bound "
+          f"{bound(float(Np) * fw_bs * fw_bs, 4.0 * 2 * Np * fw_bs, peak=PEAK_F32_MIN)[0]:.4f} ms",
+          flush=True)
+    del Dp, E
 
     b_ms, b_by = bound(13.0 * 2 * tsteps * (heat_n - 2) ** 3, 4.0 * 2 * heat_n ** 3)
+    # the library yardstick: the same 7-point weights as one F.conv3d over
+    # the interior (0.25 at the centre, 0.125 at the six neighbours), called
+    # 2 * tsteps times back to back and timed as a whole. Interior only, not
+    # the reference's rounding (cuDNN sums the seven products its own way).
+    wgt = torch.zeros(1, 1, 3, 3, 3, device=dev)
+    wgt[0, 0, 1, 1, 1] = 0.25
+    for d in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0), (1, 1, 2)):
+        wgt[(0, 0) + d] = 0.125
+    H5 = H[None, None]
+    conv_ms = time_ms(lambda: [torch.nn.functional.conv3d(H5, wgt) for _ in range(2 * tsteps)],
+                      iters=3, warmup=1)
     rows["heat3d"] = dict(
         ms=time_ms(lambda: ops.heat3d_op(H, tsteps), iters=10),
         plain_ms=time_ms(lambda: heat3d_plain(H, tsteps), iters=3, warmup=1),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
-    print(f"  heat3d {ops.DEFAULTS['heat3d']}: kernel {rows['heat3d']['ms']:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}; counted: 13 flops per interior point and step), plain "
-          f"{rows['heat3d']['plain_ms']:.4f} ms, library: none")
+        library_ms=conv_ms, bound_ms=b_ms, bound_by=b_by)
+    h_cfg = ops.DEFAULTS["heat3d"]
+    passes = 2 * tsteps // h_cfg["fuse_t"]
+    print(f"  heat3d {h_cfg} {heat3d_plan((heat_n,) * 3, h_cfg['bi'], h_cfg['fuse_t'])}: "
+          f"kernel {rows['heat3d']['ms']:.4f} ms ({rows['heat3d']['ms'] / passes * 1e3:.2f} us "
+          f"a pass by CUDA events, {passes} passes), bound {b_ms:.4f} ms ({b_by}; counted: 13 "
+          f"flops per interior point and step), plain {rows['heat3d']['plain_ms']:.4f} ms, "
+          f"library {conv_ms:.4f} ms (F.conv3d, TF32 off, {2 * tsteps} calls timed together, "
+          f"{conv_ms / (2 * tsteps) * 1e3:.2f} us a call: interior only, not the reference's "
+          f"rounding)", flush=True)
     per_call("heat3d", lambda: ops.heat3d_op(H, tsteps), (heat3d,), rows["heat3d"]["ms"])
+    h_dev = device_time(lambda: ops.heat3d_op(H, tsteps))[0]
+    print(f"  heat3d per pass: {h_dev / passes * 1e3:.2f} us on the device (torch.profiler, "
+          f"kernels only) against {rows['heat3d']['ms'] / passes * 1e3:.2f} us by CUDA events "
+          f"(the gaps between back-to-back launches included)", flush=True)
 
     blk = Alu[:lu_bs, :lu_bs].contiguous()
     b_ms, b_by = bound(2.0 / 3.0 * lu_bs ** 3, 4.0 * 2 * lu_bs * lu_bs)

@@ -25,7 +25,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["KERNELS", "NVCC_FLAGS", "build_all", "check", "load", "nvcc_path",
+__all__ = ["KERNELS", "NVCC_FLAGS", "SECONDS", "build_all", "check", "load", "nvcc_path",
            "ptxas_entries", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -64,18 +64,21 @@ KERNELS: dict[str, dict[str, tuple[list, type]]] = {
         "covariance_smem_bytes": ([_I, _I, _I, _I], _L),
     },
     "floyd_warshall": {
-        # D, A, B, O, n, m, bs, bi, bj, unroll, stream
-        "minplus_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
-        # bi, bj, bs
-        "minplus_smem_bytes": ([_I, _I, _I], _L),
+        # D, ldd, A, lda, B, ldb, O, ldo, n, m, bs, bi, bj, unroll, smem limit,
+        # stream
+        "minplus_launch": ([_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                           _I),
+        # bi, bj, bs, smem limit
+        "minplus_smem_bytes": ([_I, _I, _I, _I], _L),
         # D, ld, off, bs, stream: the in-block closure, in place
         "closure_launch": ([_P, _I, _I, _I, _P], _I),
     },
     "heat3d": {
         # A, O, T, n0, n1, n2, bi, fuse_t, passes, stream
         "heat3d_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
-        # bi, fuse_t
-        "heat3d_smem_bytes": ([_I, _I], _L),
+        # n0, n1, n2, bi, fuse_t, out[4] <- tile rows, blocks, threads and
+        # shared memory bytes of one pass on this card
+        "heat3d_plan": ([_I, _I, _I, _I, _I, ctypes.POINTER(_L)], _I),
     },
     "flash_attention": {
         # q, k, v, o, BH, Sq, Sk, hd, bq, bk, scale, causal, bf16, smem limit,
@@ -87,9 +90,10 @@ KERNELS: dict[str, dict[str, tuple[list, type]]] = {
     },
     "decode_attention": {
         # q, k, v, cur_pos, o, workspace, counters, BH, G, S, hd, Kh, stride_b,
-        # stride_s, stride_h, bk, hg, nsplit, ring, window, scale, bf16, stream
+        # stride_s, stride_h, heads of a q/o row, bk, hg, nsplit, ring, window, scale,
+        # bf16, stream
         "decode_attention_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
-                                     _L, _I, _I, _I, _I, _I, _F, _I, _P], _I),
+                                     _L, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
         # G, bk, hd, bf16
         "decode_attention_smem_bytes": ([_I, _I, _I, _I], _L),
         # BH, S, bk, hg, SM count -> splits of the key axis
@@ -148,7 +152,9 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path) -> None:
 
 def build_all(names=None) -> float:
     """Compile every kernel not yet built for the current sources, one
-    ``nvcc`` per source, all started together. Returns the wall seconds."""
+    ``nvcc`` per source, all started together. Returns the wall seconds;
+    :data:`SECONDS` maps each source compiled to the seconds its ``nvcc``
+    took."""
     names = list(KERNELS if names is None else names)
     t0 = time.perf_counter()
     with _lock:
@@ -156,15 +162,26 @@ def build_all(names=None) -> float:
         if todo:
             nvcc = nvcc_path()
             started = [(n, *_start(n, nvcc)) for n in todo]
-            errors = []
-            for n, proc, tmp, out in started:  # wait for every nvcc, then report
+            errors: dict[str, str] = {}
+
+            def finish(n, proc, tmp, out):  # one thread per nvcc: each is timed alone
                 try:
                     _finish(n, proc, tmp, out)
                 except RuntimeError as e:
-                    errors.append(str(e))
+                    errors[n] = str(e)
+                SECONDS[n] = time.perf_counter() - t0
+
+            threads = [threading.Thread(target=finish, args=job) for job in started]
+            for t in threads:
+                t.start()
+            for t in threads:  # wait for every nvcc, then report
+                t.join()
             if errors:
-                raise RuntimeError("\n".join(errors))
+                raise RuntimeError("\n".join(errors[n] for n in todo if n in errors))
     return time.perf_counter() - t0
+
+
+SECONDS: dict[str, float] = {}  # source -> nvcc seconds of its last build in this process
 
 
 def load(name: str) -> ctypes.CDLL:

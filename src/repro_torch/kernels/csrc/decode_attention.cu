@@ -81,17 +81,27 @@
 // contiguous. A (BH, S, hd) tensor is Kh = 1; the model's (B, S, Kh, hd)
 // cache is read in place, row b*Kh + h at (b, h), with no copy.
 //
+// Head sizes: every multiple of 16 from 16 to 256 is an instantiation (the
+// cache is read in place, so a head size cannot be padded up to another
+// one): NV = hd / 4 float4 columns, the score pass's lanes stride hd by 4 *
+// lpp, and the P V pass's threads are (NV, head group, slot group) with the
+// slot groups nsg = 256 / (NV * nhg), so a head size that is not a power of
+// two leaves a few threads out of that pass (hd 80: 240 of 256).
+// q and O rows hold Gq >= G heads, so a launch can take heads g0 .. g0 + G
+// - 1 of each row (q and O passed from head g0): the wrapper splits a G
+// past the kernel's 8 * 256 / hd into groups that fit, one launch each.
+//
 // Interface: decode_attention_smem_bytes() gives the dynamic shared memory
 // a block needs for (G, bk, hd, dtype) (-1 for what the kernel does not
-// take: bk from 1 to 256, hd one of 16, 32, 64, 128, 256, G at most 8 *
-// 256 / hd, so 8 at hd 256), from the same layout() the launcher passes the
+// take: bk from 1 to 256, hd a multiple of 16 up to 256, G at most 8 * 256
+// / hd, so 8 at hd 256), from the same layout() the launcher passes the
 // kernel; the wrapper checks it against the device's limit before launch
 // (at hd 256 and G = 8 in f32 the three ring stages take 198 KB, one block
 // an SM).
 // decode_attention_splits() and decode_attention_workspace_bytes() size the
 // split and the workspace; decode_attention_launch() launches on the given
 // stream, does not synchronise, and returns cudaGetLastError(). dtype, hd
-// and the copy form are template parameters (20 instantiations).
+// and the copy form are template parameters (64 instantiations).
 
 #include "gemm_f32.cuh"
 
@@ -104,6 +114,7 @@ constexpr int MAXGPT = 8;          // heads per thread in the P V pass
 constexpr int MAXBK = 256;         // largest bk (the gpu space's)
 constexpr int MAXSPLIT = 32;       // splits of the key axis: one per lane in the combine
 constexpr int QPAD = 4;            // q row padding: the G heads' rows in distinct bank quads
+constexpr int MAXHD = 256;         // head sizes: the multiples of 16 up to 256
 constexpr float NEG = -1.0e30f;    // the TPU kernel's mask value
 
 // Shared-memory layout of one block, in bytes: q of the current row
@@ -150,6 +161,7 @@ struct Args {
   const void* q; const void* k; const void* v; const int* cur_pos; void* o;
   float* ws; int* counters;
   long long stride_b, stride_s, stride_h;
+  int Gq;  // query heads of a row of q and O (G of them from the launch's first)
   int BH, Kh, G, S, bk, hg, nsplit, spb, ring, window;
   float scale;
   Layout L;
@@ -242,7 +254,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
     __syncthreads();  // the previous row's q, stats and ring are consumed
     if (nchunks > 0)
       for (int idx = tid; idx < p.G * HD; idx += NT)
-        sQ[idx / HD * (HD + QPAD) + idx % HD] = to_f32(Qg[(size_t)r * p.G * HD + idx]);
+        sQ[idx / HD * (HD + QPAD) + idx % HD] = to_f32(Qg[(size_t)r * p.Gq * HD + idx]);
     for (int g = tid; g < p.G; g += NT) {
       sM[g] = NEG;
       sL[g] = 0.f;
@@ -361,7 +373,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
       }
       if (p.nsplit == 1) {
         const float den = fmaxf(sL[idx / NV], 1e-30f);
-        T* o = Og + (size_t)r * p.G * HD + 4 * idx;
+        T* o = Og + (size_t)r * p.Gq * HD + 4 * idx;
         o[0] = from_f32<T>(o4.x / den);
         o[1] = from_f32<T>(o4.y / den);
         o[2] = from_f32<T>(o4.z / den);
@@ -422,7 +434,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
         o.w = fmaf(x.w, e, o.w);
       }
       const float den = sL[g];
-      T* out = Og + (size_t)r * p.G * HD + 4 * idx;
+      T* out = Og + (size_t)r * p.Gq * HD + 4 * idx;
       out[0] = from_f32<T>(o.x / den);
       out[1] = from_f32<T>(o.y / den);
       out[2] = from_f32<T>(o.z / den);
@@ -447,15 +459,11 @@ cudaError_t launch_vec(const Args& p, bool vec16, cudaStream_t s) {
   return vec16 ? launch<T, HD, true>(p, s) : launch<T, HD, false>(p, s);
 }
 
-template <typename T>
+// hd = HD, HD + 16, ..., 256
+template <typename T, int HD = 16>
 cudaError_t launch_hd(const Args& p, int hd, bool vec16, cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch_vec<T, 16>(p, vec16, s);
-    case 32: return launch_vec<T, 32>(p, vec16, s);
-    case 64: return launch_vec<T, 64>(p, vec16, s);
-    case 128: return launch_vec<T, 128>(p, vec16, s);
-    case 256: return launch_vec<T, 256>(p, vec16, s);
-  }
+  if (hd == HD) return launch_vec<T, HD>(p, vec16, s);
+  if constexpr (HD < MAXHD) return launch_hd<T, HD + 16>(p, hd, vec16, s);
   return cudaErrorInvalidValue;
 }
 
@@ -464,7 +472,7 @@ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 }  // namespace
 
 extern "C" long long decode_attention_smem_bytes(int G, int bk, int hd, int bf16) {
-  if (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256) return -1;
+  if (hd < 16 || hd > MAXHD || hd % 16) return -1;
   if (G < 1 || G > 8 * NT / hd || bk < 1 || bk > MAXBK) return -1;
   return layout(G, hd, bf16 ? 2 : 4).bytes;
 }
@@ -489,13 +497,14 @@ extern "C" long long decode_attention_workspace_bytes(int BH, int G, int hd, int
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* cur_pos, void* o, void* ws, void* counters,
                                        int BH, int G, int S, int hd, int Kh, long long stride_b,
-                                       long long stride_s, long long stride_h, int bk, int hg,
+                                       long long stride_s, long long stride_h, int Gq,
+                                       int bk, int hg,
                                        int nsplit, int ring, int window, float scale, int bf16,
                                        void* stream) {
   const long long smem = decode_attention_smem_bytes(G, bk, hd, bf16);
   const int nkb = cdiv(S, bk > 0 ? bk : 1);
   if (smem < 0 || BH < 1 || S < 1 || hg < 1 || Kh < 1 || nsplit < 1 || nsplit > nkb
-      || nsplit > MAXSPLIT
+      || nsplit > MAXSPLIT || Gq < G
       || (nsplit > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int size = bf16 ? 2 : 4;
@@ -504,7 +513,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   const bool vec16 = gemm::aligned16(k) && gemm::aligned16(v) && (stride_b * size) % 16 == 0
                      && (stride_s * size) % 16 == 0 && (stride_h * size) % 16 == 0;
   Args p{q, k, v, (const int*)cur_pos, o, (float*)ws, (int*)counters,
-         stride_b, stride_s, stride_h, BH, Kh, G, S, bk, hg, nsplit, cdiv(nkb, nsplit),
+         stride_b, stride_s, stride_h, Gq, BH, Kh, G, S, bk, hg, nsplit, cdiv(nkb, nsplit),
          ring, window, scale, layout(G, hd, size)};
   cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t e = bf16 ? launch_hd<__nv_bfloat16>(p, hd, vec16, s)

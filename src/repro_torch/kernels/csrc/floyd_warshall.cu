@@ -10,30 +10,71 @@
 // steps.
 //
 // What bounds it on an H100: each relaxation is one FADD and one FMNMX on
-// the CUDA cores; there is no tensor-core form of (min, +). All-pairs
-// shortest paths need N^3 relaxations: at the paper's LARGE size (N=2800)
-// 2.2e10, 1.31 ms at one f32 instruction per lane and clock (the 67 TFLOP/s
-// f32 rate counts an FFMA as two operations, so 33.5e12 instructions/s),
-// against 63 MB of compulsory traffic, 19 us at 3.35 TB/s: compute-bound.
+// the CUDA cores; there is no tensor-core form of (min, +). FMNMX issues at
+// 64 results per clock and SM (half the FADD rate), and the two instructions
+// fill every issue slot, so the card does at most 64 relaxations per clock
+// and SM: 16.75e12 a second. One trailing update at the paper's LARGE size
+// (N = 2800 padded to 2816, bs = 64) is 5.07e8 relaxations, 30.3 us, against
+// 63 MB of D read and O written (19 us at 3.35 TB/s): compute-bound, and
+// every instruction that is not an FADD or an FMNMX costs a relaxation's
+// issue slot.
 //
-// Design of the min-plus kernel: matmul.cu's, with (min, +) in place of
-// (+, *). One 16x16-thread block per bi x bj tile of O (tiles up to
-// 128 x 128); thread (tx, ty) owns rows 64h + 4ty + u and columns
-// 64g + 4tx + v (h, g < 2; u, v < 4): up to 8x8 f32 running minima in
-// registers, started from D. The bs-wide contraction is streamed through
-// shared memory in chunks of KC = 32 (k-major A chunk, B chunk, rows padded
-// for 16-byte alignment), so bs=256 with 128-wide tiles needs 34 KB, not the
-// 256 KB the whole A and B panels would. The inner loop reads four rows
-// (columns) of one k as one float4. The schedule knob changes the code:
+// Design of the min-plus kernel: gemm_f32.cuh's main loop (the one matmul,
+// syr2k and covariance run) with (min, +) in place of fmaf. A is a row-major,
+// k-contiguous n x bs operand and B a row-major, n-contiguous bs x m one,
+// exactly matmul's A and B, each with its own leading dimension (as are D
+// and O), so the blocked driver passes views of its distance matrix and
+// copies nothing.
+//   * One block per bi x bj tile of O. The tile is padded to a multiple of
+//     the register tile only (a 24-row tile costs 24 rows, not 64): each
+//     of (pm/TM) x (pn/TN) threads, at most 256, holds TM x TN running
+//     minima, 4 x 4 below 64 x 64 (the panels and short tiles: more threads,
+//     less work each), 8 x 4 from 64 x 64 (fewer shared-memory reads a
+//     relaxation; the default 64 x 64 tile is 128 threads), 8 x 8 where 8 x 4
+//     would need more than 256 threads. Thread (ty, tx) owns rows ty + TY*u
+//     (interleaved, so a warp's reads of A's k-contiguous rows fall in
+//     distinct bank quads) and columns 4tx + 4TX*h + w (four contiguous per
+//     group). A tile extent may reach 256, so a panel of phase 2 can be one
+//     tile across its whole bs side (256 x 16 at bs = 256: 256 threads).
+//   * The running minima start from D, read as float4 (one 16-byte load per
+//     row and column group; coalesced across tx), and O is stored as float4,
+//     where D, O, their leading dimensions and bj are whole 16-byte words;
+//     otherwise element by element. D is read with plain (coherent) loads,
+//     since a panel's D is also the O it writes.
+//   * The bs-wide contraction streams through gemm::run_ring in chunks of
+//     KC = 32 k, copied by cp.async in coalesced 16-byte pieces
+//     (gemm::copy_box; 4-byte pieces where A, B, their leading dimensions,
+//     bs, m or bj are off 16-byte words), the ring as deep as the chunks
+//     (bs = 64: both chunks in flight at once) and the device's shared memory
+//     allow (gemm::ring_stages, at most three). Rows of A's chunk are padded
+//     to an odd number of 16-byte words (gemm::kpitch). Unlike a sum, min-plus
+//     has no neutral zero, so the loop runs exactly over the valid k of a
+//     chunk: the copies' zero fill past bs is never read.
+//   * Per read of W consecutive k of A's TM rows (W = min(UNROLL, 4): one
+//     float4 a row at W = 4) and of B's TN columns of each of those k (TN/4
+//     float4 a k), 2 * TM * TN * W relaxation instructions: at the 64 x 64
+//     default (8 x 4, UNROLL = 4) 12 shared-memory reads for 256 FADD/FMNMX
+//     per four k.
+//   * Tried and dropped (slower on the card): one wave of persistent blocks
+//     streaming each tile's D and chunks through one ring across tiles; an
+//     8 x 8 register tile at 64 x 64 (64 threads a block); 4 x 4 at 64 x 64.
+// The schedule knob changes the code:
 //   UNROLL      the unroll factor of the k loop (1, 2, 4, 8), a template
-//               parameter: the loop body is replicated UNROLL times per
-//               iteration, with a rolled remainder loop, and UNROLL=1 is
-//               kept rolled (#pragma unroll 1).
-// Ragged edges are masked (rows past n and columns past m are not stored);
-// the wrapper always writes a fresh O, since the row panel of phase 2 is
-// passed as both D and B. Min is exact and each candidate a_ik + b_kj is
-// one rounded add, so the result does not depend on tiles, chunks or order:
-// it equals the plain version bit for bit.
+//               parameter: one iteration relaxes UNROLL k, reading A W = min
+//               (UNROLL, 4) k at a time (a 4-, 8- or 16-byte read a row), so
+//               UNROLL = 8 is two float4 steps an iteration; a rolled
+//               remainder loop takes the last k of a chunk one at a time.
+// Ragged edges are masked (rows past n or bi and columns past m or bj are
+// neither staged from outside the tile nor stored). In place: O may be D
+// itself when no block reads another block's tile of it, as in the blocked
+// driver's panels: the row panel (A the diagonal block's copy, B = D = O,
+// one tile spanning all bs rows) and the column panel (A = D = O, B the
+// copy, one tile spanning all bs columns). A block reads all of its D, A and
+// B before it stores (run_ring returns after every copy has landed and every
+// thread is past the last chunk), and its tile is the only part of O it
+// reads. Min is exact and each candidate a_ik + b_kj is one rounded add, so
+// the result does not depend on tiles, chunks or order: it equals the plain
+// version bit for bit.
 //
 // Design of the closure helper: one block of 32x32 threads runs the bs
 // steps k of in-block Floyd-Warshall, D_ij = min(D_ij, D_ik + D_kj), with a
@@ -46,194 +87,226 @@
 // (bs = 256: 263 KB) works in global memory, through L1 and L2.
 //
 // Interface: minplus_smem_bytes() gives the dynamic shared memory a block
-// of the min-plus kernel needs (-1 for a tile the register tile cannot
-// hold), from the same layout() the kernel carves its buffers from.
-// minplus_launch() and closure_launch() launch on the given stream, do not
-// synchronise, and return cudaGetLastError().
+// of the min-plus kernel needs for a tile and contraction width under a
+// device limit (-1 for a tile past 256 or past 256 threads), from the same
+// layout() the launcher passes the kernel. minplus_launch() and
+// closure_launch() launch on the given stream, do not synchronise, and
+// return cudaGetLastError(). The register tile (4 x 4, 8 x 4, 8 x 8),
+// UNROLL and the copy form are template parameters of the min-plus kernel
+// (24 instantiations).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gemm_f32.cuh"
 
 namespace {
 
-constexpr int TD = 16;          // threads per tile dimension
-constexpr int VEC = 4;          // consecutive rows (cols) per thread and group
-constexpr int GROUP = TD * VEC; // rows covered by one group: 64
-constexpr int MAXG = 2;         // groups per tile dimension: tiles up to 128
-constexpr int PAD = 4;          // row padding of staged chunks (keeps float4 alignment)
-constexpr int R = MAXG * VEC;   // max rows (cols) per thread
-constexpr int INFLIGHT = 8;     // staging loads each thread keeps in flight
-constexpr int KC = 32;          // contraction chunk streamed through shared memory
-constexpr int CT = 32;          // closure helper: CT x CT threads
+constexpr int KC = 32;             // contraction chunk streamed through the ring
+constexpr int MAX_EXTENT = 256;    // largest (padded) tile extent
+constexpr int MAX_THREADS = 256;
+constexpr int CT = 32;             // closure helper: CT x CT threads
 constexpr int CLOSURE_SMEM_BS = 128;  // widest closure block held in shared memory
 
-struct Args {
-  const float* D; const float* A; const float* B; float* O;
-  int n, m, bs, bi, bj;
-};
-
-// Shared-memory layout of one min-plus block, in floats: the A chunk then
-// the B chunk, each k-major, kc rows of the tile extent padded to whole
-// groups (pi, pj) plus PAD.
+// Shared-memory layout of one min-plus block: `stages` stages, each A's
+// chunk (pm rows of kfull k, pitch_a bytes apart) then B's (kfull rows of pn
+// columns, pitch_b bytes apart).
 struct Layout {
-  int pi, pj, lda, ldb;  // padded tile extents, leading dimensions
-  int b;                 // offset of the B chunk (A's is 0)
-  int floats;            // total
+  int tm, tn;              // register tile: tm rows x tn columns a thread
+  int pm, pn;              // tile extents padded to tm, tn
+  int threads;
+  int kfull;               // k of a full chunk
+  int pitch_a, pitch_b;    // row pitches, bytes
+  int a_bytes, stage, stages;
+  long long bytes;
 };
 
-__host__ __device__ inline Layout layout(int bi, int bj, int bs) {
-  const int kc = bs < KC ? bs : KC;
+Layout layout(int bi, int bj, int bs, long long limit) {
   Layout L;
-  L.pi = (bi + GROUP - 1) / GROUP * GROUP;
-  L.pj = (bj + GROUP - 1) / GROUP * GROUP;
-  L.lda = L.pi + PAD;
-  L.ldb = L.pj + PAD;
-  L.b = kc * L.lda;
-  L.floats = L.b + kc * L.ldb;
+  // 4 x 4 for tiles below 64 x 64 (the panels, short tiles: more threads,
+  // less work each); 8 x 4 from 64 x 64 (fewer shared-memory reads a
+  // relaxation), 8 x 8 where 8 x 4 would need more than 256 threads
+  auto threads = [&](int tm, int tn) {
+    return (gemm::round_up(bi, tm) / tm) * (gemm::round_up(bj, tn) / tn);
+  };
+  L.tm = L.tn = 4;
+  if (bi >= 64 && bj >= 64) L.tm = 8;
+  if (threads(L.tm, L.tn) > MAX_THREADS) L.tm = L.tn = 8;
+  L.pm = gemm::round_up(bi, L.tm);
+  L.pn = gemm::round_up(bj, L.tn);
+  L.threads = threads(L.tm, L.tn);
+  L.kfull = bs < KC ? bs : KC;
+  L.pitch_a = gemm::kpitch(L.kfull, 4);
+  L.pitch_b = 4 * L.pn;
+  L.a_bytes = L.pm * L.pitch_a;
+  L.stage = L.a_bytes + L.kfull * L.pitch_b;
+  const int nchunks = (bs + KC - 1) / KC;
+  L.stages = gemm::ring_stages(L.stage, 0, limit,
+                               nchunks < gemm::MAX_STAGES ? nchunks : gemm::MAX_STAGES);
+  L.bytes = (long long)L.stages * L.stage;
   return L;
 }
 
-// A rows [r0, r0 + rows_pad) x cols [k0, k0 + kc) (A is n x bs) into
-// s[k * ld + r], k-major; consecutive threads take consecutive rows (the
-// transposing stores are free of bank conflicts). Rows past the tile or
-// past n are staged as 0: their results are never stored.
-__device__ __forceinline__ void stage_a(float* s, int ld, const Args& p, int r0, int rows,
-                                        int rows_pad, int k0, int kc) {
-  const int tid = threadIdx.y * TD + threadIdx.x;
-  const int shift = __ffs(rows_pad) - 1, mask = rows_pad - 1;
-  const int total = rows_pad * kc;
-  for (int base = tid; base < total; base += TD * TD * INFLIGHT) {
-    float v[INFLIGHT];
-#pragma unroll
-    for (int u = 0; u < INFLIGHT; ++u) {
-      const int idx = base + u * TD * TD, k = idx >> shift, r = idx & mask, g = r0 + r;
-      v[u] = (idx < total && r < rows && g < p.n) ? p.A[(size_t)g * p.bs + k0 + k] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < INFLIGHT; ++u) {
-      const int idx = base + u * TD * TD;
-      if (idx < total) s[(idx >> shift) * ld + (idx & mask)] = v[u];
-    }
+struct Args {
+  const float* D; const float* A; const float* B; float* O;
+  int ldd, lda, ldb, ldo;
+  int n, m, bs, bi, bj;
+  int vec_io;  // float4 reads of D and stores of O
+  Layout L;
+};
+
+// W consecutive floats of a staged A row (W = 1, 2 or 4; 4W-byte aligned)
+template <int W>
+__device__ __forceinline__ void load_w(const char* p, float (&x)[W]) {
+  if constexpr (W == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    x[0] = q.x; x[1] = q.y; x[2] = q.z; x[3] = q.w;
+  } else if constexpr (W == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    x[0] = q.x; x[1] = q.y;
+  } else {
+    x[0] = *reinterpret_cast<const float*>(p);
   }
 }
 
-// B rows [k0, k0 + kc) x cols [c0, c0 + cols_pad) (B is bs x m) into
-// s[k * ld + c]; consecutive threads take consecutive columns.
-__device__ __forceinline__ void stage_b(float* s, int ld, const Args& p, int c0, int cols,
-                                        int cols_pad, int k0, int kc) {
-  const int tid = threadIdx.y * TD + threadIdx.x;
-  const int shift = __ffs(cols_pad) - 1, mask = cols_pad - 1;
-  const int total = cols_pad * kc;
-  for (int base = tid; base < total; base += TD * TD * INFLIGHT) {
-    float v[INFLIGHT];
+// Relax the register tile over k .. k + W - 1: A's rows at pa + u * ua
+// (bytes), B's row k at pb + k * ldb_s (floats), column group h hb floats on.
+template <int TM, int TN, int W>
+__device__ __forceinline__ void relax(float (&acc)[TM][TN], const char* pa, int ua,
+                                      const float* pb, int ldb_s, int hb, int k) {
+  float a[TM][W];
 #pragma unroll
-    for (int u = 0; u < INFLIGHT; ++u) {
-      const int idx = base + u * TD * TD, k = idx >> shift, c = idx & mask, g = c0 + c;
-      v[u] = (idx < total && c < cols && g < p.m) ? p.B[(size_t)(k0 + k) * p.m + g] : 0.f;
+  for (int u = 0; u < TM; ++u) load_w<W>(pa + u * ua + 4 * k, a[u]);
+#pragma unroll
+  for (int t = 0; t < W; ++t) {
+    float b[TN];
+#pragma unroll
+    for (int h = 0; h < TN / 4; ++h) {
+      const float4 q = *reinterpret_cast<const float4*>(pb + (k + t) * ldb_s + h * hb);
+      b[4 * h] = q.x; b[4 * h + 1] = q.y; b[4 * h + 2] = q.z; b[4 * h + 3] = q.w;
     }
 #pragma unroll
-    for (int u = 0; u < INFLIGHT; ++u) {
-      const int idx = base + u * TD * TD;
-      if (idx < total) s[(idx >> shift) * ld + (idx & mask)] = v[u];
-    }
+    for (int u = 0; u < TM; ++u)
+#pragma unroll
+      for (int v = 0; v < TN; ++v) acc[u][v] = fminf(acc[u][v], a[u][t] + b[v]);
   }
 }
 
-// One relaxation step k of the register tile.
-__device__ __forceinline__ void relax(float (&acc)[R][R], const float* sA, int lda,
-                                      const float* sB, int ldb, int k, int Gi, int Gj) {
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  float av[R], bv[R];
-#pragma unroll
-  for (int h = 0; h < MAXG; ++h) {
-    if (h < Gi) {
-      const float4 q = *reinterpret_cast<const float4*>(sA + k * lda + GROUP * h + VEC * ty);
-      av[VEC * h + 0] = q.x; av[VEC * h + 1] = q.y; av[VEC * h + 2] = q.z; av[VEC * h + 3] = q.w;
-    }
-    if (h < Gj) {
-      const float4 q = *reinterpret_cast<const float4*>(sB + k * ldb + GROUP * h + VEC * tx);
-      bv[VEC * h + 0] = q.x; bv[VEC * h + 1] = q.y; bv[VEC * h + 2] = q.z; bv[VEC * h + 3] = q.w;
-    }
-  }
-#pragma unroll
-  for (int hi = 0; hi < MAXG; ++hi)
-#pragma unroll
-    for (int hj = 0; hj < MAXG; ++hj)
-      if (hi < Gi && hj < Gj) {
-#pragma unroll
-        for (int u = 0; u < VEC; ++u)
-#pragma unroll
-          for (int v = 0; v < VEC; ++v) {
-            const int a = VEC * hi + u, b = VEC * hj + v;
-            acc[a][b] = fminf(acc[a][b], av[a] + bv[b]);
-          }
-      }
-}
-
-template <int UNROLL>
-__global__ void __launch_bounds__(TD * TD) minplus_kernel(Args p) {
+template <int TM, int TN, int UNROLL, bool VEC16>
+__global__ void __launch_bounds__(MAX_THREADS) minplus_kernel(Args p) {
+  constexpr int W = UNROLL < 4 ? UNROLL : 4;  // k per read of A
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  char* smem = reinterpret_cast<char*>(smem4);
+  const Layout& L = p.L;
   const int i0 = blockIdx.y * p.bi, j0 = blockIdx.x * p.bj;
-  const Layout L = layout(p.bi, p.bj, p.bs);
-  const int Gi = L.pi / GROUP, Gj = L.pj / GROUP;
-  float* sA = smem;          // [kc][lda], k-major
-  float* sB = smem + L.b;    // [kc][ldb]
-  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int TY = L.pm / TM, TX = L.pn / TN, nthreads = TY * TX;
+  const int tid = threadIdx.x, ty = tid / TX, tx = tid - ty * TX;
+  const int rows_v = min(p.bi, p.n - i0), cols_v = min(p.bj, p.m - j0);
+  auto row = [&](int u) { return ty + TY * u; };
+  auto col = [&](int h) { return 4 * tx + 4 * TX * h; };
 
-  float acc[R][R];
+  // the running minima start from D (plain loads: a panel's D is its O)
+  float acc[TM][TN];
 #pragma unroll
-  for (int a = 0; a < R; ++a) {
-    const int r = GROUP * (a / VEC) + VEC * ty + a % VEC, gr = i0 + r;
+  for (int u = 0; u < TM; ++u) {
+    const int r = row(u);
+    const float* d = p.D + (size_t)(i0 + r) * p.ldd + j0;
 #pragma unroll
-    for (int b = 0; b < R; ++b) {
-      const int c = GROUP * (b / VEC) + VEC * tx + b % VEC, gc = j0 + c;
-      const bool in = a / VEC < Gi && b / VEC < Gj && r < p.bi && gr < p.n && c < p.bj && gc < p.m;
-      acc[a][b] = in ? p.D[(size_t)gr * p.m + gc] : 0.f;
+    for (int h = 0; h < TN / 4; ++h) {
+      const int c = col(h);
+      if (r < rows_v && p.vec_io && c + 3 < cols_v) {
+        const float4 q = *reinterpret_cast<const float4*>(d + c);
+        acc[u][4 * h] = q.x; acc[u][4 * h + 1] = q.y;
+        acc[u][4 * h + 2] = q.z; acc[u][4 * h + 3] = q.w;
+      } else {
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+          acc[u][4 * h + w] = (r < rows_v && c + w < cols_v) ? d[c + w] : 0.f;
+      }
     }
   }
 
-  for (int k0 = 0; k0 < p.bs; k0 += KC) {
-    const int kc = min(KC, p.bs - k0);
-    __syncthreads();  // previous chunk fully consumed
-    stage_a(sA, L.lda, p, i0, p.bi, L.pi, k0, kc);
-    stage_b(sB, L.ldb, p, j0, p.bj, L.pj, k0, kc);
-    __syncthreads();
+  // A's chunk: pm rows of kc k (zero past rows_v); B's: kc rows of pn
+  // columns (zero past cols_v). A ragged last chunk plans anew.
+  const gemm::Plan plan_a = gemm::plan_box<float, VEC16>(L.pm, L.kfull, tid, nthreads);
+  const gemm::Plan plan_b = gemm::plan_box<float, VEC16>(L.kfull, L.pn, tid, nthreads);
+  auto load = [&](int c, int slot) {
+    char* sA = smem + slot * L.stage;
+    char* sB = sA + L.a_bytes;
+    const int k0 = c * KC, kc = min(KC, p.bs - k0);
+    const int kcp = VEC16 ? gemm::round_up(kc, 4) : kc;
+    const bool full = kcp == L.kfull;
+    gemm::copy_box<float, VEC16>(
+        full ? plan_a : gemm::plan_box<float, VEC16>(L.pm, kcp, tid, nthreads), sA, L.pitch_a,
+        p.A + (size_t)i0 * p.lda + k0, p.lda, rows_v, kc, tid, nthreads);
+    gemm::copy_box<float, VEC16>(
+        full ? plan_b : gemm::plan_box<float, VEC16>(kcp, L.pn, tid, nthreads), sB, L.pitch_b,
+        p.B + (size_t)k0 * p.ldb + j0, p.ldb, kc, cols_v, tid, nthreads);
+  };
 
+  auto compute = [&](int c, int slot) {
+    const char* sA = smem + slot * L.stage;
+    const float* sB = reinterpret_cast<const float*>(sA + L.a_bytes);
+    const int kc = min(KC, p.bs - c * KC);
+    const char* pa = sA + ty * L.pitch_a;
+    const int ua = TY * L.pitch_a;
+    const float* pb = sB + col(0);
+    const int ldb_s = L.pn, hb = 4 * TX;
     int k = 0;
 #pragma unroll 1
     for (; k + UNROLL <= kc; k += UNROLL) {
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) relax(acc, sA, L.lda, sB, L.ldb, k + u, Gi, Gj);
+      for (int s = 0; s < UNROLL; s += W) relax<TM, TN, W>(acc, pa, ua, pb, ldb_s, hb, k + s);
     }
 #pragma unroll 1
-    for (; k < kc; ++k) relax(acc, sA, L.lda, sB, L.ldb, k, Gi, Gj);
-  }
+    for (; k < kc; ++k) relax<TM, TN, 1>(acc, pa, ua, pb, ldb_s, hb, k);
+  };
+
+  gemm::run_ring((p.bs + KC - 1) / KC, L.stages, load, compute);
 
 #pragma unroll
-  for (int a = 0; a < R; ++a) {
-    const int r = GROUP * (a / VEC) + VEC * ty + a % VEC, gr = i0 + r;
-    if (a / VEC >= Gi || r >= p.bi || gr >= p.n) continue;
+  for (int u = 0; u < TM; ++u) {
+    const int r = row(u);
+    if (r >= rows_v) continue;
+    float* o = p.O + (size_t)(i0 + r) * p.ldo + j0;
 #pragma unroll
-    for (int b = 0; b < R; ++b) {
-      const int c = GROUP * (b / VEC) + VEC * tx + b % VEC, gc = j0 + c;
-      if (b / VEC >= Gj || c >= p.bj || gc >= p.m) continue;
-      p.O[(size_t)gr * p.m + gc] = acc[a][b];
+    for (int h = 0; h < TN / 4; ++h) {
+      const int c = col(h);
+      if (p.vec_io && c + 3 < cols_v) {
+        *reinterpret_cast<float4*>(o + c) =
+            make_float4(acc[u][4 * h], acc[u][4 * h + 1], acc[u][4 * h + 2], acc[u][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+          if (c + w < cols_v) o[c + w] = acc[u][4 * h + w];
+      }
     }
   }
 }
 
-template <int UNROLL>
-cudaError_t launch_minplus(const Args& p, size_t smem, cudaStream_t stream) {
+template <int TM, int TN, int UNROLL, bool VEC16>
+cudaError_t launch_minplus(const Args& p, cudaStream_t stream) {
   const dim3 grid((p.m + p.bj - 1) / p.bj, (p.n + p.bi - 1) / p.bi);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(minplus_kernel<UNROLL>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  minplus_kernel<UNROLL><<<grid, dim3(TD, TD), smem, stream>>>(p);
+  static long long done[16] = {};
+  const cudaError_t e = gemm::allow_smem(minplus_kernel<TM, TN, UNROLL, VEC16>, p.L.bytes, done);
+  if (e != cudaSuccess) return e;
+  minplus_kernel<TM, TN, UNROLL, VEC16><<<grid, p.L.threads, p.L.bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int TM, int TN, bool VEC16>
+cudaError_t launch_unroll(const Args& p, int unroll, cudaStream_t s) {
+  switch (unroll) {
+    case 1: return launch_minplus<TM, TN, 1, VEC16>(p, s);
+    case 2: return launch_minplus<TM, TN, 2, VEC16>(p, s);
+    case 4: return launch_minplus<TM, TN, 4, VEC16>(p, s);
+    case 8: return launch_minplus<TM, TN, 8, VEC16>(p, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <bool VEC16>
+cudaError_t launch_tile(const Args& p, int unroll, cudaStream_t s) {
+  if (p.L.tm == 8 && p.L.tn == 8) return launch_unroll<8, 8, VEC16>(p, unroll, s);
+  if (p.L.tm == 8) return launch_unroll<8, 4, VEC16>(p, unroll, s);
+  return launch_unroll<4, 4, VEC16>(p, unroll, s);
 }
 
 // In-block closure of the bs x bs block at (off, off) of D (row stride ld).
@@ -270,24 +343,32 @@ __global__ void __launch_bounds__(CT * CT) closure_kernel(float* D, int ld, int 
 
 }  // namespace
 
-extern "C" long long minplus_smem_bytes(int bi, int bj, int bs) {
-  if (bi < 1 || bj < 1 || bs < 1 || bi > GROUP * MAXG || bj > GROUP * MAXG) return -1;
-  return (long long)sizeof(float) * layout(bi, bj, bs).floats;
+extern "C" long long minplus_smem_bytes(int bi, int bj, int bs, int limit) {
+  if (bi < 1 || bj < 1 || bs < 1) return -1;
+  const Layout L = layout(bi, bj, bs, limit);
+  if (L.pm > MAX_EXTENT || L.pn > MAX_EXTENT || L.threads > MAX_THREADS) return -1;
+  return L.bytes;
 }
 
-extern "C" int minplus_launch(const void* D, const void* A, const void* B, void* O, int n,
-                              int m, int bs, int bi, int bj, int unroll, void* stream) {
-  const long long smem = minplus_smem_bytes(bi, bj, bs);
-  if (smem < 0 || n < 1 || m < 1) return (int)cudaErrorInvalidValue;
-  Args p{(const float*)D, (const float*)A, (const float*)B, (float*)O, n, m, bs, bi, bj};
+extern "C" int minplus_launch(const void* D, int ldd, const void* A, int lda, const void* B,
+                              int ldb, void* O, int ldo, int n, int m, int bs, int bi, int bj,
+                              int unroll, int limit, void* stream) {
+  const long long smem = minplus_smem_bytes(bi, bj, bs, limit);
+  if (smem < 0 || smem > limit || n < 1 || m < 1 || ldd < m || ldo < m || lda < bs || ldb < m)
+    return (int)cudaErrorInvalidValue;
+  // 16-byte copy pieces: aligned bases, leading dimensions, chunk steps and
+  // tile edges (bs, m and bj whole 16-byte words), so no piece straddles the
+  // valid box
+  const bool vec16 = gemm::aligned16(A) && gemm::aligned16(B) && lda % 4 == 0 && ldb % 4 == 0
+                     && bs % 4 == 0 && m % 4 == 0 && bj % 4 == 0;
+  const int vec_io = gemm::aligned16(D) && gemm::aligned16(O) && ldd % 4 == 0 && ldo % 4 == 0
+                     && bj % 4 == 0;
+  Args p{(const float*)D, (const float*)A, (const float*)B, (float*)O, ldd, lda, ldb, ldo,
+         n, m, bs, bi, bj, vec_io, layout(bi, bj, bs, limit)};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (unroll) {
-    case 1: return (int)launch_minplus<1>(p, smem, s);
-    case 2: return (int)launch_minplus<2>(p, smem, s);
-    case 4: return (int)launch_minplus<4>(p, smem, s);
-    case 8: return (int)launch_minplus<8>(p, smem, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  cudaError_t e;
+  e = vec16 ? launch_tile<true>(p, unroll, s) : launch_tile<false>(p, unroll, s);
+  return (int)e;
 }
 
 extern "C" int closure_launch(void* D, int ld, int off, int bs, void* stream) {
@@ -295,11 +376,9 @@ extern "C" int closure_launch(void* D, int ld, int off, int bs, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (bs <= CLOSURE_SMEM_BS) {
     const int smem = (int)sizeof(float) * bs * (bs + 1);
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(closure_kernel<true>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return (int)e;
-    }
+    static long long done[16] = {};
+    const cudaError_t e = gemm::allow_smem(closure_kernel<true>, smem, done);
+    if (e != cudaSuccess) return (int)e;
     closure_kernel<true><<<1, dim3(CT, CT), smem, s>>>((float*)D, ld, off, bs);
   } else {
     closure_kernel<false><<<1, dim3(CT, CT), 0, s>>>((float*)D, ld, off, bs);

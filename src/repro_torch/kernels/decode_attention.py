@@ -18,7 +18,10 @@ Same contract as ``repro.kernels.decode_attention.decode_attention``:
     ``p = 0``, so a row with ``cur_pos = -1`` returns exactly 0;
   * ``bk`` -> the KV block of the online-softmax loop: the kernel splits the
     key axis across blocks in whole ``bk`` blocks (:func:`decode_attention_plan`),
-    ``hg`` -> how many rows one block of the kernel walks.
+    ``hg`` -> how many rows one block of the kernel walks;
+  * head sizes that are multiples of 16 up to 256 on the card (the CPU takes
+    any); a G past the kernel's 8 * 256 / hd heads a launch is split into
+    groups of heads that fit, one launch each (:func:`decode_attention_head_groups`).
 
 Also here, as torch functions: :func:`chunked_decode_xla` (the JAX package's
 ``impl="xla"`` variant: the same recurrence over ``bk`` chunks in tensor
@@ -42,10 +45,29 @@ from repro_torch.kernels.util import (
 
 __all__ = ["CacheRows", "decode_attention", "decode_attention_plain",
            "decode_attention_smem_bytes", "decode_attention_check",
-           "decode_attention_plan", "chunked_decode_xla", "decode_ref", "decode_mask"]
+           "decode_attention_plan", "decode_attention_head_groups", "chunked_decode_xla",
+           "decode_ref", "decode_mask"]
 
 _NEG = -1.0e30
 DTYPES = (torch.float32, torch.bfloat16)
+HEAD_STEP, MAX_HEAD = 16, 256  # the kernel's head sizes: multiples of 16 up to 256
+HEADS_PER_LAUNCH = 8 * 256     # G * hd of one launch at most (8 heads a thread, 256 threads)
+
+
+def decode_attention_head_groups(G: int, hd: int) -> list[tuple[int, int]]:
+    """The query heads ``[g0, g1)`` of each launch for G heads of size hd:
+    one group where G fits the kernel (G <= 8 * 256 / hd), else the fewest
+    groups that fit, as equal as can be. Raises :class:`ConfigRejected` for
+    a head size the kernel has no instantiation of."""
+    if hd < HEAD_STEP or hd > MAX_HEAD or hd % HEAD_STEP:
+        raise ConfigRejected(f"decode_attention hd={hd}: the kernel takes head sizes that "
+                             f"are multiples of {HEAD_STEP} up to {MAX_HEAD} (it reads the "
+                             f"cache in place, so a head size cannot be padded)")
+    if G < 1:
+        raise ValueError(f"decode_attention needs at least one query head, got G={G}")
+    fit = HEADS_PER_LAUNCH // hd
+    n = -(-G // fit)
+    return [(i * G // n, (i + 1) * G // n) for i in range(n)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,7 +193,8 @@ def decode_attention_check(q, k, v, cur_pos=None, *, bk: int = 128,
     (shape, dtype, device, contiguity) and, on the card, the block's shared
     memory against the device's limit. Raises :class:`ConfigRejected` for a
     configuration the kernel cannot run; returns the clamped ``(bk, hg)``.
-    Takes the launch's arguments; ``cur_pos`` is read at launch only."""
+    Takes the launch's arguments; ``cur_pos`` is read at launch only. The
+    shared memory is that of the largest group of heads one launch takes."""
     BH, G, hd = q.shape
     S = k.shape[1]
     if int(bk) < 1 or int(hg) < 1:
@@ -187,10 +210,11 @@ def decode_attention_check(q, k, v, cur_pos=None, *, bk: int = 128,
     for name, t in (("k", k), ("v", v)):
         t = t.cache if isinstance(t, CacheRows) else t
         check_operand(name, t, tuple(t.shape), (q.dtype,), dev)
-    smem = decode_attention_smem_bytes(G, bk, hd, q.dtype)
+    Gl = max(g1 - g0 for g0, g1 in decode_attention_head_groups(G, hd))
+    smem = decode_attention_smem_bytes(Gl, bk, hd, q.dtype)
     if smem < 0:
         raise ConfigRejected(f"decode_attention G={G} bk={bk} hd={hd}: the kernel takes bk "
-                             f"up to 256, hd 16/32/64/128/256 and G up to 8*256/hd")
+                             f"up to 256")
     limit = max_shared_memory_per_block(dev)
     if smem > limit:
         raise ConfigRejected(f"decode_attention G={G} bk={bk} hd={hd} needs {smem} B of "
@@ -234,17 +258,22 @@ def decode_attention(
     cp = _positions(cur_pos, BH, dev)
     out = torch.empty((BH, G, hd), dtype=q.dtype, device=dev)
     lib = build.load("decode_attention")
-    nsplit, ws_bytes = decode_attention_plan(BH, G, S, hd, bk, hg, dev)
+    esize = q.element_size()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ws, counters = _workspace(dev, stream, ws_bytes, -(-BH // hg))
-        err = lib.decode_attention_launch(
-            q.data_ptr(), kt.data_ptr(), vt.data_ptr(), cp.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), counters.data_ptr(), BH, G, S, hd, Kh, sb, ss, sh, bk, hg,
-            nsplit, int(bool(ring)), window, float(scale), int(q.dtype == torch.bfloat16),
-            stream)
-    build.check(lib, err, "decode_attention")
-    decode_attention.launches += 1
+        # one launch per group of heads, each reading and writing its heads
+        # of every row in place (rows of G heads)
+        for g0, g1 in decode_attention_head_groups(G, hd):
+            Gg = g1 - g0
+            nsplit, ws_bytes = decode_attention_plan(BH, Gg, S, hd, bk, hg, dev)
+            ws, counters = _workspace(dev, stream, ws_bytes, -(-BH // hg))
+            err = lib.decode_attention_launch(
+                q.data_ptr() + g0 * hd * esize, kt.data_ptr(), vt.data_ptr(), cp.data_ptr(),
+                out.data_ptr() + g0 * hd * esize, ws.data_ptr(), counters.data_ptr(), BH, Gg,
+                S, hd, Kh, sb, ss, sh, G, bk, hg, nsplit, int(bool(ring)), window,
+                float(scale), int(q.dtype == torch.bfloat16), stream)
+            build.check(lib, err, "decode_attention")
+            decode_attention.launches += 1
     return out
 
 

@@ -11,6 +11,10 @@ for tensors on the CPU. Knobs (the JAX package's):
   * ``fuse_t`` — stencil applications per pass (temporal blocking with an
                  ``fuse_t``-deep halo, read from global memory).
 
+A block marches along i through its slab and halo over a tile of ``TJ`` rows
+(j) by 120 columns (k); the kernel library picks ``TJ`` for the grid and the
+card (:func:`heat3d_plan`), so that a pass is about one wave of blocks.
+
 On the card every pass of one call goes out from one C call
 (``heat3d_launch`` loops over the passes, ping-ponging two buffers), so a
 heat3d evaluation costs one ctypes call whatever ``tsteps`` is. The input is
@@ -18,6 +22,8 @@ never written.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,16 +35,30 @@ from repro_torch.kernels.util import (
 )
 
 __all__ = ["heat3d", "heat3d_step", "heat3d_plain", "heat3d_step_plain",
-           "heat3d_smem_bytes"]
+           "heat3d_smem_bytes", "heat3d_plan"]
 
 FUSE_T = (1, 2)
 
 
-def heat3d_smem_bytes(bi: int, fuse_t: int) -> int:
+def heat3d_plan(shape: tuple[int, int, int], bi: int, fuse_t: int) -> dict:
+    """The launch ``csrc/heat3d.cu`` makes for a grid of ``shape`` on the
+    current card: the tile's j rows ``tj`` (0 if no tile fits), ``blocks``
+    and ``threads`` per pass and dynamic shared memory ``smem`` (bytes) per
+    block (-1 if no tile fits). The kernel library answers from its
+    launcher's own code, so it is built first."""
+    n0, n1, n2 = shape
+    lib = build.load("heat3d")
+    out = (ctypes.c_longlong * 4)()
+    build.check(lib, lib.heat3d_plan(n0, n1, n2, min(bi, n0), fuse_t, out), "heat3d")
+    tj, blocks, threads, smem = out
+    return dict(tj=tj, blocks=blocks, threads=threads, smem=smem)
+
+
+def heat3d_smem_bytes(shape: tuple[int, int, int], bi: int, fuse_t: int) -> int:
     """Dynamic shared memory (bytes) one block of ``csrc/heat3d.cu`` needs
-    for this slab height and fusion depth (-1 for a fusion depth it does not
-    take). The kernel's own layout answers, so the library is built first."""
-    return build.load("heat3d").heat3d_smem_bytes(bi, fuse_t)
+    for a grid of ``shape`` at this slab height and fusion depth (-1 where
+    no tile fits)."""
+    return heat3d_plan(shape, bi, fuse_t)["smem"]
 
 
 def heat3d_step_plain(A: torch.Tensor, fuse_t: int = 1) -> torch.Tensor:
@@ -60,7 +80,8 @@ def _passes(A: torch.Tensor, bi: int, fuse_t: int, passes: int) -> torch.Tensor:
     n0, n1, n2 = A.shape
     check_operand("A", A, (n0, n1, n2), (torch.float32,), dev)
     bi = min(bi, n0)
-    smem = heat3d_smem_bytes(bi, fuse_t)
+    with torch.cuda.device(dev):
+        smem = heat3d_smem_bytes((n0, n1, n2), bi, fuse_t)
     limit = max_shared_memory_per_block(dev)
     if smem < 0 or smem > limit:
         raise ConfigRejected(f"heat3d bi={bi} fuse_t={fuse_t} needs {smem} B of "

@@ -25,11 +25,13 @@ from repro_torch.kernels.decode_attention import (
     CacheRows,
     chunked_decode_xla,
     decode_attention,
+    decode_attention_head_groups,
     decode_attention_plain,
     decode_mask,
     decode_ref,
 )
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_head_size
+from repro_torch.kernels.util import ConfigRejected
 from repro_torch.models.attention import gqa_attention, gqa_decode
 
 F32TOL = dict(atol=2e-3, rtol=2e-3)   # tests/test_kernels.py:30
@@ -264,3 +266,56 @@ def test_matmul_builder_matches_reference_mold():
     for pack in (True, False):
         cfg = dict(bm=16, bn=32, bk=8, pack=pack, interchange=True)
         _close(mk.matmul_builder(cfg)(*_t(a, b)), jmk.matmul_builder(cfg)(*_j(a, b)))
+
+
+# ---------------------------------------------------------------------------
+# head sizes on the card: flash's padded size, decode's launch groups
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hd,want", [(1, 16), (16, 16), (17, 32), (64, 64), (80, 128),
+                                     (96, 128), (112, 128), (128, 128), (160, 256),
+                                     (192, 256), (256, 256)])
+def test_flash_head_size_pads_to_the_next_instantiation(hd, want):
+    assert flash_attention_head_size(hd) == want
+
+
+@pytest.mark.parametrize("hd", [0, 257, 512])
+def test_flash_head_size_rejects_past_256(hd):
+    with pytest.raises(ConfigRejected, match="head sizes"):
+        flash_attention_head_size(hd)
+
+
+@pytest.mark.parametrize("G,hd,want", [
+    (7, 64, [(0, 7)]),
+    (32, 64, [(0, 32)]),                       # 8 * 256 / 64 = 32: one launch
+    (33, 64, [(0, 16), (16, 33)]),             # just past it: two even groups
+    (9, 256, [(0, 4), (4, 9)]),                # hd 256 takes 8 a launch
+    (25, 80, [(0, 25)]),                       # 2048 // 80 = 25
+    (26, 80, [(0, 13), (13, 26)]),
+    (40, 192, [(0, 10), (10, 20), (20, 30), (30, 40)]),  # 10 a launch
+])
+def test_decode_head_groups(G, hd, want):
+    groups = decode_attention_head_groups(G, hd)
+    assert groups == want
+    assert all(g1 - g0 <= 8 * 256 // hd for g0, g1 in groups)
+
+
+@pytest.mark.parametrize("hd", [8, 72, 100, 272])
+def test_decode_head_groups_reject_other_head_sizes(hd):
+    with pytest.raises(ConfigRejected, match="multiples of 16"):
+        decode_attention_head_groups(4, hd)
+
+
+@pytest.mark.parametrize("hd", [80, 96, 112, 160, 192])
+def test_flash_and_decode_take_other_head_sizes_on_the_cpu(hd):
+    # the head sizes the card now runs (padded, or in groups): the wrappers'
+    # plain versions against the JAX package's Pallas kernels (interpret)
+    q, k, v = _normal((2, 40, hd), (2, 40, hd), (2, 40, hd), seed=hd)
+    _close(flash_attention(*_t(q, k, v), causal=True, bq=16, bk=16),
+           jax_flash_attention(*_j(q, k, v), causal=True, bq=16, bk=16, interpret=True))
+    qd, kd, vd = _normal((2, 3, hd), (2, 50, hd), (2, 50, hd), seed=hd + 1)
+    cp = np.array([30, 49], np.int32)
+    _close(decode_attention(*_t(qd, kd, vd), torch.from_numpy(cp), ring=False, bk=16),
+           jax_decode_attention(*_j(qd, kd, vd), jnp.asarray(cp), ring=False, bk=16,
+                                interpret=True))

@@ -15,6 +15,7 @@ C_TYPES = {
     "long long": ctypes.c_longlong,
     "void*": ctypes.c_void_p,
     "const void*": ctypes.c_void_p,
+    "long long*": ctypes.POINTER(ctypes.c_longlong),
 }
 
 EXTERN_C = re.compile(r'extern "C" ([^(]+?)\s*\b(\w+)\(([^)]*)\)')

@@ -310,12 +310,26 @@ def test_minplus_bit_exact(cuda, unroll):
 
 
 def test_minplus_smem_accounting(cuda):
-    # the contraction streams in chunks of 32: independent of bs past 32
-    assert minplus_smem_bytes(64, 64, 256) == 4 * 32 * (68 + 68)
-    assert minplus_smem_bytes(128, 128, 256) == 4 * 32 * (132 + 132)
-    assert minplus_smem_bytes(48, 80, 16) == 4 * 16 * (68 + 132)
-    assert minplus_smem_bytes(fw.MAX_TILE, fw.MAX_TILE, 64) > 0
-    assert minplus_smem_bytes(fw.MAX_TILE + 8, 64, 64) == -1
+    # the ring's stages (one per 32-deep chunk of bs, at most three, fewer
+    # under a small limit), each A's chunk (pm rows, k-contiguous, padded to
+    # an odd number of 16-byte words) then B's (kc rows of pn columns); the
+    # tile padded to its register tile only (4 x 4 below 64 x 64, 8 x 4 from
+    # there, 8 x 8 past 256 threads)
+    def stage(pm, pn, kc):
+        return pm * ((4 * kc + 31) // 32 * 32 + 16) + kc * 4 * pn
+
+    assert minplus_smem_bytes(64, 64, 64, LIMIT) == 2 * stage(64, 64, 32) == 34816
+    assert minplus_smem_bytes(128, 128, 256, LIMIT) == 3 * stage(128, 128, 32)
+    assert minplus_smem_bytes(128, 128, 256, 40000) == stage(128, 128, 32)  # one stage fits
+    assert minplus_smem_bytes(48, 80, 16, LIMIT) == stage(48, 80, 16)
+    assert minplus_smem_bytes(24, 40, 64, LIMIT) == 2 * stage(24, 40, 32)  # 24 rows cost 24
+    assert minplus_smem_bytes(8, 64, 64, LIMIT) == 2 * stage(8, 64, 32)
+    assert minplus_smem_bytes(66, 66, 64, LIMIT) == 2 * stage(72, 68, 32)  # 8 x 4
+    # the driver's panels at bs = 256: one tile across the whole block
+    assert minplus_smem_bytes(256, fw.PANEL_TILE, 256, LIMIT) == 3 * stage(256, 16, 32)
+    assert minplus_smem_bytes(fw.PANEL_TILE, 256, 256, LIMIT) == 3 * stage(16, 256, 32)
+    assert minplus_smem_bytes(fw.MAX_TILE + 8, 8, 64, LIMIT) == -1   # extent past 256
+    assert minplus_smem_bytes(256, 256, 64, LIMIT) == -1             # 1,024 threads
 
 
 @pytest.mark.parametrize("bs", [16, 100, 256])
@@ -329,6 +343,43 @@ def test_floyd_warshall_bit_exact_and_counts(cuda, bs):
     assert minplus_update.launches == m0 + 3 * nb
     assert torch.equal(got, floyd_warshall_plain(W, bs=bs))
     assert torch.equal(W, W0)  # the input is never written
+
+
+@pytest.mark.parametrize("tile", [8, 16, 24, 40, 112, 128])
+@pytest.mark.parametrize("unroll", [1, 2, 4, 8])
+def test_minplus_views_and_in_place_panels(cuda, tile, unroll):
+    # strided views of one matrix (leading dimension 260 > the panel's
+    # width), the phase-2 panels in place, the trailing update out of place
+    (W,) = problems.problem_inputs("floyd_warshall", (260,), cuda)
+    off, bs = 64, 64
+    D = W.clone()
+    diag = D[off:off + bs, off:off + bs].clone()
+    want_row = minplus_update_plain(D[off:off + bs], diag, D[off:off + bs])
+    row = D[off:off + bs]
+    minplus_update(row, diag, row, bi=bs, bj=tile, unroll=unroll, out=row)
+    assert torch.equal(D[off:off + bs], want_row)
+    want_col = minplus_update_plain(D[:, off:off + bs], D[:, off:off + bs], diag)
+    col = D[:, off:off + bs]
+    minplus_update(col, col, diag, bi=tile, bj=bs, unroll=unroll, out=col)
+    assert torch.equal(D[:, off:off + bs], want_col)
+    E = torch.full_like(D, float("nan"))
+    minplus_update(D, col, row, bi=tile, bj=tile, unroll=unroll, out=E)
+    assert torch.equal(E, minplus_update_plain(D, col, row))
+    # a ragged contraction (bs = 70, off 16-byte words): element copies
+    A, B = W[:, 3:73], W[5:75]
+    assert torch.equal(minplus_update(W, A, B, bi=tile, bj=tile, unroll=unroll),
+                       minplus_update_plain(W, A, B))
+
+
+@pytest.mark.parametrize("N,bs", [(300, 16), (333, 32), (300, 64), (301, 128), (290, 256),
+                                  (97, 48)])
+def test_floyd_warshall_bit_exact_ragged(cuda, N, bs):
+    # every bs of the gpu space (and one off it) on N that bs does not divide
+    (W,) = problems.problem_inputs("floyd_warshall", (N,), cuda)
+    for bi, bj, unroll in ((64, 64, 4), (24, 112, 1), (128, 40, 8)):
+        got = floyd_warshall(W, bs=bs, bi=bi, bj=bj, unroll=unroll,
+                             allow_semiring_reassociation=True)
+        assert torch.equal(got, floyd_warshall_plain(W, bs=bs)), (bi, bj, unroll)
 
 
 def test_closure_matches_plain(cuda):
@@ -352,6 +403,22 @@ def test_heat3d_matches_reference(cuda, bi, fuse_t):
     assert torch.equal(got, heat3d_plain(A, 3))
     assert torch.equal(A, A0)
     assert torch.equal(heat3d_step(A, bi=bi, fuse_t=fuse_t), heat3d_step_plain(A, fuse_t))
+
+
+@pytest.mark.parametrize("N", [37, 130])
+@pytest.mark.parametrize("bi", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("fuse_t", [1, 2])
+def test_heat3d_every_space_point_bit_exact(cuda, N, bi, fuse_t):
+    # all 12 points of the gpu space on grids ragged against the 120-wide k
+    # tile (130: two k tiles) and off 16-byte rows (37); bi = 1 with fuse_t = 2
+    # is the JAX kernel's short halo
+    from repro_torch.kernels.heat3d import heat3d_plan
+
+    (A,) = problems.problem_inputs("heat3d", (N, 1), cuda)
+    plan = heat3d_plan((N, N, N), bi, fuse_t)
+    assert plan["tj"] >= 1 and plan["blocks"] >= 1
+    got = heat3d(A, 2, bi=bi, fuse_t=fuse_t)
+    assert torch.equal(got, heat3d_plain(A, 2))
 
 
 def test_lu_factor_diag_matches_plain(cuda):
@@ -387,9 +454,9 @@ def test_new_kernels_reject_oversized_tiles_before_launch(cuda):
     with pytest.raises(ConfigRejected):
         covariance(data, bi=128, bj=128, bk=256)  # 256 * 2 * 132 floats > 227 KB
     assert covariance.launches == before
-    D = torch.zeros(200, 200, device=cuda)
-    with pytest.raises(ConfigRejected):
-        minplus_update(D, D[:, :16].contiguous(), D[:16].contiguous(), bi=192, bj=64)
+    D = torch.zeros(300, 300, device=cuda)
+    with pytest.raises(ConfigRejected):  # 32 x 32 threads of 8 x 8
+        minplus_update(D, D[:, :16].contiguous(), D[:16].contiguous(), bi=256, bj=256)
     with pytest.raises(TypeError):
         covariance(data.double())
 
@@ -575,7 +642,9 @@ def test_attention_smem_accounting(cuda):
     assert flash_attention_smem_bytes(128, 128, 256, limit=LIMIT) > LIMIT  # refused
     assert flash_attention_smem_bytes(8, 64, 64, limit=LIMIT) == -1     # not a multiple of 16
     assert flash_attention_smem_bytes(64, 256, 64, limit=LIMIT) == -1   # past 128
-    assert flash_attention_smem_bytes(64, 64, 96, limit=LIMIT) == -1    # head size
+    # another head size runs padded to the next instantiation
+    assert flash_attention_smem_bytes(64, 64, 96, limit=LIMIT) == flash(64, 64, 128, 4, 2)
+    assert flash_attention_smem_bytes(64, 64, 160, limit=LIMIT) == flash(64, 64, 256, 4, 2)
     assert flash_attention_smem_bytes(64, 64, 512, limit=LIMIT) == -1
     # q [G][hd + 4], S [G][33], m/l/alpha [3][G] in f32, rounded up to 16
     # bytes; then three ring stages of 32 slots of K (rows padded to an odd
@@ -593,7 +662,10 @@ def test_attention_smem_accounting(cuda):
     assert decode_attention_smem_bytes(9, 32, 256) == -1    # G past 8 * 256 / hd
     assert decode_attention_smem_bytes(7, 512, 64) == -1
     assert decode_attention_smem_bytes(17, 64, 128) == -1   # G past 8 * 256 / hd
-    assert decode_attention_smem_bytes(7, 64, 96) == -1     # head size
+    # every multiple of 16: hd 96, G 7 (256 / 24 = 10 slot groups of P V sums)
+    head = -(-4 * (7 * 100 + 7 * 33 + 3 * 7) // 16) * 16
+    assert decode_attention_smem_bytes(7, 64, 96) == head + 3 * 32 * (400 + 384)
+    assert decode_attention_smem_bytes(7, 64, 72) == -1     # not a multiple of 16
 
 
 def test_attention_oversized_tiles_are_rejected_before_launch(cuda):
@@ -606,14 +678,15 @@ def test_attention_oversized_tiles_are_rejected_before_launch(cuda):
         flash_attention(q, k, v, bq=128, bk=128)   # 320 KB of shared memory at one stage
     with pytest.raises(ConfigRejected):
         flash_attention(q, k, v, bq=40, bk=64)     # not a multiple of 16
+    qw, kw, vw = _normal(cuda, (2, 30, 272), (2, 30, 272), (2, 30, 272))
     with pytest.raises(ConfigRejected):
-        flash_attention(q[..., :96].contiguous(), k[..., :96].contiguous(),
-                        v[..., :96].contiguous())  # head size
+        flash_attention(qw, kw, vw)                # head size past 256
     assert flash_attention.launches == f0
     qd, kd, vd = _normal(cuda, (2, 17, 128), (2, 300, 128), (2, 300, 128))
     d0 = decode_attention.launches
-    with pytest.raises(ConfigRejected):
-        decode_attention(qd, kd, vd, 299, bk=128)  # G past 8 * 256 / hd
+    with pytest.raises(ConfigRejected):            # head size off the multiples of 16
+        decode_attention(qd[..., :72].contiguous(), kd[..., :72].contiguous(),
+                         vd[..., :72].contiguous(), 299, bk=128)
     with pytest.raises(ConfigRejected):
         decode_attention(qd[:, :8].contiguous(), kd, vd, 299, bk=512)  # bk past 256
     assert decode_attention.launches == d0
@@ -667,6 +740,86 @@ def test_decode_attention_head_dim_256(cuda, ring, window, dtype):
            ATTN_TOL if dtype == torch.float32 else ATTN_BF16_TOL)
     assert torch.count_nonzero(got[0]) == 0   # cur_pos = -1: exactly 0
     assert torch.equal(got, decode_attention(q, k, v, cp, ring=ring, window=window, bk=32))
+
+
+@pytest.mark.parametrize("hd", [80, 96, 112, 160, 192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_other_head_sizes(cuda, hd, dtype):
+    # head sizes between the instantiations run zero-padded to the next one
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v = (t.to(dtype) for t in _normal(cuda, (3, 150, hd), (3, 137, hd), (3, 137, hd),
+                                            seed=hd))
+    tol = ATTN_TOL if dtype == torch.float32 else ATTN_BF16_TOL
+    for causal in (True, False):
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, causal=causal, bq=64, bk=32)
+        assert flash_attention.launches == before + 1
+        assert got.shape == q.shape and got.dtype == dtype and got.is_contiguous()
+        _close(got, flash_attention_plain(q, k, v, causal=causal), tol)
+
+
+def test_flash_attention_padding_keeps_the_bits(cuda):
+    # the zero columns come after the real ones: hd 64 run at 128 with q, k, v
+    # zero-padded and the true scale gives the hd 64 kernel's bits
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = _normal(cuda, (3, 100, 64), (3, 100, 64), (3, 100, 64), seed=31)
+    pad = [torch.nn.functional.pad(t, (0, 64)) for t in (q, k, v)]
+    for causal in (True, False):
+        want = flash_attention(q, k, v, causal=causal, bq=32, bk=64)
+        got = flash_attention(*pad, causal=causal, bq=32, bk=64, scale=64 ** -0.5)
+        assert torch.equal(got[..., :64], want)
+        assert torch.count_nonzero(got[..., 64:]) == 0
+
+
+@pytest.mark.parametrize("hd", [80, 96, 112, 160, 192])
+@pytest.mark.parametrize("ring,window", [(False, 0), (True, 0), (True, 300)])
+def test_decode_attention_other_head_sizes(cuda, hd, ring, window):
+    # instantiated head sizes, the key axis split, f32 and bf16, and a model
+    # cache read in place
+    from repro_torch.kernels.decode_attention import (
+        CacheRows,
+        decode_attention,
+        decode_attention_plain,
+    )
+
+    q, k, v, cp = _decode_cases(cuda, 6, 7, 1000, hd, seed=hd)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, cp, ring=ring, window=window, bk=32)
+    assert decode_attention.launches == before + 1
+    _close(got, decode_attention_plain(q, k, v, cp, ring=ring, window=window), ATTN_TOL)
+    assert torch.count_nonzero(got[0]) == 0
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = decode_attention(qb, kb, vb, cp, ring=ring, window=window, bk=64)
+    _close(got, decode_attention_plain(qb, kb, vb, cp, ring=ring, window=window),
+           ATTN_BF16_TOL)
+    kc, vc = (t.reshape(3, 2, 1000, hd).transpose(1, 2).contiguous() for t in (k, v))
+    got = decode_attention(q, CacheRows(kc), CacheRows(vc), cp, ring=ring, window=window,
+                           bk=128, hg=2)
+    _close(got, decode_attention_plain(q, k, v, cp, ring=ring, window=window), ATTN_TOL)
+
+
+@pytest.mark.parametrize("G,hd", [(17, 128), (40, 64), (9, 256), (26, 80), (13, 160)])
+def test_decode_attention_heads_past_one_launch(cuda, G, hd):
+    # G past 8 * 256 / hd: one launch per group of heads, each in place in
+    # q's and the output's rows
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_head_groups,
+        decode_attention_plain,
+    )
+
+    groups = decode_attention_head_groups(G, hd)
+    assert len(groups) > 1
+    q, k, v, cp = _decode_cases(cuda, 5, G, 700, hd, seed=G)
+    for ring, bk in ((False, 32), (True, 128)):
+        before = decode_attention.launches
+        got = decode_attention(q, k, v, cp, ring=ring, bk=bk)
+        assert decode_attention.launches == before + len(groups)
+        _close(got, decode_attention_plain(q, k, v, cp, ring=ring), ATTN_TOL)
+        assert torch.count_nonzero(got[0]) == 0
+        assert torch.equal(got, decode_attention(q, k, v, cp, ring=ring, bk=bk))
 
 
 # an untileable bq, and the chunked torch variant, which does not run on the card

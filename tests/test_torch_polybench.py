@@ -25,6 +25,7 @@ from repro.kernels.lu import lu as jax_lu
 from repro.kernels.problems import BENCH_DIMS as JBENCH_DIMS
 from repro.kernels.problems import LARGE_SHAPES as JLARGE_SHAPES
 from repro_torch.core.database import PerformanceDatabase
+from repro_torch.kernels import floyd_warshall as fw
 from repro_torch.kernels import ops, problems, ref, spaces
 from repro_torch.kernels.covariance import covariance, covariance_plain
 from repro_torch.kernels.floyd_warshall import (
@@ -138,6 +139,52 @@ def test_floyd_warshall_matches_pallas_and_ref(cfg):
                                    interpret=True, **cfg), F32_TOL)
     _close(got, jref.floyd_warshall_ref(_jax(W)), F32_TOL)
     assert torch.equal(got, floyd_warshall_plain(*_cpu(W), bs=cfg["bs"]))
+
+
+@pytest.mark.parametrize("N,bs", [(64, 16), (64, 32), (70, 24), (96, 32), (50, 16)])
+def test_floyd_warshall_bit_identical_to_pallas(N, bs):
+    # the driver's schedule (in-place panels on views, ping-pong trailing
+    # update) against the JAX package's Pallas blocked Floyd-Warshall in
+    # interpret mode, on non-integer weights: the same bits, at bs that
+    # divide N and bs that do not
+    (W,) = ref.init_floyd_warshall(N, seed=N + bs)
+    got = floyd_warshall(*_cpu(W), bs=bs, bi=16, bj=32, unroll=4,
+                         allow_semiring_reassociation=True)
+    want = jax_floyd_warshall(_jax(W), bs=bs, bi=16, bj=32, unroll=4,
+                              allow_semiring_reassociation=True, interpret=True)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_minplus_update_writes_views_in_place():
+    # the phase-2 panels: out is the operand's own view, one tile spanning it
+    rng = np.random.default_rng(3)
+    (D,) = _cpu(rng.uniform(1, 10, (40, 40)).astype(np.float32))
+    diag = D[8:16, 8:16].clone()
+    want_row = minplus_update_plain(D[8:16], diag, D[8:16])
+    row = D[8:16]
+    assert minplus_update(row, diag, row, bi=8, bj=16, out=row) is row
+    assert torch.equal(D[8:16], want_row)
+    want_col = minplus_update_plain(D[:, 8:16], D[:, 8:16], diag)
+    col = D[:, 8:16]
+    minplus_update(col, col, diag, bi=16, bj=8, out=col)
+    assert torch.equal(D[:, 8:16], want_col)
+
+
+def test_minplus_aliasing_rule():
+    # out may be D, and may be A (B) only as the same view with one tile
+    # spanning all its columns (rows): no block reads another block's tile
+    D = torch.zeros(32, 32)
+    diag = torch.zeros(8, 8)
+    row, col = D[8:16], D[:, 8:16]
+    fw._check_aliasing(row, diag, row, row, bi=8, bj=16)        # row panel
+    fw._check_aliasing(col, col, diag, col, bi=16, bj=8)        # column panel
+    fw._check_aliasing(D, col, row, torch.empty(32, 32), 64, 64)  # trailing, out of place
+    with pytest.raises(ValueError, match="may be B"):
+        fw._check_aliasing(row, diag, row, row, bi=4, bj=16)    # two tiles down the rows
+    with pytest.raises(ValueError, match="may be A"):
+        fw._check_aliasing(col, col, diag, col, bi=16, bj=4)
+    with pytest.raises(ValueError, match="overlaps D"):
+        fw._check_aliasing(D[:16], col[:16], row, D[1:17], 16, 16)
 
 
 def test_floyd_warshall_requires_reassociation_flag():
