@@ -47,7 +47,20 @@ checks each kernel on the card:
      prefill, TTFT, ms per decode step beside its bound, tokens/s and the
      device's busy share of one decode step; a PagedKVCache round whose
      tokens must equal each request's solo greedy_decode; and a short run on
-     the card against the same weights on the CPU (plain versions there).
+     the card against the same weights on the CPU (plain versions there);
+  7. the tuning loop: (a) `launch.autotune --store` publishes a syr2k
+     campaign's best at LARGE, `DispatchService` resolves it as an exact hit
+     and serves that config (against the plain version), and a
+     `--warm-start` campaign evaluates it first; (b) qwen2-0.5b served as in
+     phase 6 with a `BackgroundTuner` (8 evaluations a campaign): every
+     serving signature's miss enqueues one campaign on the card, each
+     publishes, and a second run on that store resolves every signature
+     exactly and enqueues nothing, with its greedy tokens and first logits
+     against run 1's; each signature's device time, default against tuned;
+     (c) a `GuardAgent` shadow-times run 2 on the device (epsilon 0.25) with
+     no quarantine; then a record of the decode step's output projection at
+     1/20 of its measured time is quarantined two watch windows later,
+     serving falls back and a re-campaign is enqueued.
 
 Phases 3 and 4 also hold flash_attention and decode_attention against their
 plain versions at LARGE, at head_dim 256, at head sizes between the
@@ -57,7 +70,8 @@ them beside
 scaled_dot_product_attention (a yardstick only: the port never calls it);
 decode_attention with per-row positions that leave whole splits of the key
 axis empty, rows at cur_pos = -1 exactly 0, and repeated calls (also after a
-call at another BH) bit-identical.
+call at another BH) bit-identical; decode_attention also at head sizes off
+the multiples of 16 (40, 72, 100: run at the next one, loads masked).
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Any failed phase raises and the
@@ -147,7 +161,7 @@ SERVE = dict(arch="qwen2-0.5b", batch=4, prompt_len=256, gen=32, seed=0)
 # lu, the prefill unembed) and matmul<input, PACK, TM, TN, VEC16> (FFMA) at
 # the model's 8-row decode tiles; covariance<FUSE_CENTER, RT, VEC16> at
 # 64x64 tiles of M = 1200; flash<dtype, hd, CAUSAL> and decode<dtype, hd,
-# VEC16> at the model's f32, hd 64; minplus<TM, TN, UNROLL, VEC16> at unroll
+# VEC16, MASK> at the model's f32, hd 64; minplus<TM, TN, UNROLL, VEC16> at unroll
 # 4 for the default 64x64 trailing tiles (8x4) and the 64x16 panels (4x4);
 # heat3d<FUSE_T, VEC16> at fuse_t 2 on N = 120; phase 2 asserts that they
 # spill nothing (the other instantiations' spills are printed)
@@ -157,12 +171,19 @@ MAIN_PATH_INSTANCES = {"syr2k": ([1, 1, 4, 1],),
                        "floyd_warshall": ([8, 4, 4, 1], [4, 4, 4, 1]),
                        "heat3d": ([2, 1],),
                        "flash_attention": (["float", 64, 1],),
-                       "decode_attention": (["float", 64, 1],)}
+                       "decode_attention": (["float", 64, 1, 0],)}
 # the serving path's matmul shapes (qwen2-0.5b, batch 4, prompt 256): name,
 # (M, K, N), launches per decode step (or per prefill forward)
 SERVE_MATMULS = (("decode unembed", (4, 896, 151936), "1 per decode step"),
                  ("decode output projection", (4, 896, 896), "24 per decode step"),
                  ("prefill unembed", (1024, 896, 151936), "1 per prefill forward"))
+# phase 7: the autotune campaign that publishes to a store and the warm
+# start from it (syr2k at LARGE), background campaigns' evaluations, the
+# guard's shadow-sampled fraction and the share of those samples that race a
+# challenger, and decode steps per watch window
+# (24 output projections a step: 36 samples of it a window at epsilon 0.25)
+TUNE = dict(offline_evals=12, warm_evals=3, bg_evals=8, epsilon=0.25, challengers=0.1,
+            steps_per_window=6)
 # (kernel, evaluations) of phase 5; heat3d's space has 12 points
 CAMPAIGNS = (("syr2k", 60), ("mm3", 40), ("lu", 30), ("covariance", 30),
              ("floyd_warshall", 30), ("heat3d", 12))
@@ -253,6 +274,27 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> tuple[fl
     PEAK_HBM_BYTES."""
     t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def queued_ms(fn, calls: int = 10, spin_cycles: int = 20_000_000) -> float | None:
+    """Device milliseconds a call of ``fn``: ``calls`` calls enqueued behind
+    a spin kernel (about 10 ms), so that they run back to back on the device
+    whatever the host's time to enqueue them, between two CUDA events; None
+    when the host had not enqueued them all before the spin ended."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    queued = not start.query()
+    end.synchronize()
+    return start.elapsed_time(end) / calls if queued else None
 
 
 def host_ms(fn, iters: int = 5) -> float:
@@ -390,22 +432,26 @@ def rejected_points(name: str, dims, limit: int) -> tuple[int, int]:
     return bad * 2 ** 7, len(tiles) * 2 ** 7
 
 
-def run_campaign(kernel: str, evals: int, db: str) -> dict:
-    """One `repro_torch.launch.autotune.main` campaign; echoes its output and
-    returns the JSON summary it prints."""
+def run_cli(argv: list[str]) -> tuple[dict, str]:
+    """One `repro_torch.launch.autotune.main` run; echoes the last line before
+    its JSON summary and returns (the summary, the lines before it)."""
     from repro_torch.launch import autotune
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = autotune.main(["--kernel", kernel, "--learner", "RF",
-                            "--max-evals", str(evals), "--db", db])
+        rc = autotune.main(argv)
     text = buf.getvalue()
     if rc != 0:
-        raise AssertionError(f"autotune {kernel} exited {rc}:\n{text}")
+        raise AssertionError(f"autotune {' '.join(argv)} exited {rc}:\n{text}")
     head, _, body = text.partition("\n{")
-    summary = json.loads("{" + body)
     print("  " + head.strip().splitlines()[-1], flush=True)
-    return summary
+    return json.loads("{" + body), head
+
+
+def run_campaign(kernel: str, evals: int, db: str) -> dict:
+    """One `repro_torch.launch.autotune.main` campaign; returns its summary."""
+    return run_cli(["--kernel", kernel, "--learner", "RF", "--max-evals", str(evals),
+                    "--db", db])[0]
 
 
 def attention_inputs(BH: int, Sq: int, Sk: int, hd: int, dev, seed: int = 0):
@@ -533,6 +579,26 @@ def check_attention(dev, errs: dict) -> None:
         q2, k2, v2 = (t.to(torch.bfloat16) for t in (q2, k2, v2))
         decode_case(f"hd {hd_} bf16 ({BH}, 8, {S}, {hd_}) per-row positions", q2, k2, v2,
                     mixed, True, 0, 64, 1, ATTN_BF16_TOL)
+    # head sizes off the multiples of 16: run at the next one, the cache's
+    # loads masked past hd (hd 100 in bf16: rows off 16-byte words, the
+    # element-form copies); the model's cache layout read in place at hd 72
+    for hd_ in (40, 72, 100):
+        q2, _, _ = attention_inputs(BH, 8, 1, hd_, dev, seed=90 + hd_)
+        _, k2, v2 = attention_inputs(BH, 1, S, hd_, dev, seed=95 + hd_)
+        for ring, window in ((False, 0), (True, 0), (True, 300)):
+            decode_case(f"hd {hd_} ({BH}, 8, {S}, {hd_}) per-row positions", q2, k2, v2,
+                        mixed, ring, window, 32, 1)
+        q2, k2, v2 = (t.to(torch.bfloat16) for t in (q2, k2, v2))
+        decode_case(f"hd {hd_} bf16 ({BH}, 8, {S}, {hd_}) per-row positions", q2, k2, v2,
+                    mixed, True, 0, 64, 1, ATTN_BF16_TOL)
+    qc, _, _ = attention_inputs(8, 7, 1, 72, dev, seed=97)
+    kc, vc = (torch.randn(4, 300, 2, 72, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(98 + i))
+              for i in range(2))
+    decode_case("hd 72 model cache (4, 300, 2, 72) read in place", qc, CacheRows(kc),
+                CacheRows(vc), torch.tensor([-1, 0, 17, 150, 299, 400, 64, 200],
+                                            dtype=torch.int32, device=dev), False, 0, 32, 2)
+    del q2, k2, v2, qc, kc, vc
     for G_, hd_ in ((20, 128), (12, 192), (40, 64)):
         q2, _, _ = attention_inputs(BH, G_, 1, hd_, dev, seed=70 + G_)
         _, k2, v2 = attention_inputs(BH, 1, S, hd_, dev, seed=80 + G_)
@@ -682,9 +748,10 @@ def tree_bytes(tree: dict) -> int:
                for v in tree.values())
 
 
-def serving(launches: dict, dev) -> None:
+def serving(launches: dict, dev) -> float:
     """Phase 6: the serving path at full width on ``dev``. Adds the main
-    path's launch counts to ``launches``."""
+    path's launch counts to ``launches``; returns the serve run's ms per
+    decode step."""
     import dataclasses
 
     import torch
@@ -825,6 +892,284 @@ def serving(launches: dict, dev) -> None:
     if not torch.equal(want_toks.cpu(), got_toks):
         raise AssertionError(f"greedy tokens card {want_toks.tolist()} != CPU {got_toks.tolist()}")
     print(f"  greedy tokens (8), card and CPU: {want_toks[0].tolist()} (equal)", flush=True)
+    return r["decode_ms_per_step"]
+
+
+def kernel_inputs(kernel: str, sig: tuple, dev) -> tuple[tuple, dict]:
+    """Seeded inputs of a serving kernel at a dispatch signature, and the
+    static keywords the signature folds in (decode's cache fully resident)."""
+    from repro_torch.kernels import problems
+
+    args = problems.problem_inputs(kernel, problems.dims_from_signature(kernel, sig), dev)
+    if kernel == "flash_attention":
+        return args, {"causal": tuple(sig[3]) == (2,)}
+    if kernel == "decode_attention":
+        return args, {"ring": tuple(sig[4]) == (2,),
+                      "window": sig[5][0] if sig[5][0] > 1 else 0}
+    return args, {}
+
+
+def tuning_loop(launches: dict, dev, syr2k_args: tuple, phase6_ms: float) -> None:
+    """Phase 7: the tuning loop on the card. (a) An offline campaign
+    publishes to a store that the dispatch service resolves as an exact hit,
+    and a warm-started campaign re-evaluates that record first. (b) Serving
+    with a BackgroundTuner: every miss enqueues a campaign on the card that
+    publishes and hot-swaps; a second run on that store resolves every
+    signature exactly and enqueues nothing. (c) A GuardAgent shadow-times the
+    second run on the device with no quarantine; a record with an impossible
+    objective is quarantined two windows later, serving falls back and a
+    re-campaign is enqueued. Adds the launch counts of each part (set to 0
+    just before it, read just after) to ``launches``; ``phase6_ms`` is
+    phase 6's ms per decode step (default configs, no tuner, no guard)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.database import PerformanceDatabase
+    from repro_torch.dispatch import (
+        BackgroundTuner,
+        DispatchService,
+        TuningRecord,
+        TuningStore,
+        parse_signature_key,
+        resolve,
+        signature_key,
+    )
+    from repro_torch.dispatch.registry import get as get_variant
+    from repro_torch.guard import GuardAgent, ShadowPolicy, WatchPolicy
+    from repro_torch.guard.watch import SHADOW_HISTOGRAM, window_stats
+    from repro_torch.kernels import problems
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.matmul import tiled_matmul
+    from repro_torch.kernels.syr2k import syr2k, syr2k_plain
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+    from repro_torch.obs import MetricsRegistry
+
+    t7 = time.perf_counter()
+    wrappers = (syr2k, flash_attention, decode_attention, tiled_matmul)
+
+    def counted(fn):
+        """``fn()`` with the wrappers' counts set to 0 just before and read just
+        after (added to ``launches``); returns (its result, the counts)."""
+        for w in wrappers:
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        n = {w.__name__: w.launches for w in wrappers}
+        for name, k in n.items():
+            launches[name] = launches.get(name, 0) + k
+        return out, n
+
+    C, A, B = syr2k_args
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
+        # -- (a) offline campaign -> store -> exact hit; warm start
+        offline = os.path.join(tmp, "offline")
+        (summary, _), n = counted(lambda: run_cli(
+            ["--kernel", "syr2k", "--learner", "RF", "--max-evals", str(TUNE["offline_evals"]),
+             "--store", offline]))
+        best = summary["best_config"]
+        (rec,) = TuningStore(offline).records()
+        if (rec.signature, rec.backend, rec.config) != \
+                (problems.problem_signature_for("syr2k", "gpu"), "gpu", best) or n["syr2k"] < 1:
+            raise AssertionError(f"autotune --store published {rec} (launches {n})")
+        svc = DispatchService(TuningStore(offline))
+        out, n = counted(lambda: svc.call("syr2k", C, A, B))
+        served = svc.dispatch("syr2k", C, A, B).__wrapped__.fn.keywords["config"]
+        if svc.stats["store_exact"] != 1 or svc.stats["build_failed"] or \
+                svc.stats["infeasible"] or n["syr2k"] != 1 or \
+                {k: served[k] for k in best} != best:
+            raise AssertionError(f"store resolution: stats {svc.stats}, launches {n}, "
+                                 f"served {served} for the published {best}")
+        compare(f"syr2k at LARGE through the store's record {best} vs plain", out,
+                syr2k_plain(C, A, B), SYR2K_TOL)
+        warm_db = os.path.join(tmp, "warm")
+        (_, head), _ = counted(lambda: run_cli(
+            ["--kernel", "syr2k", "--learner", "RF", "--max-evals", str(TUNE["warm_evals"]),
+             "--warm-start", offline, "--db", warm_db]))
+        first = PerformanceDatabase(warm_db).records[0].config
+        if "warm-start: nearest store config re-evaluated first" not in head or first != best:
+            raise AssertionError(f"warm start: first evaluation {first}, store's {best}")
+        print(f"  (a) autotune --store: {rec.objective * 1e3:.4f} ms at {best} published for "
+              f"{signature_key(rec.signature)}; DispatchService: store_exact "
+              f"{svc.stats['store_exact']}, the published config served; --warm-start: "
+              f"first evaluation {first}", flush=True)
+
+        # -- (b) serving misses tune in the background; run 2 resolves them
+        cfg = dataclasses.replace(get_config(SERVE["arch"]), dtype=torch.float32)
+        Bn, P, gen, seed = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"], SERVE["seed"]
+        serving = os.path.join(tmp, "serving")
+        # one campaign at a time: two would time each other's kernels too
+        tuner1 = BackgroundTuner(TuningStore(serving), max_workers=1,
+                                 max_evals=TUNE["bg_evals"])
+        enqueued = []
+        submit = tuner1.submit
+
+        def recording_submit(kernel, signature, backend, **kw):
+            fut = submit(kernel, signature, backend, **kw)
+            if fut is not None:
+                enqueued.append((kernel, tuple(signature)))
+            return fut
+
+        tuner1.submit = recording_submit
+        # distance 0: a near neighbor does not stand in, every signature is tuned
+        svc1 = DispatchService(TuningStore(serving), tuner=tuner1, distance_threshold=0.0,
+                               metrics=MetricsRegistry())
+
+        def serve_run(service):
+            return serve_cli.serve(SERVE["arch"], batch=Bn, prompt_len=P, gen=gen, seed=seed,
+                                   device=dev, service=service)
+
+        r1, n1 = counted(lambda: serve_run(svc1))
+        for kernel, sig in enqueued:
+            print(f"  (b) run 1 enqueued {kernel} {signature_key(sig)}", flush=True)
+        distinct = {(h["labels"]["kernel"], h["labels"]["signature"])
+                    for h in svc1.metrics.snapshot()["histograms"]
+                    if h["name"] == "dispatch_execute_seconds"}
+        if not enqueued or svc1.stats["bg_enqueued"] != len(enqueued) or \
+                {(k, signature_key(sig)) for k, sig in enqueued} != distinct:
+            raise AssertionError(f"run 1: bg_enqueued {svc1.stats['bg_enqueued']}, "
+                                 f"{len(enqueued)} campaigns recorded, serving signatures "
+                                 f"{sorted(distinct)}")
+        t0 = time.perf_counter()
+        tuner1.drain(timeout=240)
+        tuner1.shutdown()
+        drained = time.perf_counter() - t0
+        if tuner1.errors:
+            raise AssertionError(f"background campaigns failed: {tuner1.errors}")
+        store = TuningStore(serving)
+        published = {}
+        for kernel, sig in enqueued:
+            rec = store.get(kernel, sig, "gpu")
+            if rec is None:
+                raise AssertionError(f"no record published for {kernel} {signature_key(sig)}")
+            published[(kernel, sig)] = rec
+            print(f"  (b) published {kernel} {signature_key(sig)}: {rec.config}, "
+                  f"{rec.objective * 1e3:.4f} ms (CUDA events, one call), {rec.n_evals} "
+                  f"evaluations", flush=True)
+        print(f"  (b) run 1: {r1['decode_ms_per_step']:.4f} ms/step with campaigns in flight "
+              f"(tuner ask {tuner1.stats['ask_sec']:.2f} s, tell "
+              f"{tuner1.stats['tell_sec']:.2f} s, wait {tuner1.stats['wait_sec']:.2f} s over "
+              f"{tuner1.stats['campaigns']} campaigns), TTFT {r1['prefill_ms']:.1f} ms; the "
+              f"campaigns drained {drained:.1f} s after the run; launches {n1}", flush=True)
+
+        # run 2 on the store, a guard shadow-timing it on the device
+        tuner2 = BackgroundTuner(TuningStore(serving), max_workers=1,
+                                 max_evals=TUNE["bg_evals"])
+        registry = MetricsRegistry()
+        svc2 = DispatchService(TuningStore(serving), tuner=tuner2, metrics=registry)
+        guard = GuardAgent(svc2, watch=WatchPolicy(interval_sec=1.0, drift_factor=3.0,
+                                                   hysteresis=2, cooldown_sec=0.0,
+                                                   min_samples=8),
+                           shadow=ShadowPolicy(epsilon=TUNE["epsilon"],
+                                               challenger_fraction=TUNE["challengers"], seed=0))
+        svc2.attach_guard(guard)
+        guard.start()
+        r2, n2 = counted(lambda: serve_run(svc2))
+        guard.stop()
+        guard.check_once()  # the run's last window
+        st2 = svc2.stats
+        store.refresh()  # the shadow tells and challengers of run 2
+        exact = {signature_key(sig): resolve(store, kernel, sig, "gpu")
+                 for kernel, sig in enqueued}
+        print(f"  (b) run 2 (tuned configs, the guard at epsilon {TUNE['epsilon']}): "
+              f"{r2['decode_ms_per_step']:.4f} ms/step (run 1 {r1['decode_ms_per_step']:.4f} "
+              f"with campaigns in flight, phase 6 {phase6_ms:.4f} with neither), TTFT "
+              f"{r2['prefill_ms']:.1f} ms; stats {json.dumps(st2)}; launches {n2}; guard "
+              f"decisions {guard.decisions}", flush=True)
+        if st2["bg_enqueued"] or st2["store_exact"] < len(enqueued) or st2["store_default"] \
+                or st2["store_near"] or st2["build_failed"] or st2["infeasible"] \
+                or not all(r is not None and r.exact for r in exact.values()) \
+                or min(n2[w] for w in ("flash_attention", "decode_attention",
+                                       "tiled_matmul")) < 1:
+            raise AssertionError(f"run 2 on the store: stats {st2}, launches {n2}")
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        prompt = torch.randint(0, cfg.vocab_size, (Bn, P), generator=g, device=dev)
+        flips = (r1["tokens"] != r2["tokens"]).nonzero().tolist()
+        if flips:
+            print(f"  (b) greedy tokens of run 2 differ from run 1's at {flips} (a near tie)",
+                  flush=True)
+        want, _ = forward(params, {"tokens": prompt}, cfg, service=DispatchService())
+        got, _ = forward(params, {"tokens": prompt}, cfg,
+                         service=DispatchService(TuningStore(serving)))
+        compare("first step's logits, tuned configs vs the gpu defaults (qwen2-0.5b, prompt "
+                f"{P}, batch {Bn})", got[:, -1], want[:, -1], LOGIT_TOL)
+        if not flips:
+            print(f"  (b) greedy tokens of run 2 equal run 1's ({Bn} x {gen})", flush=True)
+        for (kernel, sig), rec in published.items():
+            args, static = kernel_inputs(kernel, sig, dev)
+            spec = get_variant(kernel)
+            final_cfg = store.get(kernel, sig, "gpu").config
+            times = {}
+            for label, cfg_ in (("default", spec.default_config("gpu")),
+                                ("background campaign's", rec.config),
+                                ("store's after run 2", final_cfg)):
+                variant = spec.builder(cfg_, **static)
+                ms = queued_ms(lambda: variant(*args))
+                times[label] = "not measured" if ms is None else f"{ms:.4f} ms"
+            print(f"  (b) {kernel} {signature_key(sig)}: device time a call (CUDA events, 10 "
+                  f"calls queued behind a spin kernel): "
+                  + ", ".join(f"{k} {v}" for k, v in times.items())
+                  + f" ({rec.config}; {final_cfg})", flush=True)
+            del args
+
+        # -- (c) the guard: a clean run, then an impossible baseline
+        shadow = guard.shadow.snapshot_stats()
+        windows = window_stats(None, registry.snapshot(), SHADOW_HISTOGRAM)
+        for (kernel, key, _), w in sorted(windows.items()):
+            base = published[(kernel, parse_signature_key(key))].objective
+            print(f"  (c) {kernel} {key}: {w['count']} shadow samples, p50 "
+                  f"{w['p50'] * 1e3:.4f} ms over the background campaign's objective "
+                  f"{base * 1e3:.4f} ms = {w['p50'] / base:.2f}x (the store's now "
+                  f"{store.get(kernel, parse_signature_key(key), 'gpu').objective * 1e3:.4f} "
+                  f"ms)", flush=True)
+        print(f"  (c) guard over run 2: {json.dumps(shadow)}; checks "
+              f"{guard.stats['checks']}, quarantines {guard.stats['quarantines']}", flush=True)
+        if shadow["shadow_evals"] < 1 or shadow["challenger_evals"] < 1 \
+                or guard.stats["quarantines"]:
+            raise AssertionError(f"guard over the clean run: {shadow}, {guard.stats}, "
+                                 f"{guard.decisions}")
+        hd_all = cfg.n_heads * cfg.hd
+        proj = ((Bn, hd_all), (hd_all, cfg.d_model))  # the decode step's output projection
+        key = signature_key(proj)
+        p50 = windows[("matmul", key, "gpu")]["p50"]
+        store.refresh()
+        rec = store.get("matmul", proj, "gpu")
+        if not store.put(TuningRecord("matmul", proj, "gpu", dict(rec.config), p50 / 20,
+                                      source="chip_smoke")):
+            raise AssertionError(f"the impossible baseline was not accepted over {rec}")
+        cache = init_cache(cfg, Bn, P + gen, device=dev)
+        tok = prompt[:, -1:]
+        enq0 = svc2.stats["bg_enqueued"]
+        guard.check_once()  # the window base
+        decisions = []
+        for window in range(2):
+            for i in range(TUNE["steps_per_window"]):
+                decode_step(params, cache, tok, P + i % gen, cfg, service=svc2)
+            decisions += guard.check_once()
+        if [(x["kernel"], x["signature"]) for x in decisions] != [("matmul", key)] \
+                or not decisions[0]["retune_requested"] \
+                or svc2.stats["bg_enqueued"] != enq0 + 1:
+            raise AssertionError(f"drift: decisions {decisions}, stats {svc2.stats}")
+        store.refresh()
+        quars = [q for q in store.quarantines("matmul") if q["reason"].startswith("drift:")]
+        fallback, res = svc2.resolve_config("matmul", proj)
+        logits, _ = decode_step(params, cache, tok, P, cfg, service=svc2)
+        if not quars or (res is not None and res.exact) or not torch.isfinite(logits).all():
+            raise AssertionError(f"after the quarantine: {quars}, resolution {res}")
+        print(f"  (c) record at 1/20 of the measured {p50 * 1e3:.4f} ms for matmul {key}: "
+              f"quarantined two windows later ({decisions[0]['reason']}), serving falls back to "
+              f"{'a neighbor' if res is not None else 'the default'} {fallback}, bg_enqueued "
+              f"{enq0} -> {svc2.stats['bg_enqueued']}", flush=True)
+        tuner2.drain(timeout=120)
+        tuner2.shutdown()
+        if tuner2.errors:
+            raise AssertionError(f"the re-campaign failed: {tuner2.errors}")
+        del params, cache
+    print(f"  phase 7: {time.perf_counter() - t7:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -1408,7 +1753,12 @@ def main() -> int:
 
     # ---- 6. the serving path ------------------------------------------------------
     phase("6. serving path: repro_torch.launch.serve, qwen2-0.5b full width, f32")
-    serving(launches, dev)
+    phase6_ms = serving(launches, dev)
+
+    # ---- 7. the tuning loop --------------------------------------------------------
+    phase("7. tuning loop: autotune publishes to the store serving reads, misses tune in "
+          "the background, the guard times on the card")
+    tuning_loop(launches, dev, (C, A, B), phase6_ms)
 
     def entry(name, source, replaces):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",

@@ -1,0 +1,610 @@
+"""Static config feasibility — the counterpart of
+``repro.analyze.feasibility``.
+
+Declarative per-kernel constraint rules that judge a configuration against
+the problem dimensions *without building or launching anything*: structural
+validity (required params present, tiles positive integers, variant choices
+known, fuse factors dividing the step count, pages dividing the seq
+bucket), the card's resource limit (:class:`SmemBudget`: the kernel's own
+shared memory per block against the device's, target ``gpu``), and
+grid-size sanity.
+
+The structural rules and :class:`GridBound` are copies of the JAX
+package's. Its TPU rules (``VmemBudget``, ``MxuAlign``, ``LcmPadding``)
+read the v5e model of ``repro.kernels.cost``, which is not ported; the one
+resource rule here is :class:`SmemBudget`.
+
+Findings carry a stable machine-readable ``code`` (e.g.
+``tile_not_positive:bi``, ``smem_overflow``) and a ``severity``:
+
+  * ``"error"`` — the config is invalid: its builder would fail, or the
+    kernel's wrapper would refuse it before launch (``ConfigRejected``).
+    Errors make :attr:`Feasibility.ok` false; the search path prunes these
+    before acquisition scoring and ``DispatchService`` quarantines matching
+    store records before its build guard runs.
+  * ``"warn"`` — the config builds but is pathological (oversized grids).
+    Warnings never prune or quarantine.
+
+The severity split is what keeps the pass zero-false-positive: a config is
+only ever rejected for a reason that is *provably* fatal for that builder,
+which the accepted-implies-builds property test pins for every registered
+kernel.
+
+Rules for new kernels go through :func:`register_rules`; kernels with no
+registered rules (toy test kernels, third-party registrations) are treated
+as feasible — the pass never guesses.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Iterable, Iterator, Mapping, Sequence
+
+__all__ = [
+    "Feasibility",
+    "Finding",
+    "KERNEL_RULES",
+    "check_config",
+    "feasibility_filter",
+    "kernel_rules",
+    "register_rules",
+]
+
+ERROR = "error"
+WARN = "warn"
+
+# grid-step budget before a schedule is flagged as pathological: the kernel
+# still runs above this, it just spends its life in per-step overhead
+# (warn-only)
+GRID_WARN_STEPS = 1 << 20
+
+
+@dataclass(frozen=True)
+class Finding:
+    """One rule hit. ``code`` is stable across releases (tests and
+    quarantine records key on it); ``message`` is for humans."""
+
+    code: str
+    severity: str
+    message: str
+    param: str | None = None
+
+    def to_dict(self) -> dict:
+        d = {"code": self.code, "severity": self.severity,
+             "message": self.message}
+        if self.param is not None:
+            d["param"] = self.param
+        return d
+
+
+@dataclass(frozen=True)
+class Feasibility:
+    """Verdict for one (kernel, config, dims, target) combination."""
+
+    findings: tuple[Finding, ...] = field(default_factory=tuple)
+
+    @property
+    def ok(self) -> bool:
+        return not any(f.severity == ERROR for f in self.findings)
+
+    @property
+    def errors(self) -> tuple[Finding, ...]:
+        return tuple(f for f in self.findings if f.severity == ERROR)
+
+    @property
+    def warnings(self) -> tuple[Finding, ...]:
+        return tuple(f for f in self.findings if f.severity == WARN)
+
+    @property
+    def reasons(self) -> tuple[str, ...]:
+        """Stable error codes — what lands in quarantine records."""
+        return tuple(f.code for f in self.errors)
+
+    def reason(self) -> str:
+        """Single machine-readable reason string (codes joined by ``,``)."""
+        return ",".join(self.reasons)
+
+
+FEASIBLE = Feasibility()
+
+
+@dataclass(frozen=True)
+class RuleContext:
+    """What a rule may consult besides the config itself."""
+
+    kernel: str
+    dims: tuple | None    # problem dims (kernels.problems order), if known
+    target: str           # "gpu" | "host"
+
+
+class Rule:
+    """Base class: a rule inspects (config, context) and yields findings.
+
+    Rules must be total — any config dict, any dims (including ``None``)
+    — and must never launch anything at check time."""
+
+    def check(self, cfg: Mapping, ctx: RuleContext) -> Iterator[Finding]:
+        raise NotImplementedError
+
+    def describe(self) -> str:
+        return self.__class__.__name__
+
+
+def _is_int(v) -> bool:
+    return isinstance(v, int) and not isinstance(v, bool)
+
+
+class RequiredParams(Rule):
+    """Params the builder reads with ``cfg[name]`` — absence is a KeyError
+    at build time, so it is an error here."""
+
+    def __init__(self, *names: str):
+        self.names = names
+
+    def check(self, cfg, ctx):
+        for name in self.names:
+            if name not in cfg:
+                yield Finding(f"missing_param:{name}", ERROR,
+                              f"builder requires {name!r}", name)
+
+    def describe(self):
+        return f"required params: {', '.join(self.names)}"
+
+
+class PositiveIntTiles(Rule):
+    """Tile/block params must be positive integers: ``cdiv`` by zero and
+    negative reshapes are build-time failures."""
+
+    def __init__(self, *names: str):
+        self.names = names
+
+    def check(self, cfg, ctx):
+        for name in self.names:
+            if name not in cfg:
+                continue  # RequiredParams owns absence
+            v = cfg[name]
+            if not _is_int(v):
+                yield Finding(f"tile_not_int:{name}", ERROR,
+                              f"{name}={v!r} is not an integer tile", name)
+            elif v <= 0:
+                yield Finding(f"tile_not_positive:{name}", ERROR,
+                              f"{name}={v} must be positive", name)
+
+    def describe(self):
+        return f"positive integer tiles: {', '.join(self.names)}"
+
+
+class ChoiceIn(Rule):
+    """Variant-selector params the builder dispatches on (and raises for
+    unknown values)."""
+
+    def __init__(self, name: str, choices: Sequence):
+        self.name = name
+        self.choices = tuple(choices)
+
+    def check(self, cfg, ctx):
+        if self.name in cfg and cfg[self.name] not in self.choices:
+            yield Finding(
+                f"invalid_choice:{self.name}", ERROR,
+                f"{self.name}={cfg[self.name]!r} not in {self.choices}",
+                self.name)
+
+    def describe(self):
+        return f"{self.name} in {self.choices}"
+
+
+class FuseDivides(Rule):
+    """heat-3d: the builder asserts ``(2 * tsteps) % fuse_t == 0`` — a
+    non-dividing fuse factor is a hard build failure."""
+
+    def __init__(self, name: str = "fuse_t"):
+        self.name = name
+
+    def check(self, cfg, ctx):
+        h = cfg.get(self.name, 1)
+        if not _is_int(h) or h <= 0:
+            yield Finding(f"fuse_not_positive:{self.name}", ERROR,
+                          f"{self.name}={h!r} must be a positive integer",
+                          self.name)
+            return
+        if ctx.dims is None or len(ctx.dims) < 2:
+            return
+        total = 2 * int(ctx.dims[1])
+        if total % h != 0:
+            yield Finding(
+                f"fuse_indivisible:{self.name}", ERROR,
+                f"{self.name}={h} does not divide 2*tsteps={total}",
+                self.name)
+
+    def describe(self):
+        return f"{self.name} divides 2*tsteps"
+
+
+class PageDividesSeq(Rule):
+    """Paged-KV layout contract: the dispatch signature's seq dim is the
+    paged cache's *bucket* — by construction a multiple of the config's
+    ``page`` (``serve.kvcache`` rounds every view up to page granularity).
+    A record whose ``page`` does not divide the signature's S describes a
+    layout that cannot have produced this signature: serving it would pair
+    a tuned page size with buckets it never sees, so the mismatch is fatal
+    for the (cache layout, kernel) pair even though the builder itself —
+    which only reads the view it is handed — would trace fine."""
+
+    def __init__(self, name: str = "page", dim_index: int = 2):
+        self.name = name
+        self.dim_index = dim_index
+
+    def check(self, cfg, ctx):
+        v = cfg.get(self.name)
+        if not (_is_int(v) and v > 0):
+            return  # PositiveIntTiles owns malformed values
+        if ctx.dims is None or self.dim_index >= len(ctx.dims):
+            return
+        s = int(ctx.dims[self.dim_index])
+        if s % v != 0:
+            yield Finding(
+                f"page_indivisible:{self.name}", ERROR,
+                f"{self.name}={v} does not divide the seq bucket S={s}",
+                self.name)
+
+    def describe(self):
+        return f"{self.name} divides the signature's seq bucket"
+
+
+class SmemBudget(Rule):
+    """Target ``gpu`` only: the shared memory one block of the kernel needs
+    for this config at these dims, from the kernel's own
+    ``*_smem_bytes(..., limit)``, against the device's per-block limit
+    (:func:`~repro_torch.kernels.util.max_shared_memory_per_block`) — the
+    same numbers the wrappers raise ``ConfigRejected`` on. ``smem_overflow``
+    where even one ring stage does not fit, ``smem_unsupported`` where the
+    kernel has no register tile for the tile (the functions' -1).
+
+    The PolyBench kernels are f32 only. The model kernels' (flash and decode
+    attention, matmul) bytes depend on the operands' dtype, which a
+    signature does not carry: they are asked for bf16 operands, the
+    smallest staging, so the rule never refuses a config that fits; the
+    build guard still catches an f32 tile that does not.
+
+    Like the JAX package's ``VmemBudget`` on the host, the rule is inert
+    where no card is present: the functions need the built library."""
+
+    def check(self, cfg, ctx):
+        needs = _SMEM_NEEDS.get(ctx.kernel)
+        if ctx.target != "gpu" or ctx.dims is None or needs is None:
+            return
+        import torch
+
+        if not torch.cuda.is_available():
+            return
+        from repro_torch.kernels.util import max_shared_memory_per_block
+
+        limit = max_shared_memory_per_block(torch.device("cuda", torch.cuda.current_device()))
+        try:
+            parts = needs(cfg, tuple(int(d) for d in ctx.dims), limit)
+        except (KeyError, TypeError, ValueError):
+            # structurally invalid configs (a ConfigRejected for a
+            # non-positive tile included) are other rules' findings
+            return
+        for what, smem in parts:
+            if smem < 0:
+                yield Finding("smem_unsupported", ERROR,
+                              f"{what}: a tile the kernel has no register tile for")
+            elif smem > limit:
+                yield Finding("smem_overflow", ERROR,
+                              f"{what} needs {smem:,} B of shared memory, the device "
+                              f"allows {limit:,} B per block")
+
+    def describe(self):
+        return "shared memory per block within the device's limit (gpu)"
+
+
+def _tiles(cfg, name: str, *keys: str) -> dict:
+    """``cfg`` merged over the kernel's ``ops.DEFAULTS``, tiles as ints."""
+    from repro_torch.kernels.ops import config_of
+
+    kw = config_of(name, cfg)
+    return {k: int(kw[k]) if k in keys else kw[k] for k in kw}
+
+
+def _syr2k_smem(cfg, dims, limit):
+    from repro_torch.kernels.syr2k import syr2k_smem_bytes
+
+    N, M = dims
+    c = _tiles(cfg, "syr2k", "bi", "bj", "bk")
+    return [("syr2k", syr2k_smem_bytes(min(c["bi"], N), min(c["bj"], N), min(c["bk"], M),
+                                       c["pack_a"], c["pack_b"], limit))]
+
+
+def _matmul_smem(m, k, n, bm, bn, bk, limit, dtype):
+    from repro_torch.kernels.matmul import matmul_smem_bytes
+
+    return (f"matmul ({m}, {k}) @ ({k}, {n})",
+            matmul_smem_bytes(min(bm, max(m, 1)), min(bn, max(n, 1)), min(bk, max(k, 1)),
+                              dtype, limit))
+
+
+def _mm3_smem(cfg, dims, limit):
+    import torch
+
+    P, Q, R, S, T = dims
+    c = _tiles(cfg, "mm3", "bm", "bn", "bk")
+    return [_matmul_smem(m, k, n, c["bm"], c["bn"], c["bk"], limit, torch.float32)
+            for m, k, n in ((P, Q, R), (R, S, T), (P, R, T))]
+
+
+def _lu_smem(cfg, dims, limit):
+    import torch
+
+    from repro_torch.kernels.lu import lu_factor_diag_smem_bytes
+
+    (N,) = dims
+    c = _tiles(cfg, "lu", "bs", "bm", "bn")
+    bs = min(c["bs"], N)
+    out = [(f"lu diagonal block {bs}", lu_factor_diag_smem_bytes(bs))]
+    rest = -(-N // bs) * bs - bs
+    if rest > 0:
+        out.append(_matmul_smem(rest, bs, rest, c["bm"], c["bn"], bs, limit, torch.float32))
+    return out
+
+
+def _heat3d_smem(cfg, dims, limit):
+    from repro_torch.kernels.heat3d import FUSE_T, heat3d_smem_bytes
+
+    N, _ = dims
+    c = _tiles(cfg, "heat3d", "bi", "fuse_t")
+    if c["fuse_t"] not in FUSE_T:
+        return []  # ChoiceIn owns it
+    return [("heat3d", heat3d_smem_bytes((N, N, N), min(c["bi"], N), c["fuse_t"]))]
+
+
+def _covariance_smem(cfg, dims, limit):
+    from repro_torch.kernels.covariance import covariance_smem_bytes
+
+    N, M = dims
+    c = _tiles(cfg, "covariance", "bi", "bj", "bk")
+    return [("covariance", covariance_smem_bytes(min(c["bi"], M), min(c["bj"], M),
+                                                 min(c["bk"], N), limit))]
+
+
+def _floyd_warshall_smem(cfg, dims, limit):
+    from repro_torch.kernels.floyd_warshall import PANEL_TILE, minplus_smem_bytes
+
+    (N,) = dims
+    c = _tiles(cfg, "floyd_warshall", "bs", "bi", "bj")
+    bs = min(c["bs"], N)
+    Np = -(-N // bs) * bs
+    bi, bj, pt = min(c["bi"], Np), min(c["bj"], Np), min(PANEL_TILE, Np)
+    return [(f"min-plus tile {ti}x{tj} (bs={bs})", minplus_smem_bytes(ti, tj, bs, limit))
+            for ti, tj in ((bi, bj), (bs, pt), (pt, bs))]
+
+
+def _flash_smem(cfg, dims, limit):
+    import torch
+
+    from repro_torch.kernels.flash_attention import STEP, flash_attention_smem_bytes
+
+    if cfg.get("impl", "pallas") != "pallas":
+        return []
+    _, Sq, Sk, hd = dims
+    bq = min(int(cfg.get("bq", 128)), -(-Sq // STEP) * STEP)
+    bk = min(int(cfg.get("bk", 128)), -(-Sk // STEP) * STEP)
+    if bq < 1 or bk < 1:
+        return []  # PositiveIntTiles owns it
+    return [("flash_attention",
+             flash_attention_smem_bytes(bq, bk, hd, torch.bfloat16, limit))]
+
+
+def _decode_smem(cfg, dims, limit):
+    import torch
+
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_head_groups,
+        decode_attention_smem_bytes,
+    )
+
+    if cfg.get("impl", "pallas") != "pallas":
+        return []
+    _, G, S, hd = dims
+    bk = min(int(cfg.get("bk", 128)), S)
+    if bk < 1:
+        return []
+    Gl = max(g1 - g0 for g0, g1 in decode_attention_head_groups(G, hd))
+    return [("decode_attention", decode_attention_smem_bytes(Gl, bk, hd, torch.bfloat16))]
+
+
+def _model_matmul_smem(cfg, dims, limit):
+    import torch
+
+    M, K, N = dims
+    bm, bn, bk = (int(cfg.get(k, 128)) for k in ("bm", "bn", "bk"))
+    if min(bm, bn, bk) < 1:
+        return []
+    return [_matmul_smem(M, K, N, bm, bn, bk, limit, torch.bfloat16)]
+
+
+_SMEM_NEEDS = {
+    "syr2k": _syr2k_smem,
+    "mm3": _mm3_smem,
+    "lu": _lu_smem,
+    "heat3d": _heat3d_smem,
+    "covariance": _covariance_smem,
+    "floyd_warshall": _floyd_warshall_smem,
+    "flash_attention": _flash_smem,
+    "decode_attention": _decode_smem,
+    "matmul": _model_matmul_smem,
+}
+
+
+class GridBound(Rule):
+    """Grid-size sanity: the number of block steps the schedule implies,
+    after the builder's ``min(tile, dim)`` clamp. Oversized grids compile
+    but drown in per-step overhead. ``axes`` maps tile params to the dim
+    index they divide."""
+
+    def __init__(self, axes: Mapping[str, int], steps: int = 1):
+        self.axes = dict(axes)
+        self.steps = steps  # outer sequential multiplier (e.g. FW rounds)
+
+    def check(self, cfg, ctx):
+        if ctx.dims is None:
+            return
+        total = self.steps
+        for name, di in self.axes.items():
+            v = cfg.get(name)
+            if not (_is_int(v) and v > 0) or di >= len(ctx.dims):
+                return
+            n = int(ctx.dims[di])
+            total *= -(-n // min(v, n))
+        if total > GRID_WARN_STEPS:
+            yield Finding(
+                "grid_too_large", WARN,
+                f"~{total:,} grid steps exceeds the {GRID_WARN_STEPS:,} "
+                f"sanity bound")
+
+    def describe(self):
+        return f"grid steps over {', '.join(self.axes)} within sanity bound"
+
+
+# ---------------------------------------------------------------------------
+# per-kernel rule tables
+# ---------------------------------------------------------------------------
+# dims follow kernels.problems.BENCH_DIMS order for each kernel.
+
+KERNEL_RULES: dict[str, tuple[Rule, ...]] = {
+    "syr2k": (
+        RequiredParams("bi", "bj", "bk"),
+        PositiveIntTiles("bi", "bj", "bk"),
+        SmemBudget(),
+        GridBound({"bi": 0, "bj": 0, "bk": 1}),
+    ),
+    "mm3": (
+        RequiredParams("bm", "bn", "bk"),
+        PositiveIntTiles("bm", "bn", "bk"),
+        SmemBudget(),
+        GridBound({"bm": 0, "bn": 4, "bk": 2}),
+    ),
+    "lu": (
+        RequiredParams("bs"),
+        PositiveIntTiles("bs", "bm", "bn"),
+        SmemBudget(),
+        GridBound({"bs": 0}),
+    ),
+    "heat3d": (
+        RequiredParams("bi"),
+        PositiveIntTiles("bi"),
+        FuseDivides("fuse_t"),
+        SmemBudget(),
+        GridBound({"bi": 0}, steps=2),
+    ),
+    "covariance": (
+        RequiredParams("bi", "bj", "bk"),
+        PositiveIntTiles("bi", "bj", "bk"),
+        SmemBudget(),
+        GridBound({"bi": 1, "bj": 1, "bk": 0}),
+    ),
+    "floyd_warshall": (
+        RequiredParams("bs", "bi", "bj"),
+        PositiveIntTiles("bs", "bi", "bj"),
+        ChoiceIn("unroll", (1, 2, 4, 8)),
+        SmemBudget(),
+        GridBound({"bs": 0, "bi": 0, "bj": 0}),
+    ),
+    "flash_attention": (
+        ChoiceIn("impl", ("pallas", "xla")),
+        PositiveIntTiles("bq", "bk"),
+        SmemBudget(),
+        GridBound({"bq": 1, "bk": 2}),
+    ),
+    "decode_attention": (
+        ChoiceIn("impl", ("pallas", "xla")),
+        PositiveIntTiles("bk", "hg", "page"),
+        PageDividesSeq("page", dim_index=2),
+        SmemBudget(),
+        GridBound({"hg": 0, "bk": 2}),
+    ),
+    "matmul": (
+        PositiveIntTiles("bm", "bn", "bk"),
+        SmemBudget(),
+        GridBound({"bm": 0, "bk": 1, "bn": 2}),
+    ),
+}
+
+
+def kernel_rules(kernel: str) -> tuple[Rule, ...]:
+    """The rule tuple for ``kernel`` (empty for unknown kernels)."""
+    return KERNEL_RULES.get(kernel, ())
+
+
+def register_rules(kernel: str, rules: Iterable[Rule],
+                   *, replace: bool = False) -> None:
+    """Attach feasibility rules to a kernel (tests, third-party kernels).
+    Appends to any existing table unless ``replace``."""
+    rules = tuple(rules)
+    if replace or kernel not in KERNEL_RULES:
+        KERNEL_RULES[kernel] = rules
+    else:
+        KERNEL_RULES[kernel] = KERNEL_RULES[kernel] + rules
+
+
+def _dims_for(kernel: str, signature, dims) -> tuple | None:
+    if dims is not None:
+        return tuple(dims)
+    if signature is None:
+        return None
+    from repro_torch.kernels.problems import dims_from_signature
+
+    try:
+        return tuple(dims_from_signature(kernel, signature))
+    except Exception:
+        return None  # runtime signature shapes this table doesn't know
+
+
+def check_config(
+    kernel: str,
+    config: Mapping,
+    *,
+    dims: tuple | None = None,
+    signature=None,
+    target: str = "host",
+) -> Feasibility:
+    """Statically judge ``config`` for ``kernel``.
+
+    ``dims`` are the problem dims in
+    :data:`~repro_torch.kernels.problems.BENCH_DIMS` order; alternatively
+    pass the store/runtime ``signature`` and the dims are recovered via
+    ``dims_from_signature`` (unknown kernels or shapes degrade to
+    dimension-independent rules only). Kernels with no
+    registered rules are feasible by construction."""
+    rules = KERNEL_RULES.get(kernel)
+    if not rules:
+        return FEASIBLE
+    ctx = RuleContext(kernel=kernel, dims=_dims_for(kernel, signature, dims),
+                      target=target)
+    findings: list[Finding] = []
+    for rule in rules:
+        findings.extend(rule.check(config, ctx))
+    if not findings:
+        return FEASIBLE
+    return Feasibility(tuple(findings))
+
+
+def feasibility_filter(
+    kernel: str,
+    *,
+    dims: tuple | None = None,
+    signature=None,
+    target: str = "host",
+) -> Callable[[Mapping], bool] | None:
+    """A ``config -> bool`` predicate for the search path (True = keep), or
+    ``None`` when the kernel has no rules — callers skip the filtering pass
+    entirely in that case. Only errors prune; warnings survive so the
+    optimizer can still learn the pathological region is bad."""
+    if not KERNEL_RULES.get(kernel):
+        return None
+    ctx_dims = _dims_for(kernel, signature, dims)
+
+    def accept(cfg: Mapping) -> bool:
+        return check_config(kernel, cfg, dims=ctx_dims, target=target).ok
+
+    return accept

@@ -6,9 +6,10 @@ kernel call for a configuration, the kernel's :class:`ConfigurationSpace`
 factory (``space(target) -> ConfigurationSpace``) for background campaigns,
 and the space default as the last-resort config when the store is empty.
 
-The built-in model kernels register themselves from
-``repro_torch.kernels.model_kernels`` on first use (lazy, to keep this
-module import-light and cycle-free); user kernels register with
+The built-in kernels register themselves on first use (lazy, to keep this
+module import-light and cycle-free): the PolyBench six from
+``repro_torch.kernels.variants``, the model kernels from
+``repro_torch.kernels.model_kernels``; user kernels register with
 :func:`register`.
 """
 
@@ -56,10 +57,9 @@ def _ensure_builtins() -> None:
     if _builtins_loaded:
         return
     _builtins_loaded = True
-    from repro_torch.kernels import model_kernels
+    from repro_torch.kernels import model_kernels, variants
 
-    # the model kernels only: the PolyBench DISPATCH_BUILDERS wait for their
-    # host molds (kernels/variants.py is not ported yet)
+    variants.register_dispatch_variants()      # the PolyBench kernels
     model_kernels.register_model_kernels()     # flash + decode attention, matmul
 
 

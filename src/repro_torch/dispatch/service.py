@@ -24,29 +24,70 @@ place of JAX's tracing. Resolution pipeline per call:
      the CUDA kernel. A fault in the caller's operands is not the record's:
      it propagates and quarantines nothing.
 
+     Before the build guard, the static feasibility pass
+     (:mod:`repro_torch.analyze.feasibility`) judges a store-resolved config
+     against the signature's problem dims (on the ``gpu`` target also the
+     kernel's shared memory against the device's): an infeasible exact hit
+     is quarantined with the pass's reason codes, and the call serves the
+     default (``infeasible`` counts it);
+  4. when the resolution is a miss, a too-distant neighbor, or a stale
+     record — and a :class:`~repro_torch.dispatch.background.BackgroundTuner`
+     is attached — enqueue a BO campaign for this exact signature. Its result
+     is published to the store and hot-swapped in by invalidating the
+     affected executable-cache entries, so later calls pick it up.
+
 The cached executable is the built variant itself, a plain callable (the JAX
 package jits it; there is no ``torch.compile`` here), wrapped so that every
-execution lands in the per-signature latency histogram.
+execution lands in the per-signature latency histogram
+``dispatch_execute_seconds``. On the card a launch returns before the
+kernel ends, so that histogram holds enqueue time, not device time: the
+wrapper does not synchronise.
+
+**Arguments of a background campaign.** The JAX package hands the call's
+own arrays to the campaign; JAX arrays are immutable, the port's serving
+tensors are not (``decode_step`` writes the KV cache in place). So a
+campaign times on copies of the call's tensors (of a view's underlying
+tensor, such as :class:`~repro_torch.kernels.decode_attention.CacheRows`'s
+cache), made on the calling thread's stream when the campaign is enqueued,
+and its stream waits on an event recorded after them: it never holds the
+serving buffers. :meth:`DispatchService.request_retune` builds its
+arguments as zeros from shape/dtype/device records, as the JAX package
+does with ``ShapeDtypeStruct`` (so a retuned decode_attention times a
+cache at position 0).
+
+**The guard** (:meth:`attach_guard`, :class:`repro_torch.guard.GuardAgent`):
+an epsilon fraction of executions is shadow-sampled. A sampled call is
+timed on the device — a pair of ``torch.cuda.Event`` records on the current
+stream around it, and only its end event is waited on (no device-wide
+synchronise on the serving thread); on the CPU a ``perf_counter`` interval
+— recorded in ``dispatch_shadow_seconds`` (labels kernel, signature,
+backend) and told into the store. Store objectives are CUDA-event seconds
+too, so on the ``gpu`` backend the drift watch reads that histogram.
 
 ``stats`` counts every path (store_exact / store_near / store_default,
-exec_hit / exec_miss, build_failed, serve_rebuilt) under the JAX package's
-keys. Not ported yet: the background tuner (``bg_enqueued`` stays 0), the
-static feasibility pass (``analyze.feasibility``: ``infeasible`` stays 0),
-fleet sync (``sync_*`` stay 0) and the guard's shadow evaluation.
+exec_hit / exec_miss, bg_enqueued, build_failed, infeasible, serve_rebuilt)
+under the JAX package's keys. Not ported yet: fleet sync (``attach_sync``
+stores the agent; ``sync_*`` stay 0 until ``repro_torch.fleet``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
-from typing import Callable
+from typing import Any, Callable
 
+import torch
+
+from repro_torch.analyze.feasibility import check_config
 from repro_torch.core.space import config_key
 from repro_torch.dispatch.lookup import Resolution, resolve
 from repro_torch.dispatch.registry import get as get_variant
 from repro_torch.dispatch.signature import shape_signature, signature_key
 from repro_torch.dispatch.store import TuningStore
+from repro_torch.engine.executors import evaluator_for_spec
 from repro_torch.guard.faults import fault_point
+from repro_torch.guard.shadow import ShadowClock
 from repro_torch.kernels.util import ConfigRejected
 from repro_torch.obs.metrics import get_registry, summarize_histograms
 from repro_torch.obs.trace import get_tracer
@@ -68,6 +109,9 @@ class DispatchService:
         *,
         backend: str = "gpu",
         target: str = "gpu",
+        distance_threshold: float = 1.0,
+        staleness_sec: float | None = None,
+        tuner: Any | None = None,
         resolve_ttl_sec: float = 30.0,
         fast_sweep_size: int = 256,
         metrics=None,
@@ -78,6 +122,9 @@ class DispatchService:
         self.metrics = metrics if metrics is not None else get_registry()
         self.backend = backend
         self.target = target
+        self.distance_threshold = distance_threshold
+        self.staleness_sec = staleness_sec
+        self.tuner = tuner
         self.resolve_ttl_sec = resolve_ttl_sec
         self.fast_sweep_size = fast_sweep_size
         # signature -> (exec key, monotonic expiry): lets repeat dispatches
@@ -89,7 +136,13 @@ class DispatchService:
             "infeasible": 0,
             "serve_rebuilt": 0, "sync_applied": 0, "sync_published": 0,
         }
+        self._sync = None  # a fleet sync agent, via attach_sync()
         self._kv_cache = None  # serve.PagedKVCache, via attach_kv_cache()
+        self._guard = None  # repro_torch.guard.GuardAgent, via attach_guard()
+        # retune material per (kernel, sig_key): (signature, static items,
+        # argument shape/dtype/device records) captured on the miss path so
+        # the drift watcher can re-campaign a signature without live args
+        self._retune: dict[tuple, tuple] = {}
         self._exec: dict[tuple, Callable] = {}
         # jit_cached sources + stable per-name proxies: invalidate() drops the
         # cached entry, and the proxy (which callers hold) rebuilds it from
@@ -118,6 +171,15 @@ class DispatchService:
         with self._lock:
             self.stats[stat] += 1
         return config, res
+
+    def _needs_tuning(self, res: Resolution | None) -> bool:
+        if res is None:
+            return True
+        if not res.exact and res.distance > self.distance_threshold:
+            return True
+        if self.staleness_sec is not None and res.record.age_sec() > self.staleness_sec:
+            return True
+        return False
 
     # -- the runtime API ---------------------------------------------------------
 
@@ -159,6 +221,26 @@ class DispatchService:
             self.stats["exec_hit" if fn is not None else "exec_miss"] += 1
         built = None
         if fn is None and res is not None:
+            # statically-infeasible store records never cost a build: the
+            # feasibility pass proves from the config and the signature's
+            # problem dims alone that the variant would be refused. Exact
+            # hits are quarantined with the pass's reason codes; near
+            # neighbors just degrade (the build guard's asymmetry below)
+            verdict = check_config(kernel, config, signature=sig, target=self.target)
+            if not verdict.ok:
+                if self.store is not None and res.exact:
+                    with tracer.span("dispatch.quarantine", kernel=kernel,
+                                     signature=sig_key, reason=verdict.reason()):
+                        self.store.quarantine(res.record, reason=verdict.reason())
+                res = None
+                config = spec.default_config(self.target)
+                key = fast_key + (config_key(config),)
+                with self._lock:
+                    self.stats["infeasible"] += 1
+                    fn = self._exec.get(key)  # default may already be built
+                self.metrics.add("dispatch_requests_total", kernel=kernel,
+                                 path="infeasible")
+        if fn is None and res is not None:
             # the build guard: build the store's config and run its
             # pre-launch checks on these args, launching nothing, so that a
             # poisoned record degrades to the default instead of raising at
@@ -174,6 +256,7 @@ class DispatchService:
                     with tracer.span("dispatch.quarantine", kernel=kernel,
                                      signature=sig_key):
                         self.store.quarantine(res.record, reason="build_failed")
+                res = None
                 config = spec.default_config(self.target)
                 key = fast_key + (config_key(config),)
                 with self._lock:
@@ -186,38 +269,62 @@ class DispatchService:
                 with tracer.span("dispatch.build", kernel=kernel,
                                  signature=sig_key):
                     built = spec.builder(config, **static_kw)
-            fn = self._instrument_execute(built, kernel, sig_key)
+            fn = self._instrument_execute(built, kernel, sig_key, sig=sig,
+                                          config=config, static_kw=static_kw)
+        # shape/dtype/device records, not live tensors: enough to synthesize
+        # arguments for a drift-triggered re-campaign, without pinning
+        # serving buffers in this map
+        retune_material = None if self._guard is None else (
+            sig, static_id, tuple(_map_tensors(a, _TensorSpec.of) for a in args))
         # publish: executable insert, fast-map store, and the TTL sweep share
         # the final critical section
         with self._lock:
             fn = self._exec.setdefault(key, fn)
             self._fast[fast_key] = (key, time.monotonic() + self.resolve_ttl_sec)
+            if retune_material is not None:
+                self._retune[(kernel, sig_key)] = retune_material
             if len(self._fast) > self.fast_sweep_size:
                 self._sweep_fast_locked(time.monotonic())
+        if self.tuner is not None and self.store is not None and self._needs_tuning(res):
+            self._enqueue_tuning(spec, kernel, sig, args, static_kw)
         return fn
 
     def call(self, kernel: str, *args, **static_kw):
         """Resolve, build, and run in one step."""
         return self.dispatch(kernel, *args, **static_kw)(*args)
 
-    def _instrument_execute(self, fn: Callable, kernel: str, sig_key: str) -> Callable:
+    def _instrument_execute(self, fn: Callable, kernel: str, sig_key: str, *, sig=None,
+                            config=None, static_kw=None) -> Callable:
         """Wrap a variant so every call records into the per-signature
         execute-latency histogram (and a trace span when tracing is on).
         On the card a launch returns before the kernel ends, so this is
         enqueue time as the caller observes it; the wrapper does not
-        synchronise, which would serialise the pipeline it measures."""
+        synchronise, which would serialise the pipeline it measures. The
+        exception is a shadow-sampled call (epsilon fraction, attached guard
+        only): it is timed on the device (:class:`~repro_torch.guard.shadow.ShadowClock`), recorded
+        in ``dispatch_shadow_seconds`` and told into the tuning store."""
         metrics, backend = self.metrics, self.backend
 
         def timed(*a, **kw):
             tracer = get_tracer()
+            guard = self._guard
+            mode = guard.shadow_mode(kernel, sig_key) if guard is not None else None
             t0 = time.perf_counter()
+            clock = ShadowClock(a) if mode is not None else None
             try:
                 fault_point("dispatch.latency", kernel=kernel, signature=sig_key)
                 if tracer.enabled:
                     with tracer.span("dispatch.execute", kernel=kernel,
                                      signature=sig_key):
-                        return fn(*a, **kw)
-                return fn(*a, **kw)
+                        out = fn(*a, **kw)
+                else:
+                    out = fn(*a, **kw)
+                if clock is not None:
+                    dt = clock.stop()
+                    metrics.observe("dispatch_shadow_seconds", dt, kernel=kernel,
+                                    signature=sig_key, backend=backend)
+                    guard.on_shadow(kernel, sig, config, static_kw, a, dt, mode)
+                return out
             finally:
                 metrics.observe("dispatch_execute_seconds",
                                 time.perf_counter() - t0, kernel=kernel,
@@ -226,19 +333,97 @@ class DispatchService:
         timed.__wrapped__ = fn
         return timed
 
+    def _enqueue_tuning(self, spec, kernel, sig, args, static_kw, *, copy: bool = True) -> None:
+        """Submit a background campaign for ``sig``. The campaign times on
+        tensors of its own (``copy``: copies of ``args`` made here, on this
+        thread's stream; else ``args`` are already fresh), never on the
+        caller's."""
+        inflight = getattr(self.tuner, "inflight", None)
+        if inflight is not None and inflight(kernel, sig, self.backend):
+            return  # deduplicated: no copies for a campaign already queued
+        own, ready = _hand_off(args, copy)
+
+        def factory(cfg):
+            if ready is not None:
+                ready.wait()  # the campaign's stream waits for the copies
+            return spec.builder(cfg, **static_kw), own
+
+        # make_evaluator override else CUDA-event (CPU: wall-clock) timing
+        evaluator = evaluator_for_spec(spec, factory)
+        fut = self.tuner.submit(
+            kernel, sig, self.backend, space=spec.space(self.target),
+            evaluator=evaluator, on_done=self._on_tuned)
+        if fut is not None:
+            with self._lock:
+                self.stats["bg_enqueued"] += 1
+
+    def _on_tuned(self, kernel: str, signature, backend: str) -> None:
+        self.invalidate(kernel, signature)
+        if self._sync is not None:
+            # a background campaign just published: push it fleet-wide now
+            self._sync.nudge()
+
+    # -- fleet replication, guard -------------------------------------------------
+
+    def attach_sync(self, agent) -> None:
+        """Bind a fleet sync agent (``nudge()``, ``lag()``): its replication
+        lag shows up in :meth:`telemetry`, and background-tuning publishes
+        nudge it. The port has no agent yet (``repro_torch.fleet`` waits for
+        ROADMAP.md Queue 1, item 8); this only stores it."""
+        self._sync = agent
+        if self.tuner is not None and getattr(self.tuner, "on_publish", None) is None:
+            self.tuner.on_publish = lambda rec: agent.nudge()
+
+    def attach_guard(self, agent) -> None:
+        """Bind a :class:`repro_torch.guard.GuardAgent`: the instrumented
+        execute wrapper starts shadow-sampling an epsilon fraction of calls,
+        retune material is captured per signature so the drift watcher can
+        re-campaign without live args, and :meth:`telemetry` grows a
+        ``guard`` section. Attach before the first dispatch — wrappers
+        created earlier keep serving, but their signatures only gain retune
+        material after an :meth:`invalidate`."""
+        self._guard = agent
+
+    def request_retune(self, kernel: str, sig_key: str) -> bool:
+        """Force a background re-campaign for a signature seen earlier by
+        :meth:`dispatch` (the drift watcher's recovery path), on zeros of
+        the recorded shapes, dtypes and devices. Returns False when no
+        tuner/store is attached or the signature was never served with a
+        guard attached."""
+        if self.tuner is None or self.store is None:
+            return False
+        with self._lock:
+            material = self._retune.get((kernel, sig_key))
+        if material is None:
+            return False
+        sig, static_id, specs = material
+        args = tuple(_map_specs(a) for a in specs)
+        self._enqueue_tuning(get_variant(kernel), kernel, sig, args, dict(static_id),
+                             copy=False)
+        return True
+
     def attach_kv_cache(self, cache) -> None:
         """Bind a :class:`repro_torch.serve.PagedKVCache`: its paged
         accounting shows up in :meth:`telemetry` under ``kv_cache``."""
         self._kv_cache = cache
 
     def telemetry(self) -> dict:
-        """The dispatch counters, the attached paged KV cache's page/token
-        accounting (under ``kv_cache``) and, under ``execute_latency``,
-        per-signature p50/p99 execute latency from the obs registry."""
+        """The dispatch counters, the background tuner's optimizer-overhead
+        aggregates (ask/tell/wait seconds), a sync agent's replication lag
+        when one is attached, the attached paged KV cache's page/token
+        accounting (under ``kv_cache``), the guard's summary (under
+        ``guard``) and, under ``execute_latency``, per-signature p50/p99
+        execute latency from the obs registry."""
         with self._lock:
             out = dict(self.stats)
+        if self.tuner is not None and getattr(self.tuner, "stats", None):
+            out.update(self.tuner.stats)
+        if self._sync is not None:
+            out.update(self._sync.lag())
         if self._kv_cache is not None:
             out["kv_cache"] = self._kv_cache.stats()
+        if self._guard is not None:
+            out["guard"] = self._guard.summary()
         out["execute_latency"] = [
             {
                 "kernel": row["labels"].get("kernel"),
@@ -323,6 +508,65 @@ class DispatchService:
         return proxy
 
 
+@dataclasses.dataclass(frozen=True)
+class _TensorSpec:
+    """Shape, dtype and device of a tensor: retune material."""
+
+    shape: tuple
+    dtype: torch.dtype
+    device: torch.device
+
+    @classmethod
+    def of(cls, t: torch.Tensor) -> "_TensorSpec":
+        return cls(tuple(t.shape), t.dtype, t.device)
+
+
+def _map_tensors(a, fn):
+    """``fn`` over a tensor argument, or over the tensor fields of a
+    dataclass argument (a view such as ``CacheRows``); other args as they
+    are."""
+    if isinstance(a, torch.Tensor):
+        return fn(a)
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        changes = {f.name: fn(getattr(a, f.name)) for f in dataclasses.fields(a)
+                   if isinstance(getattr(a, f.name), torch.Tensor)}
+        return dataclasses.replace(a, **changes) if changes else a
+    return a
+
+
+def _map_specs(a):
+    """Zeros for the :class:`_TensorSpec` records of :func:`_map_tensors`."""
+    def zeros(s: _TensorSpec):
+        return torch.zeros(s.shape, dtype=s.dtype, device=s.device)
+
+    if isinstance(a, _TensorSpec):
+        return zeros(a)
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        changes = {f.name: zeros(getattr(a, f.name)) for f in dataclasses.fields(a)
+                   if isinstance(getattr(a, f.name), _TensorSpec)}
+        return dataclasses.replace(a, **changes) if changes else a
+    return a
+
+
+def _hand_off(args: tuple, copy: bool):
+    """A campaign's own arguments: copies of ``args``' tensors (``copy``) or
+    ``args`` themselves, and, where any lies on the card, an event recorded
+    on the current stream after them, which the campaign's stream waits on
+    before its first use (``None`` on the CPU)."""
+    seen = []
+
+    def take(t: torch.Tensor) -> torch.Tensor:
+        seen.append(t)
+        return t.detach().clone() if copy else t
+
+    own = tuple(_map_tensors(a, take) for a in args)
+    ready = None
+    if any(t.is_cuda for t in seen):
+        ready = torch.cuda.Event()
+        ready.record()
+    return own, ready
+
+
 def _guarded_build(spec, config: dict, static_kw: dict, args: tuple):
     """Build a store-resolved config and run its pre-launch checks on the
     call's args without launching; ``None`` when the config is bad."""
@@ -355,7 +599,7 @@ def get_service() -> DispatchService:
 
 def configure(store: TuningStore | str | None = None, **kw) -> DispatchService:
     """(Re)build the process-wide default service, e.g.
-    ``configure("results/store")``."""
+    ``configure("results/store", tuner=BackgroundTuner(...))``."""
     global _default
     if isinstance(store, str):
         store = TuningStore(store)

@@ -1,8 +1,11 @@
-"""repro_torch.guard — deterministic fault injection (copy of
-repro.guard.faults). The hardened/shadow/watch layers are not ported yet.
+"""repro_torch.guard — the resilience layer, the counterpart of
+``repro.guard``: hardened campaign evaluation (``harden``), shadow
+evaluation on the device (``shadow``), the drift/regression watch
+(``watch``) and deterministic fault injection (``faults``, a copy).
 
 Imports are lazy (PEP 562), as in ``repro.guard``, so that
-``repro_torch.core.jsonl`` can import ``repro_torch.guard.faults`` cheaply.
+``repro_torch.core.jsonl`` can import ``repro_torch.guard.faults`` without
+pulling in torch and the dispatch machinery.
 """
 
 _EXPORTS = {
@@ -15,6 +18,17 @@ _EXPORTS = {
     "clear_faults": "faults",
     "active_faults": "faults",
     "CATALOG": "faults",
+    "FailureObservation": "harden",
+    "HardenPolicy": "harden",
+    "HardenedExecutor": "harden",
+    "ShadowPolicy": "shadow",
+    "ShadowEvaluator": "shadow",
+    "ShadowClock": "shadow",
+    "WatchPolicy": "watch",
+    "GuardAgent": "watch",
+    "window_stats": "watch",
+    "replay_decisions": "watch",
+    "guard_counters": "watch",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -1,0 +1,231 @@
+"""Shadow evaluation: live traffic as free tuning hardware — the
+counterpart of ``repro.guard.shadow``.
+
+For an epsilon fraction of dispatch executions the instrumented wrapper
+times the call (:class:`ShadowClock`: on the card a pair of
+``torch.cuda.Event`` records on the serving stream around it, waiting on
+events of that stream only, never a device-wide synchronise; on the CPU
+``perf_counter``) and hands that time to :meth:`ShadowEvaluator.on_shadow`,
+which ``tell``s it into the :class:`TuningStore` (the store's
+strict-improvement ``put`` is the accept test). A sub-fraction of those
+shadow samples additionally builds and times a *challenger* config — a
+store neighbor or a seeded space sample — on the live arguments, the same
+way (one warm-up call, then one timed call), promoting it (put + hot-swap
+invalidate) when it beats the incumbent. The port runs eagerly, so there is
+no traced call to skip, as the JAX package must.
+
+Sampling is deterministic (per-signature call counters, not RNG): every
+``round(1/epsilon)``-th execution is shadowed, every
+``round(1/challenger_fraction)``-th shadow tries a challenger. Shadowing
+never breaks serving: every failure path is swallowed into a counter.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["ShadowPolicy", "ShadowEvaluator", "ShadowClock"]
+
+
+def _tensors(args: tuple):
+    """The tensor arguments, and the tensor fields of view arguments (such
+    as ``CacheRows``)."""
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            yield a
+        elif dataclasses.is_dataclass(a) and not isinstance(a, type):
+            for f in dataclasses.fields(a):
+                if isinstance(getattr(a, f.name), torch.Tensor):
+                    yield getattr(a, f.name)
+
+
+class ShadowClock:
+    """Times one call on ``args``, started at construction: on the card a
+    pair of ``torch.cuda.Event`` records on the current stream around it
+    (device seconds); on the CPU a ``perf_counter`` interval.
+
+    On the card the clock first waits for the work already queued on the
+    current stream, so that the call starts on an idle stream, as each of
+    :class:`~repro_torch.core.plopper.TimingEvaluator`'s timed runs does
+    (it synchronises before each): both then measure the call from its
+    first enqueue to its last kernel's end. Started behind queued work, the
+    start event would fire only when that work ends, after the host had
+    enqueued the call, and the sample would hold the kernels' time alone,
+    below the objective it is compared with. The waits are on events of
+    this stream, never a device-wide synchronise: a background campaign's
+    stream is not waited for."""
+
+    def __init__(self, args: tuple):
+        self.start = self.end = None
+        if any(t.is_cuda for t in _tensors(args)):
+            queued = torch.cuda.Event()
+            queued.record()
+            queued.synchronize()
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        self.t0 = time.perf_counter()
+
+    def stop(self) -> float:
+        if self.start is None:
+            return time.perf_counter() - self.t0
+        self.end.record()
+        self.end.synchronize()
+        return self.start.elapsed_time(self.end) / 1e3
+
+
+@dataclasses.dataclass(frozen=True)
+class ShadowPolicy:
+    epsilon: float = 0.01             # fraction of executions shadow-timed
+    challenger_fraction: float = 0.1  # fraction of shadow samples that race a challenger
+    challenger_neighbors: int = 3     # store neighbors considered as challengers
+    seed: int = 0                     # space-sample challenger stream
+
+    def shadow_period(self) -> int:
+        return max(1, round(1.0 / self.epsilon)) if self.epsilon > 0 else 0
+
+    def challenger_period(self) -> int:
+        return (max(1, round(1.0 / self.challenger_fraction))
+                if self.challenger_fraction > 0 else 0)
+
+
+class ShadowEvaluator:
+    def __init__(self, service, policy: ShadowPolicy = ShadowPolicy()):
+        self.service = service
+        self.policy = policy
+        self._period = policy.shadow_period()           # hoisted off the hot path
+        self._challenger_period = policy.challenger_period()
+        self._lock = threading.Lock()
+        self._calls: Dict[Tuple[str, str], int] = {}   # per-signature executions
+        self._samples: Dict[Tuple[str, str], int] = {}  # per-signature shadows
+        self._rng = np.random.default_rng(policy.seed)
+        self.stats: Dict[str, int] = {
+            "shadow_evals": 0, "shadow_tells": 0, "shadow_skipped": 0,
+            "shadow_errors": 0, "challenger_evals": 0, "challenger_promoted": 0,
+            "challenger_infeasible": 0,
+        }
+
+    # -- sampling decision (serving hot path: every dispatch execution pays
+    # this, so it is deliberately lock-free — each get/set is atomic under
+    # the GIL, and a racing increment can at worst lose a count, which only
+    # nudges *when* the next shadow sample lands, never correctness; the
+    # lock stays on the cold paths (stats, challenger RNG))
+    def shadow_mode(self, kernel: str, sig_key: str) -> Optional[str]:
+        """None (don't shadow) | "observe" | "challenger" for this call."""
+        period = self._period
+        if period == 0:
+            return None
+        k = (kernel, sig_key)
+        n = self._calls.get(k, 0) + 1
+        self._calls[k] = n
+        if n % period != 0:
+            return None
+        s = self._samples.get(k, 0) + 1
+        self._samples[k] = s
+        ch = self._challenger_period
+        return "challenger" if (ch and s % ch == 0) else "observe"
+
+    # -- the measurement sink ---------------------------------------------
+    def on_shadow(self, kernel: str, sig, config: dict, static_kw: dict,
+                  args: tuple, measured_sec: float, mode: str) -> None:
+        """Handle one shadow measurement. Never raises."""
+        svc = self.service
+        try:
+            self._count("shadow_evals")
+            svc.metrics.add("guard_shadow_evals_total", kernel=kernel)
+            from repro_torch.dispatch.store import TuningRecord
+
+            if svc.store is not None and self._tell(TuningRecord(
+                    kernel=kernel, signature=tuple(sig), backend=svc.backend,
+                    config=dict(config), objective=float(measured_sec),
+                    n_evals=1, source="shadow")):
+                self._count("shadow_tells")
+            if mode == "challenger":
+                self._challenge(kernel, sig, config, static_kw, args)
+        except Exception:  # noqa: BLE001 — shadowing must never break serving
+            self._count("shadow_errors")
+            svc.metrics.add("guard_shadow_errors_total", kernel=kernel)
+
+    def _tell(self, rec) -> bool:
+        # the store accepts strict improvements only: a measurement no better
+        # than the record in hand is not offered (put locks, refreshes and
+        # fsyncs the log, on the serving thread)
+        cur = self.service.store.peek(rec.kernel, rec.signature, rec.backend)
+        if cur is not None and rec.objective >= cur.objective:
+            return False
+        return bool(self.service.store.put(rec))
+
+    # -- challenger path ---------------------------------------------------
+    def _pick_challenger(self, kernel: str, sig, config: dict) -> Optional[dict]:
+        from repro_torch.core.space import config_key
+        from repro_torch.dispatch.registry import get as get_variant
+        from repro_torch.dispatch.signature import signature_distance
+
+        svc = self.service
+        incumbent = config_key(config)
+        if svc.store is not None:
+            ranked = sorted(
+                (r for r in svc.store.records(kernel=kernel, backend=svc.backend)
+                 if signature_distance(tuple(sig), r.signature) != float("inf")),
+                key=lambda r: signature_distance(tuple(sig), r.signature))
+            for r in ranked[: self.policy.challenger_neighbors]:
+                if config_key(r.config) != incumbent:
+                    return dict(r.config)
+        space = get_variant(kernel).space(svc.target)
+        for _ in range(8):  # resample past the incumbent
+            cand = space.sample_configuration(self._rng)
+            if config_key(cand) != incumbent:
+                return cand
+        return None
+
+    def _challenge(self, kernel: str, sig, config: dict, static_kw: dict,
+                   args: tuple) -> None:
+        from repro_torch.analyze.feasibility import check_config
+        from repro_torch.dispatch.registry import get as get_variant
+        from repro_torch.dispatch.store import TuningRecord
+        from repro_torch.kernels.util import ConfigRejected
+
+        svc = self.service
+        cand = self._pick_challenger(kernel, sig, config)
+        if cand is None:
+            return
+        verdict = check_config(kernel, cand, signature=tuple(sig),
+                               target=svc.target)
+        if not verdict.ok:
+            self._count("challenger_infeasible")
+            return
+        built = get_variant(kernel).builder(cand, **static_kw)
+        try:
+            check = getattr(built, "check", None)
+            if check is not None:
+                check(*args)
+        except ConfigRejected:
+            self._count("challenger_infeasible")
+            return
+        built(*args)  # warm: the kernel's library is loaded, its smem limit set
+        clock = ShadowClock(args)  # waits for the warm call, then times one
+        built(*args)
+        dt = clock.stop()
+        self._count("challenger_evals")
+        svc.metrics.add("guard_challenger_evals_total", kernel=kernel)
+        if svc.store is not None and self._tell(TuningRecord(
+                kernel=kernel, signature=tuple(sig), backend=svc.backend,
+                config=dict(cand), objective=float(dt), n_evals=1,
+                source="shadow_challenger")):
+            self._count("challenger_promoted")
+            svc.metrics.add("guard_challenger_promoted_total", kernel=kernel)
+            svc.invalidate(kernel, tuple(sig))
+
+    def _count(self, key: str) -> None:
+        with self._lock:
+            self.stats[key] += 1
+
+    def snapshot_stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return dict(self.stats)

@@ -29,7 +29,7 @@ from repro_torch.kernels.util import (
     max_shared_memory_per_block,
 )
 
-__all__ = ["covariance", "covariance_plain", "covariance_smem_bytes"]
+__all__ = ["covariance", "covariance_check", "covariance_plain", "covariance_smem_bytes"]
 
 
 def covariance_smem_bytes(bi: int, bj: int, bk: int, limit: int | None = None) -> int:
@@ -51,15 +51,13 @@ def covariance_plain(data: torch.Tensor) -> torch.Tensor:
     return (c.T @ c) / (data.shape[0] - 1.0)
 
 
-def covariance(
-    data: torch.Tensor,
-    *,
-    bi: int = 128,
-    bj: int = 128,
-    bk: int = 256,
-    fuse_center: bool = True,
-    interchange: bool = False,
-) -> torch.Tensor:
+def covariance_check(data, *, bi: int = 128, bj: int = 128,
+                     bk: int = 256) -> tuple[int, int, int]:
+    """The wrapper's checks before a launch, without launching: shape and
+    dtype and, on the card, the operand and the tile against the register
+    tile and the device's shared memory per block. Raises
+    :class:`ConfigRejected` for a tile the kernel cannot run; returns the
+    clamped ``(bi, bj, bk)``."""
     if data.dim() != 2:
         raise ValueError(f"covariance data must be N x M, got {tuple(data.shape)}")
     N, M = data.shape
@@ -67,8 +65,7 @@ def covariance(
         raise TypeError(f"covariance is f32 only, got {data.dtype}")
     bi, bj, bk = min(bi, M), min(bj, M), min(bk, N)
     if data.device.type == "cpu":
-        return covariance_plain(data)
-
+        return bi, bj, bk
     dev = data.device
     check_operand("data", data, (N, M), (torch.float32,), dev)
     limit = max_shared_memory_per_block(dev)
@@ -78,7 +75,25 @@ def covariance(
     if smem > limit:
         raise ConfigRejected(f"covariance bi={bi} bj={bj} bk={bk} needs {smem} B of "
                              f"shared memory, the device allows {limit} B per block")
+    return bi, bj, bk
 
+
+def covariance(
+    data: torch.Tensor,
+    *,
+    bi: int = 128,
+    bj: int = 128,
+    bk: int = 256,
+    fuse_center: bool = True,
+    interchange: bool = False,
+) -> torch.Tensor:
+    bi, bj, bk = covariance_check(data, bi=bi, bj=bj, bk=bk)
+    N, M = data.shape
+    if data.device.type == "cpu":
+        return covariance_plain(data)
+
+    dev = data.device
+    limit = max_shared_memory_per_block(dev)
     mean = data.mean(0)
     src = data if fuse_center else (data - mean).contiguous()
     out = torch.empty((M, M), dtype=torch.float32, device=dev)

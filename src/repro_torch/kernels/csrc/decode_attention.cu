@@ -81,27 +81,35 @@
 // contiguous. A (BH, S, hd) tensor is Kh = 1; the model's (B, S, Kh, hd)
 // cache is read in place, row b*Kh + h at (b, h), with no copy.
 //
-// Head sizes: every multiple of 16 from 16 to 256 is an instantiation (the
-// cache is read in place, so a head size cannot be padded up to another
-// one): NV = hd / 4 float4 columns, the score pass's lanes stride hd by 4 *
-// lpp, and the P V pass's threads are (NV, head group, slot group) with the
-// slot groups nsg = 256 / (NV * nhg), so a head size that is not a power of
-// two leaves a few threads out of that pass (hd 80: 240 of 256).
+// Head sizes: every multiple of 16 from 16 to 256 is an instantiation, HD;
+// a head size hd in between runs at the next of them, HD = round_up(hd, 16),
+// without copying anything: the cache is read in place, and its loads are
+// masked past hd (the MASK instantiations: the ring's element-form copies,
+// which zero-fill columns hd .. HD - 1 of every staged K and V row), q's
+// staged row is zero there too, and only the hd real columns of O are
+// stored; the other instantiations keep hd = HD a constant. The zero columns
+// come after the real ones in every dot product and add exact +0*0 terms, so
+// the scores keep their bits. NV = HD / 4 float4 columns, the score pass's
+// lanes stride HD by 4 * lpp, and the P V pass's threads are (NV, head
+// group, slot group) with the slot groups nsg = 256 / (NV * nhg), so a head
+// size that is not a power of two leaves a few threads out of that pass
+// (hd 80: 240 of 256).
 // q and O rows hold Gq >= G heads, so a launch can take heads g0 .. g0 + G
 // - 1 of each row (q and O passed from head g0): the wrapper splits a G
-// past the kernel's 8 * 256 / hd into groups that fit, one launch each.
+// past the kernel's 8 * 256 / HD into groups that fit, one launch each.
 //
 // Interface: decode_attention_smem_bytes() gives the dynamic shared memory
 // a block needs for (G, bk, hd, dtype) (-1 for what the kernel does not
-// take: bk from 1 to 256, hd a multiple of 16 up to 256, G at most 8 * 256
-// / hd, so 8 at hd 256), from the same layout() the launcher passes the
+// take: bk from 1 to 256, hd from 1 to 256, G at most 8 * 256 / HD, so 8 at
+// hd 256), from the same layout() the launcher passes the
 // kernel; the wrapper checks it against the device's limit before launch
 // (at hd 256 and G = 8 in f32 the three ring stages take 198 KB, one block
 // an SM).
 // decode_attention_splits() and decode_attention_workspace_bytes() size the
 // split and the workspace; decode_attention_launch() launches on the given
 // stream, does not synchronise, and returns cudaGetLastError(). dtype, hd
-// and the copy form are template parameters (64 instantiations).
+// and the copy form are template parameters (96 instantiations: three copy
+// forms for each of the 16 head sizes and two dtypes).
 
 #include "gemm_f32.cuh"
 
@@ -165,6 +173,7 @@ struct Args {
   int BH, Kh, G, S, bk, hg, nsplit, spb, ring, window;
   float scale;
   Layout L;
+  int hd;  // the real head size: with MASK, columns hd .. HD - 1 are zeros, never stored
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -186,6 +195,27 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Columns 4 * (idx % NV) .. + 3 of head idx / NV of row r of O (rows of Gq
+// heads of hd columns): with MASK those below hd only.
+template <bool MASK, int HD, typename T>
+__device__ __forceinline__ void store4(T* Og, int r, int idx, int Gq, int hd, float4 v) {
+  constexpr int NV = HD / 4;
+  if constexpr (MASK) {
+    const int g = idx / NV, col = 4 * (idx % NV);
+    T* o = Og + ((size_t)r * Gq + g) * hd + col;
+    const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (col + i < hd) o[i] = from_f32<T>(w[i]);
+  } else {
+    T* o = Og + (size_t)r * Gq * HD + 4 * idx;
+    o[0] = from_f32<T>(v.x);
+    o[1] = from_f32<T>(v.y);
+    o[2] = from_f32<T>(v.z);
+    o[3] = from_f32<T>(v.w);
+  }
+}
+
 // _decode_mask (src/repro/kernels/decode_attention.py:47) for one slot
 __device__ __forceinline__ bool slot_valid(int slot, int cp, int S, int ring, int window) {
   int kpos = slot;
@@ -199,9 +229,10 @@ __device__ __forceinline__ bool slot_valid(int slot, int cp, int S, int ring, in
   return valid;
 }
 
-template <typename T, int HD, bool VEC16>
+template <typename T, int HD, bool VEC16, bool MASK>
 __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
   constexpr int NV = HD / 4;  // float4 columns of a head
+  const int hd = MASK ? p.hd : HD;  // the real head size
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   const Layout& L = p.L;
@@ -253,8 +284,14 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
 
     __syncthreads();  // the previous row's q, stats and ring are consumed
     if (nchunks > 0)
-      for (int idx = tid; idx < p.G * HD; idx += NT)
-        sQ[idx / HD * (HD + QPAD) + idx % HD] = to_f32(Qg[(size_t)r * p.Gq * HD + idx]);
+      for (int idx = tid; idx < p.G * HD; idx += NT) {
+        if constexpr (MASK) {  // q's columns past hd are zeros
+          const int g = idx / HD, e = idx - g * HD;
+          sQ[g * (HD + QPAD) + e] = e < hd ? to_f32(Qg[((size_t)r * p.Gq + g) * hd + e]) : 0.f;
+        } else {
+          sQ[idx / HD * (HD + QPAD) + idx % HD] = to_f32(Qg[(size_t)r * p.Gq * HD + idx]);
+        }
+      }
     for (int g = tid; g < p.G; g += NT) {
       sM[g] = NEG;
       sL[g] = 0.f;
@@ -269,9 +306,9 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
       const int s0 = x0 + c * SUB, kc = min(SUB, x1 - s0);
       char* st = ring + slot * L.stage;
       const size_t off = (size_t)s0 * p.stride_s;
-      gemm::copy_box<T, VEC16>(plan, st, L.kpitch, K + off, (int)p.stride_s, kc, HD, tid, NT);
+      gemm::copy_box<T, VEC16>(plan, st, L.kpitch, K + off, (int)p.stride_s, kc, hd, tid, NT);
       gemm::copy_box<T, VEC16>(plan, st + SUB * L.kpitch, L.vpitch, V + off, (int)p.stride_s,
-                               kc, HD, tid, NT);
+                               kc, hd, tid, NT);
     };
 
     auto compute = [&](int c, int slot) {
@@ -373,11 +410,8 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
       }
       if (p.nsplit == 1) {
         const float den = fmaxf(sL[idx / NV], 1e-30f);
-        T* o = Og + (size_t)r * p.Gq * HD + 4 * idx;
-        o[0] = from_f32<T>(o4.x / den);
-        o[1] = from_f32<T>(o4.y / den);
-        o[2] = from_f32<T>(o4.z / den);
-        o[3] = from_f32<T>(o4.w / den);
+        store4<MASK, HD>(Og, r, idx, p.Gq, hd,
+                         make_float4(o4.x / den, o4.y / den, o4.z / den, o4.w / den));
       } else {  // this split's partial: acc [G][hd]
         *reinterpret_cast<float4*>(p.ws + part * p.G * HD + 4 * idx) = o4;
       }
@@ -434,29 +468,28 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
         o.w = fmaf(x.w, e, o.w);
       }
       const float den = sL[g];
-      T* out = Og + (size_t)r * p.Gq * HD + 4 * idx;
-      out[0] = from_f32<T>(o.x / den);
-      out[1] = from_f32<T>(o.y / den);
-      out[2] = from_f32<T>(o.z / den);
-      out[3] = from_f32<T>(o.w / den);
+      store4<MASK, HD>(Og, r, idx, p.Gq, hd,
+                       make_float4(o.x / den, o.y / den, o.z / den, o.w / den));
     }
   }
   if (tid == 0) p.counters[grp] = 0;  // for the next launch on this stream
 }
 
-template <typename T, int HD, bool V16>
+template <typename T, int HD, bool V16, bool MASK>
 cudaError_t launch(const Args& p, cudaStream_t stream) {
   const dim3 grid(p.nsplit, (p.BH + p.hg - 1) / p.hg);
   static long long done[16] = {};
-  const cudaError_t e = gemm::allow_smem(decode_kernel<T, HD, V16>, p.L.bytes, done);
+  const cudaError_t e = gemm::allow_smem(decode_kernel<T, HD, V16, MASK>, p.L.bytes, done);
   if (e != cudaSuccess) return e;
-  decode_kernel<T, HD, V16><<<grid, NT, p.L.bytes, stream>>>(p);
+  decode_kernel<T, HD, V16, MASK><<<grid, NT, p.L.bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
+// the copy form: 16-byte pieces, elements, or elements masked past hd < HD
 template <typename T, int HD>
 cudaError_t launch_vec(const Args& p, bool vec16, cudaStream_t s) {
-  return vec16 ? launch<T, HD, true>(p, s) : launch<T, HD, false>(p, s);
+  if (p.hd != HD) return launch<T, HD, false, true>(p, s);
+  return vec16 ? launch<T, HD, true, false>(p, s) : launch<T, HD, false, false>(p, s);
 }
 
 // hd = HD, HD + 16, ..., 256
@@ -471,10 +504,14 @@ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 }  // namespace
 
+// The instantiated head size a head size hd runs at: the next multiple of 16.
+inline int padded_hd(int hd) { return gemm::round_up(hd, 16); }
+
 extern "C" long long decode_attention_smem_bytes(int G, int bk, int hd, int bf16) {
-  if (hd < 16 || hd > MAXHD || hd % 16) return -1;
-  if (G < 1 || G > 8 * NT / hd || bk < 1 || bk > MAXBK) return -1;
-  return layout(G, hd, bf16 ? 2 : 4).bytes;
+  if (hd < 1 || hd > MAXHD) return -1;
+  const int hdp = padded_hd(hd);
+  if (G < 1 || G > 8 * NT / hdp || bk < 1 || bk > MAXBK) return -1;
+  return layout(G, hdp, bf16 ? 2 : 4).bytes;
 }
 
 // Splits of the key axis: about four blocks per SM over the row groups, each
@@ -488,10 +525,10 @@ extern "C" int decode_attention_splits(int BH, int S, int bk, int hg, int sms) {
   return cdiv(nkb, cdiv(nkb, want));
 }
 
-// f32 workspace for the partials of nsplit > 1 splits: acc [BH][nsplit][G][hd]
+// f32 workspace for the partials of nsplit > 1 splits: acc [BH][nsplit][G][HD]
 // then (m, l) [BH][nsplit][G][2]
 extern "C" long long decode_attention_workspace_bytes(int BH, int G, int hd, int nsplit) {
-  return nsplit > 1 ? 4LL * BH * nsplit * G * (hd + 2) : 0;
+  return nsplit > 1 ? 4LL * BH * nsplit * G * (padded_hd(hd) + 2) : 0;
 }
 
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
@@ -507,17 +544,17 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
       || nsplit > MAXSPLIT || Gq < G
       || (nsplit > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int size = bf16 ? 2 : 4;
+  const int size = bf16 ? 2 : 4, hdp = padded_hd(hd);
   // 16-byte pieces: aligned bases, and every row and slot on a 16-byte word
-  // (hd * size is a multiple of 16 for every hd taken)
+  // (hd * size is a multiple of 16 for every unmasked hd)
   const bool vec16 = gemm::aligned16(k) && gemm::aligned16(v) && (stride_b * size) % 16 == 0
                      && (stride_s * size) % 16 == 0 && (stride_h * size) % 16 == 0;
   Args p{q, k, v, (const int*)cur_pos, o, (float*)ws, (int*)counters,
          stride_b, stride_s, stride_h, Gq, BH, Kh, G, S, bk, hg, nsplit, cdiv(nkb, nsplit),
-         ring, window, scale, layout(G, hd, size)};
+         ring, window, scale, layout(G, hdp, size), hd};
   cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e = bf16 ? launch_hd<__nv_bfloat16>(p, hd, vec16, s)
-                             : launch_hd<float>(p, hd, vec16, s);
+  const cudaError_t e = bf16 ? launch_hd<__nv_bfloat16>(p, hdp, vec16, s)
+                             : launch_hd<float>(p, hdp, vec16, s);
   return (int)e;
 }
 

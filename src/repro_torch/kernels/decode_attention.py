@@ -19,9 +19,13 @@ Same contract as ``repro.kernels.decode_attention.decode_attention``:
   * ``bk`` -> the KV block of the online-softmax loop: the kernel splits the
     key axis across blocks in whole ``bk`` blocks (:func:`decode_attention_plan`),
     ``hg`` -> how many rows one block of the kernel walks;
-  * head sizes that are multiples of 16 up to 256 on the card (the CPU takes
-    any); a G past the kernel's 8 * 256 / hd heads a launch is split into
-    groups of heads that fit, one launch each (:func:`decode_attention_head_groups`).
+  * every head size from 1 to 256 on the card (the CPU takes any): the
+    kernel is instantiated for the multiples of 16, and another size runs at
+    the next of them with the cache's loads masked past hd (zeros land in
+    shared memory; the cache is read in place, never padded by a copy), and
+    only the hd real output columns stored; a G past the kernel's
+    8 * 256 / round_up(hd, 16) heads a launch is split into groups of heads
+    that fit, one launch each (:func:`decode_attention_head_groups`).
 
 Also here, as torch functions: :func:`chunked_decode_xla` (the JAX package's
 ``impl="xla"`` variant: the same recurrence over ``bk`` chunks in tensor
@@ -50,22 +54,22 @@ __all__ = ["CacheRows", "decode_attention", "decode_attention_plain",
 
 _NEG = -1.0e30
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_STEP, MAX_HEAD = 16, 256  # the kernel's head sizes: multiples of 16 up to 256
+HEAD_STEP, MAX_HEAD = 16, 256  # the kernel's instantiations: multiples of 16 up to 256
 HEADS_PER_LAUNCH = 8 * 256     # G * hd of one launch at most (8 heads a thread, 256 threads)
 
 
 def decode_attention_head_groups(G: int, hd: int) -> list[tuple[int, int]]:
-    """The query heads ``[g0, g1)`` of each launch for G heads of size hd:
-    one group where G fits the kernel (G <= 8 * 256 / hd), else the fewest
-    groups that fit, as equal as can be. Raises :class:`ConfigRejected` for
-    a head size the kernel has no instantiation of."""
-    if hd < HEAD_STEP or hd > MAX_HEAD or hd % HEAD_STEP:
-        raise ConfigRejected(f"decode_attention hd={hd}: the kernel takes head sizes that "
-                             f"are multiples of {HEAD_STEP} up to {MAX_HEAD} (it reads the "
-                             f"cache in place, so a head size cannot be padded)")
+    """The query heads ``[g0, g1)`` of each launch for G heads of size hd
+    (run at the instantiation ``round_up(hd, 16)``): one group where G fits
+    the kernel (G <= 8 * 256 / round_up(hd, 16)), else the fewest groups
+    that fit, as equal as can be. Raises :class:`ConfigRejected` for a head
+    size past 256."""
+    if hd < 1 or hd > MAX_HEAD:
+        raise ConfigRejected(f"decode_attention hd={hd}: the kernel takes head sizes from 1 "
+                             f"to {MAX_HEAD}")
     if G < 1:
         raise ValueError(f"decode_attention needs at least one query head, got G={G}")
-    fit = HEADS_PER_LAUNCH // hd
+    fit = HEADS_PER_LAUNCH // (-(-hd // HEAD_STEP) * HEAD_STEP)
     n = -(-G // fit)
     return [(i * G // n, (i + 1) * G // n) for i in range(n)]
 

@@ -45,7 +45,7 @@ from repro_torch.kernels.util import (
     pad_to,
 )
 
-__all__ = ["floyd_warshall", "floyd_warshall_plain", "minplus_update",
+__all__ = ["floyd_warshall", "floyd_warshall_check", "floyd_warshall_plain", "minplus_update",
            "minplus_update_plain", "closure_in_block", "closure_plain",
            "minplus_smem_bytes"]
 
@@ -259,6 +259,34 @@ def _blocked(path, bs, bi, bj, minplus, closure):
     return D[:N, :N].contiguous()
 
 
+def floyd_warshall_check(path: torch.Tensor, *, bs: int = 64, bi: int = 128, bj: int = 128,
+                         unroll: int = 1) -> tuple[int, int]:
+    """The wrapper's checks before a launch, without launching: dtype,
+    ``unroll`` and, on the card, the operand and the three tiles a round
+    launches (the trailing ``bi`` x ``bj`` and the two panels') against the
+    kernel's extents and the device's shared memory per block. Raises
+    :class:`ConfigRejected` for a tile the kernel cannot run; returns the
+    clamped ``(bi, bj)`` of the trailing update."""
+    _check_f32(path)
+    if unroll not in UNROLLS:
+        raise ConfigRejected(f"unroll must be one of {UNROLLS}, got {unroll}")
+    if int(bs) < 1 or int(bi) < 1 or int(bj) < 1:
+        raise ConfigRejected(f"floyd_warshall tiles must be positive, got bs={bs} bi={bi} "
+                             f"bj={bj}")
+    N = path.shape[0]
+    bsc = min(int(bs), N)
+    Np = -(-N // bsc) * bsc
+    bi, bj, pt = min(int(bi), Np), min(int(bj), Np), min(PANEL_TILE, Np)
+    if path.device.type == "cpu":
+        return bi, bj
+    dev = path.device
+    check_operand("path", path, (N, N), (torch.float32,), dev)
+    limit = max_shared_memory_per_block(dev)
+    for ti, tj in ((bi, bj), (bsc, pt), (pt, bsc)):
+        _tile_check(ti, tj, bsc, limit)
+    return bi, bj
+
+
 def floyd_warshall(
     path: torch.Tensor,
     *,
@@ -277,23 +305,14 @@ def floyd_warshall(
             "allow_semiring_reassociation=True (the -polly-pragma-ignore-"
             "depcheck analog) or use ref.floyd_warshall_ref"
         )
-    _check_f32(path)
-    if unroll not in UNROLLS:
-        raise ValueError(f"unroll must be one of {UNROLLS}, got {unroll}")
+    bi, bj = floyd_warshall_check(path, bs=bs, bi=bi, bj=bj, unroll=unroll)
     if path.device.type == "cpu":
         return floyd_warshall_plain(path, bs=bs)
 
     # on the card: the tiles are checked once, then every launch goes
     # straight to the kernels on the current stream
     dev = path.device
-    N = path.shape[0]
-    check_operand("path", path, (N, N), (torch.float32,), dev)
-    bsc = min(bs, N)
-    Np = -(-N // bsc) * bsc
-    bi, bj, pt = min(bi, Np), min(bj, Np), min(PANEL_TILE, Np)
     limit = max_shared_memory_per_block(dev)
-    for ti, tj in ((bi, bj), (bsc, pt), (pt, bsc)):
-        _tile_check(ti, tj, bsc, limit)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
 

@@ -34,7 +34,7 @@ from repro_torch.kernels.util import (
     max_shared_memory_per_block,
 )
 
-__all__ = ["heat3d", "heat3d_step", "heat3d_plain", "heat3d_step_plain",
+__all__ = ["heat3d", "heat3d_check", "heat3d_step", "heat3d_plain", "heat3d_step_plain",
            "heat3d_smem_bytes", "heat3d_plan"]
 
 FUSE_T = (1, 2)
@@ -74,18 +74,41 @@ def heat3d_plain(A: torch.Tensor, tsteps: int) -> torch.Tensor:
     return ref.heat3d_ref(A, tsteps)
 
 
-def _passes(A: torch.Tensor, bi: int, fuse_t: int, passes: int) -> torch.Tensor:
-    """``passes`` passes of the kernel over A, from one C call."""
-    dev = A.device
+def heat3d_check(A: torch.Tensor, tsteps: int | None = None, *, bi: int = 8,
+                 fuse_t: int = 1) -> int:
+    """The wrapper's checks before a launch, without launching: the grid's
+    rank and dtype and, on the card, the operand; and the config: ``fuse_t``
+    one of :data:`FUSE_T` dividing ``2*tsteps`` (where ``tsteps`` is given)
+    and, on the card, the block's shared memory against the device's limit.
+    Raises :class:`ConfigRejected` for a config the kernel cannot run;
+    returns the clamped ``bi``."""
+    if A.dim() != 3:
+        raise ValueError(f"heat3d grid must be 3-D, got {tuple(A.shape)}")
+    if A.dtype != torch.float32:
+        raise TypeError(f"heat3d is f32 only, got {A.dtype}")
+    if fuse_t not in FUSE_T:
+        raise ConfigRejected(f"fuse_t must be one of {FUSE_T}, got {fuse_t}")
+    if tsteps is not None and (2 * tsteps) % fuse_t:
+        raise ConfigRejected("fuse_t must divide 2*tsteps")
     n0, n1, n2 = A.shape
-    check_operand("A", A, (n0, n1, n2), (torch.float32,), dev)
     bi = min(bi, n0)
+    if A.device.type == "cpu":
+        return bi
+    dev = A.device
+    check_operand("A", A, (n0, n1, n2), (torch.float32,), dev)
     with torch.cuda.device(dev):
         smem = heat3d_smem_bytes((n0, n1, n2), bi, fuse_t)
     limit = max_shared_memory_per_block(dev)
     if smem < 0 or smem > limit:
         raise ConfigRejected(f"heat3d bi={bi} fuse_t={fuse_t} needs {smem} B of "
                              f"shared memory, the device allows {limit} B per block")
+    return bi
+
+
+def _passes(A: torch.Tensor, bi: int, fuse_t: int, passes: int) -> torch.Tensor:
+    """``passes`` passes of the kernel over A (checked), from one C call."""
+    dev = A.device
+    n0, n1, n2 = A.shape
     out = torch.empty_like(A)
     if passes == 0:
         return out.copy_(A)
@@ -100,18 +123,9 @@ def _passes(A: torch.Tensor, bi: int, fuse_t: int, passes: int) -> torch.Tensor:
     return out
 
 
-def _check(A: torch.Tensor, fuse_t: int) -> None:
-    if A.dim() != 3:
-        raise ValueError(f"heat3d grid must be 3-D, got {tuple(A.shape)}")
-    if A.dtype != torch.float32:
-        raise TypeError(f"heat3d is f32 only, got {A.dtype}")
-    if fuse_t not in FUSE_T:
-        raise ValueError(f"fuse_t must be one of {FUSE_T}, got {fuse_t}")
-
-
 def heat3d_step(A: torch.Tensor, *, bi: int = 8, fuse_t: int = 1) -> torch.Tensor:
     """``fuse_t`` masked stencil applications in one pass."""
-    _check(A, fuse_t)
+    bi = heat3d_check(A, bi=bi, fuse_t=fuse_t)
     if A.device.type == "cpu":
         return heat3d_step_plain(A, fuse_t)
     return _passes(A, bi, fuse_t, 1)
@@ -119,13 +133,10 @@ def heat3d_step(A: torch.Tensor, *, bi: int = 8, fuse_t: int = 1) -> torch.Tenso
 
 def heat3d(A: torch.Tensor, tsteps: int, *, bi: int = 8, fuse_t: int = 1) -> torch.Tensor:
     """PolyBench heat-3d: 2*tsteps stencil applications (A->B->A per step)."""
-    _check(A, fuse_t)
-    total = 2 * tsteps
-    if total % fuse_t:
-        raise ValueError("fuse_t must divide 2*tsteps")
+    bi = heat3d_check(A, tsteps, bi=bi, fuse_t=fuse_t)
     if A.device.type == "cpu":
         return heat3d_plain(A, tsteps)
-    return _passes(A, bi, fuse_t, total // fuse_t)
+    return _passes(A, bi, fuse_t, 2 * tsteps // fuse_t)
 
 
 heat3d.launches = 0  # kernel launches (passes) since the last reset (chip_smoke reads it)

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.matmul import tiled_matmul, tiled_matmul_plain
+from repro_torch.kernels.matmul import matmul_tile_check, tiled_matmul, tiled_matmul_plain
 from repro_torch.kernels.util import (
     ConfigRejected,
     cdiv,
@@ -34,7 +34,7 @@ from repro_torch.kernels.util import (
     max_shared_memory_per_block,
 )
 
-__all__ = ["lu", "lu_plain", "lu_factor_diag", "lu_factor_diag_plain",
+__all__ = ["lu", "lu_check", "lu_plain", "lu_factor_diag", "lu_factor_diag_plain",
            "lu_factor_diag_smem_bytes"]
 
 
@@ -114,6 +114,35 @@ def _blocked(A, bs, factor, matmul):
     return M[:N, :N].contiguous()
 
 
+def lu_check(A: torch.Tensor, *, bs: int = 32, bm: int = 128, bn: int = 128) -> None:
+    """The wrapper's checks before its first launch, without launching: a
+    square f32 matrix and, on the card, the operand, the diagonal block's
+    shared memory and the trailing GEMM's tile at its largest (the first
+    step's) against the register tile and the device's limit. Raises
+    :class:`ConfigRejected` for a schedule the kernels cannot run."""
+    if A.dim() != 2 or A.shape[0] != A.shape[1]:
+        raise ValueError(f"lu needs a square matrix, got {tuple(A.shape)}")
+    if A.dtype != torch.float32:
+        raise TypeError(f"lu is f32 only, got {A.dtype}")
+    if int(bs) < 1 or int(bm) < 1 or int(bn) < 1:
+        raise ConfigRejected(f"lu tiles must be positive, got bs={bs} bm={bm} bn={bn}")
+    if A.device.type == "cpu":
+        return
+    dev = A.device
+    N = A.shape[0]
+    check_operand("A", A, (N, N), (torch.float32,), dev)
+    bs = min(int(bs), N)
+    limit = max_shared_memory_per_block(dev)
+    smem = lu_factor_diag_smem_bytes(bs)
+    if smem > limit:
+        raise ConfigRejected(f"lu bs={bs} needs {smem} B of shared memory for its diagonal "
+                             f"block, the device allows {limit} B per block")
+    rest = cdiv(N, bs) * bs - bs  # the first trailing update's rows and columns
+    if rest > 0:
+        matmul_tile_check(rest, bs, rest, bm=bm, bn=bn, bk=bs, dtype=torch.float32,
+                          device=dev)
+
+
 def lu(
     A: torch.Tensor,
     *,
@@ -124,10 +153,7 @@ def lu(
 ) -> torch.Tensor:
     """Packed LU of A (N x N): L strictly below the diagonal (unit implied),
     U on and above it. Matches ``ref.lu_ref``."""
-    if A.dim() != 2 or A.shape[0] != A.shape[1]:
-        raise ValueError(f"lu needs a square matrix, got {tuple(A.shape)}")
-    if A.dtype != torch.float32:
-        raise TypeError(f"lu is f32 only, got {A.dtype}")
+    lu_check(A, bs=bs, bm=bm, bn=bn)
     bk = min(bs, A.shape[0])
     return _blocked(A, bs, lu_factor_diag,
                     lambda L, U: tiled_matmul(L, U, bm=bm, bn=bn, bk=bk, pack=pack))

@@ -26,7 +26,7 @@ from repro_torch.kernels.util import (
 )
 
 __all__ = ["tiled_matmul", "tiled_matmul_plain", "tiled_matmul_check",
-           "matmul_smem_bytes"]
+           "matmul_tile_check", "matmul_smem_bytes"]
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -73,18 +73,28 @@ def tiled_matmul_check(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: i
     K2, N = b.shape
     if K != K2:
         raise ValueError(f"tiled_matmul shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    if a.device.type != "cpu":
+        dev = a.device
+        check_operand("a", a, (M, K), DTYPES, dev)
+        check_operand("b", b, (K, N), (a.dtype,), dev)
+        if (out_dtype or a.dtype) not in DTYPES:
+            raise TypeError(f"tiled_matmul out_dtype {out_dtype} not in {DTYPES}")
+    return matmul_tile_check(M, K, N, bm=bm, bn=bn, bk=bk, dtype=a.dtype, device=a.device)
+
+
+def matmul_tile_check(M: int, K: int, N: int, *, bm: int, bn: int, bk: int,
+                      dtype: torch.dtype, device: torch.device) -> tuple[int, int, int]:
+    """The tile's part of :func:`tiled_matmul_check` for an (M, K) @ (K, N)
+    product of ``dtype`` inputs on ``device``: positive tiles, clamped to
+    the shape and, on the card, held against the register tile and the
+    device's shared memory per block. Returns the clamped ``(bm, bn, bk)``."""
     if int(bm) < 1 or int(bn) < 1 or int(bk) < 1:
         raise ConfigRejected(f"tiled_matmul tiles must be positive, got {bm}x{bn}x{bk}")
     bm, bn, bk = min(int(bm), max(M, 1)), min(int(bn), max(N, 1)), min(int(bk), max(K, 1))
-    if a.device.type == "cpu":
+    if device.type == "cpu":
         return bm, bn, bk
-    dev = a.device
-    check_operand("a", a, (M, K), DTYPES, dev)
-    check_operand("b", b, (K, N), (a.dtype,), dev)
-    if (out_dtype or a.dtype) not in DTYPES:
-        raise TypeError(f"tiled_matmul out_dtype {out_dtype} not in {DTYPES}")
-    limit = max_shared_memory_per_block(dev)
-    smem = matmul_smem_bytes(bm, bn, bk, a.dtype, limit)
+    limit = max_shared_memory_per_block(device)
+    smem = matmul_smem_bytes(bm, bn, bk, dtype, limit)
     if smem < 0:
         raise ConfigRejected(f"matmul tile {bm}x{bn} does not fit the kernel's register tile")
     if smem > limit:

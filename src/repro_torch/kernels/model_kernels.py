@@ -190,8 +190,11 @@ def register_model_kernels() -> None:
     from repro_torch.dispatch.registry import register
     from repro_torch.kernels.spaces import kernel_space
 
+    from repro_torch.kernels.variants import EVAL_REPEATS
+
     for name, builder in MODEL_KERNEL_BUILDERS.items():
-        register(name, builder, space=functools.partial(kernel_space, name))
+        register(name, builder, space=functools.partial(kernel_space, name),
+                 eval_repeats=EVAL_REPEATS)
 
 
 # ---------------------------------------------------------------------------

@@ -74,7 +74,7 @@ from repro_torch.kernels.m3mm import mm3
 from repro_torch.kernels.syr2k import syr2k
 
 __all__ = ["syr2k_op", "mm3_op", "lu_op", "heat3d_op", "covariance_op",
-           "floyd_warshall_op", "DEFAULTS"]
+           "floyd_warshall_op", "DEFAULTS", "config_of"]
 
 DEFAULTS: dict[str, dict[str, Any]] = {
     "syr2k": dict(bi=64, bj=64, bk=32, interchange=False,
@@ -98,31 +98,37 @@ def _merged(name: str, config: Mapping[str, Any] | None) -> dict:
     return out
 
 
+def config_of(name: str, config: Mapping[str, Any] | None) -> dict:
+    """``config`` merged over :data:`DEFAULTS` (keys the kernel does not
+    take are dropped): the knobs an ``*_op`` hands its wrapper."""
+    out = _merged(name, config)
+    # syr2k's InCondition: pack_b is only active with pack_a, and a sampled
+    # config leaves the inactive pack_b out — it means "not packed"
+    if name == "syr2k" and not out["pack_a"]:
+        out["pack_b"] = False
+    return out
+
+
 def syr2k_op(C, A, B, alpha=1.5, beta=1.2, config=None):
-    cfg = _merged("syr2k", config)
-    # the space's InCondition: pack_b is only active with pack_a, and a
-    # sampled config leaves the inactive pack_b out — it means "not packed"
-    if not cfg["pack_a"]:
-        cfg["pack_b"] = False
-    return syr2k(C, A, B, alpha, beta, **cfg)
+    return syr2k(C, A, B, alpha, beta, **config_of("syr2k", config))
 
 
 def mm3_op(A, B, C, D, config=None):
-    return mm3(A, B, C, D, **_merged("mm3", config))
+    return mm3(A, B, C, D, **config_of("mm3", config))
 
 
 def lu_op(A, config=None):
-    return lu(A, **_merged("lu", config))
+    return lu(A, **config_of("lu", config))
 
 
 def heat3d_op(A, tsteps, config=None):
-    return heat3d(A, tsteps, **_merged("heat3d", config))
+    return heat3d(A, tsteps, **config_of("heat3d", config))
 
 
 def covariance_op(data, config=None):
-    return covariance(data, **_merged("covariance", config))
+    return covariance(data, **config_of("covariance", config))
 
 
 def floyd_warshall_op(path, config=None):
-    return floyd_warshall(path, **_merged("floyd_warshall", config),
+    return floyd_warshall(path, **config_of("floyd_warshall", config),
                           allow_semiring_reassociation=True)

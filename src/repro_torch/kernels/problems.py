@@ -10,6 +10,12 @@ campaign and returns the ``factory(config) -> (fn, args)`` that
 :class:`~repro_torch.core.plopper.TimingEvaluator` runs: every evaluation
 reuses the same device tensors, and on the card every one is a launch of the
 CUDA kernel with the proposed schedule.
+
+:func:`problem_signature_for` gives the store signature of a backend's
+canonical problem, the one ``repro_torch.dispatch`` derives from the
+runtime arguments, so that a record an offline campaign publishes resolves
+as an exact hit at ``dispatch()`` time; :func:`dims_from_signature` inverts
+it.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ import torch
 from repro_torch.kernels import model_kernels, ops, ref
 from repro_torch.kernels.util import resolve_device
 
-__all__ = ["BENCH_DIMS", "LARGE_SHAPES", "gpu_problem", "problem_inputs"]
+__all__ = ["BENCH_DIMS", "LARGE_SHAPES", "dims_from_signature", "gpu_problem",
+           "problem_inputs", "problem_signature_for"]
 
 BENCH_DIMS = {
     "syr2k": (240, 200),
@@ -93,3 +100,44 @@ def gpu_problem(name: str, dims: tuple | None = None, device=None, seed: int = 0
         return (lambda *xs: op(*xs, config=config)), args
 
     return factory
+
+
+def problem_signature_for(kernel: str, backend: str) -> tuple:
+    """Per-argument store signature of ``kernel``'s canonical problem on
+    ``backend``: ``gpu`` campaigns run at :data:`LARGE_SHAPES` (as the JAX
+    package's ``cost`` backend), ``cpu`` campaigns at :data:`BENCH_DIMS` (as
+    its ``host`` backend)."""
+    if backend not in ("gpu", "cpu"):
+        raise ValueError(f"backend must be 'gpu' or 'cpu', got {backend!r}")
+    dims = LARGE_SHAPES[kernel] if backend == "gpu" else BENCH_DIMS[kernel]
+    return ref.problem_signature(kernel, *dims)
+
+
+def dims_from_signature(kernel: str, signature) -> tuple:
+    """Inverse of :func:`repro_torch.kernels.ref.problem_signature`: the
+    problem dims of a (possibly runtime-derived) shape signature. Trailing
+    static-kwarg entries (flash attention's folded ``causal`` flag) are
+    ignored; a heat3d signature without its ``tsteps`` entry scores one
+    step."""
+    if kernel == "syr2k":
+        return (signature[0][0], signature[1][1])
+    if kernel == "mm3":
+        (P, Q), (_, R_), (_, S), (_, T) = signature[:4]
+        return (P, Q, R_, S, T)
+    if kernel in ("lu", "floyd_warshall"):
+        return (signature[0][0],)
+    if kernel == "heat3d":
+        t = signature[1][0] if len(signature) > 1 and len(signature[1]) == 1 else 1
+        return (signature[0][0], t)
+    if kernel == "covariance":
+        return tuple(signature[0])
+    if kernel == "flash_attention":
+        (BH, Sq, hd), (_, Sk, _) = signature[0], signature[1]
+        return (BH, Sq, Sk, hd)
+    if kernel == "decode_attention":
+        (BH, G, hd), (_, S, _) = signature[0], signature[1]
+        return (BH, G, S, hd)
+    if kernel == "matmul":
+        (M, K), (_, N) = signature[0], signature[1]
+        return (M, K, N)
+    raise KeyError(f"unknown kernel {kernel!r}")

@@ -24,7 +24,7 @@ from repro_torch.kernels.util import (
     max_shared_memory_per_block,
 )
 
-__all__ = ["syr2k", "syr2k_plain", "syr2k_smem_bytes"]
+__all__ = ["syr2k", "syr2k_check", "syr2k_plain", "syr2k_smem_bytes"]
 
 
 def syr2k_smem_bytes(bi: int, bj: int, bk: int, pack_a: bool, pack_b: bool,
@@ -48,6 +48,34 @@ def syr2k_plain(C, A, B, alpha: float = 1.5, beta: float = 1.2) -> torch.Tensor:
     return (beta * Cf + alpha * (Af @ Bf.T + Bf @ Af.T)).to(C.dtype)
 
 
+def syr2k_check(C, A, B, *, bi: int = 128, bj: int = 128, bk: int = 128,
+                pack_a: bool = False, pack_b: bool = False) -> tuple[int, int, int]:
+    """The wrapper's checks before a launch, without launching: shapes and,
+    on the card, the operands (dtype, device, contiguity) and the tile
+    against the register tile and the device's shared memory per block.
+    Raises :class:`ConfigRejected` for a tile the kernel cannot run; returns
+    the clamped ``(bi, bj, bk)``."""
+    N, M = A.shape
+    if tuple(B.shape) != (N, M) or tuple(C.shape) != (N, N):
+        raise ValueError(f"syr2k shapes: C {tuple(C.shape)}, A {tuple(A.shape)}, "
+                         f"B {tuple(B.shape)}")
+    bi, bj, bk = min(bi, N), min(bj, N), min(bk, M)
+    if C.device.type == "cpu":
+        return bi, bj, bk
+    dev = C.device
+    for name, t, shape in (("C", C, (N, N)), ("A", A, (N, M)), ("B", B, (N, M))):
+        check_operand(name, t, shape, (torch.float32,), dev)
+    limit = max_shared_memory_per_block(dev)
+    smem = syr2k_smem_bytes(bi, bj, bk, pack_a, pack_b, limit)
+    if smem < 0:
+        raise ConfigRejected(f"syr2k tile {bi}x{bj} does not fit the kernel's register tile")
+    if smem > limit:
+        raise ConfigRejected(f"syr2k bi={bi} bj={bj} bk={bk} pack_a={pack_a} "
+                             f"pack_b={pack_b} needs {smem} B of shared memory, "
+                             f"the device allows {limit} B per block")
+    return bi, bj, bk
+
+
 def syr2k(
     C: torch.Tensor,
     A: torch.Tensor,
@@ -62,26 +90,13 @@ def syr2k(
     pack_a: bool = False,
     pack_b: bool = False,
 ) -> torch.Tensor:
+    bi, bj, bk = syr2k_check(C, A, B, bi=bi, bj=bj, bk=bk, pack_a=pack_a, pack_b=pack_b)
     N, M = A.shape
-    if tuple(B.shape) != (N, M) or tuple(C.shape) != (N, N):
-        raise ValueError(f"syr2k shapes: C {tuple(C.shape)}, A {tuple(A.shape)}, "
-                         f"B {tuple(B.shape)}")
-    bi, bj, bk = min(bi, N), min(bj, N), min(bk, M)
     if C.device.type == "cpu":
         return syr2k_plain(C, A, B, alpha, beta)
 
     dev = C.device
-    for name, t, shape in (("C", C, (N, N)), ("A", A, (N, M)), ("B", B, (N, M))):
-        check_operand(name, t, shape, (torch.float32,), dev)
     limit = max_shared_memory_per_block(dev)
-    smem = syr2k_smem_bytes(bi, bj, bk, pack_a, pack_b, limit)
-    if smem < 0:
-        raise ConfigRejected(f"syr2k tile {bi}x{bj} does not fit the kernel's register tile")
-    if smem > limit:
-        raise ConfigRejected(f"syr2k bi={bi} bj={bj} bk={bk} pack_a={pack_a} "
-                             f"pack_b={pack_b} needs {smem} B of shared memory, "
-                             f"the device allows {limit} B per block")
-
     out = torch.empty_like(C)
     lib = build.load("syr2k")
     with torch.cuda.device(dev):

@@ -1,1 +1,1 @@
-"""repro_torch.launch — command-line entry points (autotune)."""
+"""repro_torch.launch — command-line entry points (autotune, serve, guard)."""

@@ -18,6 +18,21 @@ over the paper's ``host`` space (for tests and machines without a card).
 batching; on the card the timed runs themselves are serialised so they never
 overlap). --resume requires --db and continues a killed campaign from its
 JSONL checkpoint with exactly the remaining budget.
+
+--warm-start STORE_DIR seeds the campaign from a repro_torch.dispatch
+TuningStore: the store's nearest tuned config (by log-scale shape distance)
+is evaluated first and its neighbors seed the surrogate. --store STORE_DIR
+publishes this campaign's winner back (both flags may name the same dir).
+The record is keyed by the kernel, the canonical problem's signature
+(``kernels.problems.problem_signature_for``: LARGE on gpu, the bench size on
+cpu) and a ``backend`` that is the CLI's own, ``gpu`` or ``cpu``: a
+``DispatchService(store, backend=...)`` of the same name resolves it as an
+exact hit for a call at that shape (the service's default, ``gpu``, on the
+card; ``backend="cpu", target="host"`` for the plain versions).
+--prune-infeasible drops statically infeasible candidates from the
+acquisition pool (repro_torch.analyze's feasibility rules, at the campaign's
+dims; on gpu also the kernels' shared memory against the card's) and
+prints how many.
 """
 
 from __future__ import annotations
@@ -37,15 +52,18 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.floyd_warshall import minplus_update
 from repro_torch.kernels.heat3d import heat3d
 from repro_torch.kernels.matmul import tiled_matmul
-from repro_torch.kernels.problems import BENCH_DIMS, LARGE_SHAPES, gpu_problem
+from repro_torch.kernels.problems import (
+    BENCH_DIMS,
+    LARGE_SHAPES,
+    gpu_problem,
+    problem_signature_for,
+)
 from repro_torch.kernels.spaces import KERNEL_SPACES, kernel_space
 from repro_torch.kernels.syr2k import syr2k
 
 NOT_YET_PORTED = """\
-not ported yet (the JAX package's repro.launch.autotune has them):
-  --warm-start, --store   not wired to repro_torch.dispatch's tuning store yet
-  --cascade               waits for repro_torch.fidelity
-  --prune-infeasible      waits for repro_torch.analyze"""
+not ported yet (the JAX package's repro.launch.autotune has it):
+  --cascade               waits for repro_torch.fidelity"""
 
 # the wrapper whose launch count proves a campaign went through the kernel
 KERNEL_WRAPPERS = {"syr2k": syr2k, "mm3": tiled_matmul, "lu": tiled_matmul,
@@ -72,6 +90,15 @@ def main(argv=None) -> int:
                     help="candidate evaluations in flight (1 = serial paper loop)")
     ap.add_argument("--resume", action="store_true",
                     help="continue a killed campaign from --db's JSONL checkpoint")
+    ap.add_argument("--warm-start", default=None, metavar="STORE_DIR",
+                    help="TuningStore to warm-start from (nearest-neighbor seed)")
+    ap.add_argument("--store", default=None, metavar="STORE_DIR",
+                    help="TuningStore to publish this campaign's best into")
+    ap.add_argument("--prune-infeasible", action="store_true",
+                    help="statically prune infeasible candidates from the "
+                         "acquisition pool (repro_torch.analyze feasibility "
+                         "rules; off by default — pruning changes fixed-seed "
+                         "trajectories)")
     args = ap.parse_args(argv)
 
     if args.resume and not args.db:
@@ -87,6 +114,26 @@ def main(argv=None) -> int:
         device = "cpu"
     evaluator = TimingEvaluator(factory, repeats=3, warmup=1)
 
+    sig = problem_signature_for(args.kernel, args.backend)
+    warm_cfgs, warm_recs = None, None
+    if args.warm_start:
+        from repro_torch.dispatch import TuningStore
+        from repro_torch.dispatch.lookup import warm_start_material
+        warm_cfgs, warm_recs = warm_start_material(
+            TuningStore(args.warm_start), args.kernel, sig, args.backend)
+        if warm_cfgs is not None:
+            print(f"warm-start: nearest store config re-evaluated first, "
+                  f"{len(warm_recs or [])} neighbor(s) seed the surrogate")
+        else:
+            print("warm-start: store has no compatible record; cold start")
+
+    feasibility = None
+    if args.prune_infeasible:
+        from repro_torch.analyze.feasibility import feasibility_filter
+        dims = (LARGE_SHAPES if args.backend == "gpu" else BENCH_DIMS)[args.kernel]
+        feasibility = feasibility_filter(
+            args.kernel, dims=dims, target="gpu" if args.backend == "gpu" else "host")
+
     if args.resume:
         k = len(PerformanceDatabase(args.db).records)
         print(f"resume: {k} record(s) checkpointed, "
@@ -97,8 +144,19 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     res = autotune(space, evaluator, max_evals=args.max_evals,
                    learner=args.learner, seed=args.seed, db_path=args.db,
-                   parallel=args.parallel)
+                   parallel=args.parallel, warm_start=warm_cfgs,
+                   warm_start_records=warm_recs, feasibility=feasibility)
     wall = time.perf_counter() - t0
+    if feasibility is not None and res.timings:
+        print(f"feasibility: pruned {res.timings.get('n_pruned', 0)} "
+              f"statically-infeasible candidate(s) from the acquisition pool")
+
+    if args.store and res.best is not None:
+        from repro_torch.dispatch import TuningRecord, TuningStore
+        TuningStore(args.store).put(TuningRecord(
+            kernel=args.kernel, signature=sig, backend=args.backend,
+            config=dict(res.best.config), objective=float(res.best.objective),
+            n_evals=len(res.db), source=f"cli:{args.db or 'ephemeral'}"))
 
     print(res.summary())
     best = res.best  # None when every evaluation was rejected

@@ -12,7 +12,13 @@ kernel runs: prefill attention goes to the flash_attention kernel, every
 decode step's attention to the decode_attention kernel, and the output
 projection and tied unembed to the tiled matmul. The service has no store,
 so the ``gpu`` space defaults apply, unless ``--store DIR`` names a tuning
-store. Everything runs in f32, as the JAX package's serving CLI does.
+store (records an ``autotune --store DIR`` campaign published, or earlier
+runs' background campaigns). With ``--tune`` a store miss (or a too-distant
+neighbor) also enqueues a background campaign for that signature
+(:class:`~repro_torch.dispatch.BackgroundTuner`, on streams of its own),
+whose winner is published to the store and hot-swapped into the serving
+run; the CLI waits for the campaigns after the run and prints what they
+published. Everything runs in f32, as the JAX package's serving CLI does.
 Weights are random, drawn from ``--seed``; the prompt from ``--seed + 1``.
 """
 
@@ -26,24 +32,27 @@ import time
 import torch
 
 from repro_torch.configs import get_config, get_reduced
-from repro_torch.dispatch import DispatchService, TuningStore
+from repro_torch.dispatch import BackgroundTuner, DispatchService, TuningStore
 from repro_torch.kernels.util import resolve_device
 from repro_torch.models import init_params
 from repro_torch.serve import cache_bytes, greedy_decode
 
-__all__ = ["main", "report", "serve"]
+__all__ = ["main", "report", "serve", "service_for"]
 
 
 def serve(arch: str = "qwen2-0.5b", *, reduced: bool = False, batch: int = 4,
           prompt_len: int = 16, gen: int = 32, seed: int = 0, device=None,
-          store: str | None = None) -> dict:
+          store: str | None = None, service: DispatchService | None = None) -> dict:
     """Build the model, serve one batch of random prompts, and return the
-    generated ids with the run's numbers (see :func:`main`)."""
+    generated ids with the run's numbers (see :func:`main`). ``service`` is
+    the caller's own (a tuner or a guard attached, say); else one is made on
+    ``store``."""
     dev = resolve_device(device)
     cfg = get_reduced(arch) if reduced else get_config(arch)
     cfg = dataclasses.replace(cfg, dtype=torch.float32)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
-    service = DispatchService(TuningStore(store) if store else None)
+    if service is None:
+        service = service_for(dev, TuningStore(store) if store else None)
     max_len = prompt_len + gen
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g, device=dev)
@@ -61,6 +70,15 @@ def serve(arch: str = "qwen2-0.5b", *, reduced: bool = False, batch: int = 4,
         "tokens_per_sec": batch * gen / wall, "wall_sec": wall,
         "stats": dict(service.stats),
     }
+
+
+def service_for(device, store: TuningStore | None, tuner=None) -> DispatchService:
+    """The dispatch service of a run on ``device``: records keyed by the
+    ``gpu`` backend and the ``gpu`` spaces on the card, by ``cpu`` and the
+    ``host`` spaces on the CPU (as ``launch.autotune --backend`` keys them)."""
+    cpu = torch.device(device).type == "cpu"
+    return DispatchService(store, backend="cpu" if cpu else "gpu",
+                           target="host" if cpu else "gpu", tuner=tuner)
 
 
 def report(r: dict) -> None:
@@ -90,10 +108,30 @@ def main(argv=None) -> int:
     ap.add_argument("--store", default=None, metavar="DIR",
                     help="tuning store the dispatch service resolves configs from "
                          "(default: none, the gpu space defaults)")
+    ap.add_argument("--tune", action="store_true",
+                    help="tune store misses in the background during the run and "
+                         "publish the winners to --store")
     args = ap.parse_args(argv)
+    if args.tune and not args.store:
+        ap.error("--tune requires --store (where the campaigns publish)")
 
-    report(serve(args.arch, reduced=args.reduced, batch=args.batch, prompt_len=args.prompt_len,
-                 gen=args.gen, seed=args.seed, device=args.device, store=args.store))
+    store = TuningStore(args.store) if args.store else None
+    tuner = BackgroundTuner(store) if args.tune else None
+    service = service_for(resolve_device(args.device), store, tuner)
+    try:
+        report(serve(args.arch, reduced=args.reduced, batch=args.batch,
+                     prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,
+                     device=args.device, service=service))
+        if tuner is not None:
+            published = [r for r in tuner.drain() if r is not None]
+            print(f"[serve] background: {service.stats['bg_enqueued']} campaign(s), "
+                  f"{len(published)} published, errors {len(tuner.errors)}")
+            for r in published:
+                print(f"[serve]   {r.kernel} {r.signature}: {r.config} "
+                      f"{r.objective * 1e3:.4f} ms")
+    finally:
+        if tuner is not None:
+            tuner.shutdown()
     return 0
 
 

@@ -1,5 +1,5 @@
-"""repro_torch.obs — metrics and span tracing (copies of repro.obs.metrics
-and repro.obs.trace; the exposition layer is not ported yet)."""
+"""repro_torch.obs — metrics, span tracing and exposition (copies of
+repro.obs.metrics, repro.obs.trace and repro.obs.export)."""
 
 from repro_torch.obs.metrics import (
     BUCKET_BOUNDS,
@@ -20,6 +20,12 @@ from repro_torch.obs.trace import (
     span,
     validate_trace,
 )
+from repro_torch.obs.export import (
+    ObsServer,
+    prometheus_text,
+    read_snapshot_file,
+    write_snapshot,
+)
 
 __all__ = [
     "BUCKET_BOUNDS",
@@ -37,4 +43,8 @@ __all__ = [
     "span",
     "validate_trace",
     "export_chrome_trace",
+    "ObsServer",
+    "prometheus_text",
+    "write_snapshot",
+    "read_snapshot_file",
 ]

@@ -303,8 +303,17 @@ def test_decode_head_groups(G, hd, want):
 
 @pytest.mark.parametrize("hd", [8, 72, 100, 272])
 def test_decode_head_groups_reject_other_head_sizes(hd):
-    with pytest.raises(ConfigRejected, match="multiples of 16"):
-        decode_attention_head_groups(4, hd)
+    # a head size off the multiples of 16 runs at the next one, round_up(hd,
+    # 16), and takes that many heads a launch; only past 256 is one refused
+    if hd > 256:
+        with pytest.raises(ConfigRejected, match="from 1 to 256"):
+            decode_attention_head_groups(4, hd)
+        return
+    padded = -(-hd // 16) * 16
+    groups = decode_attention_head_groups(40, hd)
+    assert groups[0][0] == 0 and groups[-1][1] == 40
+    assert max(g1 - g0 for g0, g1 in groups) <= 8 * 256 // padded
+    assert len(groups) == -(-40 // (8 * 256 // padded))
 
 
 @pytest.mark.parametrize("hd", [80, 96, 112, 160, 192])

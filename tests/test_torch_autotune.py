@@ -56,12 +56,26 @@ def test_cli_rejects_resume_without_db():
         autotune.main(["--kernel", "syr2k", "--backend", "cpu", "--resume"])
 
 
-def test_cli_help_names_unported_flags(capsys):
+def test_cli_help_names_unported_flags(tmp_path, capsys):
+    # --warm-start, --store and --prune-infeasible are options that work
+    # (more of their behaviour: tests/test_torch_tuning_loop.py); --cascade
+    # stays listed as not ported in the epilog
     with pytest.raises(SystemExit):
         autotune.main(["--help"])
     out = capsys.readouterr().out
-    for flag in ("--warm-start", "--store", "--cascade", "--prune-infeasible"):
-        assert flag in out
+    options, _, epilog = out.partition("not ported yet")
+    for flag in ("--warm-start", "--store", "--prune-infeasible"):
+        assert flag in options and flag not in epilog
+    assert "--cascade" in epilog and "--cascade" not in options
+    with pytest.raises(SystemExit):
+        autotune.main(["--kernel", "syr2k", "--backend", "cpu", "--cascade"])
+    store = str(tmp_path / "store")
+    for flags in (["--store", store], ["--warm-start", store, "--prune-infeasible"]):
+        assert autotune.main(["--kernel", "syr2k", "--backend", "cpu", "--max-evals", "2",
+                              *flags]) == 0
+    out = capsys.readouterr().out
+    assert "warm-start: nearest store config re-evaluated first" in out
+    assert "feasibility: pruned 0 statically-infeasible candidate(s)" in out
 
 
 def test_timing_evaluator_reports_minimum_cpu_time():

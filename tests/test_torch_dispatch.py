@@ -127,17 +127,20 @@ def test_service_resolves_store_exact_near_and_default(tmp_path):
                                     dict(impl="triton", bq=64, bk=64),
                                     dict(impl="pallas", bq="wide", bk=64)])
 def test_poisoned_record_degrades_to_the_default(tmp_path, poison):
+    # each poison breaks a structural feasibility rule, so the pass catches
+    # it before the build guard and quarantines it with the rule's code
     st = TuningStore(str(tmp_path))
     signature = mk.flash_attention_signature(2, 40, 40, 16)
     st.put(TuningRecord("flash_attention", signature, "gpu", poison, 1e-6))
     svc = DispatchService(st)
     q, k, v = _normal((2, 40, 16), (2, 40, 16), (2, 40, 16), seed=1)
     out = svc.call("flash_attention", q, k, v, causal=True)
-    assert svc.stats["build_failed"] == 1
+    assert svc.stats["infeasible"] == 1 and svc.stats["build_failed"] == 0
     torch.testing.assert_close(out, flash_attention_plain(q, k, v))
     fn = svc.dispatch("flash_attention", q, k, v, causal=True)
     assert fn.__wrapped__.fn.keywords == dict(causal=True, bq=64, bk=64)   # the gpu default
-    assert st.quarantines("flash_attention")[0]["reason"] == "build_failed"
+    assert st.quarantines("flash_attention")[0]["reason"] in (
+        "tile_not_positive:bq", "invalid_choice:impl", "tile_not_int:bq")
     assert st.get("flash_attention", signature, "gpu") is None
 
 
@@ -192,7 +195,8 @@ def test_near_neighbor_that_does_not_transfer_is_not_quarantined(tmp_path):
     cp = torch.full((4,), 40, dtype=torch.int32)
     out = svc.call("decode_attention", q, k, v, cp, ring=False, window=0)
     torch.testing.assert_close(out, decode_attention_plain(q, k, v, cp))
-    assert svc.stats["store_near"] == 1 and svc.stats["build_failed"] == 1
+    # bk = 0 breaks a feasibility rule: the pass degrades the neighbor
+    assert svc.stats["store_near"] == 1 and svc.stats["infeasible"] == 1
     assert st.quarantines() == [] and st.get(rec.kernel, rec.signature, "gpu") is not None
 
 
@@ -222,7 +226,8 @@ def test_jit_cached_proxy_and_invalidate():
 
 
 def test_registry_holds_the_model_kernels():
-    assert registered() == ["decode_attention", "flash_attention", "matmul"]
+    # beside the PolyBench kernels (and toy kernels other test modules add)
+    assert {"decode_attention", "flash_attention", "matmul"} <= set(registered())
     svc = DispatchService(target="host")
     cfg, res = svc.resolve_config("flash_attention", mk.flash_attention_signature(1, 8, 8, 16))
     assert res is None and cfg["impl"] == "xla"          # the host flavour, as in repro

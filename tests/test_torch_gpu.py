@@ -665,7 +665,8 @@ def test_attention_smem_accounting(cuda):
     # every multiple of 16: hd 96, G 7 (256 / 24 = 10 slot groups of P V sums)
     head = -(-4 * (7 * 100 + 7 * 33 + 3 * 7) // 16) * 16
     assert decode_attention_smem_bytes(7, 64, 96) == head + 3 * 32 * (400 + 384)
-    assert decode_attention_smem_bytes(7, 64, 72) == -1     # not a multiple of 16
+    # a head size off the multiples of 16 runs at the next one
+    assert decode_attention_smem_bytes(7, 64, 72) == decode_attention_smem_bytes(7, 64, 80)
 
 
 def test_attention_oversized_tiles_are_rejected_before_launch(cuda):
@@ -684,9 +685,9 @@ def test_attention_oversized_tiles_are_rejected_before_launch(cuda):
     assert flash_attention.launches == f0
     qd, kd, vd = _normal(cuda, (2, 17, 128), (2, 300, 128), (2, 300, 128))
     d0 = decode_attention.launches
-    with pytest.raises(ConfigRejected):            # head size off the multiples of 16
-        decode_attention(qd[..., :72].contiguous(), kd[..., :72].contiguous(),
-                         vd[..., :72].contiguous(), 299, bk=128)
+    with pytest.raises(ConfigRejected):            # head size past 256
+        decode_attention(*_normal(cuda, (2, 4, 272), (2, 300, 272), (2, 300, 272)), 299,
+                         bk=128)
     with pytest.raises(ConfigRejected):
         decode_attention(qd[:, :8].contiguous(), kd, vd, 299, bk=512)  # bk past 256
     assert decode_attention.launches == d0
@@ -822,7 +823,9 @@ def test_decode_attention_heads_past_one_launch(cuda, G, hd):
         assert torch.equal(got, decode_attention(q, k, v, cp, ring=ring, bk=bk))
 
 
-# an untileable bq, and the chunked torch variant, which does not run on the card
+# an untileable bq (the feasibility pass's shared-memory rule refuses it
+# before the build guard), and the chunked torch variant, which does not run
+# on the card (the build guard refuses it)
 @pytest.mark.parametrize("poison", [dict(impl="pallas", bq=8, bk=64),
                                     dict(impl="xla", bq=64, bk=64)])
 def test_dispatch_degrades_a_poisoned_record_to_the_kernel(cuda, tmp_path, poison):
@@ -837,8 +840,11 @@ def test_dispatch_degrades_a_poisoned_record_to_the_kernel(cuda, tmp_path, poiso
     svc = DispatchService(store)
     before = flash_attention.launches
     got = svc.call("flash_attention", q, k, v, causal=True)
-    assert svc.stats["build_failed"] == 1 and flash_attention.launches == before + 1
-    assert store.quarantines("flash_attention")[0]["reason"] == "build_failed"
+    stat, reason = (("infeasible", "smem_unsupported") if poison["impl"] == "pallas"
+                    else ("build_failed", "build_failed"))
+    assert svc.stats[stat] == 1 and flash_attention.launches == before + 1
+    assert svc.stats["infeasible"] + svc.stats["build_failed"] == 1
+    assert store.quarantines("flash_attention")[0]["reason"] == reason
     _close(got, flash_attention_plain(q, k, v), ATTN_TOL)
 
 
@@ -895,3 +901,198 @@ def test_one_decode_step_launches_the_kernels(cuda):
     # B = 1, which the wrappers must not be handed
     one, _ = forward(params, {"tokens": toks[:1]}, cfg, service=svc)
     _close(one, logits[:1], dict(atol=1e-4, rtol=1e-4))
+
+
+# ---------------------------------------------------------------------------
+# the tuning loop on the card: PolyBench builders, background campaigns on
+# their own stream, shadow samples in device time, the shared-memory rule
+# ---------------------------------------------------------------------------
+
+POLYBENCH_SMALL = {"syr2k": (203, 130), "mm3": (70, 50, 60, 40, 30), "lu": (150,),
+                   "heat3d": (30, 2), "covariance": (150, 97), "floyd_warshall": (150,)}
+
+
+def _polybench_want(kernel, args, cfg, tsteps):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.covariance import covariance_plain
+
+    if kernel == "syr2k":
+        return syr2k_plain(*args), SYR2K_TOL
+    if kernel == "mm3":
+        return ref.mm3_ref(*args), F32_TOL
+    if kernel == "lu":
+        c = ops.config_of("lu", cfg)
+        return lu_plain(*args, bs=c["bs"], pack=c["pack"]), LU_TOL
+    if kernel == "heat3d":
+        return heat3d_plain(*args, tsteps), dict(atol=1e-6, rtol=0.0)
+    if kernel == "covariance":
+        return covariance_plain(*args), COV_TOL
+    return floyd_warshall_plain(*args, bs=ops.config_of("floyd_warshall", cfg)["bs"]), \
+        dict(atol=0.0, rtol=0.0)
+
+
+@pytest.mark.parametrize("kernel", sorted(POLYBENCH_SMALL))
+def test_polybench_builders_launch_the_kernels(cuda, kernel):
+    from repro_torch.kernels import variants
+    from repro_torch.kernels.spaces import kernel_space
+
+    dims = POLYBENCH_SMALL[kernel]
+    args = problems.problem_inputs(kernel, dims, cuda)
+    static = {"tsteps": dims[1]} if kernel == "heat3d" else {}
+    space = kernel_space(kernel, "gpu", seed=5)
+    rng = np.random.default_rng(5)
+    counters = {"syr2k": syr2k, "mm3": tiled_matmul, "lu": lu_factor_diag,
+                "heat3d": heat3d, "covariance": covariance, "floyd_warshall": minplus_update}
+    for cfg in [space.default_configuration()] + [space.sample_configuration(rng)
+                                                  for _ in range(3)]:
+        v = variants.DISPATCH_BUILDERS[kernel](cfg, **static)
+        try:
+            v.check(*args)
+        except ConfigRejected:
+            continue
+        before = counters[kernel].launches
+        got = v(*args)
+        torch.cuda.synchronize()
+        assert counters[kernel].launches > before
+        want, tol = _polybench_want(kernel, args, cfg, static.get("tsteps"))
+        _close(got, want, tol)
+
+
+def test_background_campaign_times_on_its_own_stream(cuda, tmp_path):
+    from repro_torch.dispatch import BackgroundTuner, DispatchService, TuningStore
+
+    store = TuningStore(str(tmp_path / "s"))
+    tuner = BackgroundTuner(store, max_workers=1, max_evals=4, n_initial=2)
+    svc = DispatchService(store, tuner=tuner)
+    streams = []
+    a, b = _normal(cuda, (4, 96), (96, 200))
+    real = tiled_matmul
+
+    def spy(cfg):   # the matmul builder, recording the thread and stream of each run
+        import threading
+
+        from repro_torch.kernels.model_kernels import matmul_builder
+
+        built = matmul_builder(cfg)
+
+        def run(x, w):
+            streams.append((threading.get_ident(), torch.cuda.current_stream().cuda_stream))
+            return built(x, w)
+        return run
+
+    from repro_torch.dispatch import register
+    from repro_torch.kernels.spaces import kernel_space
+
+    register("matmul_on_stream", spy, space=lambda target="gpu": kernel_space("matmul", target))
+    try:
+        before = real.launches
+        out = svc.call("matmul_on_stream", a, b)
+        (rec,) = tuner.drain()
+        assert tuner.errors == [] and rec is not None
+        assert svc.stats["bg_enqueued"] == 1 and real.launches > before + 1
+        import threading
+
+        serving = (threading.get_ident(), torch.cuda.current_stream().cuda_stream)
+        campaign = [st for st in streams if st != serving]
+        assert streams.count(serving) == 1 and campaign
+        assert all(t != serving[0] and st != serving[1] for t, st in campaign)
+        # a CUDA-event objective: device seconds of one call, microseconds here
+        assert 0.0 < rec.objective < 1e-2 and rec.backend == "gpu"
+        _close(out, tiled_matmul_plain(a, b, bk=32, pack=True, out_dtype=torch.float32),
+               F32_TOL)
+    finally:
+        tuner.shutdown()
+
+
+def test_shadow_sample_is_device_time(cuda, tmp_path):
+    from repro_torch.core import TimingEvaluator
+    from repro_torch.dispatch import DispatchService, TuningStore
+    from repro_torch.guard import GuardAgent, ShadowPolicy
+    from repro_torch.guard.watch import SHADOW_HISTOGRAM, window_stats
+    from repro_torch.kernels.model_kernels import matmul_builder
+    from repro_torch.obs import MetricsRegistry
+
+    a, b = _normal(cuda, (1024, 896), (896, 4096))
+    svc = DispatchService(TuningStore(str(tmp_path)), metrics=MetricsRegistry())
+    guard = GuardAgent(svc, shadow=ShadowPolicy(epsilon=1.0, challenger_fraction=0.0))
+    fn = svc.dispatch("matmul", a, b)
+    for _ in range(3):      # the library's load and first launch, unsampled
+        fn(a, b)
+    svc.attach_guard(guard)
+    for _ in range(12):
+        fn(a, b)
+    (w,) = window_stats(None, svc.metrics.snapshot(), SHADOW_HISTOGRAM).values()
+    assert w["count"] == 12
+    shadow = w["sum"] / w["count"]
+    cfg = svc.resolve_config("matmul", ((1024, 896), (896, 4096)))[0]
+    timed = TimingEvaluator(lambda c: (matmul_builder(c), (a, b)), repeats=12)(cfg).objective
+    assert 0.5 * timed <= shadow <= 2.0 * timed, (shadow, timed)
+
+
+def test_smem_budget_refuses_what_the_wrappers_refuse(cuda):
+    import itertools
+
+    from repro_torch.analyze import check_config
+    from repro_torch.dispatch.registry import get
+    from repro_torch.kernels.spaces import GPU_TILES, GPU_TILES_K, kernel_space
+
+    def refused_by_wrapper(kernel, cfg, args, static):
+        try:
+            get(kernel).builder(cfg, **static).check(*args)
+        except ConfigRejected:
+            return True
+        return False
+
+    for kernel in ("syr2k", "mm3", "lu", "heat3d", "covariance", "floyd_warshall",
+                   "flash_attention", "decode_attention", "matmul"):
+        dims = problems.LARGE_SHAPES[kernel]
+        args = problems.problem_inputs(kernel, dims, cuda)
+        static = {"tsteps": dims[1]} if kernel == "heat3d" else {}
+        if kernel in ("flash_attention", "decode_attention", "matmul"):
+            # the rule asks for bf16 operands (a signature carries no dtype)
+            args = tuple(t.to(torch.bfloat16) if t.is_floating_point() else t for t in args)
+            static = {"causal": True} if kernel == "flash_attention" else \
+                {"ring": False, "window": 0} if kernel == "decode_attention" else {}
+        space = kernel_space(kernel, "gpu", seed=2)
+        if kernel == "covariance":    # every point
+            cfgs = [dict(fuse_center=f, interchange=i, bi=bi, bk=bk, bj=bj)
+                    for f, i, bi, bk, bj in itertools.product(
+                        (True, False), (True, False), GPU_TILES, GPU_TILES_K, GPU_TILES)]
+        else:
+            rng = np.random.default_rng(2)
+            cfgs = [space.sample_configuration(rng) for _ in range(300)]
+        rule = [not check_config(kernel, c, dims=dims, target="gpu").ok for c in cfgs]
+        wrapper = [refused_by_wrapper(kernel, c, args, static) for c in cfgs]
+        assert rule == wrapper, kernel
+        if kernel == "covariance":
+            assert sum(rule) == 12 and len(cfgs) == 5324
+
+
+@pytest.mark.parametrize("hd", [40, 72, 100])
+def test_decode_attention_head_sizes_off_the_multiples_of_16(cuda, hd):
+    from repro_torch.kernels.decode_attention import (
+        CacheRows,
+        decode_attention,
+        decode_attention_plain,
+        decode_ref,
+    )
+
+    launches = decode_attention.launches
+    for S, bk in ((300, 32), (20, 32)):
+        q, k, v, cp = _decode_cases(cuda, 6, 7, S, hd, seed=hd + S)
+        full = torch.full((6,), S - 1, dtype=torch.int32, device=cuda)
+        _close(decode_attention(q, k, v, full, bk=bk), decode_ref(q, k, v, full), ATTN_TOL)
+        got = decode_attention(q, k, v, cp, ring=True, window=50, bk=bk)
+        _close(got, decode_attention_plain(q, k, v, cp, ring=True, window=50), ATTN_TOL)
+        assert torch.count_nonzero(got[0]) == 0
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        _close(decode_attention(qb, kb, vb, cp, bk=bk), decode_attention_plain(qb, kb, vb, cp),
+               ATTN_BF16_TOL)
+    # the model's cache layout, read in place (rows not on 16-byte words at hd 100)
+    B, S, K, G = 3, 200, 2, 5
+    q, kc, vc = _normal(cuda, (B * K, G, hd), (B, S, K, hd), (B, S, K, hd), seed=hd)
+    cp = torch.tensor([-1, 4, 199, 250, 100, 31], dtype=torch.int32, device=cuda)
+    got = decode_attention(q, CacheRows(kc), CacheRows(vc), cp, bk=64, hg=2)
+    _close(got, decode_attention_plain(q, CacheRows(kc).rows(), CacheRows(vc).rows(), cp),
+           ATTN_TOL)
+    assert decode_attention.launches > launches
