@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Time kernels of two checkouts on one card, in turns: the serving path's
-flash_attention and tiled matmul, and the blocked Floyd-Warshall (its
-trailing min-plus update, a phase-2 panel, the whole call) and heat3d (one
-pass, the whole call) at the paper's LARGE sizes.
+flash_attention, decode_attention and tiled matmul, the blocked
+Floyd-Warshall (its trailing min-plus update, a phase-2 panel, its in-block
+closure helper, the whole call), the blocked LU (its diagonal-factor helper,
+the whole call) and heat3d (one pass, the whole call) at the paper's LARGE
+sizes.
 
     python3 ab_kernels.py OLD_TREE NEW_TREE [--out FILE]
 
@@ -28,18 +30,30 @@ import os
 import subprocess
 import sys
 
-# (name, kernel, shape): flash (BH, S, hd) causal f32; matmul (M, K, N) f32
+# (name, kernel, shape): flash (BH, S, hd) causal f32; decode (BH, G, S, hd)
+# f32; matmul (M, K, N) f32; the helpers (bs,) on a block of the LARGE
+# problem, each call on a fresh copy (lu) or the same block (the closure of a
+# closed block takes as long)
 CASES = (
     ("flash LARGE causal", "flash_attention", (16, 4096, 128)),
     ("flash hd 256 causal", "flash_attention", (8, 2048, 256)),
     ("flash model prefill causal", "flash_attention", (8, 256, 64)),
+    ("flash hd 320 causal", "flash_attention", (8, 2048, 320)),
+    ("decode model bucket cur_pos 260", "decode_attention", (8, 7, 288, 64)),
+    ("decode hd 320 cur_pos 260", "decode_attention", (8, 7, 288, 320)),
     ("matmul mm3 P x Q @ Q x R", "matmul", (800, 900, 1000)),
     ("matmul prefill unembed", "matmul", (1024, 896, 151936)),
     ("matmul decode unembed", "matmul", (4, 896, 151936)),
     ("matmul decode output projection", "matmul", (4, 896, 896)),
     ("minplus trailing update", "minplus", (2800, 64)),
     ("minplus row panel", "minplus_panel", (2800, 64)),
+    ("closure helper bs 64", "closure", (64,)),
+    ("closure helper bs 128", "closure", (128,)),
+    ("closure helper bs 256", "closure", (256,)),
     ("floyd_warshall blocked", "floyd_warshall", (2800,)),
+    ("lu_factor_diag helper bs 64", "lu_factor_diag", (64,)),
+    ("lu_factor_diag helper bs 128", "lu_factor_diag", (128,)),
+    ("lu blocked", "lu", (2000,)),
     ("heat3d one pass", "heat3d_pass", (120,)),
     ("heat3d 500 passes", "heat3d", (120, 500)),
 )
@@ -118,10 +132,41 @@ def _child(tree: str) -> None:
             cfg = mcfg
         elif kernel in ("minplus", "minplus_panel"):
             fn, cfg = minplus_case(kernel, shape)
+        elif kernel == "decode_attention":
+            from repro_torch.kernels.decode_attention import decode_attention
+
+            BH, G, S, hd = shape
+            q = torch.randn(BH, G, hd, device=dev, generator=g)
+            k, v = (torch.randn(BH, S, hd, device=dev, generator=g) for _ in range(2))
+            cp = torch.full((BH,), 260, dtype=torch.int32, device=dev)
+            cfg = {k_: v_ for k_, v_ in ops.DEFAULTS["decode_attention"].items() if k_ != "impl"}
+            fn = lambda: decode_attention(q, k, v, cp, **cfg)  # noqa: E731
         elif kernel == "floyd_warshall":
             (W,) = problems.problem_inputs("floyd_warshall", shape, dev)
             fn = lambda: ops.floyd_warshall_op(W)  # noqa: E731
             cfg = ops.DEFAULTS["floyd_warshall"]
+        elif kernel == "closure":
+            from repro_torch.kernels.floyd_warshall import closure_in_block
+
+            (bs,) = shape
+            (W,) = problems.problem_inputs("floyd_warshall", (2800,), dev)
+            blk = W[:bs, :bs].contiguous()
+            fn = lambda: closure_in_block(blk, 0, bs)  # noqa: E731
+            cfg = dict(bs=bs)
+        elif kernel == "lu_factor_diag":
+            from repro_torch.kernels.lu import lu_factor_diag
+
+            (bs,) = shape
+            (A,) = problems.problem_inputs("lu", (2000,), dev)
+            # one fresh copy a call, made before timing: 3 + 50 calls by
+            # events, 1 + 10 profiled (a further call raises StopIteration)
+            fresh = iter([A[:bs, :bs].contiguous() for _ in range(3 + 50 + 1 + 10)])
+            fn = lambda: lu_factor_diag(next(fresh), 0, bs)  # noqa: E731
+            cfg = dict(bs=bs)
+        elif kernel == "lu":
+            (A,) = problems.problem_inputs("lu", shape, dev)
+            fn = lambda: ops.lu_op(A)  # noqa: E731
+            cfg = ops.DEFAULTS["lu"]
         else:
             from repro_torch.kernels.heat3d import heat3d_step
 
@@ -132,7 +177,7 @@ def _child(tree: str) -> None:
             else:
                 fn = lambda: ops.heat3d_op(H, shape[1])  # noqa: E731
         rec = dict(tree=tree, case=name, shape=shape, config=cfg)
-        big = kernel in ("floyd_warshall", "heat3d") or shape[0] * shape[-1] > 10 ** 7
+        big = kernel in ("floyd_warshall", "heat3d", "lu") or shape[0] * shape[-1] > 10 ** 7
         try:
             rec["ms"] = events_ms(fn, 10 if big else 50)
             rec["device_ms"], rec["device_kernels"] = device_ms(fn, 3 if big else 10)

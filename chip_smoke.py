@@ -18,7 +18,8 @@ checks each kernel on the card:
      knob combinations, with the tolerance stated beside each error (0 for
      the min-plus kernel on views and in place, the blocked Floyd-Warshall
      at every bs of the gpu space, heat3d at every point of its space and
-     the two helpers, which must agree bit for bit; syr2k and covariance on NaN-poisoned
+     the two helpers (at every bs of their gpu spaces, on and off 16-byte
+     words), which must agree bit for bit; syr2k and covariance on NaN-poisoned
      outputs, with the same bits from every configuration, covariance's
      exactly symmetric; the matmul also at the model's skinny shapes; the
      3xTF32 tensor-core matmul's largest error in each tolerance class, over
@@ -33,6 +34,11 @@ checks each kernel on the card:
      lu, floyd_warshall and heat3d also the kernel launches, the host wall
      time and the device time (torch.profiler) per call; Floyd-Warshall's
      device time split into panels, trailing updates, closures and copies,
+     lu's into diagonal factors, triangular solves, trailing updates and the
+     rest; the two helpers at every bs of their spaces, a launch and a step,
+     beside their dependency floor (mma_rate.py's probe, device times by
+     torch.profiler as the helpers': an empty kernel and the helper's
+     exchange steps) and their ops/bytes bound;
      heat3d's per pass beside its events time and a library yardstick
      (1,000 F.conv3d steps, timed together);
   5. the main path: `repro_torch.launch.autotune.main` campaigns at LARGE
@@ -65,7 +71,9 @@ checks each kernel on the card:
 Phases 3 and 4 also hold flash_attention and decode_attention against their
 plain versions at LARGE, at head_dim 256, at head sizes between the
 instantiations (80, 96, 112, 160, 192; decode also with more query heads
-than one launch takes) and at the model's shapes, and time
+than one launch takes), past 256 (272, 320, 512: column groups of 256; flash
+at (8, 2048, hd), decode at LARGE's rows and the model's bucket) and at the
+model's shapes, and time
 them beside
 scaled_dot_product_attention (a yardstick only: the port never calls it);
 decode_attention with per-row positions that leave whole splits of the key
@@ -147,6 +155,8 @@ EXACT = dict(atol=0.0, rtol=0.0)
 ATTN_TOL = dict(atol=2e-5, rtol=1e-4)
 ATTN_BF16_TOL = dict(atol=1e-4, rtol=8e-3)
 LOGIT_TOL = dict(atol=1e-3, rtol=1e-3)
+# head sizes past 256 (column groups of 256 in both attention kernels)
+WIDE_HEAD_SIZES = (272, 320, 512)
 
 # the kernels line's names -> the wrapper that counts their launches
 WRAPPER_OF = {"syr2k": "syr2k", "matmul": "tiled_matmul", "covariance": "covariance",
@@ -161,17 +171,19 @@ SERVE = dict(arch="qwen2-0.5b", batch=4, prompt_len=256, gen=32, seed=0)
 # lu, the prefill unembed) and matmul<input, PACK, TM, TN, VEC16> (FFMA) at
 # the model's 8-row decode tiles; covariance<FUSE_CENTER, RT, VEC16> at
 # 64x64 tiles of M = 1200; flash<dtype, hd, CAUSAL> and decode<dtype, hd,
-# VEC16, MASK> at the model's f32, hd 64; minplus<TM, TN, UNROLL, VEC16> at unroll
-# 4 for the default 64x64 trailing tiles (8x4) and the 64x16 panels (4x4);
+# VEC16, MASK, WIDE> at the model's f32, hd 64; minplus<TM, TN, UNROLL, VEC16> at
+# unroll 4 for the default 64x64 trailing tiles (8x4) and the 64x16 panels
+# (4x4), and closure_tile<BS> and lu_tile<BS, TPR> at the default bs 64;
 # heat3d<FUSE_T, VEC16> at fuse_t 2 on N = 120; phase 2 asserts that they
 # spill nothing (the other instantiations' spills are printed)
 MAIN_PATH_INSTANCES = {"syr2k": ([1, 1, 4, 1],),
                        "matmul": ([1, 1], ["float", 1, 1, 4, 1]),
                        "covariance": ([1, 4, 1],),
-                       "floyd_warshall": ([8, 4, 4, 1], [4, 4, 4, 1]),
+                       "floyd_warshall": ([8, 4, 4, 1], [4, 4, 4, 1], [64]),
                        "heat3d": ([2, 1],),
+                       "lu": ([64, 8],),
                        "flash_attention": (["float", 64, 1],),
-                       "decode_attention": (["float", 64, 1, 0],)}
+                       "decode_attention": (["float", 64, 1, 0, 0],)}
 # the serving path's matmul shapes (qwen2-0.5b, batch 4, prompt 256): name,
 # (M, K, N), launches per decode step (or per prefill forward)
 SERVE_MATMULS = (("decode unembed", (4, 896, 151936), "1 per decode step"),
@@ -473,6 +485,7 @@ def check_attention(dev, errs: dict) -> None:
     from repro_torch.kernels.decode_attention import (
         CacheRows,
         decode_attention,
+        decode_attention_column_groups,
         decode_attention_plain,
     )
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
@@ -516,6 +529,20 @@ def check_attention(dev, errs: dict) -> None:
             flash_case(f"hd {hd_} (4, 600/571, {hd_})", q, k, v, causal, 64, 64)
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
         flash_case(f"bf16 hd {hd_} (4, 600/571, {hd_})", q, k, v, True, 64, 32, ATTN_BF16_TOL)
+    # head sizes past 256: column groups of 256 output columns, the scores in
+    # chunks of 128 columns, at (8, 2048, hd), ragged and in bf16
+    for hd_ in WIDE_HEAD_SIZES:
+        q, k, v = attention_inputs(8, 2048, 2048, hd_, dev, seed=100 + hd_)
+        for causal, bq, bk in ((True, 64, 64), (False, 64, 64), (True, 128, 32), (True, 32, 128)):
+            flash_case(f"hd {hd_} (8, 2048, {hd_})", q, k, v, causal, bq, bk)
+        q, k, v = attention_inputs(3, 250, 131, hd_, dev, seed=110 + hd_)
+        for causal in (True, False):
+            flash_case(f"ragged Sq=250 Sk=131 hd={hd_}", q, k, v, causal, 64, 64)
+        q, k, v = (t.to(torch.bfloat16) for t in attention_inputs(4, 600, 571, hd_, dev,
+                                                                  seed=120 + hd_))
+        for causal in (True, False):
+            flash_case(f"bf16 hd {hd_} (4, 600/571, {hd_})", q, k, v, causal, 64, 32,
+                       ATTN_BF16_TOL)
     del q, k, v
 
     def decode_case(label, q, k, v, cp, ring, window, bk, hg, tol=ATTN_TOL):
@@ -591,6 +618,27 @@ def check_attention(dev, errs: dict) -> None:
         q2, k2, v2 = (t.to(torch.bfloat16) for t in (q2, k2, v2))
         decode_case(f"hd {hd_} bf16 ({BH}, 8, {S}, {hd_}) per-row positions", q2, k2, v2,
                     mixed, True, 0, 64, 1, ATTN_BF16_TOL)
+    # head sizes past 256: column groups of V across blocks, K's scores in
+    # chunks of 256, at LARGE's rows and positions, f32 and bf16, and a G that
+    # takes two launches (8 heads a launch past 256)
+    for hd_ in WIDE_HEAD_SIZES:
+        q2, _, _ = attention_inputs(BH, 8, 1, hd_, dev, seed=130 + hd_)
+        _, k2, v2 = attention_inputs(BH, 1, S, hd_, dev, seed=140 + hd_)
+        for ring, window in ((False, 0), (True, 0), (False, 1000), (True, 300)):
+            decode_case(f"hd {hd_} ({BH}, 8, {S}, {hd_}) per-row positions", q2, k2, v2,
+                        mixed, ring, window, 32, 1)
+        decode_case(f"hd {hd_} ({BH}, 8, {S}, {hd_}) full cache", q2, k2, v2, full, False, 0,
+                    128, 2)
+        q2, k2, v2 = (t.to(torch.bfloat16) for t in (q2, k2, v2))
+        decode_case(f"hd {hd_} bf16 ({BH}, 8, {S}, {hd_}) per-row positions", q2, k2, v2,
+                    mixed, True, 0, 64, 1, ATTN_BF16_TOL)
+        q2, _, _ = attention_inputs(8, 12, 1, hd_, dev, seed=150 + hd_)
+        _, k2, v2 = attention_inputs(8, 1, 288, hd_, dev, seed=160 + hd_)
+        n0 = decode_attention.launches
+        decode_case(f"hd {hd_} G=12 (8, 12, 288, {hd_}) cur_pos 260", q2, k2, v2,
+                    torch.full((8,), 260, dtype=torch.int32, device=dev), True, 0, 32, 1)
+        print(f"    {(decode_attention.launches - n0) // 2} launches a call (groups of heads), "
+              f"{decode_attention_column_groups(hd_)} column groups a launch", flush=True)
     qc, _, _ = attention_inputs(8, 7, 1, 72, dev, seed=97)
     kc, vc = (torch.randn(4, 300, 2, 72, device=dev,
                           generator=torch.Generator(device=dev).manual_seed(98 + i))
@@ -695,9 +743,13 @@ def time_attention(rows: dict) -> None:
          flash_row(8, 2048, 256, 3), flash_what)
     show("flash_attention model prefill causal", (8, 256, 64),
          ops.DEFAULTS["flash_attention"], flash_row(8, 256, 64, 1), flash_what)
+    for hd_ in WIDE_HEAD_SIZES:  # column groups of 256: the scores once per group
+        show(f"flash_attention hd {hd_} causal", (8, 2048, hd_), ops.DEFAULTS["flash_attention"],
+             flash_row(8, 2048, hd_, 200 + hd_), flash_what)
     # device time per launch (torch.profiler): at the model's shape a launch
     # is shorter than the host's wrapper call
-    for (BH_, S_, hd_) in ((BH, S, hd), (8, 2048, 256), (8, 256, 64)):
+    for (BH_, S_, hd_) in ((BH, S, hd), (8, 2048, 256), (8, 256, 64),
+                           *((8, 2048, h) for h in WIDE_HEAD_SIZES)):
         q, k, v = attention_inputs(BH_, S_, S_, hd_, dev, 5)
         dev_ms = device_time(lambda: [flash(q, k, v) for _ in range(10)])[0]
         print(f"  flash_attention ({BH_}, {S_}, {hd_}) causal: {dev_ms / 10:.4f} ms per launch "
@@ -710,12 +762,17 @@ def time_attention(rows: dict) -> None:
          ops.DEFAULTS["decode_attention"], rows["decode_attention"], dec_what)
     show("decode_attention model decode, cur_pos 260", (8, 7, 288, 64),
          ops.DEFAULTS["decode_attention"], decode_row(8, 7, 288, 64, 260, 4), dec_what)
+    for hd_ in WIDE_HEAD_SIZES:  # column groups of 256: K read once per group
+        show(f"decode_attention hd {hd_}, cur_pos 260", (8, 7, 288, hd_),
+             ops.DEFAULTS["decode_attention"], decode_row(8, 7, 288, hd_, 260, 4 + hd_),
+             dec_what)
     # where a call's kernel is shorter than the host's wrapper, back-to-back
     # calls time the host: the device time per launch (torch.profiler), at
     # LARGE and at the model's shape, at the default bk and at 128
     from repro_torch.kernels.decode_attention import decode_attention
 
-    for (BH_, G_, S_, hd_, cp_) in ((BH, G, S, hd, S - 1), (8, 7, 288, 64, 260)):
+    for (BH_, G_, S_, hd_, cp_) in ((BH, G, S, hd, S - 1), (8, 7, 288, 64, 260),
+                                    *((8, 7, 288, h, 260) for h in WIDE_HEAD_SIZES)):
         q, _, _ = attention_inputs(BH_, G_, 1, hd_, dev, 4)
         _, k, v = attention_inputs(BH_, 1, S_, hd_, dev, 5)
         cp = torch.full((BH_,), cp_, dtype=torch.int32, device=dev)
@@ -1200,6 +1257,7 @@ def main() -> int:
     from repro_torch.kernels.heat3d import heat3d, heat3d_plain, heat3d_plan
     from repro_torch.kernels.lu import lu, lu_factor_diag, lu_factor_diag_plain, lu_plain
     from repro_torch.kernels.matmul import tiled_matmul, tiled_matmul_plain
+    from repro_torch.kernels.spaces import kernel_space
     from repro_torch.kernels.syr2k import syr2k, syr2k_plain
     from repro_torch.kernels.util import max_shared_memory_per_block
 
@@ -1407,7 +1465,12 @@ def main() -> int:
                 f"blocked plain", got, want_fw, EXACT))
         compare(f"floyd_warshall N={fw_n} bs={bs} vs unblocked floyd_warshall_ref",
                 got, fw_ref, FW_REF_TOL)
-    for off, bs in ((0, 64), (fw_n // 2 - 64, 128), (fw_n - 256, 256)):
+    # the closure helper at every bs of the gpu space (one warp, one CTA, a
+    # cluster of CTAs), at offsets on and off 16-byte words, between them,
+    # and past the space (the block in global memory)
+    fw_space = kernel_space("floyd_warshall")["bs"].sequence
+    for off, bs in [(off, bs) for bs in fw_space for off in (0, 37, fw_n // 2 - 64, fw_n - bs)] \
+            + [(3, 24), (fw_n // 3, 100), (8, 200), (5, 300)]:
         D = W.clone()
         closure_in_block(D, off, bs)
         torch.cuda.synchronize()
@@ -1451,7 +1514,14 @@ def main() -> int:
               f"{abs_err:.3e}, {share:.3f} of the tolerance", flush=True)
     if any(share > 1.0 for _, share in probe.values()):
         raise AssertionError("the 3xTF32 matmul misses a tolerance")
-    for off, bs in ((0, 64), (lu_n // 2 - 64, 128), (lu_n - 8, 8)):
+    # the diagonal-factor helper at every bs of the gpu space (one warp up to
+    # 32, a row's threads within a warp past it), on and off 16-byte words,
+    # between them, and past the space (the block in shared memory, up to
+    # the 240 that fits it)
+    lu_space_bs = kernel_space("lu")["bs"].sequence
+    for off, bs in [(off, bs) for bs in lu_space_bs for off in (0, 37, lu_n // 2 - 64,
+                                                                  lu_n - bs)] \
+            + [(5, 12), (lu_n // 3, 48), (9, 100), (7, 192), (lu_n - 240, 240)]:
         M = Alu.clone()
         lu_factor_diag(M, off, bs)
         torch.cuda.synchronize()
@@ -1586,6 +1656,24 @@ def main() -> int:
           f"({b_by}; counted: 2/3 N^3 flops), plain {lu_row['plain_ms']:.4f} ms, library "
           f"(torch.linalg.lu_factor_ex(A, pivot=False)) {lu_row['library_ms']:.4f} ms")
     per_call("lu", lambda: ops.lu_op(Alu), (lu_factor_diag, tiled_matmul), lu_row["ms"])
+    # the call's device time by part: each block step factors the diagonal
+    # block, solves the two panels (torch.linalg.solve_triangular), copies
+    # them and updates the trailing block (matmul.cu)
+    lu_parts = {"diagonal factors": [], "trailing updates": [], "triangular solves": [],
+                "copies, fills and other": []}
+    for name, ms in device_kernels_in_order(lambda: ops.lu_op(Alu)):
+        if any(k in name for k in ("lu_warp_kernel", "lu_tile_kernel", "lu_smem_kernel")):
+            lu_parts["diagonal factors"].append(ms)
+        elif "matmul" in name:
+            lu_parts["trailing updates"].append(ms)
+        elif "trsm" in name or "triangular" in name:
+            lu_parts["triangular solves"].append(ms)
+        else:
+            lu_parts["copies, fills and other"].append(ms)
+    print(f"  lu device time by part (torch.profiler trace, one call, "
+          f"{sum(map(len, lu_parts.values()))} device kernels): "
+          + "; ".join(f"{k} x{len(v)} {sum(v):.4f} ms ({sum(v) / max(len(v), 1) * 1e3:.1f} us "
+                      f"each)" for k, v in lu_parts.items()), flush=True)
 
     fw_bs = ops.DEFAULTS["floyd_warshall"]["bs"]
     b_ms, b_by = bound(float(fw_n) ** 3, 4.0 * 2 * fw_n * fw_n, peak=PEAK_F32_MIN)
@@ -1610,7 +1698,7 @@ def main() -> int:
         if "minplus_kernel" in name:
             parts[("row panels", "column panels", "trailing updates")[n_mp % 3]].append(ms)
             n_mp += 1
-        elif "closure_kernel" in name:
+        elif "closure" in name:
             parts["closures"].append(ms)
         else:
             parts["copies and fills"].append(ms)
@@ -1673,25 +1761,84 @@ def main() -> int:
           f"kernels only) against {rows['heat3d']['ms'] / passes * 1e3:.2f} us by CUDA events "
           f"(the gaps between back-to-back launches included)", flush=True)
 
-    blk = Alu[:lu_bs, :lu_bs].contiguous()
-    b_ms, b_by = bound(2.0 / 3.0 * lu_bs ** 3, 4.0 * 2 * lu_bs * lu_bs)
-    rows["lu_factor_diag"] = dict(
-        ms=time_ms(lambda: lu_factor_diag(blk.clone(), 0, lu_bs)),
-        plain_ms=time_ms(lambda: lu_factor_diag_plain(blk)),
-        library_ms=time_ms(lambda: torch.linalg.lu_factor_ex(blk, pivot=False)),
-        bound_ms=b_ms, bound_by=b_by)
-    clo = W[:fw_bs, :fw_bs].contiguous()
-    b_ms, b_by = bound(float(fw_bs) ** 3, 4.0 * 2 * fw_bs * fw_bs, peak=PEAK_F32_MIN)
-    rows["closure"] = dict(
-        ms=time_ms(lambda: closure_in_block(clo.clone(), 0, fw_bs)),
-        plain_ms=time_ms(lambda: closure_plain(clo)),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
-    for name, bs in (("lu_factor_diag", lu_bs), ("closure", fw_bs)):
-        r = rows[name]
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"  {name} helper, one {bs}x{bs} block (with the clone it works on): kernel "
-              f"{r['ms']:.4f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), plain "
-              f"{r['plain_ms']:.4f} ms, library {lib}", flush=True)
+    # the helpers: bs dependent steps each, so beside the ops/bytes bound
+    # the dependency floor (mma_rate.py's probe: an empty kernel plus bs
+    # exchange steps of the helper's thread map, device durations under
+    # torch.profiler as the helpers' own), at every bs of the gpu
+    # spaces; each launch on a fresh copy of the block (the closure of a
+    # closed block is as long, but an LU of an LU is not a fair input)
+    sys.path.insert(0, ROOT)
+    import mma_rate
+
+    probe = mma_rate.dependency_floor()
+    print(f"  dependency floor probe (mma_rate.py; device durations, torch.profiler): empty "
+          f"kernel {probe['empty_kernel_us']:.3f} us; one exchange step "
+          + ", ".join(f"{k} {v:.1f} ns" for k, v in probe["step_ns"].items()), flush=True)
+
+    def helper_times(fn, block, bs, kernel_name, n=40):
+        copies = [block.clone() for _ in range(n + 3)]
+        for c in copies[:3]:
+            fn(c, 0, bs)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for c in copies[3:]:
+            fn(c, 0, bs)
+        end.record()
+        end.synchronize()
+        ev = start.elapsed_time(end) / n
+        _, by_name = device_time(lambda: [fn(block.clone(), 0, bs) for _ in range(n)])
+        launched = [(c, t) for k, (c, t) in by_name.items() if kernel_name in k]
+        dev_ms = sum(t for _, t in launched) / max(sum(c for c, _ in launched), 1)
+        return ev, dev_ms
+
+    def steps_of(name, bs):
+        """The helper's dependent exchange steps at bs, by the probe's kinds:
+        one warp's shuffles up to 32; past it one barrier a step among the
+        CTA's threads, and at 256 a cluster barrier every 8 steps in place of
+        a CTA's."""
+        if bs <= 32:
+            return {"warp shuffle": bs}
+        if name == "lu_factor_diag":
+            return {"512 threads": bs}
+        if bs <= 128:
+            return {"256 threads": bs}
+        return {"256 threads": bs - bs // 8, "cluster of 8": bs // 8}
+
+    helper_rows = {}
+    for name, fn, space, src, kname, default_bs in (
+            ("lu_factor_diag", lu_factor_diag, kernel_space("lu")["bs"].sequence, Alu, "lu_",
+             lu_bs),
+            ("closure", closure_in_block, kernel_space("floyd_warshall")["bs"].sequence, W,
+             "closure", fw_bs)):
+        for bs in space:
+            blk = src[:bs, :bs].contiguous()
+            ev, dev_ms = helper_times(fn, blk, bs, kname)
+            floor = mma_rate.floor_ms(probe, steps_of(name, bs))
+            if name == "closure":
+                b_ms, b_by = bound(float(bs) ** 3, 4.0 * 2 * bs * bs, peak=PEAK_F32_MIN)
+            else:
+                b_ms, b_by = bound(2.0 / 3.0 * bs ** 3, 4.0 * 2 * bs * bs)
+            print(f"  {name} helper bs={bs} ({steps_of(name, bs)}): {ev * 1e3:.2f} us a launch "
+                  f"by CUDA events, {dev_ms * 1e3:.2f} us on the device (torch.profiler), "
+                  f"{dev_ms * 1e6 / bs:.1f} ns a step; dependency floor {floor * 1e3:.2f} us "
+                  f"(an empty kernel and those steps), {dev_ms / floor:.2f}x it; ops/bytes bound "
+                  f"{b_ms:.6f} ms ({b_by})", flush=True)
+            helper_rows[(name, bs)] = dict(ms=ev, device_ms=dev_ms, floor_ms=floor, bound_ms=b_ms,
+                                           bound_by=b_by)
+        blk = src[:default_bs, :default_bs].contiguous()
+        r = helper_rows[(name, default_bs)]
+        plain = lu_factor_diag_plain if name == "lu_factor_diag" else closure_plain
+        rows[name] = dict(
+            ms=r["ms"], plain_ms=time_ms(lambda: plain(blk)),
+            library_ms=(time_ms(lambda: torch.linalg.lu_factor_ex(blk, pivot=False))
+                        if name == "lu_factor_diag" else None),
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], dependency_floor_ms=r["floor_ms"])
+        lib = "none" if rows[name]["library_ms"] is None else f"{rows[name]['library_ms']:.4f} ms"
+        print(f"  {name} helper at the default bs={default_bs}: kernel {r['ms']:.4f} ms, "
+              f"dependency floor {r['floor_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}), plain {rows[name]['plain_ms']:.4f} ms, library {lib}",
+              flush=True)
 
     time_attention(rows)
 

@@ -94,14 +94,28 @@
 // group, slot group) with the slot groups nsg = 256 / (NV * nhg), so a head
 // size that is not a power of two leaves a few threads out of that pass
 // (hd 80: 240 of 256).
+// Head sizes past 256 (the WIDE instantiations, HD = WCH = 256; the TPU
+// kernel blocks the full hd): a grid dimension takes column groups of 256
+// columns of V and O, one block each, and every block computes the full
+// scores. Each sub-chunk of 32 slots is ceil(hd / 256) ring chunks of K (256
+// columns each, the last masked past hd and cut to hd rounded up to 16),
+// whose partial scores add up in the score rows in the thread that owns
+// them, the last one scaling them and the softmax following, then one ring
+// chunk of the block's column group of V: a stage holds one of them, not
+// both (3 x 33 KB in f32). q's whole row is staged once per row (zeros past
+// hd). The key-axis split and its merge are unchanged; each column group
+// has its own partials and arrival counters. K is read once per group:
+// (ceil(hd / 256) - 1) extra reads of the keys, and the scores' work again.
+// A launch takes 8 heads (or fewer where q's rows would pass 64 KB).
 // q and O rows hold Gq >= G heads, so a launch can take heads g0 .. g0 + G
 // - 1 of each row (q and O passed from head g0): the wrapper splits a G
-// past the kernel's 8 * 256 / HD into groups that fit, one launch each.
+// past the kernel's 8 * 256 / HD (past 256: 8) into groups that fit, one
+// launch each.
 //
 // Interface: decode_attention_smem_bytes() gives the dynamic shared memory
 // a block needs for (G, bk, hd, dtype) (-1 for what the kernel does not
-// take: bk from 1 to 256, hd from 1 to 256, G at most 8 * 256 / HD, so 8 at
-// hd 256), from the same layout() the launcher passes the
+// take: bk from 1 to 256, G at most 8 * 256 / HD, so 8 at hd 256, and 8 or
+// fewer past it), from the same layout() the launcher passes the
 // kernel; the wrapper checks it against the device's limit before launch
 // (at hd 256 and G = 8 in f32 the three ring stages take 198 KB, one block
 // an SM).
@@ -109,7 +123,8 @@
 // split and the workspace; decode_attention_launch() launches on the given
 // stream, does not synchronise, and returns cudaGetLastError(). dtype, hd
 // and the copy form are template parameters (96 instantiations: three copy
-// forms for each of the 16 head sizes and two dtypes).
+// forms for each of the 16 head sizes and two dtypes; and 4 WIDE ones: two
+// copy forms and two dtypes).
 
 #include "gemm_f32.cuh"
 
@@ -123,6 +138,10 @@ constexpr int MAXBK = 256;         // largest bk (the gpu space's)
 constexpr int MAXSPLIT = 32;       // splits of the key axis: one per lane in the combine
 constexpr int QPAD = 4;            // q row padding: the G heads' rows in distinct bank quads
 constexpr int MAXHD = 256;         // head sizes: the multiples of 16 up to 256
+// head sizes past 256 (the WIDE instantiations): score chunks of WCH
+// columns of K, then one column group of WCH columns of V per block
+constexpr int WCH = 256;
+constexpr int WIDE_QFLOATS = 16384;  // q's staged rows of one launch, f32 (64 KB)
 constexpr float NEG = -1.0e30f;    // the TPU kernel's mask value
 
 // Shared-memory layout of one block, in bytes: q of the current row
@@ -148,16 +167,20 @@ __host__ __device__ inline void pv_map(int G, int hd, int& gpt, int& nhg, int& n
   nsg = NT / (hd / 4 * nhg);
 }
 
-__host__ __device__ inline Layout layout(int G, int hd, int size) {
+// hd: the instantiation's head size (WCH for a WIDE one); hdq: the length
+// of q's staged rows (hd, or past 256 the head size padded to 16). A WIDE
+// stage holds one chunk of K or one column group of V, not both.
+__host__ __device__ inline Layout layout(int G, int hd, int size, int hdq = 0, bool wide = false) {
   Layout L;
+  if (hdq == 0) hdq = hd;
   pv_map(G, hd, L.gpt, L.nhg, L.nsg);
   L.kpitch = gemm::kpitch(hd, size);
   L.vpitch = hd * size;
   L.lds = SUB + 1;
-  L.s = 4 * G * (hd + QPAD);
+  L.s = 4 * G * (hdq + QPAD);
   L.stats = L.s + 4 * G * L.lds;
   L.ring = gemm::round_up(L.stats + 4 * 3 * G, 16);
-  L.stage = SUB * (L.kpitch + L.vpitch);
+  L.stage = wide ? SUB * (L.kpitch > L.vpitch ? L.kpitch : L.vpitch) : SUB * (L.kpitch + L.vpitch);
   L.stages = gemm::MAX_STAGES;  // at most 110 KB (G = 16, hd = 128, f32)
   // after a row's loop the ring holds the slot groups' sums, nsg x G x hd f32
   const long long ring = (long long)L.stages * L.stage, red = 4LL * L.nsg * G * hd;
@@ -174,6 +197,7 @@ struct Args {
   float scale;
   Layout L;
   int hd;  // the real head size: with MASK, columns hd .. HD - 1 are zeros, never stored
+  int hdp; // WIDE: hd padded to 16, the length of q's staged rows
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -196,12 +220,14 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Columns 4 * (idx % NV) .. + 3 of head idx / NV of row r of O (rows of Gq
-// heads of hd columns): with MASK those below hd only.
-template <bool MASK, int HD, typename T>
-__device__ __forceinline__ void store4(T* Og, int r, int idx, int Gq, int hd, float4 v) {
+// heads of hd columns): with MASK those below hd only; WIDE, of the column
+// group from col0 on, those below hd only.
+template <bool MASK, int HD, bool WIDE = false, typename T>
+__device__ __forceinline__ void store4(T* Og, int r, int idx, int Gq, int hd, int col0,
+                                       float4 v) {
   constexpr int NV = HD / 4;
-  if constexpr (MASK) {
-    const int g = idx / NV, col = 4 * (idx % NV);
+  if constexpr (MASK || WIDE) {
+    const int g = idx / NV, col = (WIDE ? col0 : 0) + 4 * (idx % NV);
     T* o = Og + ((size_t)r * Gq + g) * hd + col;
     const float w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
@@ -229,10 +255,10 @@ __device__ __forceinline__ bool slot_valid(int slot, int cp, int S, int ring, in
   return valid;
 }
 
-template <typename T, int HD, bool VEC16, bool MASK>
+template <typename T, int HD, bool VEC16, bool MASK, bool WIDE>
 __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
-  constexpr int NV = HD / 4;  // float4 columns of a head
-  const int hd = MASK ? p.hd : HD;  // the real head size
+  constexpr int NV = HD / 4;  // float4 columns of a head (of a column group: WIDE)
+  const int hd = (MASK || WIDE) ? p.hd : HD;  // the real head size
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   const Layout& L = p.L;
@@ -249,6 +275,16 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
   const T* Kg = static_cast<const T*>(p.k);
   const T* Vg = static_cast<const T*>(p.v);
   T* Og = static_cast<T*>(p.o);
+  // WIDE: the block's column group of V and O (blockIdx.z; gw columns, hd
+  // padded to 16 in the last), the score chunks of K (nsc, the last wlast
+  // wide), q's staged rows, and the group's partials and counters
+  const int col0 = WIDE ? (int)blockIdx.z * HD : 0;
+  const int gw = WIDE ? min(HD, p.hdp - col0) : HD;
+  const int nsc = WIDE ? (p.hdp + HD - 1) / HD : 1;
+  const int wlast = WIDE ? p.hdp - (nsc - 1) * HD : HD;
+  const int qs = WIDE ? p.hdp + QPAD : HD + QPAD;
+  float* ws = p.ws + (WIDE ? (size_t)blockIdx.z * p.BH * p.nsplit * p.G * (HD + 2) : 0);
+  int* counters = p.counters + (WIDE ? blockIdx.z * gridDim.y : 0);
 
   // score pass: lpp lanes per (slot, head) pair, ppi pairs per pass
   const int pairs = SUB * p.G;
@@ -258,12 +294,14 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
   // P V pass: columns 4*d4 .. 4*d4 + 3 of heads hgi*gpt + u, slots sg mod nsg
   const int gpt = L.gpt, nhg = L.nhg, nsg = L.nsg;
   const int d4 = tid % NV, hgi = tid / NV % nhg, sg = tid / (NV * nhg);
-  const bool pv = sg < nsg;
+  const bool pv = sg < nsg && (!WIDE || 4 * d4 < gw);
 
   // this split's slots
   const int span = p.spb * p.bk;
   const int a = split * span, b = min(p.S, a + span);
   const gemm::Plan plan = gemm::plan_box<T, VEC16>(SUB, HD, tid, NT);
+  const gemm::Plan plan_last = gemm::plan_box<T, VEC16>(SUB, wlast, tid, NT);  // WIDE
+  const gemm::Plan plan_v = gemm::plan_box<T, VEC16>(SUB, gw, tid, NT);        // WIDE
 
   for (int h = 0; h < p.hg; ++h) {
     const int r = grp * p.hg + h;
@@ -280,12 +318,17 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
       x0 = max(a, lo);
       x1 = min(b, hi + 1);
     }
-    const int nchunks = x1 > x0 ? (x1 - x0 + SUB - 1) / SUB : 0;
+    const int nsub = x1 > x0 ? (x1 - x0 + SUB - 1) / SUB : 0;
+    // WIDE: nsc chunks of K, then V's column group, a sub-chunk of slots
+    const int nchunks = WIDE ? nsub * (nsc + 1) : nsub;
 
     __syncthreads();  // the previous row's q, stats and ring are consumed
     if (nchunks > 0)
-      for (int idx = tid; idx < p.G * HD; idx += NT) {
-        if constexpr (MASK) {  // q's columns past hd are zeros
+      for (int idx = tid; idx < p.G * (WIDE ? p.hdp : HD); idx += NT) {
+        if constexpr (WIDE) {  // the whole head, zeros past hd
+          const int g = idx / p.hdp, e = idx - g * p.hdp;
+          sQ[g * qs + e] = e < hd ? to_f32(Qg[((size_t)r * p.Gq + g) * hd + e]) : 0.f;
+        } else if constexpr (MASK) {  // q's columns past hd are zeros
           const int g = idx / HD, e = idx - g * HD;
           sQ[g * (HD + QPAD) + e] = e < hd ? to_f32(Qg[((size_t)r * p.Gq + g) * hd + e]) : 0.f;
         } else {
@@ -303,20 +346,32 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
       for (int w = 0; w < 4; ++w) acc[u][w] = 0.f;
 
     auto load = [&](int c, int slot) {
-      const int s0 = x0 + c * SUB, kc = min(SUB, x1 - s0);
-      char* st = ring + slot * L.stage;
-      const size_t off = (size_t)s0 * p.stride_s;
-      gemm::copy_box<T, VEC16>(plan, st, L.kpitch, K + off, (int)p.stride_s, kc, hd, tid, NT);
-      gemm::copy_box<T, VEC16>(plan, st + SUB * L.kpitch, L.vpitch, V + off, (int)p.stride_s,
-                               kc, hd, tid, NT);
+      if constexpr (WIDE) {  // K's chunk t, or (t = nsc) V's column group
+        const int sub = c / (nsc + 1), t = c - sub * (nsc + 1);
+        const int s0 = x0 + sub * SUB, kc = min(SUB, x1 - s0);
+        char* st = ring + slot * L.stage;
+        const size_t off = (size_t)s0 * p.stride_s;
+        if (t < nsc)
+          gemm::copy_box<T, VEC16>(t < nsc - 1 ? plan : plan_last, st, L.kpitch,
+                                   K + off + t * HD, (int)p.stride_s, kc, min(HD, hd - t * HD),
+                                   tid, NT);
+        else
+          gemm::copy_box<T, VEC16>(plan_v, st, L.vpitch, V + off + col0, (int)p.stride_s, kc,
+                                   min(gw, hd - col0), tid, NT);
+      } else {
+        const int s0 = x0 + c * SUB, kc = min(SUB, x1 - s0);
+        char* st = ring + slot * L.stage;
+        const size_t off = (size_t)s0 * p.stride_s;
+        gemm::copy_box<T, VEC16>(plan, st, L.kpitch, K + off, (int)p.stride_s, kc, hd, tid, NT);
+        gemm::copy_box<T, VEC16>(plan, st + SUB * L.kpitch, L.vpitch, V + off, (int)p.stride_s,
+                                 kc, hd, tid, NT);
+      }
     };
 
-    auto compute = [&](int c, int slot) {
-      const int s0 = x0 + c * SUB, kc = min(SUB, x1 - s0);
-      const char* sK = ring + slot * L.stage;
-      const char* sV = sK + SUB * L.kpitch;
-
-      // scores, scaled, for the kc slots of the sub-chunk
+    // scores of the kc slots of a sub-chunk over `cols` columns of K (qoff
+    // on in q's rows): written (first), or added to the chunks' before;
+    // scaled after the last
+    auto score_pass = [&](const char* sK, int kc, int qoff, int cols, bool first, bool last) {
       for (int p0 = 0; p0 < pairs; p0 += ppi) {
         const int pr = p0 + tid / lpp;
         const int j = pr / p.G, g = pr - j * p.G;
@@ -324,9 +379,9 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
         float4 part = make_float4(0.f, 0.f, 0.f, 0.f);
         if (in) {
           const T* kr = reinterpret_cast<const T*>(sK + j * L.kpitch);
-          const float* qr = sQ + g * (HD + QPAD);
+          const float* qr = sQ + g * qs + qoff;
 #pragma unroll 4
-          for (int e = 4 * li; e < HD; e += 4 * lpp) {
+          for (int e = 4 * li; e < cols; e += 4 * lpp) {
             const float4 kv = gemm::load4(kr + e);
             const float4 qv = *reinterpret_cast<const float4*>(qr + e);
             part.x = fmaf(qv.x, kv.x, part.x);
@@ -337,11 +392,16 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
         }
         float s = (part.x + part.y) + (part.z + part.w);
         for (int off = lpp / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (in && li == 0) sS[g * L.lds + j] = s * p.scale;
+        if (in && li == 0) {  // the same thread owns (j, g) in every chunk
+          float* o = sS + g * L.lds + j;
+          const float tot = first ? s : *o + s;
+          *o = last ? tot * p.scale : tot;
+        }
       }
-      __syncthreads();
+    };
 
-      // online softmax: warp w takes heads w, w + NW, ...; lane j slot s0 + j
+    // online softmax: warp w takes heads w, w + NW, ...; lane j slot s0 + j
+    auto softmax_pass = [&](int s0, int kc) {
       const bool valid = lane < kc && slot_valid(s0 + lane, cp, p.S, p.ring, p.window);
       for (int g = warp; g < p.G; g += NW) {
         const float sc = valid ? sS[g * L.lds + lane] : NEG;
@@ -357,9 +417,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
           sM[g] = m_new;
         }
       }
-      __syncthreads();
+    };
 
-      // acc = acc * alpha + P V over this thread's slots of the chunk
+    // acc = acc * alpha + P V over this thread's slots of the chunk
+    auto pv_pass = [&](const char* sV, int kc) {
       if (pv) {
 #pragma unroll
         for (int u = 0; u < MAXGPT; ++u) {
@@ -387,6 +448,30 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
       }
     };
 
+    auto compute = [&](int c, int slot) {
+      const char* st = ring + slot * L.stage;
+      if constexpr (WIDE) {  // the ring's barrier orders a chunk's softmax before P V
+        const int sub = c / (nsc + 1), t = c - sub * (nsc + 1);
+        const int s0 = x0 + sub * SUB, kc = min(SUB, x1 - s0);
+        if (t < nsc) {
+          score_pass(st, kc, t * HD, t < nsc - 1 ? HD : wlast, t == 0, t == nsc - 1);
+          if (t == nsc - 1) {
+            __syncthreads();
+            softmax_pass(s0, kc);
+          }
+        } else {
+          pv_pass(st, kc);
+        }
+      } else {
+        const int s0 = x0 + c * SUB, kc = min(SUB, x1 - s0);
+        score_pass(st, kc, 0, HD, true, true);
+        __syncthreads();
+        softmax_pass(s0, kc);
+        __syncthreads();
+        pv_pass(st + SUB * L.kpitch, kc);
+      }
+    };
+
     gemm::run_ring(nchunks, L.stages, load, compute);  // ends with a barrier: sM, sL final
 
     // the slot groups' sums into the ring's memory, then summed in sg order
@@ -403,6 +488,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
     __syncthreads();
     const size_t part = (size_t)r * p.nsplit + split;
     for (int idx = tid; idx < p.G * NV; idx += NT) {  // four columns of head idx / NV
+      if (WIDE && 4 * (idx % NV) >= gw) continue;  // past the column group
       float4 o4 = *reinterpret_cast<const float4*>(red + 4 * idx);
       for (int s = 1; s < nsg; ++s) {
         const float4 x = *reinterpret_cast<const float4*>(red + (size_t)s * p.G * HD + 4 * idx);
@@ -410,14 +496,14 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
       }
       if (p.nsplit == 1) {
         const float den = fmaxf(sL[idx / NV], 1e-30f);
-        store4<MASK, HD>(Og, r, idx, p.Gq, hd,
-                         make_float4(o4.x / den, o4.y / den, o4.z / den, o4.w / den));
+        store4<MASK, HD, WIDE>(Og, r, idx, p.Gq, hd, col0,
+                               make_float4(o4.x / den, o4.y / den, o4.z / den, o4.w / den));
       } else {  // this split's partial: acc [G][hd]
-        *reinterpret_cast<float4*>(p.ws + part * p.G * HD + 4 * idx) = o4;
+        *reinterpret_cast<float4*>(ws + part * p.G * HD + 4 * idx) = o4;
       }
     }
     if (p.nsplit > 1) {  // and (m, l) per head
-      float* ml = p.ws + (size_t)p.BH * p.nsplit * p.G * HD + part * p.G * 2;
+      float* ml = ws + (size_t)p.BH * p.nsplit * p.G * HD + part * p.G * 2;
       for (int g = tid; g < p.G; g += NT) {
         ml[2 * g] = sM[g];
         ml[2 * g + 1] = sL[g];
@@ -429,7 +515,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
   // the last split of the row group to arrive merges the partials
   __threadfence();
   __syncthreads();
-  if (tid == 0) s_last = atomicAdd(p.counters + grp, 1) == p.nsplit - 1;
+  if (tid == 0) s_last = atomicAdd(counters + grp, 1) == p.nsplit - 1;
   __syncthreads();
   if (!s_last) return;
   __threadfence();
@@ -437,8 +523,8 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
   for (int h = 0; h < p.hg; ++h) {
     const int r = grp * p.hg + h;
     if (r >= p.BH) break;
-    const float* acc_r = p.ws + (size_t)r * nacc;
-    const float* ml_r = p.ws + (size_t)p.BH * nacc + (size_t)r * p.nsplit * p.G * 2;
+    const float* acc_r = ws + (size_t)r * nacc;
+    const float* ml_r = ws + (size_t)p.BH * nacc + (size_t)r * p.nsplit * p.G * 2;
     __syncthreads();  // the previous row's weights are consumed
     // per head, lane s takes split s: M = max_s m_s, e_s = exp(m_s - M) into
     // the score rows, L = sum_s l_s e_s (a fixed shuffle order)
@@ -455,6 +541,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
     __syncthreads();
     // O = sum_s acc_s e_s / max(L, 1e-30), splits ascending, four columns a thread
     for (int idx = tid; idx < p.G * NV; idx += NT) {
+      if (WIDE && 4 * (idx % NV) >= gw) continue;  // past the column group
       const int g = idx / NV;
       const float* a4 = acc_r + 4 * idx;
       float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -468,20 +555,20 @@ __global__ void __launch_bounds__(NT) decode_kernel(Args p) {
         o.w = fmaf(x.w, e, o.w);
       }
       const float den = sL[g];
-      store4<MASK, HD>(Og, r, idx, p.Gq, hd,
-                       make_float4(o.x / den, o.y / den, o.z / den, o.w / den));
+      store4<MASK, HD, WIDE>(Og, r, idx, p.Gq, hd, col0,
+                             make_float4(o.x / den, o.y / den, o.z / den, o.w / den));
     }
   }
-  if (tid == 0) p.counters[grp] = 0;  // for the next launch on this stream
+  if (tid == 0) counters[grp] = 0;  // for the next launch on this stream
 }
 
-template <typename T, int HD, bool V16, bool MASK>
+template <typename T, int HD, bool V16, bool MASK, bool WIDE = false>
 cudaError_t launch(const Args& p, cudaStream_t stream) {
-  const dim3 grid(p.nsplit, (p.BH + p.hg - 1) / p.hg);
+  const dim3 grid(p.nsplit, (p.BH + p.hg - 1) / p.hg, WIDE ? (p.hdp + HD - 1) / HD : 1);
   static long long done[16] = {};
-  const cudaError_t e = gemm::allow_smem(decode_kernel<T, HD, V16, MASK>, p.L.bytes, done);
+  const cudaError_t e = gemm::allow_smem(decode_kernel<T, HD, V16, MASK, WIDE>, p.L.bytes, done);
   if (e != cudaSuccess) return e;
-  decode_kernel<T, HD, V16, MASK><<<grid, NT, p.L.bytes, stream>>>(p);
+  decode_kernel<T, HD, V16, MASK, WIDE><<<grid, NT, p.L.bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -507,11 +594,27 @@ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 // The instantiated head size a head size hd runs at: the next multiple of 16.
 inline int padded_hd(int hd) { return gemm::round_up(hd, 16); }
 
-extern "C" long long decode_attention_smem_bytes(int G, int bk, int hd, int bf16) {
-  if (hd < 1 || hd > MAXHD) return -1;
+// Query heads one launch takes: 8 * 256 / HD up to 256; past it 8, or as
+// many as keep q's staged rows within WIDE_QFLOATS.
+inline int max_heads(int hd) {
   const int hdp = padded_hd(hd);
-  if (G < 1 || G > 8 * NT / hdp || bk < 1 || bk > MAXBK) return -1;
-  return layout(G, hdp, bf16 ? 2 : 4).bytes;
+  if (hdp <= MAXHD) return 8 * NT / hdp;
+  const int fit = WIDE_QFLOATS / (hdp + QPAD);
+  return fit < MAXGPT ? fit : MAXGPT;
+}
+
+// Column groups of WCH columns a head size past 256 is split into (1 below).
+inline int column_groups(int hd) { return hd > MAXHD ? cdiv(padded_hd(hd), WCH) : 1; }
+
+inline Layout layout_for(int G, int hd, int size) {
+  const int hdp = padded_hd(hd);
+  return hdp > MAXHD ? layout(G, WCH, size, hdp, true) : layout(G, hdp, size);
+}
+
+extern "C" long long decode_attention_smem_bytes(int G, int bk, int hd, int bf16) {
+  if (hd < 1) return -1;
+  if (G < 1 || G > max_heads(hd) || bk < 1 || bk > MAXBK) return -1;
+  return layout_for(G, hd, bf16 ? 2 : 4).bytes;
 }
 
 // Splits of the key axis: about four blocks per SM over the row groups, each
@@ -528,7 +631,8 @@ extern "C" int decode_attention_splits(int BH, int S, int bk, int hg, int sms) {
 // f32 workspace for the partials of nsplit > 1 splits: acc [BH][nsplit][G][HD]
 // then (m, l) [BH][nsplit][G][2]
 extern "C" long long decode_attention_workspace_bytes(int BH, int G, int hd, int nsplit) {
-  return nsplit > 1 ? 4LL * BH * nsplit * G * (padded_hd(hd) + 2) : 0;
+  const int cols = hd > MAXHD ? WCH : padded_hd(hd);  // past 256: each column group's
+  return nsplit > 1 ? 4LL * column_groups(hd) * BH * nsplit * G * (cols + 2) : 0;
 }
 
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
@@ -551,8 +655,16 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
                      && (stride_s * size) % 16 == 0 && (stride_h * size) % 16 == 0;
   Args p{q, k, v, (const int*)cur_pos, o, (float*)ws, (int*)counters,
          stride_b, stride_s, stride_h, Gq, BH, Kh, G, S, bk, hg, nsplit, cdiv(nkb, nsplit),
-         ring, window, scale, layout(G, hdp, size), hd};
+         ring, window, scale, layout_for(G, hd, size), hd, hdp};
   cudaStream_t s = (cudaStream_t)stream;
+  if (hdp > MAXHD) {  // column groups of WCH (grid z); 16-byte pieces need whole rows of them
+    const bool v16 = vec16 && (hd * size) % 16 == 0;
+    if (bf16)
+      return (int)(v16 ? launch<__nv_bfloat16, WCH, true, false, true>(p, s)
+                       : launch<__nv_bfloat16, WCH, false, false, true>(p, s));
+    return (int)(v16 ? launch<float, WCH, true, false, true>(p, s)
+                     : launch<float, WCH, false, false, true>(p, s));
+  }
   const cudaError_t e = bf16 ? launch_hd<__nv_bfloat16>(p, hdp, vec16, s)
                              : launch_hd<float>(p, hdp, vec16, s);
   return (int)e;

@@ -76,15 +76,42 @@
 // the result does not depend on tiles, chunks or order: it equals the plain
 // version bit for bit.
 //
-// Design of the closure helper: one block of 32x32 threads runs the bs
-// steps k of in-block Floyd-Warshall, D_ij = min(D_ij, D_ik + D_kj), with a
-// __syncthreads() between steps, in place. In place is exact because
-// D_kk >= 0 (zero on the diagonal, 1e18 on padded nodes): step k leaves row
-// and column k as they are, so the helper skips them and every other
-// element reads only values no thread writes in that step. A block up to
-// CLOSURE_SMEM_BS = 128 wide is held in shared memory (row stride bs + 1, so
-// row and column reads are free of bank conflicts; 66 KB at 128); a wider one
-// (bs = 256: 263 KB) works in global memory, through L1 and L2.
+// Design of the closure helper (phase 1: bs dependent steps k of D_ij =
+// min(D_ij, D_ik + D_kj) on one bs x bs block, in place). What bounds it is
+// the chain of steps, not bytes or operations: bs^3 relaxations are 0.26 M
+// at bs = 64 (16 ns at the card's minimum rate), but each step needs row and
+// column k as the step before left them. Its floor is an empty kernel's
+// device duration plus bs times one exchange step among its threads (a
+// shared store, a barrier, a load; mma_rate.py measures both). So the block is held in
+// registers and only row k and column k move each step:
+//   * bs <= 32: one warp, lane i holds row i; D_ik is the lane's own
+//     register (the k loop unrolled over the instantiation, 16 or 32), D_kj
+//     comes by __shfl_sync from lane k. No barrier.
+//   * bs <= 64, 128: one CTA of 256 threads, each a 4 x 4 (64) or 16 x 4
+//     (128) tile of registers; after step k the owners of row k + 1 and
+//     column k + 1 write them into a double-buffered shared row and column:
+//     one barrier a step.
+//   * bs <= 256 (256 KB: more than one CTA's shared memory or registers): a
+//     thread-block cluster of CLOSURE_CLUSTER = 8 CTAs, each a band of 32
+//     rows in registers (the same thread map, 8 x 4 a thread). Row k + 1
+//     reaching every CTA through distributed shared memory with a cluster
+//     barrier every step costs about 0.6 us a step (mma_rate.py's probe),
+//     so the rows come in panels of CLOSURE_PANEL = 8: the owner of the
+//     next 8 rows writes them into every CTA's panel buffer once, and each
+//     CTA advances its own copy of the panel step by step beside its band
+//     (the same operation on the same values as the owner's, so the same
+//     bits): a CTA barrier a step, a cluster barrier every 8 steps. On the
+//     card a cluster barrier every step took 224-236 us at 256 (4 or 8
+//     CTAs), the panel form 124-126 us.
+//   * bs past 256: one CTA of 32 x 32 threads works on the block in global
+//     memory (through L1 and L2), one barrier a step; no gpu-space point is
+//     this wide, but the JAX reference takes any bs.
+// Every step computes every element from the previous step's values, as
+// closure_plain does; in place is exact because D_kk >= 0 (zero on the
+// diagonal, 1e18 on padded nodes), so rows and columns k do not change in
+// step k. Rows and columns past bs (a bs between instantiations) are
+// computed on zeros and never stored. The result equals the plain version
+// bit for bit.
 //
 // Interface: minplus_smem_bytes() gives the dynamic shared memory a block
 // of the min-plus kernel needs for a tile and contraction width under a
@@ -95,15 +122,17 @@
 // UNROLL and the copy form are template parameters of the min-plus kernel
 // (24 instantiations).
 
+#include <cooperative_groups.h>
+
 #include "gemm_f32.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int KC = 32;             // contraction chunk streamed through the ring
 constexpr int MAX_EXTENT = 256;    // largest (padded) tile extent
 constexpr int MAX_THREADS = 256;
-constexpr int CT = 32;             // closure helper: CT x CT threads
-constexpr int CLOSURE_SMEM_BS = 128;  // widest closure block held in shared memory
 
 // Shared-memory layout of one min-plus block: `stages` stages, each A's
 // chunk (pm rows of kfull k, pitch_a bytes apart) then B's (kfull rows of pn
@@ -309,35 +338,328 @@ cudaError_t launch_tile(const Args& p, int unroll, cudaStream_t s) {
   return launch_unroll<4, 4, VEC16>(p, unroll, s);
 }
 
-// In-block closure of the bs x bs block at (off, off) of D (row stride ld).
-// SMEM: the block is copied into shared memory (row stride bs + 1) and back.
-template <bool SMEM>
-__global__ void __launch_bounds__(CT * CT) closure_kernel(float* D, int ld, int off, int bs) {
-  extern __shared__ float s[];
+// ---- the in-block closure -----------------------------------------------
+//
+// D_ij = min(D_ij, D_ik + D_kj) for k = 0 .. bs - 1 on the bs x bs block at
+// (off, off) of D (row stride ld), in place. Step k computes every element
+// from the values after step k - 1, as closure_plain does (rows and columns
+// k included: they do not change, since D_kk >= 0), so the result is the
+// plain version's bit for bit whatever the thread map.
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// bs <= BS <= 32: one warp, lane i holds row i in registers, the k loop
+// unrolled over BS: D_ik is the lane's own register, D_kj comes by shuffle
+// from lane k. No barrier at all. Rows and columns past bs are computed on
+// zeros and never stored. The block is staged through shared memory only
+// to read and write it in whole rows (coalesced).
+template <int BS>
+__global__ void __launch_bounds__(32) closure_warp_kernel(float* D, int ld, int off, int bs) {
+  __shared__ float s[BS][BS + 1];
+  const int lane = threadIdx.x;
+  float* G = D + (size_t)off * ld + off;
+  if (lane < BS)
+    for (int r = 0; r < BS; ++r) s[r][lane] = (r < bs && lane < bs) ? G[(size_t)r * ld + lane] : 0.f;
+  __syncwarp();
+  float d[BS];
+#pragma unroll
+  for (int j = 0; j < BS; ++j) d[j] = lane < BS ? s[lane][j] : 0.f;
+#pragma unroll
+  for (int k = 0; k < BS; ++k) {
+    if (k >= bs) break;
+    const float dik = d[k];
+#pragma unroll
+    for (int j = 0; j < BS; ++j) d[j] = fminf(d[j], dik + __shfl_sync(FULL, d[j], k));
+  }
+  __syncwarp();
+  if (lane < BS) {
+#pragma unroll
+    for (int j = 0; j < BS; ++j) s[lane][j] = d[j];
+  }
+  __syncwarp();
+  if (lane < bs)
+    for (int r = 0; r < bs; ++r) G[(size_t)r * ld + lane] = s[r][lane];
+}
+
+// BS = 64, 128: one CTA of 256 threads, thread (ty, tx) holding rows
+// ty*TM .. ty*TM + TM - 1 and columns 4tx .. 4tx + 3 in registers. Step k
+// reads column k of its rows and row k from a double-buffered shared row
+// and column; after the step the owners of row k + 1 (the threads of one
+// ty) and of column k + 1 (the threads of one tx) write them into the
+// buffers, then one barrier. A reader of buffer k & 1 in step k is past
+// that step's barrier before any thread writes the buffer again, in step
+// k + 1.
+constexpr int CLOSURE_THREADS = 256;
+constexpr int CLOSURE_CLUSTER = 8;  // CTAs of the bs = 256 cluster
+constexpr int CLOSURE_PANEL = 8;    // its pivot rows a cluster barrier
+constexpr int CLOSURE_REG_BS = 256;  // the widest block held in registers
+constexpr int CT = 32;               // past it: CT x CT threads, the block in global memory
+
+template <int BS, int CL>
+struct ClosureMap {
+  static constexpr int RB = BS / CL;                 // rows of a CTA's band
+  static constexpr int TX = BS / 4;                  // threads across a row
+  static constexpr int TY = CLOSURE_THREADS / TX;
+  static constexpr int TM = RB / TY;                 // rows a thread
+  static_assert(TM % 4 == 0 && TM * TY == RB, "closure thread map");
+};
+
+template <int BS>
+__global__ void __launch_bounds__(CLOSURE_THREADS, 1) closure_tile_kernel(float* D, int ld, int off,
+                                                                       int bs, int vec) {
+  using Map = ClosureMap<BS, 1>;
+  constexpr int TX = Map::TX, TM = Map::TM;
+  __shared__ __align__(16) float rowk[2][BS];  // row k of the block
+  __shared__ __align__(16) float colk[2][BS];  // column k of the block
+  const int tid = threadIdx.x, ty = tid / TX, tx = tid - ty * TX;
+  const int r0 = ty * TM, c0 = 4 * tx;  // this thread's first row and column
+  float* G = D + (size_t)off * ld + off;
+
+  float d[TM][4];
+#pragma unroll
+  for (int u = 0; u < TM; ++u) {
+    const int r = r0 + u;
+    const float* g = G + (size_t)r * ld + c0;
+    if (r < bs && vec && c0 + 3 < bs) {
+      const float4 q = *reinterpret_cast<const float4*>(g);
+      d[u][0] = q.x; d[u][1] = q.y; d[u][2] = q.z; d[u][3] = q.w;
+    } else {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) d[u][w] = (r < bs && c0 + w < bs) ? g[w] : 0.f;
+    }
+  }
+
+  // row k1 and column k1 (k1 < bs) into buffer k1 & 1, u1 = k1 % TM and
+  // w1 = k1 % 4: constants wherever the unrolled loop below calls it, so
+  // the selects fold away and the tile stays in registers
+  auto publish = [&](int k1, int u1, int w1) {
+    const int b = k1 & 1;
+    if (k1 / TM == ty) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < TM; ++u)
+        if (u == u1) v = make_float4(d[u][0], d[u][1], d[u][2], d[u][3]);
+      *reinterpret_cast<float4*>(&rowk[b][c0]) = v;
+    }
+    if ((k1 >> 2) == tx) {
+      float x[TM];
+#pragma unroll
+      for (int u = 0; u < TM; ++u)
+        x[u] = w1 == 0 ? d[u][0] : w1 == 1 ? d[u][1] : w1 == 2 ? d[u][2] : d[u][3];
+#pragma unroll
+      for (int u = 0; u < TM; u += 4)
+        *reinterpret_cast<float4*>(&colk[b][ty * TM + u]) =
+            make_float4(x[u], x[u + 1], x[u + 2], x[u + 3]);
+    }
+  };
+
+  publish(0, 0, 0);
+  __syncthreads();
+  for (int k0 = 0; k0 < bs; k0 += TM) {
+#pragma unroll
+    for (int kk = 0; kk < TM; ++kk) {
+      const int k = k0 + kk;
+      if (k >= bs) break;
+      const int b = k & 1;
+      float a[TM];
+#pragma unroll
+      for (int u = 0; u < TM; u += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(&colk[b][ty * TM + u]);
+        a[u] = q.x; a[u + 1] = q.y; a[u + 2] = q.z; a[u + 3] = q.w;
+      }
+      const float4 q = *reinterpret_cast<const float4*>(&rowk[b][c0]);
+      const float rv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int u = 0; u < TM; ++u)
+#pragma unroll
+        for (int w = 0; w < 4; ++w) d[u][w] = fminf(d[u][w], a[u] + rv[w]);
+      if (k + 1 < bs) publish(k + 1, (kk + 1) % TM, (kk + 1) & 3);
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int u = 0; u < TM; ++u) {
+    const int r = r0 + u;
+    if (r >= bs) continue;
+    float* g = G + (size_t)r * ld + c0;
+    if (vec && c0 + 3 < bs) {
+      *reinterpret_cast<float4*>(g) = make_float4(d[u][0], d[u][1], d[u][2], d[u][3]);
+    } else {
+#pragma unroll
+      for (int w = 0; w < 4; ++w)
+        if (c0 + w < bs) g[w] = d[u][w];
+    }
+  }
+}
+
+// BS = 256 on a cluster of CL CTAs with P pivot rows a cluster barrier:
+// every CTA keeps its own copy of the next P rows of the block (the
+// "panel", broadcast once through distributed shared memory by the CTA
+// that owns them) and advances it itself, step by step, beside its band:
+// row k + i of the panel, as of step k + i - 1, is the pivot row of step
+// k + i. A panel row is updated by the same operation, on the same values,
+// as its owner's copy in registers, so every copy holds the same bits. A
+// step then needs only its CTA's barrier (for the column buffer and the
+// panel's column k); the cluster barrier comes once a panel, after its
+// owner has written the next one into every CTA's other panel buffer.
+template <int BS, int CL, int P>
+__global__ void __launch_bounds__(CLOSURE_THREADS, 1) closure_panel_kernel(float* D, int ld,
+                                                                           int off, int bs,
+                                                                           int vec) {
+  using Map = ClosureMap<BS, CL>;
+  constexpr int RB = Map::RB, TX = Map::TX, TM = Map::TM;
+  static_assert(TM % P == 0 || P % TM == 0, "closure panel map");
+  __shared__ __align__(16) float pan[2][P][BS];  // the next P rows of the block
+  __shared__ __align__(16) float colk[2][RB];    // column k of this CTA's band
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, ty = tid / TX, tx = tid - ty * TX;
+  const int rank = (int)cluster.block_rank();
+  const int r0 = rank * RB + ty * TM, c0 = 4 * tx;
+  float* G = D + (size_t)off * ld + off;
+
+  float d[TM][4];
+#pragma unroll
+  for (int u = 0; u < TM; ++u) {
+    const int r = r0 + u;
+    const float* g = G + (size_t)r * ld + c0;
+    if (r < bs && vec && c0 + 3 < bs) {
+      const float4 q = *reinterpret_cast<const float4*>(g);
+      d[u][0] = q.x; d[u][1] = q.y; d[u][2] = q.z; d[u][3] = q.w;
+    } else {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) d[u][w] = (r < bs && c0 + w < bs) ? g[w] : 0.f;
+    }
+  }
+
+  // rows k1 .. k1 + P - 1, as this thread holds them, into every CTA's
+  // panel buffer pb (the caller's cluster barrier publishes them)
+  auto publish_panel = [&](int k1, int pb) {
+#pragma unroll
+    for (int u = 0; u < TM; ++u) {
+      const int j = r0 + u - k1;
+      if (j >= 0 && j < P) {
+        const float4 v = make_float4(d[u][0], d[u][1], d[u][2], d[u][3]);
+#pragma unroll
+        for (int c = 0; c < CL; ++c)
+          *reinterpret_cast<float4*>(cluster.map_shared_rank(&pan[pb][j][c0], c)) = v;
+      }
+    }
+  };
+  // column k1 of the band into buffer k1 & 1 (w1 = k1 % 4, a constant below)
+  auto publish_col = [&](int k1, int w1) {
+    if ((k1 >> 2) == tx) {
+      float x[TM];
+#pragma unroll
+      for (int u = 0; u < TM; ++u)
+        x[u] = w1 == 0 ? d[u][0] : w1 == 1 ? d[u][1] : w1 == 2 ? d[u][2] : d[u][3];
+#pragma unroll
+      for (int u = 0; u < TM; u += 4)
+        *reinterpret_cast<float4*>(&colk[k1 & 1][ty * TM + u]) =
+            make_float4(x[u], x[u + 1], x[u + 2], x[u + 3]);
+    }
+  };
+
+  cluster.sync();  // every CTA's buffers exist
+  publish_panel(0, 0);
+  publish_col(0, 0);
+  cluster.sync();
+  for (int k0 = 0; k0 < bs; k0 += P) {
+    const int pb = (k0 / P) & 1;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const int k = k0 + i;
+      if (k >= bs) break;
+      const int b = k & 1;
+      float a[TM];
+#pragma unroll
+      for (int u = 0; u < TM; u += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(&colk[b][ty * TM + u]);
+        a[u] = q.x; a[u + 1] = q.y; a[u + 2] = q.z; a[u + 3] = q.w;
+      }
+      const float4 q = *reinterpret_cast<const float4*>(&pan[pb][i][c0]);
+      const float rv[4] = {q.x, q.y, q.z, q.w};
+      // the panel's later rows (their column k, as of step k - 1, read
+      // before this step's writes: only the owner of column k writes it,
+      // and leaves it as it is, since D_kk >= 0)
+      float pk[P];
+#pragma unroll
+      for (int j = i + 1; j < P; ++j) pk[j] = pan[pb][j][k];
+#pragma unroll
+      for (int u = 0; u < TM; ++u)
+#pragma unroll
+        for (int w = 0; w < 4; ++w) d[u][w] = fminf(d[u][w], a[u] + rv[w]);
+#pragma unroll
+      for (int j = i + 1; j < P; ++j) {
+        float4 x = *reinterpret_cast<const float4*>(&pan[pb][j][c0]);
+        x.x = fminf(x.x, pk[j] + rv[0]);
+        x.y = fminf(x.y, pk[j] + rv[1]);
+        x.z = fminf(x.z, pk[j] + rv[2]);
+        x.w = fminf(x.w, pk[j] + rv[3]);
+        *reinterpret_cast<float4*>(&pan[pb][j][c0]) = x;
+      }
+      if (k + 1 < bs) publish_col(k + 1, (i + 1) & 3);
+      if (i == P - 1 && k + 1 < bs) {
+        publish_panel(k + 1, pb ^ 1);  // the next panel, as of this step
+        cluster.sync();
+      } else {
+        __syncthreads();
+      }
+    }
+  }
+
+#pragma unroll
+  for (int u = 0; u < TM; ++u) {
+    const int r = r0 + u;
+    if (r >= bs) continue;
+    float* g = G + (size_t)r * ld + c0;
+    if (vec && c0 + 3 < bs) {
+      *reinterpret_cast<float4*>(g) = make_float4(d[u][0], d[u][1], d[u][2], d[u][3]);
+    } else {
+#pragma unroll
+      for (int w = 0; w < 4; ++w)
+        if (c0 + w < bs) g[w] = d[u][w];
+    }
+  }
+}
+
+cudaError_t launch_closure_panel(float* D, int ld, int off, int bs, int vec, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CLOSURE_CLUSTER);
+  cfg.blockDim = dim3(CLOSURE_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLOSURE_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, closure_panel_kernel<CLOSURE_REG_BS, CLOSURE_CLUSTER, CLOSURE_PANEL>, D, ld, off, bs,
+      vec);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// bs past CLOSURE_REG_BS: CT x CT threads on the block in global memory, one
+// barrier a step. Step k skips row and column k (they do not change), so
+// every other element reads only values no thread writes in that step.
+__global__ void __launch_bounds__(CT * CT) closure_global_kernel(float* D, int ld, int off, int bs) {
   const int tx = threadIdx.x, ty = threadIdx.y;
   float* G = D + (size_t)off * ld + off;
-  float* M = SMEM ? s : G;
-  const int ldm = SMEM ? bs + 1 : ld;
-  if (SMEM) {
-    for (int i = ty; i < bs; i += CT)
-      for (int j = tx; j < bs; j += CT) M[i * ldm + j] = G[(size_t)i * ld + j];
-    __syncthreads();
-  }
   for (int k = 0; k < bs; ++k) {
     for (int i = ty; i < bs; i += CT) {
       if (i == k) continue;
-      const float dik = M[(size_t)i * ldm + k];
+      const float dik = G[(size_t)i * ld + k];
       for (int j = tx; j < bs; j += CT) {
         if (j == k) continue;
-        float* x = M + (size_t)i * ldm + j;
-        *x = fminf(*x, dik + M[(size_t)k * ldm + j]);
+        float* x = G + (size_t)i * ld + j;
+        *x = fminf(*x, dik + G[(size_t)k * ld + j]);
       }
     }
     __syncthreads();
-  }
-  if (SMEM) {
-    for (int i = ty; i < bs; i += CT)
-      for (int j = tx; j < bs; j += CT) G[(size_t)i * ld + j] = M[i * ldm + j];
   }
 }
 
@@ -374,15 +696,15 @@ extern "C" int minplus_launch(const void* D, int ldd, const void* A, int lda, co
 extern "C" int closure_launch(void* D, int ld, int off, int bs, void* stream) {
   if (bs < 1 || off < 0 || off + bs > ld) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bs <= CLOSURE_SMEM_BS) {
-    const int smem = (int)sizeof(float) * bs * (bs + 1);
-    static long long done[16] = {};
-    const cudaError_t e = gemm::allow_smem(closure_kernel<true>, smem, done);
-    if (e != cudaSuccess) return (int)e;
-    closure_kernel<true><<<1, dim3(CT, CT), smem, s>>>((float*)D, ld, off, bs);
-  } else {
-    closure_kernel<false><<<1, dim3(CT, CT), 0, s>>>((float*)D, ld, off, bs);
-  }
+  float* d = (float*)D;
+  // float4 rows: an aligned base, leading dimension and offset
+  const int vec = gemm::aligned16(D) && ld % 4 == 0 && off % 4 == 0;
+  if (bs <= 16) closure_warp_kernel<16><<<1, 32, 0, s>>>(d, ld, off, bs);
+  else if (bs <= 32) closure_warp_kernel<32><<<1, 32, 0, s>>>(d, ld, off, bs);
+  else if (bs <= 64) closure_tile_kernel<64><<<1, CLOSURE_THREADS, 0, s>>>(d, ld, off, bs, vec);
+  else if (bs <= 128) closure_tile_kernel<128><<<1, CLOSURE_THREADS, 0, s>>>(d, ld, off, bs, vec);
+  else if (bs <= CLOSURE_REG_BS) return (int)launch_closure_panel(d, ld, off, bs, vec, s);
+  else closure_global_kernel<<<1, dim3(CT, CT), 0, s>>>(d, ld, off, bs);
   return (int)cudaGetLastError();
 }
 

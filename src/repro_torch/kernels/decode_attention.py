@@ -19,13 +19,17 @@ Same contract as ``repro.kernels.decode_attention.decode_attention``:
   * ``bk`` -> the KV block of the online-softmax loop: the kernel splits the
     key axis across blocks in whole ``bk`` blocks (:func:`decode_attention_plan`),
     ``hg`` -> how many rows one block of the kernel walks;
-  * every head size from 1 to 256 on the card (the CPU takes any): the
-    kernel is instantiated for the multiples of 16, and another size runs at
-    the next of them with the cache's loads masked past hd (zeros land in
+  * every head size on the card (the CPU takes any): up to 256 the kernel
+    is instantiated for the multiples of 16, and another size runs at the
+    next of them with the cache's loads masked past hd (zeros land in
     shared memory; the cache is read in place, never padded by a copy), and
-    only the hd real output columns stored; a G past the kernel's
-    8 * 256 / round_up(hd, 16) heads a launch is split into groups of heads
-    that fit, one launch each (:func:`decode_attention_head_groups`).
+    only the hd real output columns stored; past 256 one launch covers the
+    head in column groups of 256 (a grid dimension: each block computes the
+    full scores, hd in chunks of 256, and P V for its own columns of V,
+    :func:`decode_attention_column_groups`); a G past the heads one launch
+    takes (8 * 256 / round_up(hd, 16) up to 256, past it 8 or as many as
+    keep q's rows within 64 KB) is split into groups of heads that fit, one
+    launch each (:func:`decode_attention_head_groups`).
 
 Also here, as torch functions: :func:`chunked_decode_xla` (the JAX package's
 ``impl="xla"`` variant: the same recurrence over ``bk`` chunks in tensor
@@ -49,27 +53,44 @@ from repro_torch.kernels.util import (
 
 __all__ = ["CacheRows", "decode_attention", "decode_attention_plain",
            "decode_attention_smem_bytes", "decode_attention_check",
-           "decode_attention_plan", "decode_attention_head_groups", "chunked_decode_xla",
-           "decode_ref", "decode_mask"]
+           "decode_attention_plan", "decode_attention_head_groups",
+           "decode_attention_column_groups", "chunked_decode_xla", "decode_ref", "decode_mask"]
 
 _NEG = -1.0e30
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_STEP, MAX_HEAD = 16, 256  # the kernel's instantiations: multiples of 16 up to 256
 HEADS_PER_LAUNCH = 8 * 256     # G * hd of one launch at most (8 heads a thread, 256 threads)
+COLUMN_GROUP = 256             # past 256: the columns of V and O one block takes
+WIDE_HEADS = 8                 # past 256: heads one launch takes at most
+WIDE_Q_FLOATS = 16384          # past 256: q's staged rows of one launch, f32 (64 KB)
+
+
+def decode_attention_column_groups(hd: int) -> int:
+    """Column groups of V and O a launch covers for head size ``hd``: 1 up
+    to 256, else ``ceil(round_up(hd, 16) / 256)``, one block each."""
+    hdp = -(-hd // HEAD_STEP) * HEAD_STEP
+    return 1 if hdp <= MAX_HEAD else -(-hdp // COLUMN_GROUP)
 
 
 def decode_attention_head_groups(G: int, hd: int) -> list[tuple[int, int]]:
-    """The query heads ``[g0, g1)`` of each launch for G heads of size hd
-    (run at the instantiation ``round_up(hd, 16)``): one group where G fits
-    the kernel (G <= 8 * 256 / round_up(hd, 16)), else the fewest groups
-    that fit, as equal as can be. Raises :class:`ConfigRejected` for a head
-    size past 256."""
-    if hd < 1 or hd > MAX_HEAD:
-        raise ConfigRejected(f"decode_attention hd={hd}: the kernel takes head sizes from 1 "
-                             f"to {MAX_HEAD}")
+    """The query heads ``[g0, g1)`` of each launch for G heads of size hd:
+    one group where G fits the kernel, else the fewest groups that fit, as
+    equal as can be. One launch takes 8 * 256 / round_up(hd, 16) heads up to
+    256 (the instantiation ``round_up(hd, 16)``), past it 8, or as many as
+    keep q's staged rows within 64 KB. Raises :class:`ConfigRejected` for a
+    head size below 1, or one whose single q row does not fit."""
+    if hd < 1:
+        raise ConfigRejected(f"decode_attention hd={hd}: head sizes start at 1")
     if G < 1:
         raise ValueError(f"decode_attention needs at least one query head, got G={G}")
-    fit = HEADS_PER_LAUNCH // (-(-hd // HEAD_STEP) * HEAD_STEP)
+    hdp = -(-hd // HEAD_STEP) * HEAD_STEP
+    if hdp <= MAX_HEAD:
+        fit = HEADS_PER_LAUNCH // hdp
+    else:
+        fit = min(WIDE_HEADS, WIDE_Q_FLOATS // (hdp + 4))
+        if fit < 1:
+            raise ConfigRejected(f"decode_attention hd={hd}: one q row past {WIDE_Q_FLOATS} "
+                                 f"floats does not fit the block's shared memory")
     n = -(-G // fit)
     return [(i * G // n, (i + 1) * G // n) for i in range(n)]
 
@@ -218,7 +239,7 @@ def decode_attention_check(q, k, v, cur_pos=None, *, bk: int = 128,
     smem = decode_attention_smem_bytes(Gl, bk, hd, q.dtype)
     if smem < 0:
         raise ConfigRejected(f"decode_attention G={G} bk={bk} hd={hd}: the kernel takes bk "
-                             f"up to 256")
+                             f"up to 256 (and {Gl} heads a launch at most)")
     limit = max_shared_memory_per_block(dev)
     if smem > limit:
         raise ConfigRejected(f"decode_attention G={G} bk={bk} hd={hd} needs {smem} B of "
@@ -270,7 +291,8 @@ def decode_attention(
         for g0, g1 in decode_attention_head_groups(G, hd):
             Gg = g1 - g0
             nsplit, ws_bytes = decode_attention_plan(BH, Gg, S, hd, bk, hg, dev)
-            ws, counters = _workspace(dev, stream, ws_bytes, -(-BH // hg))
+            ws, counters = _workspace(dev, stream, ws_bytes,
+                                      -(-BH // hg) * decode_attention_column_groups(hd))
             err = lib.decode_attention_launch(
                 q.data_ptr() + g0 * hd * esize, kt.data_ptr(), vt.data_ptr(), cp.data_ptr(),
                 out.data_ptr() + g0 * hd * esize, ws.data_ptr(), counters.data_ptr(), BH, Gg,

@@ -15,12 +15,14 @@ Same contract as ``repro.kernels.flash_attention.flash_attention``:
   * ``bq``/``bk`` -> the query tile and the key block of the online-softmax
     loop; clamped to the sequence lengths (rounded up to the kernel's
     16-row step);
-  * every head size up to 256 on the card (the CPU takes any): the kernel is
+  * every head size on the card (the CPU takes any): up to 256 the kernel is
     instantiated for 16, 32, 64, 128 and 256, and another size runs at the
-    next of them (:func:`flash_attention_head_size`), q, k and v zero-padded
-    along hd inside the wrapper and the output sliced back. The padded
-    columns come after the real ones in every dot product, so they add only
-    exact ``+0*0`` terms: the scores, and so the output, keep their bits.
+    next of them; past 256 at the next multiple of 64, in column groups of
+    256 output columns, one block each, every block computing the full
+    scores in chunks of 128 columns (:func:`flash_attention_head_size`). q,
+    k and v are zero-padded along hd inside the wrapper and the output
+    sliced back. The padded columns come after the real ones in every dot
+    product, so they add only exact ``+0*0`` terms.
 """
 
 from __future__ import annotations
@@ -43,16 +45,19 @@ _NEG = -1.0e30
 DTYPES = (torch.float32, torch.bfloat16)
 STEP = 16  # the kernel's tiles: multiples of 16 keys (a half-warp) and query rows
 HEAD_SIZES = (16, 32, 64, 128, 256)  # the kernel's instantiations
+WIDE_STEP = 64      # past 256: head sizes run at the next multiple of 64
 
 
 def flash_attention_head_size(hd: int) -> int:
-    """The instantiated head size a head size ``hd`` runs at on the card:
-    the smallest of :data:`HEAD_SIZES` not below it (the wrapper zero-pads
-    up to it). Raises :class:`ConfigRejected` past 256."""
-    if 1 <= hd <= HEAD_SIZES[-1]:
+    """The head size a head size ``hd`` runs at on the card (the wrapper
+    zero-pads up to it): the smallest of :data:`HEAD_SIZES` not below it,
+    and past 256 the next multiple of 64, run in ``ceil(size / 256)``
+    column groups. Raises :class:`ConfigRejected` below 1."""
+    if hd < 1:
+        raise ConfigRejected(f"flash_attention hd={hd}: head sizes start at 1")
+    if hd <= HEAD_SIZES[-1]:
         return next(h for h in HEAD_SIZES if hd <= h)
-    raise ConfigRejected(f"flash_attention hd={hd}: the kernel takes head sizes from 1 to "
-                         f"{HEAD_SIZES[-1]} (each run at the next of {HEAD_SIZES})")
+    return -(-hd // WIDE_STEP) * WIDE_STEP
 
 
 def flash_attention_smem_bytes(bq: int, bk: int, hd: int, dtype: torch.dtype = torch.float32,
@@ -116,7 +121,7 @@ def flash_attention_check(q, k, v, *, bq: int = 128, bk: int = 128) -> tuple[int
     check_operand("q", q, (BH, Sq, hd), DTYPES, dev)
     check_operand("k", k, (BH, Sk, hd), (q.dtype,), dev)
     check_operand("v", v, (BH, Sk, hd), (q.dtype,), dev)
-    flash_attention_head_size(hd)  # raises for a head size past 256
+    flash_attention_head_size(hd)  # raises for a head size below 1
     limit = max_shared_memory_per_block(dev)
     smem = flash_attention_smem_bytes(bq, bk, hd, q.dtype, limit)
     if smem < 0:

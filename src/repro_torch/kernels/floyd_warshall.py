@@ -4,7 +4,10 @@ The classic three-phase blocked algorithm, as in
 ``repro.kernels.floyd_warshall``; per block round ``kb``:
 
   phase 1  diagonal block closure (in-block Floyd-Warshall), in place:
-           :func:`closure_in_block`, one launch of a single-block helper;
+           :func:`closure_in_block`, one launch of a helper that holds the
+           block in registers (one warp, one CTA, or past bs = 128 a
+           thread-block cluster; past 256 one CTA on the block in global
+           memory);
   phase 2  row panel  D[kb,:] = min(D[kb,:], D[kb,kb] (x) D[kb,:]),
            col panel  D[:,kb] = min(D[:,kb], D[:,kb] (x) D[kb,kb]);
   phase 3  trailing   D       = min(D, D[:,kb] (x) D[kb,:]).
@@ -208,7 +211,9 @@ minplus_update.launches = 0  # kernel launches since the last reset (chip_smoke 
 
 def closure_in_block(D: torch.Tensor, off: int, bs: int) -> None:
     """Close the bs x bs diagonal block of the square matrix D at (off, off)
-    in place (phase 1). On the card: one launch of the single-block helper."""
+    in place (phase 1). On the card: one launch of the helper (a warp up to
+    bs = 32, one CTA up to 128, a cluster of CTAs up to 256, past it one CTA
+    on the block in global memory)."""
     _check_f32(D)
     Np = D.shape[0]
     if D.dim() != 2 or D.shape[1] != Np or not 0 <= off <= Np - bs:

@@ -5,7 +5,9 @@ Right-looking blocked algorithm with block size ``bs``, as in
 
   (a) factor the bs x bs diagonal block in place (unblocked Doolittle):
       :func:`lu_factor_diag`, on the card one launch of the single-block
-      helper in ``csrc/lu.cu``, on the CPU :func:`lu_factor_diag_plain`;
+      helper in ``csrc/lu.cu`` (up to bs = 128 the block in registers, one
+      barrier a row step; past it in shared memory), on the CPU
+      :func:`lu_factor_diag_plain`;
   (b) row panel  U12 = L11^-1 A12 and column panel L21 = A21 U11^-1, with
       ``torch.linalg.solve_triangular`` (plain array code in the JAX
       package too, outside any Pallas kernel);
@@ -39,9 +41,9 @@ __all__ = ["lu", "lu_check", "lu_plain", "lu_factor_diag", "lu_factor_diag_plain
 
 
 def lu_factor_diag_smem_bytes(bs: int) -> int:
-    """Dynamic shared memory (bytes) the diagonal-block helper needs for a
-    bs x bs block. The kernel's own layout answers, so the library is built
-    first."""
+    """Shared memory (bytes) the diagonal-block helper's block uses for a
+    bs x bs block (past bs = 128 the whole block, row stride bs + 1). The
+    kernel's own layout answers, so the library is built first."""
     return build.load("lu").lu_factor_diag_smem_bytes(bs)
 
 
@@ -59,6 +61,13 @@ def _factor_plain_in_place(A, off, bs):
     A[off:off + bs, off:off + bs] = lu_factor_diag_plain(A[off:off + bs, off:off + bs])
 
 
+def _diag_check(bs: int, limit: int) -> None:
+    smem = lu_factor_diag_smem_bytes(bs)
+    if smem > limit:
+        raise ConfigRejected(f"lu bs={bs} needs {smem} B of shared memory for its diagonal "
+                             f"block, the device allows {limit} B per block")
+
+
 def lu_factor_diag(A: torch.Tensor, off: int, bs: int) -> None:
     """Factor the bs x bs diagonal block of the square matrix A at (off, off)
     in place. On the card: one launch of the single-block helper."""
@@ -72,10 +81,7 @@ def lu_factor_diag(A: torch.Tensor, off: int, bs: int) -> None:
         return
     dev = A.device
     check_operand("A", A, (Np, Np), (torch.float32,), dev)
-    smem, limit = lu_factor_diag_smem_bytes(bs), max_shared_memory_per_block(dev)
-    if smem > limit:
-        raise ConfigRejected(f"lu bs={bs} needs {smem} B of shared memory for its diagonal "
-                             f"block, the device allows {limit} B per block")
+    _diag_check(bs, max_shared_memory_per_block(dev))
     lib = build.load("lu")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -133,10 +139,7 @@ def lu_check(A: torch.Tensor, *, bs: int = 32, bm: int = 128, bn: int = 128) -> 
     check_operand("A", A, (N, N), (torch.float32,), dev)
     bs = min(int(bs), N)
     limit = max_shared_memory_per_block(dev)
-    smem = lu_factor_diag_smem_bytes(bs)
-    if smem > limit:
-        raise ConfigRejected(f"lu bs={bs} needs {smem} B of shared memory for its diagonal "
-                             f"block, the device allows {limit} B per block")
+    _diag_check(bs, limit)
     rest = cdiv(N, bs) * bs - bs  # the first trailing update's rows and columns
     if rest > 0:
         matmul_tile_check(rest, bs, rest, bm=bm, bn=bn, bk=bs, dtype=torch.float32,

@@ -25,6 +25,7 @@ from repro_torch.kernels.decode_attention import (
     CacheRows,
     chunked_decode_xla,
     decode_attention,
+    decode_attention_column_groups,
     decode_attention_head_groups,
     decode_attention_plain,
     decode_mask,
@@ -280,10 +281,16 @@ def test_flash_head_size_pads_to_the_next_instantiation(hd, want):
     assert flash_attention_head_size(hd) == want
 
 
-@pytest.mark.parametrize("hd", [0, 257, 512])
-def test_flash_head_size_rejects_past_256(hd):
-    with pytest.raises(ConfigRejected, match="head sizes"):
-        flash_attention_head_size(hd)
+@pytest.mark.parametrize("hd,want", [(0, None), (257, 320), (272, 320), (320, 320),
+                                     (512, 512), (513, 576)])
+def test_flash_head_size_past_256_runs_at_the_next_multiple_of_64(hd, want):
+    # past 256 the card runs the head in column groups of 256, at the next
+    # multiple of 64; only a head size below 1 is refused
+    if want is None:
+        with pytest.raises(ConfigRejected, match="head sizes"):
+            flash_attention_head_size(hd)
+        return
+    assert flash_attention_head_size(hd) == want
 
 
 @pytest.mark.parametrize("G,hd,want", [
@@ -302,21 +309,35 @@ def test_decode_head_groups(G, hd, want):
 
 
 @pytest.mark.parametrize("hd", [8, 72, 100, 272])
-def test_decode_head_groups_reject_other_head_sizes(hd):
+def test_decode_head_groups_plan_every_head_size(hd):
     # a head size off the multiples of 16 runs at the next one, round_up(hd,
-    # 16), and takes that many heads a launch; only past 256 is one refused
-    if hd > 256:
-        with pytest.raises(ConfigRejected, match="from 1 to 256"):
-            decode_attention_head_groups(4, hd)
-        return
+    # 16), and takes 8 * 256 / that many heads a launch; past 256, 8 heads a
+    # launch in column groups of 256
     padded = -(-hd // 16) * 16
+    fit = 8 * 256 // padded if padded <= 256 else 8
     groups = decode_attention_head_groups(40, hd)
     assert groups[0][0] == 0 and groups[-1][1] == 40
-    assert max(g1 - g0 for g0, g1 in groups) <= 8 * 256 // padded
-    assert len(groups) == -(-40 // (8 * 256 // padded))
+    assert max(g1 - g0 for g0, g1 in groups) <= fit
+    assert len(groups) == -(-40 // fit)
+    assert decode_attention_column_groups(hd) == (1 if padded <= 256 else 2)
 
 
-@pytest.mark.parametrize("hd", [80, 96, 112, 160, 192])
+@pytest.mark.parametrize("hd,groups", [(256, 1), (257, 2), (512, 2), (513, 3), (1000, 4)])
+def test_decode_column_groups_past_256(hd, groups):
+    assert decode_attention_column_groups(hd) == groups
+    assert decode_attention_head_groups(8, hd) == [(0, 8)]
+
+
+def test_decode_head_groups_refuse_only_what_cannot_fit():
+    with pytest.raises(ConfigRejected, match="start at 1"):
+        decode_attention_head_groups(4, 0)
+    # q's staged rows within 64 KB: one head of 16,000, none of 20,000
+    assert decode_attention_head_groups(3, 16000) == [(0, 1), (1, 2), (2, 3)]
+    with pytest.raises(ConfigRejected, match="does not fit"):
+        decode_attention_head_groups(1, 20000)
+
+
+@pytest.mark.parametrize("hd", [80, 96, 112, 160, 192, 272, 320])
 def test_flash_and_decode_take_other_head_sizes_on_the_cpu(hd):
     # the head sizes the card now runs (padded, or in groups): the wrappers'
     # plain versions against the JAX package's Pallas kernels (interpret)

@@ -383,13 +383,25 @@ def test_floyd_warshall_bit_exact_ragged(cuda, N, bs):
 
 
 def test_closure_matches_plain(cuda):
+    # every bs of the gpu space (one warp, one CTA, a cluster of CTAs) at
+    # offsets 0 and off 16-byte words, bs between the instantiations, and bs
+    # past the space (the block in global memory): bit for bit, nothing
+    # outside the block written
+    from repro_torch.kernels.spaces import floyd_warshall_space
+
     (W,) = problems.problem_inputs("floyd_warshall", (400,), cuda)
-    for off, bs in ((0, 64), (100, 128), (40, 256)):
+    space = floyd_warshall_space("gpu")["bs"].sequence
+    assert tuple(space) == (16, 32, 64, 128, 256)
+    cases = [(off, bs) for bs in space for off in (0, 37, 400 - bs)]
+    cases += [(3, 24), (8, 48), (50, 100), (100, 200), (0, 257), (37, 300)]
+    for off, bs in cases:
         D = W.clone()
+        before = closure_in_block.launches
         closure_in_block(D, off, bs)
+        assert closure_in_block.launches == before + 1
         want = W.clone()
         want[off:off + bs, off:off + bs] = closure_plain(W[off:off + bs, off:off + bs])
-        assert torch.equal(D, want)
+        assert torch.equal(D, want), (off, bs)
 
 
 @pytest.mark.parametrize("bi,fuse_t", [(8, 1), (8, 2), (1, 2), (7, 2), (32, 1)])
@@ -422,15 +434,27 @@ def test_heat3d_every_space_point_bit_exact(cuda, N, bi, fuse_t):
 
 
 def test_lu_factor_diag_matches_plain(cuda):
+    # every bs of the gpu space (one warp up to 32, a row's threads within a
+    # warp past it) at offsets 0 and off 16-byte words, bs between the
+    # instantiations, and bs past 128 (the block in shared memory, up to the
+    # 240 that fits it): bit for bit, nothing outside the block written
+    from repro_torch.kernels.spaces import lu_space
+
     (A,) = problems.problem_inputs("lu", (300,), cuda)
-    for off, bs in ((0, 32), (37, 64), (172, 128)):
+    space = lu_space("gpu")["bs"].sequence
+    assert tuple(space) == (8, 16, 32, 64, 128)
+    cases = [(off, bs) for bs in space for off in (0, 37, 300 - bs)]
+    cases += [(5, 12), (9, 28), (64, 48), (101, 100), (0, 129), (7, 192), (60, 240)]
+    for off, bs in cases:
         M = A.clone()
         before = lu_factor_diag.launches
         lu_factor_diag(M, off, bs)
         assert lu_factor_diag.launches == before + 1
         want = A.clone()
         want[off:off + bs, off:off + bs] = lu_factor_diag_plain(A[off:off + bs, off:off + bs])
-        assert torch.equal(M, want)
+        assert torch.equal(M, want), (off, bs)
+    with pytest.raises(ConfigRejected):  # 241 x 242 floats pass 227 KB of shared memory
+        lu_factor_diag(A.clone(), 0, 241)
 
 
 @pytest.mark.parametrize("bs,pack", [(32, True), (28, False), (128, True), (64, True), (8, False)])
@@ -645,7 +669,17 @@ def test_attention_smem_accounting(cuda):
     # another head size runs padded to the next instantiation
     assert flash_attention_smem_bytes(64, 64, 96, limit=LIMIT) == flash(64, 64, 128, 4, 2)
     assert flash_attention_smem_bytes(64, 64, 160, limit=LIMIT) == flash(64, 64, 256, 4, 2)
-    assert flash_attention_smem_bytes(64, 64, 512, limit=LIMIT) == -1
+    # past 256: the next multiple of 64, each stage one score chunk (Q and K,
+    # 128 columns) or one column group of V (256 columns), then P
+    def wide(bq, bk, size, stages):
+        return stages * max((bq + bk) * 128 * size, bk * 256 * size) + 4 * bq * bk
+
+    assert flash_attention_smem_bytes(64, 64, 512, limit=LIMIT) == wide(64, 64, 4, 2)
+    assert flash_attention_smem_bytes(128, 128, 512, limit=LIMIT) == wide(128, 128, 4, 1)
+    assert flash_attention_smem_bytes(64, 64, 272, torch.bfloat16, LIMIT) == wide(64, 64, 2, 2)
+    assert flash_attention_smem_bytes(64, 64, 272, limit=LIMIT) == \
+        flash_attention_smem_bytes(64, 64, 320, limit=LIMIT)
+    assert flash_attention_smem_bytes(128, 128, 512, limit=LIMIT) <= LIMIT  # every tile fits
     # q [G][hd + 4], S [G][33], m/l/alpha [3][G] in f32, rounded up to 16
     # bytes; then three ring stages of 32 slots of K (rows padded to an odd
     # number of 16-byte words) and V, in the cache's dtype, or the P V
@@ -667,6 +701,12 @@ def test_attention_smem_accounting(cuda):
     assert decode_attention_smem_bytes(7, 64, 96) == head + 3 * 32 * (400 + 384)
     # a head size off the multiples of 16 runs at the next one
     assert decode_attention_smem_bytes(7, 64, 72) == decode_attention_smem_bytes(7, 64, 80)
+    # past 256: q [G][round_up(hd, 16) + 4], a stage holds 32 slots of one
+    # 256-column chunk of K or of one column group of V, not both
+    head = -(-4 * (8 * 516 + 8 * 33 + 3 * 8) // 16) * 16
+    assert decode_attention_smem_bytes(8, 32, 512) == head + 3 * 32 * 1040
+    assert decode_attention_smem_bytes(8, 32, 500) == decode_attention_smem_bytes(8, 32, 512)
+    assert decode_attention_smem_bytes(9, 32, 512) == -1    # 8 heads a launch past 256
 
 
 def test_attention_oversized_tiles_are_rejected_before_launch(cuda):
@@ -681,13 +721,13 @@ def test_attention_oversized_tiles_are_rejected_before_launch(cuda):
         flash_attention(q, k, v, bq=40, bk=64)     # not a multiple of 16
     qw, kw, vw = _normal(cuda, (2, 30, 272), (2, 30, 272), (2, 30, 272))
     with pytest.raises(ConfigRejected):
-        flash_attention(qw, kw, vw)                # head size past 256
+        flash_attention(qw, kw, vw, bq=48, bk=24)  # past 256 too: not a multiple of 16
     assert flash_attention.launches == f0
     qd, kd, vd = _normal(cuda, (2, 17, 128), (2, 300, 128), (2, 300, 128))
     d0 = decode_attention.launches
-    with pytest.raises(ConfigRejected):            # head size past 256
+    with pytest.raises(ConfigRejected):            # past 256 too: bk past 256
         decode_attention(*_normal(cuda, (2, 4, 272), (2, 300, 272), (2, 300, 272)), 299,
-                         bk=128)
+                         bk=512)
     with pytest.raises(ConfigRejected):
         decode_attention(qd[:, :8].contiguous(), kd, vd, 299, bk=512)  # bk past 256
     assert decode_attention.launches == d0
@@ -821,6 +861,79 @@ def test_decode_attention_heads_past_one_launch(cuda, G, hd):
         _close(got, decode_attention_plain(q, k, v, cp, ring=ring), ATTN_TOL)
         assert torch.count_nonzero(got[0]) == 0
         assert torch.equal(got, decode_attention(q, k, v, cp, ring=ring, bk=bk))
+
+
+@pytest.mark.parametrize("hd", [272, 320, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_past_head_size_256(cuda, hd, dtype):
+    # column groups of 256 output columns, scores in chunks of 128: causal
+    # and not, ragged Sq and Sk, tiles taking one or two ring stages
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v = (t.to(dtype) for t in _normal(cuda, (3, 150, hd), (3, 137, hd), (3, 137, hd),
+                                            seed=hd))
+    tol = ATTN_TOL if dtype == torch.float32 else ATTN_BF16_TOL
+    for causal in (True, False):
+        for bq, bk in ((64, 64), (32, 128), (128, 16)):
+            before = flash_attention.launches
+            got = flash_attention(q, k, v, causal=causal, bq=bq, bk=bk)
+            assert flash_attention.launches == before + 1
+            assert got.shape == q.shape and got.dtype == dtype and got.is_contiguous()
+            _close(got, flash_attention_plain(q, k, v, causal=causal), tol)
+    # every column group computes the same scores: a second call, same bits
+    assert torch.equal(got, flash_attention(q, k, v, causal=False, bq=128, bk=16))
+
+
+@pytest.mark.parametrize("hd", [272, 320, 512])
+@pytest.mark.parametrize("ring,window", [(False, 0), (True, 0), (False, 9), (True, 300)])
+def test_decode_attention_past_head_size_256(cuda, hd, ring, window):
+    # column groups of V across blocks, the key axis split, per-row
+    # positions, f32 and bf16, a model cache read in place, and a G that
+    # takes two launches (8 heads a launch past 256)
+    from repro_torch.kernels.decode_attention import (
+        CacheRows,
+        decode_attention,
+        decode_attention_head_groups,
+        decode_attention_plain,
+        decode_attention_plan,
+    )
+
+    q, k, v, cp = _decode_cases(cuda, 6, 7, 1000, hd, seed=hd)
+    assert decode_attention_plan(6, 7, 1000, hd, 32, 1, cuda)[0] > 1
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, cp, ring=ring, window=window, bk=32)
+    assert decode_attention.launches == before + 1
+    _close(got, decode_attention_plain(q, k, v, cp, ring=ring, window=window), ATTN_TOL)
+    assert torch.count_nonzero(got[0]) == 0
+    assert torch.equal(got, decode_attention(q, k, v, cp, ring=ring, window=window, bk=32))
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = decode_attention(qb, kb, vb, cp, ring=ring, window=window, bk=64)
+    _close(got, decode_attention_plain(qb, kb, vb, cp, ring=ring, window=window),
+           ATTN_BF16_TOL)
+    kc, vc = (t.reshape(3, 2, 1000, hd).transpose(1, 2).contiguous() for t in (k, v))
+    got = decode_attention(q, CacheRows(kc), CacheRows(vc), cp, ring=ring, window=window,
+                           bk=128, hg=2)
+    _close(got, decode_attention_plain(q, k, v, cp, ring=ring, window=window), ATTN_TOL)
+    G = 12
+    assert len(decode_attention_head_groups(G, hd)) == 2
+    q, k, v, cp = _decode_cases(cuda, 5, G, 300, hd, seed=hd + 1)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, cp, ring=ring, window=window, bk=64)
+    assert decode_attention.launches == before + 2
+    _close(got, decode_attention_plain(q, k, v, cp, ring=ring, window=window), ATTN_TOL)
+
+
+def test_decode_attention_past_256_off_the_multiples_of_16(cuda):
+    # hd 300 (f32) and 290 (bf16: rows off 16-byte words, element copies):
+    # the last chunk and column group masked past hd
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+
+    for hd, dtype in ((300, torch.float32), (290, torch.bfloat16)):
+        q, k, v, cp = _decode_cases(cuda, 6, 5, 400, hd, seed=hd)
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        got = decode_attention(q, k, v, cp, ring=True, window=200, bk=32)
+        _close(got, decode_attention_plain(q, k, v, cp, ring=True, window=200),
+               ATTN_TOL if dtype == torch.float32 else ATTN_BF16_TOL)
 
 
 # an untileable bq (the feasibility pass's shared-memory rule refuses it
