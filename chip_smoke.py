@@ -66,7 +66,23 @@ checks each kernel on the card:
      (c) a `GuardAgent` shadow-times run 2 on the device (epsilon 0.25) with
      no quarantine; then a record of the decode step's output projection at
      1/20 of its measured time is quarantined two watch windows later,
-     serving falls back and a re-campaign is enqueued.
+     serving falls back and a re-campaign is enqueued;
+  8. the multi-fidelity cascade (repro_torch.fidelity), each part with the
+     launch counts set to 0 just before and read just after: (a)
+     `launch.fidelity audit` on all nine kernels at LARGE, 16 seeded configs
+     of each gpu space, the Hopper cost model's Spearman rho against
+     CUDA-event times, strong or weak (the report, with every pair, goes to
+     fidelity_audit.json in $CHIP_SMOKE_OUT, default build/), and the cost
+     model's shared-memory verdicts against SmemBudget's over sampled
+     configs; (b) `launch.autotune
+     --kernel syr2k --cascade --rung-budgets 64,16,8` at LARGE: records carry
+     their rung, at most 8 evaluations at full size, syr2k's launches equal
+     the timed runs of rungs 1-2, the best config against the plain version,
+     a rerun with --resume a no-op; each rung's seconds, the calibration fit
+     and the best objective beside phase 5's flat campaign; (c) one
+     BackgroundTuner(cascade=True) campaign at the decode output
+     projection's signature, (4, 896) @ (896, 896), whose record the service
+     then resolves exactly.
 
 Phases 3 and 4 also hold flash_attention and decode_attention against their
 plain versions at LARGE, at head_dim 256, at head sizes between the
@@ -102,21 +118,21 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# published H100 SXM peaks (NVIDIA data sheet, dense): f32 on the CUDA cores
-# and HBM3 bandwidth — the roofline every bound_ms below is taken against
-PEAK_F32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
-# the tiled matmul's f32 path past 8 rows runs on the tensor cores in
-# 3xTF32 (csrc/gemm_tf32.cuh): three TF32 products per f32 product, so its
-# peak is a third of the data sheet's 495 TFLOP/s dense TF32
-PEAK_TF32_FLOPS = 495e12
-PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
-# f32 minimum: the CUDA C Programming Guide's arithmetic-instruction
-# throughput table gives compute capability 9.0 128 f32 add/multiply/FMA
-# results but 64 compare/minimum/maximum results per clock and SM, so min is
-# a quarter of the 67 TFLOP/s (which counts an FFMA as two operations);
-# Floyd-Warshall's add issues beside it, on the FMA pipe
-PEAK_F32_MIN = PEAK_F32_FLOPS / 4
+# the H100 SXM's peaks every bound_ms below is taken against, from their
+# one owner, the port's cost model (repro_torch.kernels.cost): f32 FFMA on the
+# CUDA cores (67 TFLOP/s, the data sheet's dense f32) and HBM3 (3.35 TB/s);
+# the tiled matmul's f32 path past 8 rows on the tensor cores in 3xTF32
+# (csrc/gemm_tf32.cuh: three TF32 products per f32 product, a third of the
+# data sheet's 495 TFLOP/s dense TF32); f32 minima, a quarter of the FFMA
+# rate (the CUDA C Programming Guide's throughput table gives compute
+# capability 9.0 64 compare/minimum results per clock and SM against 128 FMA;
+# Floyd-Warshall's add issues beside each, on the FMA pipe)
+if os.path.isdir(os.path.join(SRC, "repro_torch")):
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels.cost import FFMA_FLOPS as PEAK_F32_FLOPS
+    from repro_torch.kernels.cost import HBM_BYTES_PER_SEC as PEAK_HBM_BYTES
+    from repro_torch.kernels.cost import MINMAX_OPS as PEAK_F32_MIN
+    from repro_torch.kernels.cost import TF32X3_FLOPS as PEAK_3XTF32_FLOPS
 
 # Tolerances scaled to the outputs they hold. syr2k's entries are sums of
 # 1000 unscaled products (|O| up to a few hundred); the JAX suite's atol
@@ -279,12 +295,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, peak: float | None = None) -> tuple[float, str]:
     """(least ms, "operations" or "bytes"): the larger of ``flops`` at
-    ``peak`` (PEAK_F32_FLOPS on the CUDA cores, PEAK_3XTF32_FLOPS for the
-    matmul's tensor-core path, PEAK_F32_MIN for minima) and ``nbytes`` at
-    PEAK_HBM_BYTES."""
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
+    ``peak`` (PEAK_F32_FLOPS on the CUDA cores, the default;
+    PEAK_3XTF32_FLOPS for the matmul's tensor-core path, PEAK_F32_MIN for
+    minima) and ``nbytes`` at PEAK_HBM_BYTES."""
+    t_ops, t_bytes = flops / (peak or PEAK_F32_FLOPS), nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -966,6 +982,168 @@ def kernel_inputs(kernel: str, sig: tuple, dev) -> tuple[tuple, dict]:
     return args, {}
 
 
+def cascade_phase(launches: dict, dev, syr2k_args: tuple, flat: dict) -> None:
+    """Phase 8: the multi-fidelity cascade on the card. (a) The cost model's
+    rank audit at LARGE and its shared-memory verdicts against SmemBudget's;
+    (b) a syr2k cascade through the autotune CLI, and its resume; (c) a
+    background cascade campaign at the decode output projection's signature.
+    Adds the launch counts of each part (set to 0 just before it, read just
+    after) to ``launches``; ``flat`` is phase 5's syr2k summary."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analyze import feasibility
+    from repro_torch.core.database import OK, PerformanceDatabase
+    from repro_torch.dispatch import BackgroundTuner, DispatchService, TuningStore
+    from repro_torch.kernels import cost, ops, problems
+    from repro_torch.kernels.covariance import covariance
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.floyd_warshall import closure_in_block, minplus_update
+    from repro_torch.kernels.heat3d import heat3d
+    from repro_torch.kernels.lu import lu_factor_diag
+    from repro_torch.kernels.matmul import tiled_matmul, tiled_matmul_plain
+    from repro_torch.kernels.spaces import kernel_space
+    from repro_torch.kernels.syr2k import syr2k, syr2k_plain
+    from repro_torch.launch import fidelity as fidelity_cli
+
+    t8 = time.perf_counter()
+    wrappers = (syr2k, tiled_matmul, covariance, minplus_update, closure_in_block, heat3d,
+                lu_factor_diag, flash_attention, decode_attention)
+
+    def counted(fn):
+        for w in wrappers:
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        n = {w.__name__: w.launches for w in wrappers}
+        for name, k in n.items():
+            launches[name] = launches.get(name, 0) + k
+        return out, {k: v for k, v in n.items() if v}
+
+    # -- (a) the rank audit at LARGE, and the model's refusals against SmemBudget's
+    out_dir = os.environ.get("CHIP_SMOKE_OUT", os.path.join(ROOT, "build"))
+    os.makedirs(out_dir, exist_ok=True)
+    report = os.path.join(out_dir, "fidelity_audit.json")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        (rc, n) = counted(lambda: fidelity_cli.main(
+            ["audit", "--samples", "16", "--repeats", "3", "--out", report]))
+    with open(report) as fh:
+        audit = json.load(fh)
+    rows = {r["kernel"]: r for r in audit["audit"]}
+    print(f"  (a) audit: 16 seeded configs a kernel at LARGE, CUDA events (min of 3), "
+          f"{time.perf_counter() - t0:.1f} s, launches {n}; card {audit['card']}; "
+          f"model {audit['hw']['name']}, {audit['hw']['sms']} SMs")
+    for k in sorted(rows):
+        r = rows[k]
+        rho = "nan" if r["rho"] is None else f"{r['rho']:+.3f}"
+        print(f"      {k:17s} rho {rho} over {r['n_paired']} pairs ({r['n_dropped']} "
+              f"dropped) at {tuple(r['dims'])}: {'strong' if r['screen_ok'] else 'weak'}")
+    if rc != 0 or sorted(rows) != sorted(cost.KERNEL_COST_FNS) or \
+            any(r["n_paired"] < 3 for r in rows.values()):
+        raise AssertionError(f"fidelity audit: rc {rc}, rows {sorted(rows)}")
+    limit = feasibility.smem_limit()
+    checked = refused = 0
+    for k in sorted(cost.KERNEL_COST_FNS):
+        dims = problems.LARGE_SHAPES[k]
+        ctx = feasibility.RuleContext(kernel=k, dims=dims, target="gpu")
+        space = kernel_space(k, target="gpu", seed=3)
+        for cfg in space.sample_configurations(64, np.random.default_rng(3)):
+            budget = list(feasibility.SmemBudget().check(cfg, ctx))
+            t, _ = cost.kernel_cost(k, cfg, *dims)
+            if np.isinf(t) != bool(budget):
+                raise AssertionError(f"{k} {cfg}: cost {t}, SmemBudget {budget}")
+            checked, refused = checked + 1, refused + bool(budget)
+        t, _ = cost.kernel_cost(k, space.default_configuration(), *dims)
+        if not np.isfinite(t):
+            raise AssertionError(f"{k}: the gpu default is infinite at LARGE")
+    print(f"      cost model vs SmemBudget (limit {limit} B): {checked} sampled configs, "
+          f"{refused} refused by both, none by one alone; every gpu default finite")
+
+    # -- (b) the syr2k cascade through the CLI at LARGE, and its resume
+    C, A, B = syr2k_args
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cascade_") as tmp:
+        db = os.path.join(tmp, "syr2k")
+        argv = ["--kernel", "syr2k", "--learner", "RF", "--cascade",
+                "--rung-budgets", "64,16,8", "--db", db]
+        (summary, _), n = counted(lambda: run_cli(argv))
+        block = summary["cascade"]
+        recs = [PerformanceDatabase(os.path.join(db, f"rung{i}")).records for i in range(3)]
+        for i, rr in enumerate(recs):
+            if any(r.status == OK and r.info.get("rung") != i for r in rr):
+                raise AssertionError(f"rung {i}: a record without its rung")
+        timed = sum(len(r.info.get("times_sec", ())) + 1 for rr in recs[1:] for r in rr
+                    if r.status == OK)   # warm-up + repeats, one launch each
+        if block["hw_evals"] > 8 or len(recs[2]) > 8 or n.get("syr2k", 0) != timed:
+            raise AssertionError(f"cascade: hw evaluations {block['hw_evals']}, "
+                                 f"syr2k launches {n} against {timed} timed runs")
+        best = summary["best_config"]
+        got = ops.syr2k_op(C, A, B, config=best)
+        torch.cuda.synchronize()
+        compare(f"syr2k cascade best {best} vs plain", got, syr2k_plain(C, A, B), SYR2K_TOL)
+        for stat, sec, rr in zip(block["rungs"], block["eval_sec"], recs):
+            ok = sorted(r.objective for r in rr if r.status == OK)
+            print(f"      rung {stat['rung']} ({stat['name']}): {stat['screened']} "
+                  f"evaluated ({stat['failed']} failed), {stat['promoted']} promoted, "
+                  f"{sec:.2f} s in its evaluator; objectives {ok[0] * 1e3:.4f}.."
+                  f"{ok[-1] * 1e3:.4f} ms")
+        print(f"      calibration (bias, scale, pairs): "
+              + "; ".join(f"{c['bias']:.4g}, {c['scale']:.3f}, {c['n_pairs']}"
+                          for c in block["calibration"]))
+        print(f"  (b) cascade 64,16,8: best {summary['best_objective_sec'] * 1e3:.4f} ms "
+              f"{best}, {block['hw_evals']} evaluations at LARGE, wall "
+              f"{summary['wall_sec']:.2f} s, launches {n}; phase 5's flat campaign: best "
+              f"{flat['best_objective_sec'] * 1e3:.4f} ms, {flat['n_evaluated'] + flat['n_failed']} "
+              f"evaluations at LARGE, wall {flat['wall_sec']:.2f} s", flush=True)
+        # beside it, the same budget at full size without the proxy rung
+        (two, _), n2 = counted(lambda: run_cli(
+            ["--kernel", "syr2k", "--learner", "RF", "--cascade", "--rung-budgets", "64,8"]))
+        print(f"      cost -> full size only (64,8): best {two['best_objective_sec'] * 1e3:.4f} ms "
+              f"{two['best_config']}, wall {two['wall_sec']:.2f} s, launches {n2}")
+        (again, head), n = counted(lambda: run_cli(argv + ["--resume"]))
+        if n or any(r["screened"] for r in again["cascade"]["rungs"]) or \
+                "resume: rung 2 (hw) has" not in head:
+            raise AssertionError(f"cascade --resume was not a no-op: launches {n}, "
+                                 f"{again['cascade']['rungs']}")
+        print(f"      --resume: nothing evaluated, no launch, best "
+              f"{again['best_objective_sec'] * 1e3:.4f} ms")
+
+    # -- (c) a background cascade at the decode output projection's signature
+    x, w = model_operands(4, 896, 896, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bgcascade_") as tmp:
+        store = TuningStore(tmp)
+        tuner = BackgroundTuner(store, max_workers=1, max_evals=8, n_initial=4, cascade=True)
+        svc = DispatchService(store, tuner=tuner)
+        try:
+            t0 = time.perf_counter()
+            (recs, n) = counted(lambda: (svc.call("matmul", x, w), tuner.drain(timeout=600))[1])
+            if tuner.errors or len(recs) != 1 or recs[0] is None or \
+                    tuner.stats["cascade_campaigns"] != 1 or n.get("tiled_matmul", 0) < 1:
+                raise AssertionError(f"background cascade: {recs}, {tuner.errors}, "
+                                     f"{tuner.stats}, launches {n}")
+        finally:
+            tuner.shutdown()
+        rec = recs[0]
+        again = DispatchService(store)
+        out, _ = counted(lambda: again.call("matmul", x, w))
+        if again.stats["store_exact"] != 1:
+            raise AssertionError(f"the published record did not resolve: {again.stats}")
+        torch.cuda.synchronize()
+        compare(f"matmul (4, 896) @ (896, 896) at the published {rec.config} vs plain", out,
+                tiled_matmul_plain(x, w, bk=int(rec.config["bk"]),
+                                   pack=bool(rec.config["pack"]), out_dtype=torch.float32),
+                F32_TOL)
+        tel = svc.telemetry()
+        print(f"  (c) BackgroundTuner(cascade=True): {rec.objective * 1e3:.4f} ms at "
+              f"{rec.config} published in {time.perf_counter() - t0:.1f} s; screened "
+              f"{tel['screened']}, promoted {tel['promoted']}, cascade campaigns "
+              f"{tel['cascade_campaigns']}; the next service resolves it (store_exact "
+              f"{again.stats['store_exact']})")
+    print(f"  phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
+
+
 def tuning_loop(launches: dict, dev, syr2k_args: tuple, phase6_ms: float) -> None:
     """Phase 7: the tuning loop on the card. (a) An offline campaign
     publishes to a store that the dispatch service resolves as an exact hit,
@@ -1141,7 +1319,8 @@ def tuning_loop(launches: dict, dev, syr2k_args: tuple, phase6_ms: float) -> Non
                 or not all(r is not None and r.exact for r in exact.values()) \
                 or min(n2[w] for w in ("flash_attention", "decode_attention",
                                        "tiled_matmul")) < 1:
-            raise AssertionError(f"run 2 on the store: stats {st2}, launches {n2}")
+            raise AssertionError(f"run 2 on the store: stats {st2}, launches {n2}, guard "
+                                 f"decisions {guard.decisions}")
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
         g = torch.Generator(device=dev).manual_seed(seed + 1)
         prompt = torch.randint(0, cfg.vocab_size, (Bn, P), generator=g, device=dev)
@@ -1178,11 +1357,12 @@ def tuning_loop(launches: dict, dev, syr2k_args: tuple, phase6_ms: float) -> Non
         windows = window_stats(None, registry.snapshot(), SHADOW_HISTOGRAM)
         for (kernel, key, _), w in sorted(windows.items()):
             base = published[(kernel, parse_signature_key(key))].objective
+            now = store.get(kernel, parse_signature_key(key), "gpu").objective
             print(f"  (c) {kernel} {key}: {w['count']} shadow samples, p50 "
                   f"{w['p50'] * 1e3:.4f} ms over the background campaign's objective "
                   f"{base * 1e3:.4f} ms = {w['p50'] / base:.2f}x (the store's now "
-                  f"{store.get(kernel, parse_signature_key(key), 'gpu').objective * 1e3:.4f} "
-                  f"ms)", flush=True)
+                  f"{now * 1e3:.4f} ms, {w['p50'] / now:.2f}x; the watch quarantines past "
+                  f"{guard.watch.drift_factor}x)", flush=True)
         print(f"  (c) guard over run 2: {json.dumps(shadow)}; checks "
               f"{guard.stats['checks']}, quarantines {guard.stats['quarantines']}", flush=True)
         if shadow["shadow_evals"] < 1 or shadow["challenger_evals"] < 1 \
@@ -1864,14 +2044,14 @@ def main() -> int:
             return ops.floyd_warshall_op(W, config=best), floyd_warshall_plain(W, bs=cfg["bs"]), EXACT
         return ops.heat3d_op(H, tsteps, config=best), heat_ref, HEAT_TOL
 
-    launches = {}
+    launches, phase5 = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         for kernel, evals in CAMPAIGNS:
             db = os.path.join(tmp, kernel)
             wrappers = paths[kernel]
             for w in wrappers:
                 w.launches = 0
-            summary = run_campaign(kernel, evals, db)
+            summary = phase5[kernel] = run_campaign(kernel, evals, db)
             counts = {w.__name__: w.launches for w in wrappers}
             for name, n in counts.items():
                 launches[name] = launches.get(name, 0) + n
@@ -1906,6 +2086,11 @@ def main() -> int:
     phase("7. tuning loop: autotune publishes to the store serving reads, misses tune in "
           "the background, the guard times on the card")
     tuning_loop(launches, dev, (C, A, B), phase6_ms)
+
+    # ---- 8. the multi-fidelity cascade ------------------------------------------------
+    phase("8. the multi-fidelity cascade: the Hopper cost model's rank audit, "
+          "autotune --cascade, a background cascade")
+    cascade_phase(launches, dev, (C, A, B), phase5["syr2k"])
 
     def entry(name, source, replaces):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",

@@ -11,8 +11,11 @@ grid-size sanity.
 
 The structural rules and :class:`GridBound` are copies of the JAX
 package's. Its TPU rules (``VmemBudget``, ``MxuAlign``, ``LcmPadding``)
-read the v5e model of ``repro.kernels.cost``, which is not ported; the one
-resource rule here is :class:`SmemBudget`.
+read the v5e model of ``repro.kernels.cost``; the port's cost model
+(:mod:`repro_torch.kernels.cost`) models Hopper, and its one resource rule
+here is :class:`SmemBudget`, whose numbers (:func:`smem_needs`) the cost
+model's infeasibility reads too. Hopper counterparts of ``MxuAlign`` and
+``LcmPadding`` are not written yet.
 
 Findings carry a stable machine-readable ``code`` (e.g.
 ``tile_not_positive:bi``, ``smem_overflow``) and a ``severity``:
@@ -48,6 +51,9 @@ __all__ = [
     "feasibility_filter",
     "kernel_rules",
     "register_rules",
+    "smem_findings",
+    "smem_limit",
+    "smem_needs",
 ]
 
 ERROR = "error"
@@ -270,33 +276,58 @@ class SmemBudget(Rule):
     where no card is present: the functions need the built library."""
 
     def check(self, cfg, ctx):
-        needs = _SMEM_NEEDS.get(ctx.kernel)
-        if ctx.target != "gpu" or ctx.dims is None or needs is None:
+        if ctx.target != "gpu" or ctx.dims is None:
             return
-        import torch
-
-        if not torch.cuda.is_available():
+        limit = smem_limit()
+        if limit is None:
             return
-        from repro_torch.kernels.util import max_shared_memory_per_block
-
-        limit = max_shared_memory_per_block(torch.device("cuda", torch.cuda.current_device()))
-        try:
-            parts = needs(cfg, tuple(int(d) for d in ctx.dims), limit)
-        except (KeyError, TypeError, ValueError):
-            # structurally invalid configs (a ConfigRejected for a
-            # non-positive tile included) are other rules' findings
-            return
-        for what, smem in parts:
-            if smem < 0:
-                yield Finding("smem_unsupported", ERROR,
-                              f"{what}: a tile the kernel has no register tile for")
-            elif smem > limit:
-                yield Finding("smem_overflow", ERROR,
-                              f"{what} needs {smem:,} B of shared memory, the device "
-                              f"allows {limit:,} B per block")
+        yield from smem_findings(smem_needs(ctx.kernel, cfg, ctx.dims, limit), limit)
 
     def describe(self):
         return "shared memory per block within the device's limit (gpu)"
+
+
+def smem_limit() -> int | None:
+    """The current card's shared memory per block, or None without a card
+    (the kernels' ``*_smem_bytes`` need the built library)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    from repro_torch.kernels.util import max_shared_memory_per_block
+
+    return max_shared_memory_per_block(torch.device("cuda", torch.cuda.current_device()))
+
+
+def smem_needs(kernel: str, cfg: Mapping, dims, limit: int) -> list[tuple[str, int]] | None:
+    """``[(what, bytes), ...]``: the shared memory one block of each launch
+    of ``kernel``'s schedule needs for ``cfg`` at ``dims`` under a per-block
+    ``limit``, from the kernels' own ``*_smem_bytes`` (-1 where the kernel
+    has no register tile for the tile). None for a kernel without a table
+    or a structurally invalid config (other rules' findings). Needs the
+    built library: ask :func:`smem_limit` first."""
+    needs = _SMEM_NEEDS.get(kernel)
+    if needs is None:
+        return None
+    try:
+        return needs(cfg, tuple(int(d) for d in dims), limit)
+    except (KeyError, TypeError, ValueError):
+        # structurally invalid configs (a ConfigRejected for a non-positive
+        # tile included) are other rules' findings
+        return None
+
+
+def smem_findings(parts, limit: int) -> Iterator[Finding]:
+    """:class:`SmemBudget`'s verdict on :func:`smem_needs`'s parts:
+    ``smem_unsupported`` for a -1, ``smem_overflow`` past ``limit``."""
+    for what, smem in parts or ():
+        if smem < 0:
+            yield Finding("smem_unsupported", ERROR,
+                          f"{what}: a tile the kernel has no register tile for")
+        elif smem > limit:
+            yield Finding("smem_overflow", ERROR,
+                          f"{what} needs {smem:,} B of shared memory, the device "
+                          f"allows {limit:,} B per block")
 
 
 def _tiles(cfg, name: str, *keys: str) -> dict:

@@ -27,8 +27,13 @@ runs still share the device with serving (and with each other when
 ``max_workers > 1``), so an objective measured while serving is an upper
 bound on the quiet card's.
 
-Not ported: the multi-fidelity cascade (``cascade=True``), which waits for
-``repro_torch.fidelity`` (ROADMAP.md Queue 1, item 3).
+With ``cascade=True`` a campaign for a fidelity-ready kernel is a
+:class:`repro_torch.fidelity.CascadeCampaign`: rung 0 screens a wide pool
+on the Hopper cost model at the signature's dims
+(:func:`~repro_torch.kernels.problems.dims_from_signature`), and only the
+promoted top-k are timed on the card (rung 1, the campaign's own
+evaluator). A ``cost`` backend, a kernel the cost model does not cover, or a
+signature whose dims cannot be derived keeps the flat campaign.
 """
 
 from __future__ import annotations
@@ -68,10 +73,20 @@ class BackgroundTuner:
         cascade: bool = False,
         cascade_budgets: tuple[int, int] | None = None,
     ):
-        if cascade or cascade_budgets is not None:
-            raise NotImplementedError("cascade campaigns wait for repro_torch.fidelity "
-                                      "(ROADMAP.md Queue 1, item 3)")
         self.store = store
+        # multi-fidelity cascade (repro_torch.fidelity): when enabled,
+        # campaigns for fidelity-ready kernels screen a wide pool on the
+        # Hopper cost model (rung 0) and promote only the top-k to the real
+        # evaluator (rung 1), so the card pays a fraction of the timed
+        # evaluations. Applies only when the backend is not already "cost"
+        # (screening the cost model with itself is a no-op) and the problem
+        # dims are derivable from the runtime signature; otherwise campaigns
+        # silently fall back to the flat single-fidelity path.
+        # cascade_budgets = (screen_budget, hw_budget); the default screens
+        # 4x the flat budget analytically but spends only half of it on
+        # the card.
+        self.cascade = cascade
+        self.cascade_budgets = cascade_budgets
         # repro_torch.guard.HardenPolicy (or None): when set, every campaign's
         # evaluator runs behind a HardenedExecutor — per-eval deadlines,
         # crash isolation, pathological-slowdown reclassification — so a
@@ -100,8 +115,9 @@ class BackgroundTuner:
         # wait_sec is time blocked on evaluations. A serving dashboard that
         # sees ask_sec rival the eval budget knows the surrogate — not the
         # kernels — is eating the cores.
-        # screened/promoted keep the JAX package's cascade counters, 0 here
-        # (no cascade) — DispatchService.telemetry() surfaces them
+        # screened/promoted mirror the repro_torch.fidelity counters: configs
+        # discarded on the cheap rung vs graduated to the card (both 0 when
+        # cascade is off) — DispatchService.telemetry() surfaces them
         self.stats = {"campaigns": 0, "ask_sec": 0.0, "tell_sec": 0.0,
                       "wait_sec": 0.0, "cascade_campaigns": 0,
                       "screened": 0, "promoted": 0}
@@ -149,6 +165,36 @@ class BackgroundTuner:
         return warm_start_material(
             self.store, kernel, signature, backend, neighbors=self.warm_neighbors)
 
+    def _cascade_ladder(self, kernel, signature, backend, evaluator,
+                        executor, max_evals):
+        """Cost → card ladder for this campaign, or None for the flat
+        path: cascade off, backend already analytic, kernel not
+        fidelity-ready, or dims underivable from the runtime signature."""
+        if not self.cascade or backend == "cost":
+            return None
+        from repro_torch.kernels.problems import (
+            dims_from_signature,
+            fidelity_ready,
+            make_cost_evaluator,
+        )
+
+        if not fidelity_ready(kernel):
+            return None
+        try:
+            dims = dims_from_signature(kernel, tuple(signature))
+        except Exception:
+            return None
+        from repro_torch.fidelity import FidelityLadder, Rung
+
+        screen, hw = self.cascade_budgets or (max_evals * 4,
+                                              max(2, max_evals // 2))
+        promote = max(1, min(screen, hw, max(2, hw // 2)))
+        return FidelityLadder([
+            Rung(0, "cost", make_cost_evaluator(kernel, dims),
+                 budget=int(screen), promote=promote),
+            Rung(1, "hw", evaluator, budget=int(hw), executor=executor),
+        ])
+
     def _campaign(self, key, kernel, signature, backend, space, evaluator,
                   max_evals, on_done) -> TuningRecord | None:
         sig_key = signature_key(signature)
@@ -174,12 +220,25 @@ class BackgroundTuner:
                     executor = HardenedExecutor(
                         evaluator, policy, parallel=self.parallel,
                         metrics=registry, labels={"kernel": kernel})
-                result = Campaign(
-                    space, evaluator, executor=executor,
-                    max_evals=max_evals, learner=self.learner,
-                    seed=self.seed, n_initial=self.n_initial, parallel=self.parallel,
-                    warm_start=warm_cfgs, warm_start_records=warm_recs).run()
-                timings = result.timings
+                ladder = self._cascade_ladder(
+                    kernel, signature, backend, evaluator, executor, max_evals)
+                if ladder is not None:
+                    from repro_torch.fidelity import CascadeCampaign
+
+                    cres = CascadeCampaign(
+                        space, ladder, learner=self.learner, seed=self.seed,
+                        n_initial=self.n_initial, parallel=self.parallel,
+                        warm_start=warm_cfgs, warm_start_records=warm_recs,
+                        kernel=kernel).run()
+                    result = cres.rungs[-1]  # publish from the card's rung
+                    timings, cascade_stats = cres.timings, cres.stats
+                else:
+                    result = Campaign(
+                        space, evaluator, executor=executor,
+                        max_evals=max_evals, learner=self.learner,
+                        seed=self.seed, n_initial=self.n_initial, parallel=self.parallel,
+                        warm_start=warm_cfgs, warm_start_records=warm_recs).run()
+                    timings, cascade_stats = result.timings, None
             registry.add("tuner_campaigns_total", kernel=kernel)
             registry.observe("tuner_campaign_seconds",
                              time.perf_counter() - t0, kernel=kernel)
@@ -188,6 +247,10 @@ class BackgroundTuner:
                     self.stats["campaigns"] += 1
                     for k in ("ask_sec", "tell_sec", "wait_sec"):
                         self.stats[k] += timings[k]
+                    if cascade_stats is not None:
+                        self.stats["cascade_campaigns"] += 1
+                        self.stats["screened"] += cascade_stats["screened"]
+                        self.stats["promoted"] += cascade_stats["promoted"]
             if result.best is None:
                 return None
             rec = self._publishable(result, kernel, signature, backend)

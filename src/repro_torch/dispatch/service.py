@@ -301,8 +301,9 @@ class DispatchService:
         enqueue time as the caller observes it; the wrapper does not
         synchronise, which would serialise the pipeline it measures. The
         exception is a shadow-sampled call (epsilon fraction, attached guard
-        only): it is timed on the device (:class:`~repro_torch.guard.shadow.ShadowClock`), recorded
-        in ``dispatch_shadow_seconds`` and told into the tuning store."""
+        only): it is timed on the device from its first kernel launch
+        (:class:`~repro_torch.guard.shadow.ShadowClock`), recorded in
+        ``dispatch_shadow_seconds`` and told into the tuning store."""
         metrics, backend = self.metrics, self.backend
 
         def timed(*a, **kw):
@@ -409,8 +410,10 @@ class DispatchService:
 
     def telemetry(self) -> dict:
         """The dispatch counters, the background tuner's optimizer-overhead
-        aggregates (ask/tell/wait seconds), a sync agent's replication lag
-        when one is attached, the attached paged KV cache's page/token
+        aggregates (ask/tell/wait seconds) and its cascade counters
+        (``cascade_campaigns``, ``screened``, ``promoted``: configs discarded
+        on the cost model vs graduated to the card), a sync agent's
+        replication lag when one is attached, the attached paged KV cache's page/token
         accounting (under ``kv_cache``), the guard's summary (under
         ``guard``) and, under ``execute_latency``, per-signature p50/p99
         execute latency from the obs registry."""

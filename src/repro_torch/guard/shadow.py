@@ -2,17 +2,31 @@
 counterpart of ``repro.guard.shadow``.
 
 For an epsilon fraction of dispatch executions the instrumented wrapper
-times the call (:class:`ShadowClock`: on the card a pair of
-``torch.cuda.Event`` records on the serving stream around it, waiting on
-events of that stream only, never a device-wide synchronise; on the CPU
-``perf_counter``) and hands that time to :meth:`ShadowEvaluator.on_shadow`,
-which ``tell``s it into the :class:`TuningStore` (the store's
-strict-improvement ``put`` is the accept test). A sub-fraction of those
-shadow samples additionally builds and times a *challenger* config — a
-store neighbor or a seeded space sample — on the live arguments, the same
-way (one warm-up call, then one timed call), promoting it (put + hot-swap
-invalidate) when it beats the incumbent. The port runs eagerly, so there is
-no traced call to skip, as the JAX package must.
+times the call (:class:`ShadowClock`: on the card from its first kernel
+launch to its end by ``torch.cuda.Event`` records on the serving stream,
+waiting on events of that stream only, never a device-wide synchronise; on
+the CPU ``perf_counter``) and hands that time to
+:meth:`ShadowEvaluator.on_shadow`, which ``tell``s the median of the served
+config's last ``tell_window`` samples into the :class:`TuningStore` (the
+store's strict-improvement ``put`` is the accept test). The JAX package
+tells each sample; here one sample is not enough, since the store keeps the
+least objective it is told and the drift watch holds the live p50 to it: a
+rare sample far below the rest, told alone, became a record's objective and
+had the watch quarantine a healthy record.
+
+A sub-fraction of those shadow samples additionally builds a *challenger*
+config — a store neighbor or a seeded space sample — and races it on the
+live arguments against the served config, both warmed and then timed in
+``RACE_ROUNDS`` alternating rounds; the challenger's objective is the
+median of the recent live samples scaled by the ratio of the two sides'
+median times, and it is promoted (put + hot-swap invalidate) when that
+beats the incumbent. A call repeated at once is not timed in the serving
+loop's conditions, so the challenger's own time is not on the scale of the
+live samples the watch compares with its objective; the ratio is. One
+timed call a side is not enough: a single stall during the served
+config's call made a ratio far below 1, promoted the challenger at a
+fraction of the live latency and had the watch quarantine it. The port runs
+eagerly, so there is no traced call to skip, as the JAX package must.
 
 Sampling is deterministic (per-signature call counters, not RNG): every
 ``round(1/epsilon)``-th execution is shadowed, every
@@ -22,6 +36,7 @@ never breaks serving: every failure path is swallowed into a counter.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 import time
@@ -31,6 +46,8 @@ import numpy as np
 import torch
 
 __all__ = ["ShadowPolicy", "ShadowEvaluator", "ShadowClock"]
+
+RACE_ROUNDS = 3  # timed calls of each side of a challenger race
 
 
 def _tensors(args: tuple):
@@ -47,37 +64,50 @@ def _tensors(args: tuple):
 
 class ShadowClock:
     """Times one call on ``args``, started at construction: on the card a
-    pair of ``torch.cuda.Event`` records on the current stream around it
-    (device seconds); on the CPU a ``perf_counter`` interval.
+    pair of ``torch.cuda.Event`` records on the current stream (device
+    seconds); on the CPU a ``perf_counter`` interval.
 
     On the card the clock first waits for the work already queued on the
-    current stream, so that the call starts on an idle stream, as each of
-    :class:`~repro_torch.core.plopper.TimingEvaluator`'s timed runs does
-    (it synchronises before each): both then measure the call from its
-    first enqueue to its last kernel's end. Started behind queued work, the
-    start event would fire only when that work ends, after the host had
-    enqueued the call, and the sample would hold the kernels' time alone,
-    below the objective it is compared with. The waits are on events of
-    this stream, never a device-wide synchronise: a background campaign's
-    stream is not waited for."""
+    current stream, so that the call starts on an idle stream, and then
+    times it from its first kernel launch to its last kernel's end: the
+    wrappers record the armed event just before their launcher
+    (:func:`repro_torch.kernels.build.mark_launch`). The host's Python path
+    before that launch is not in the sample. It is most of a small call's
+    time from an idle stream and swings with the load on the host, so a
+    sample that held it rose and fell with the host: on a slow host the
+    drift watch read a healthy record's live p50 at three times its
+    objective and quarantined it. A call that launches none of the port's
+    kernels (a variant of torch operations) is timed from the clock's start.
+    Started behind queued work, the first event would fire only when that
+    work ends, and samples would mix the two kinds of timing. The waits
+    are on events of this stream, never a device-wide synchronise: a
+    background campaign's stream is not waited for."""
 
     def __init__(self, args: tuple):
         self.start = self.end = None
         if any(t.is_cuda for t in _tensors(args)):
+            from repro_torch.kernels import build
+
             queued = torch.cuda.Event()
             queued.record()
             queued.synchronize()
+            stream = torch.cuda.current_stream()
             self.start = torch.cuda.Event(enable_timing=True)
+            self.launch = torch.cuda.Event(enable_timing=True)
             self.end = torch.cuda.Event(enable_timing=True)
-            self.start.record()
+            self.start.record(stream)
+            build.arm_launch_mark(self.launch, stream)
         self.t0 = time.perf_counter()
 
     def stop(self) -> float:
         if self.start is None:
             return time.perf_counter() - self.t0
+        from repro_torch.kernels import build
+
+        first = self.launch if build.disarm_launch_mark() else self.start
         self.end.record()
         self.end.synchronize()
-        return self.start.elapsed_time(self.end) / 1e3
+        return first.elapsed_time(self.end) / 1e3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +116,7 @@ class ShadowPolicy:
     challenger_fraction: float = 0.1  # fraction of shadow samples that race a challenger
     challenger_neighbors: int = 3     # store neighbors considered as challengers
     seed: int = 0                     # space-sample challenger stream
+    tell_window: int = 5              # live samples whose median is told
 
     def shadow_period(self) -> int:
         return max(1, round(1.0 / self.epsilon)) if self.epsilon > 0 else 0
@@ -104,6 +135,7 @@ class ShadowEvaluator:
         self._lock = threading.Lock()
         self._calls: Dict[Tuple[str, str], int] = {}   # per-signature executions
         self._samples: Dict[Tuple[str, str], int] = {}  # per-signature shadows
+        self._recent: Dict[tuple, collections.deque] = {}  # per served config: last samples
         self._rng = np.random.default_rng(policy.seed)
         self.stats: Dict[str, int] = {
             "shadow_evals": 0, "shadow_tells": 0, "shadow_skipped": 0,
@@ -141,16 +173,32 @@ class ShadowEvaluator:
             svc.metrics.add("guard_shadow_evals_total", kernel=kernel)
             from repro_torch.dispatch.store import TuningRecord
 
-            if svc.store is not None and self._tell(TuningRecord(
+            told, live = self._live(kernel, sig, config, measured_sec)
+            if told is not None and svc.store is not None and self._tell(TuningRecord(
                     kernel=kernel, signature=tuple(sig), backend=svc.backend,
-                    config=dict(config), objective=float(measured_sec),
-                    n_evals=1, source="shadow")):
+                    config=dict(config), objective=told,
+                    n_evals=self.policy.tell_window, source="shadow")):
                 self._count("shadow_tells")
             if mode == "challenger":
-                self._challenge(kernel, sig, config, static_kw, args)
+                self._challenge(kernel, sig, config, static_kw, args, live)
         except Exception:  # noqa: BLE001 — shadowing must never break serving
             self._count("shadow_errors")
             svc.metrics.add("guard_shadow_errors_total", kernel=kernel)
+
+    def _live(self, kernel: str, sig, config: dict,
+              measured_sec: float) -> Tuple[Optional[float], float]:
+        """Adds a sample of the served config; returns the median of its last
+        ``tell_window`` samples (None until that many were taken) and the
+        median of those taken so far."""
+        from repro_torch.core.space import config_key
+
+        window = max(1, self.policy.tell_window)
+        key = (kernel, tuple(sig), config_key(config))
+        with self._lock:
+            recent = self._recent.setdefault(key, collections.deque(maxlen=window))
+            recent.append(float(measured_sec))
+            live = float(np.median(recent))
+            return (live if len(recent) == window else None), live
 
     def _tell(self, rec) -> bool:
         # the store accepts strict improvements only: a measurement no better
@@ -185,7 +233,7 @@ class ShadowEvaluator:
         return None
 
     def _challenge(self, kernel: str, sig, config: dict, static_kw: dict,
-                   args: tuple) -> None:
+                   args: tuple, live_sec: float) -> None:
         from repro_torch.analyze.feasibility import check_config
         from repro_torch.dispatch.registry import get as get_variant
         from repro_torch.dispatch.store import TuningRecord
@@ -200,7 +248,8 @@ class ShadowEvaluator:
         if not verdict.ok:
             self._count("challenger_infeasible")
             return
-        built = get_variant(kernel).builder(cand, **static_kw)
+        spec = get_variant(kernel)
+        built = spec.builder(cand, **static_kw)
         try:
             check = getattr(built, "check", None)
             if check is not None:
@@ -208,10 +257,18 @@ class ShadowEvaluator:
         except ConfigRejected:
             self._count("challenger_infeasible")
             return
-        built(*args)  # warm: the kernel's library is loaded, its smem limit set
-        clock = ShadowClock(args)  # waits for the warm call, then times one
-        built(*args)
-        dt = clock.stop()
+        served = spec.builder(config, **static_kw)
+        race = (built, served)
+        for variant in race:
+            variant(*args)  # warm: the kernel's library is loaded, its smem limit set
+        times = ([], [])
+        for _ in range(RACE_ROUNDS):  # alternating: an outlier is one sample, not a side
+            for variant, side in zip(race, times):
+                clock = ShadowClock(args)  # waits for the queued calls, then times one
+                variant(*args)
+                side.append(clock.stop())
+        # on the live samples' scale
+        dt = live_sec * float(np.median(times[0]) / max(np.median(times[1]), 1e-12))
         self._count("challenger_evals")
         svc.metrics.add("guard_challenger_evals_total", kernel=kernel)
         if svc.store is not None and self._tell(TuningRecord(

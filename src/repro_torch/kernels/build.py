@@ -25,8 +25,9 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["KERNELS", "NVCC_FLAGS", "SECONDS", "build_all", "check", "load", "nvcc_path",
-           "ptxas_entries", "ptxas_report"]
+__all__ = ["KERNELS", "NVCC_FLAGS", "SECONDS", "arm_launch_mark", "build_all", "check",
+           "disarm_launch_mark", "load", "mark_launch", "nvcc_path", "ptxas_entries",
+           "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
@@ -239,6 +240,33 @@ def ptxas_entries(report: str) -> list[dict]:
         elif out and (m := _REGS.search(line)):
             out[-1]["registers"] = int(m.group(1))
     return out
+
+
+_marks = threading.local()
+
+
+def arm_launch_mark(event, stream) -> None:
+    """Have the next kernel launch on this thread record ``event`` on
+    ``stream`` just before it: a shadow sample
+    (:class:`repro_torch.guard.shadow.ShadowClock`) is timed from its call's
+    first launch, so the host's Python path before it is not in the sample."""
+    _marks.pending = (event, stream)
+
+
+def mark_launch() -> None:
+    """Called by every wrapper just before its launcher: records an armed
+    launch mark, once (one thread-local read when none is armed)."""
+    pending = getattr(_marks, "pending", None)
+    if pending is not None:
+        _marks.pending = None
+        pending[0].record(pending[1])
+
+
+def disarm_launch_mark() -> bool:
+    """Disarms this thread's mark; True when a launch recorded it."""
+    fired = getattr(_marks, "pending", None) is None
+    _marks.pending = None
+    return fired
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -100,6 +100,7 @@ def covariance(
     lib = build.load("covariance")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        build.mark_launch()
         err = lib.covariance_launch(
             src.data_ptr(), mean.data_ptr(), out.data_ptr(), N, M, bi, bj, bk,
             int(fuse_center), int(interchange), limit, stream)

@@ -293,6 +293,7 @@ def decode_attention(
             nsplit, ws_bytes = decode_attention_plan(BH, Gg, S, hd, bk, hg, dev)
             ws, counters = _workspace(dev, stream, ws_bytes,
                                       -(-BH // hg) * decode_attention_column_groups(hd))
+            build.mark_launch()
             err = lib.decode_attention_launch(
                 q.data_ptr() + g0 * hd * esize, kt.data_ptr(), vt.data_ptr(), cp.data_ptr(),
                 out.data_ptr() + g0 * hd * esize, ws.data_ptr(), counters.data_ptr(), BH, Gg,

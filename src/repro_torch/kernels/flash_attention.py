@@ -158,6 +158,7 @@ def flash_attention(
     lib = build.load("flash_attention")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        build.mark_launch()
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Sq, Sk, hdk,
             bq, bk, float(scale), int(causal), int(q.dtype == torch.bfloat16),

@@ -143,6 +143,7 @@ def _launch(D, A, B, out, bi: int, bj: int, unroll: int, limit: int, stream: int
     """One launch of the min-plus kernel on checked views; counts it."""
     n, m = D.shape
     lib = build.load("floyd_warshall")
+    build.mark_launch()
     err = lib.minplus_launch(D.data_ptr(), D.stride(0), A.data_ptr(), A.stride(0),
                              B.data_ptr(), B.stride(0), out.data_ptr(), out.stride(0),
                              n, m, A.shape[1], bi, bj, unroll, limit, stream)
@@ -225,6 +226,7 @@ def closure_in_block(D: torch.Tensor, off: int, bs: int) -> None:
     lib = build.load("floyd_warshall")
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream(D.device).cuda_stream
+        build.mark_launch()
         err = lib.closure_launch(D.data_ptr(), Np, off, bs, stream)
     build.check(lib, err, "closure_in_block")
     closure_in_block.launches += 1

@@ -35,9 +35,14 @@ from repro_torch.kernels.util import (
 )
 
 __all__ = ["heat3d", "heat3d_check", "heat3d_step", "heat3d_plain", "heat3d_step_plain",
-           "heat3d_smem_bytes", "heat3d_plan"]
+           "heat3d_smem_bytes", "heat3d_plan", "heat3d_passes"]
 
 FUSE_T = (1, 2)
+
+
+def heat3d_passes(tsteps: int, fuse_t: int) -> int:
+    """Passes (launches) of :func:`heat3d`: 2*tsteps applications, fuse_t a pass."""
+    return 2 * tsteps // fuse_t
 
 
 def heat3d_plan(shape: tuple[int, int, int], bi: int, fuse_t: int) -> dict:
@@ -116,6 +121,7 @@ def _passes(A: torch.Tensor, bi: int, fuse_t: int, passes: int) -> torch.Tensor:
     lib = build.load("heat3d")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        build.mark_launch()
         err = lib.heat3d_launch(A.data_ptr(), out.data_ptr(), tmp.data_ptr(),
                                 n0, n1, n2, bi, fuse_t, passes, stream)
     build.check(lib, err, "heat3d")
@@ -136,7 +142,7 @@ def heat3d(A: torch.Tensor, tsteps: int, *, bi: int = 8, fuse_t: int = 1) -> tor
     bi = heat3d_check(A, tsteps, bi=bi, fuse_t=fuse_t)
     if A.device.type == "cpu":
         return heat3d_plain(A, tsteps)
-    return _passes(A, bi, fuse_t, 2 * tsteps // fuse_t)
+    return _passes(A, bi, fuse_t, heat3d_passes(tsteps, fuse_t))
 
 
 heat3d.launches = 0  # kernel launches (passes) since the last reset (chip_smoke reads it)

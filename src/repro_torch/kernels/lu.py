@@ -85,6 +85,7 @@ def lu_factor_diag(A: torch.Tensor, off: int, bs: int) -> None:
     lib = build.load("lu")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        build.mark_launch()
         err = lib.lu_factor_diag_launch(A.data_ptr(), Np, off, bs, stream)
     build.check(lib, err, "lu_factor_diag")
     lu_factor_diag.launches += 1

@@ -17,6 +17,16 @@ from repro_torch.kernels.matmul import tiled_matmul
 __all__ = ["mm3"]
 
 
+def _chain(A, B, C, D, matmul, *, fuse_second: bool = False):
+    """The three products; ``matmul(a, b, which, out_dtype)`` is the kernel's
+    wrapper at product ``which`` (0, 1, 2)'s knobs, or a stand-in that
+    records the launches (``repro_torch.kernels.cost`` counts them so)."""
+    mid = torch.float32 if fuse_second else None
+    E = matmul(A, B, 0, mid)
+    F = matmul(C, D, 1, mid)
+    return matmul(E, F, 2, A.dtype)
+
+
 def mm3(
     A: torch.Tensor,
     B: torch.Tensor,
@@ -34,10 +44,10 @@ def mm3(
     inter3: bool = False,
     fuse_second: bool = False,
 ) -> torch.Tensor:
-    mid = torch.float32 if fuse_second else None
-    E = tiled_matmul(A, B, bm=bm, bn=bn, bk=bk, pack=pack1, interchange=inter1,
-                     out_dtype=mid)
-    F = tiled_matmul(C, D, bm=bm, bn=bn, bk=bk, pack=pack2, interchange=inter2,
-                     out_dtype=mid)
-    return tiled_matmul(E, F, bm=bm, bn=bn, bk=bk, pack=pack3, interchange=inter3,
-                        out_dtype=A.dtype)
+    packs, inters = (pack1, pack2, pack3), (inter1, inter2, inter3)
+
+    def matmul(a, b, which, out_dtype):
+        return tiled_matmul(a, b, bm=bm, bn=bn, bk=bk, pack=packs[which],
+                            interchange=inters[which], out_dtype=out_dtype)
+
+    return _chain(A, B, C, D, matmul, fuse_second=fuse_second)

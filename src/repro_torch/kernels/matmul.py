@@ -128,6 +128,7 @@ def tiled_matmul(
     lib = build.load("matmul")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        build.mark_launch()
         err = lib.matmul_launch(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N, bm, bn, bk,
             int(pack), int(interchange), int(a.dtype == torch.bfloat16),

@@ -1,9 +1,12 @@
-"""Problem sizes and the variant factory the autotuner times.
+"""Problem sizes, the variant factory the autotuner times, and the cost
+backend's evaluators.
 
   * ``BENCH_DIMS`` — small sizes for the CPU backend (plain versions, tests);
     the same as ``repro.kernels.problems.BENCH_DIMS``.
   * ``LARGE_SHAPES`` — the paper's LARGE dataset sizes, which the GPU
     backend times on the card.
+  * ``PROXY_DIMS`` — the fidelity ladder's reduced proxy sizes (rung 1),
+    the same as ``repro.kernels.problems.PROXY_DIMS``.
 
 :func:`gpu_problem` creates a problem's inputs on the device once per
 campaign and returns the ``factory(config) -> (fn, args)`` that
@@ -16,17 +19,30 @@ canonical problem, the one ``repro_torch.dispatch`` derives from the
 runtime arguments, so that a record an offline campaign publishes resolves
 as an exact hit at ``dispatch()`` time; :func:`dims_from_signature` inverts
 it.
+
+:func:`make_cost_evaluator` scores configs with the Hopper cost model
+(:func:`repro_torch.kernels.cost.kernel_cost`) at fixed dims, and
+:func:`register_cost_backend` re-registers every costed kernel with a
+``VariantSpec.make_evaluator`` that derives the dims from a campaign's
+argument shapes, so a :class:`~repro_torch.dispatch.BackgroundTuner`
+attached to a ``DispatchService(backend="cost")`` tunes analytically.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Mapping
+
+import numpy as np
 import torch
+
+from repro_torch.core.plopper import EvalResult
 
 from repro_torch.kernels import model_kernels, ops, ref
 from repro_torch.kernels.util import resolve_device
 
-__all__ = ["BENCH_DIMS", "LARGE_SHAPES", "dims_from_signature", "gpu_problem",
-           "problem_inputs", "problem_signature_for"]
+__all__ = ["BENCH_DIMS", "LARGE_SHAPES", "PROXY_DIMS", "dims_from_signature",
+           "fidelity_ready", "fidelity_readiness", "gpu_problem", "make_cost_evaluator",
+           "problem_inputs", "problem_signature_for", "register_cost_backend"]
 
 BENCH_DIMS = {
     "syr2k": (240, 200),
@@ -52,6 +68,21 @@ LARGE_SHAPES = {
     "flash_attention": (16, 4096, 4096, 128),
     "decode_attention": (16, 8, 4096, 128),
     "matmul": (2000, 2300, 2600),
+}
+
+# reduced-shape proxy sizes (repro_torch.fidelity rung 1): about half the
+# linear problem dims (an eighth of the work for the cubic kernels); heat3d
+# also cuts tsteps (a pure multiplier on config ranking)
+PROXY_DIMS = {
+    "syr2k": (120, 100),
+    "mm3": (100, 90, 80, 75, 85),
+    "lu": (128,),
+    "heat3d": (24, 4),
+    "covariance": (150, 120),
+    "floyd_warshall": (120,),
+    "flash_attention": (2, 64, 64, 64),
+    "decode_attention": (4, 2, 64, 64),
+    "matmul": (128, 96, 112),
 }
 
 _OPS = {"syr2k": ops.syr2k_op, "mm3": ops.mm3_op, "lu": ops.lu_op,
@@ -104,12 +135,12 @@ def gpu_problem(name: str, dims: tuple | None = None, device=None, seed: int = 0
 
 def problem_signature_for(kernel: str, backend: str) -> tuple:
     """Per-argument store signature of ``kernel``'s canonical problem on
-    ``backend``: ``gpu`` campaigns run at :data:`LARGE_SHAPES` (as the JAX
-    package's ``cost`` backend), ``cpu`` campaigns at :data:`BENCH_DIMS` (as
-    its ``host`` backend)."""
-    if backend not in ("gpu", "cpu"):
-        raise ValueError(f"backend must be 'gpu' or 'cpu', got {backend!r}")
-    dims = LARGE_SHAPES[kernel] if backend == "gpu" else BENCH_DIMS[kernel]
+    ``backend``: ``gpu`` and ``cost`` campaigns run at :data:`LARGE_SHAPES`
+    (as the JAX package's ``cost`` backend), ``cpu`` campaigns at
+    :data:`BENCH_DIMS` (as its ``host`` backend)."""
+    if backend not in ("gpu", "cpu", "cost"):
+        raise ValueError(f"backend must be 'gpu', 'cpu' or 'cost', got {backend!r}")
+    dims = BENCH_DIMS[kernel] if backend == "cpu" else LARGE_SHAPES[kernel]
     return ref.problem_signature(kernel, *dims)
 
 
@@ -141,3 +172,73 @@ def dims_from_signature(kernel: str, signature) -> tuple:
         (M, K), (_, N) = signature[0], signature[1]
         return (M, K, N)
     raise KeyError(f"unknown kernel {kernel!r}")
+
+
+def fidelity_ready(kernel: str) -> bool:
+    """True when ``kernel`` can take part in the fidelity ladder's rung 0:
+    the cost model has an entry to screen it with."""
+    from repro_torch.kernels.cost import KERNEL_COST_FNS
+
+    return kernel in KERNEL_COST_FNS
+
+
+def fidelity_readiness() -> dict[str, bool]:
+    """``kernel -> fidelity_ready`` over every dispatch-registered kernel."""
+    from repro_torch.dispatch.registry import registered
+
+    return {name: fidelity_ready(name) for name in registered()}
+
+
+def make_cost_evaluator(kernel: str, dims: tuple | None = None) -> Callable:
+    """``config -> EvalResult`` scored by the Hopper cost model at ``dims``
+    (default: :data:`LARGE_SHAPES`). A config that does not fit the card
+    comes back failed at 1e9 with the model's info (the JAX package's
+    penalty semantics)."""
+    from repro_torch.kernels.cost import kernel_cost
+
+    shape = tuple(dims) if dims is not None else LARGE_SHAPES[kernel]
+
+    def evaluate(cfg: Mapping) -> EvalResult:
+        t, info = kernel_cost(kernel, cfg, *shape)
+        if not np.isfinite(t):
+            return EvalResult(1e9, False, info)
+        return EvalResult(t, True, info)
+
+    return evaluate
+
+
+def _cost_make_evaluator(kernel: str) -> Callable:
+    """A ``VariantSpec.make_evaluator``: given a background campaign's
+    ``factory(config) -> (fn, args)``, an evaluator that never runs ``fn``:
+    it derives the problem dims from the args' shapes and scores the config
+    with the cost model."""
+
+    def make(factory: Callable) -> Callable:
+        inner: list[Callable] = []  # built once, after dims are derived
+
+        def evaluate(cfg: Mapping) -> EvalResult:
+            if not inner:
+                from repro_torch.dispatch.signature import shape_signature
+
+                _, args = factory(cfg)
+                sig = shape_signature(args)
+                inner.append(make_cost_evaluator(kernel, dims_from_signature(kernel, sig)))
+            return inner[0](cfg)
+
+        return evaluate
+
+    return make
+
+
+def register_cost_backend() -> None:
+    """Re-register every costed kernel in the dispatch registry with the cost
+    model as its background-campaign evaluator (each keeps its builder and
+    space): campaigns of a ``DispatchService(backend="cost")`` then score
+    schedules analytically instead of timing them."""
+    from repro_torch.dispatch.registry import get, register
+    from repro_torch.kernels.cost import KERNEL_COST_FNS
+
+    for name in KERNEL_COST_FNS:
+        spec = get(name)  # loads the built-ins
+        register(name, spec.builder, spec.space, eval_repeats=spec.eval_repeats,
+                 eval_warmup=spec.eval_warmup, make_evaluator=_cost_make_evaluator(name))

@@ -101,6 +101,7 @@ def syr2k(
     lib = build.load("syr2k")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        build.mark_launch()
         err = lib.syr2k_launch(
             C.data_ptr(), A.data_ptr(), B.data_ptr(), out.data_ptr(),
             N, M, float(alpha), float(beta), bi, bj, bk,

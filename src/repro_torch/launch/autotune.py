@@ -13,6 +13,8 @@ hand-written CUDA kernels of the benchmark's path at the paper's LARGE
 sizes with CUDA events, over the ``gpu`` space; every evaluation launches
 them. --backend cpu times the plain PyTorch versions at small bench sizes
 over the paper's ``host`` space (for tests and machines without a card).
+--backend cost scores the ``gpu`` space at LARGE with the Hopper cost model
+of the CUDA kernels (``repro_torch.kernels.cost``), launching nothing.
 
 --parallel N keeps N candidate evaluations in flight (constant-liar
 batching; on the card the timed runs themselves are serialised so they never
@@ -33,12 +35,24 @@ card; ``backend="cpu", target="host"`` for the plain versions).
 acquisition pool (repro_torch.analyze's feasibility rules, at the campaign's
 dims; on gpu also the kernels' shared memory against the card's) and
 prints how many.
+
+--cascade runs a repro_torch.fidelity multi-fidelity cascade instead of a
+flat campaign: a wide pool is screened on the Hopper cost model, the top-k
+re-timed at reduced proxy dims (``kernels.problems.PROXY_DIMS``), and only
+the survivors timed at full size (LARGE on the card, the bench size with
+--backend cpu); --rung-budgets / --promote shape the ladder. With --db,
+each rung checkpoints under <db>/rung<level>/ and --resume continues with
+exactly the remaining per-rung budgets. The printed JSON gains a
+``cascade`` block: the cascade's per-rung stats and calibration, each
+rung's evaluation seconds and the wall time.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import time
 
 import torch
@@ -56,14 +70,12 @@ from repro_torch.kernels.problems import (
     BENCH_DIMS,
     LARGE_SHAPES,
     gpu_problem,
+    make_cost_evaluator,
     problem_signature_for,
 )
 from repro_torch.kernels.spaces import KERNEL_SPACES, kernel_space
 from repro_torch.kernels.syr2k import syr2k
-
-NOT_YET_PORTED = """\
-not ported yet (the JAX package's repro.launch.autotune has it):
-  --cascade               waits for repro_torch.fidelity"""
+from repro_torch.kernels.util import resolve_device
 
 # the wrapper whose launch count proves a campaign went through the kernel
 KERNEL_WRAPPERS = {"syr2k": syr2k, "mm3": tiled_matmul, "lu": tiled_matmul,
@@ -75,15 +87,15 @@ KERNEL_WRAPPERS = {"syr2k": syr2k, "mm3": tiled_matmul, "lu": tiled_matmul,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.autotune",
-        description="Bayesian-optimization autotuning of the CUDA kernels.",
-        epilog=NOT_YET_PORTED, formatter_class=argparse.RawDescriptionHelpFormatter)
+        description="Bayesian-optimization autotuning of the CUDA kernels.")
     ap.add_argument("--kernel", required=True, choices=sorted(KERNEL_SPACES))
     ap.add_argument("--max-evals", type=int, default=100,
                     help="evaluation budget (paper default: 100; paper runs: 200)")
     ap.add_argument("--learner", default="RF", choices=["RF", "ET", "GBRT", "GP"])
-    ap.add_argument("--backend", default="gpu", choices=["gpu", "cpu"],
+    ap.add_argument("--backend", default="gpu", choices=["gpu", "cpu", "cost"],
                     help="gpu: CUDA kernels at LARGE sizes (default); "
-                         "cpu: plain versions at bench sizes")
+                         "cpu: plain versions at bench sizes; "
+                         "cost: the Hopper cost model at LARGE sizes")
     ap.add_argument("--db", default=None, help="performance database directory")
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--parallel", type=int, default=1, metavar="N",
@@ -99,20 +111,42 @@ def main(argv=None) -> int:
                          "acquisition pool (repro_torch.analyze feasibility "
                          "rules; off by default — pruning changes fixed-seed "
                          "trajectories)")
+    ap.add_argument("--cascade", action="store_true",
+                    help="multi-fidelity cascade (repro_torch.fidelity): screen "
+                         "on the Hopper cost model, re-time a reduced proxy "
+                         "shape, and spend full timings only on promoted "
+                         "top-k configs")
+    ap.add_argument("--rung-budgets", default=None, metavar="B0,B1[,B2]",
+                    help="per-rung evaluation budgets, bottom-up (2 entries "
+                         "= cost->hw, 3 = cost->proxy->hw; default 64,16,8)")
+    ap.add_argument("--promote", default=None, metavar="K1[,K2]",
+                    help="top-k promoted from each non-top rung "
+                         "(default: half the next rung's budget)")
     args = ap.parse_args(argv)
 
     if args.resume and not args.db:
         ap.error("--resume requires --db (the checkpoint to resume from)")
+    if args.cascade and args.backend == "cost":
+        ap.error("--cascade needs a timed backend above the analytic model; "
+                 "--backend cost IS the cascade's rung 0")
+    if (args.rung_budgets or args.promote) and not args.cascade:
+        ap.error("--rung-budgets/--promote only apply with --cascade")
 
+    dims = (BENCH_DIMS if args.backend == "cpu" else LARGE_SHAPES)[args.kernel]
+    space = kernel_space(args.kernel, target="host" if args.backend == "cpu" else "gpu",
+                         seed=args.seed)
     if args.backend == "gpu":
-        factory = gpu_problem(args.kernel, LARGE_SHAPES[args.kernel], device="cuda")
-        space = kernel_space(args.kernel, target="gpu", seed=args.seed)
+        resolve_device("cuda")  # raises without a card
         device = torch.cuda.get_device_name(torch.cuda.current_device())
     else:
-        factory = gpu_problem(args.kernel, BENCH_DIMS[args.kernel], device="cpu")
-        space = kernel_space(args.kernel, target="host", seed=args.seed)
-        device = "cpu"
-    evaluator = TimingEvaluator(factory, repeats=3, warmup=1)
+        device = "cpu" if args.backend == "cpu" else "cost model"
+    evaluator = None  # the cascade builds its rungs' own
+    if args.backend == "cost" and not args.cascade:
+        evaluator = make_cost_evaluator(args.kernel)
+    elif not args.cascade:
+        evaluator = TimingEvaluator(gpu_problem(args.kernel, dims, device="cpu" if
+                                                args.backend == "cpu" else "cuda"),
+                                    repeats=3, warmup=1)
 
     sig = problem_signature_for(args.kernel, args.backend)
     warm_cfgs, warm_recs = None, None
@@ -130,11 +164,10 @@ def main(argv=None) -> int:
     feasibility = None
     if args.prune_infeasible:
         from repro_torch.analyze.feasibility import feasibility_filter
-        dims = (LARGE_SHAPES if args.backend == "gpu" else BENCH_DIMS)[args.kernel]
         feasibility = feasibility_filter(
-            args.kernel, dims=dims, target="gpu" if args.backend == "gpu" else "host")
+            args.kernel, dims=dims, target="host" if args.backend == "cpu" else "gpu")
 
-    if args.resume:
+    if args.resume and not args.cascade:
         k = len(PerformanceDatabase(args.db).records)
         print(f"resume: {k} record(s) checkpointed, "
               f"{max(0, args.max_evals - k)} evaluation(s) remaining")
@@ -142,10 +175,14 @@ def main(argv=None) -> int:
     wrapper = KERNEL_WRAPPERS[args.kernel]
     launches0 = wrapper.launches
     t0 = time.perf_counter()
-    res = autotune(space, evaluator, max_evals=args.max_evals,
-                   learner=args.learner, seed=args.seed, db_path=args.db,
-                   parallel=args.parallel, warm_start=warm_cfgs,
-                   warm_start_records=warm_recs, feasibility=feasibility)
+    cascade_stats = None
+    if args.cascade:
+        res, cascade_stats = _cascade(args, space, warm_cfgs, warm_recs, feasibility)
+    else:
+        res = autotune(space, evaluator, max_evals=args.max_evals,
+                       learner=args.learner, seed=args.seed, db_path=args.db,
+                       parallel=args.parallel, warm_start=warm_cfgs,
+                       warm_start_records=warm_recs, feasibility=feasibility)
     wall = time.perf_counter() - t0
     if feasibility is not None and res.timings:
         print(f"feasibility: pruned {res.timings.get('n_pruned', 0)} "
@@ -172,8 +209,48 @@ def main(argv=None) -> int:
         "wall_sec": wall,
         "timings": res.timings,
     }
+    if cascade_stats is not None:
+        out["cascade"] = cascade_stats
     print(json.dumps(out, indent=2, default=str))
     return 0
+
+
+def _cascade(args, space, warm_cfgs, warm_recs, feasibility):
+    """Run the CLI's cascade; returns the top rung's result (the answer and
+    what ``--store`` publishes) and the cascade's stats, with each rung's
+    seconds in its evaluator."""
+    from repro_torch.fidelity import CascadeCampaign, FidelityLadder, default_ladder
+
+    budgets = tuple(int(x) for x in (args.rung_budgets or "64,16,8").split(","))
+    promote = tuple(int(x) for x in args.promote.split(",")) if args.promote else None
+    ladder = default_ladder(args.kernel, budgets=budgets, promote=promote, repeats=3,
+                            device="cpu" if args.backend == "cpu" else "cuda")
+    eval_sec = [0.0] * len(ladder)
+
+    def timed(i, evaluate):
+        def run(cfg):
+            t0 = time.perf_counter()
+            try:
+                return evaluate(cfg)
+            finally:
+                eval_sec[i] += time.perf_counter() - t0
+        return run
+
+    ladder = FidelityLadder([dataclasses.replace(r, evaluator=timed(i, r.evaluator))
+                             for i, r in enumerate(ladder)])
+    if args.resume:
+        for rung in ladder:
+            k = len(PerformanceDatabase(os.path.join(args.db, f"rung{rung.level}")).records)
+            print(f"resume: rung {rung.level} ({rung.name}) has {k} "
+                  f"record(s), {max(0, rung.budget - k)} remaining")
+    cres = CascadeCampaign(
+        space, ladder, db_root=args.db, learner=args.learner, seed=args.seed,
+        parallel=args.parallel, warm_start=warm_cfgs, warm_start_records=warm_recs,
+        feasibility=feasibility, kernel=args.kernel).run()
+    print(cres.summary())
+    stats = dict(cres.stats, hw_evals=cres.hw_evals, ladder=ladder.describe(),
+                 eval_sec=eval_sec)
+    return cres.rungs[-1], stats
 
 
 if __name__ == "__main__":

@@ -57,18 +57,19 @@ def test_cli_rejects_resume_without_db():
 
 
 def test_cli_help_names_unported_flags(tmp_path, capsys):
-    # --warm-start, --store and --prune-infeasible are options that work
-    # (more of their behaviour: tests/test_torch_tuning_loop.py); --cascade
-    # stays listed as not ported in the epilog
+    # every flag of the reference's CLI is an option that works (more of
+    # their behaviour: tests/test_torch_tuning_loop.py, and for --cascade,
+    # --rung-budgets and --promote tests/test_torch_fidelity.py): the help
+    # lists nothing as not ported
     with pytest.raises(SystemExit):
         autotune.main(["--help"])
     out = capsys.readouterr().out
-    options, _, epilog = out.partition("not ported yet")
-    for flag in ("--warm-start", "--store", "--prune-infeasible"):
-        assert flag in options and flag not in epilog
-    assert "--cascade" in epilog and "--cascade" not in options
+    assert "not ported" not in out
+    for flag in ("--warm-start", "--store", "--prune-infeasible", "--cascade",
+                 "--rung-budgets", "--promote"):
+        assert flag in out
     with pytest.raises(SystemExit):
-        autotune.main(["--kernel", "syr2k", "--backend", "cpu", "--cascade"])
+        autotune.main(["--kernel", "syr2k", "--backend", "cpu", "--promote", "2"])
     store = str(tmp_path / "store")
     for flags in (["--store", store], ["--warm-start", store, "--prune-infeasible"]):
         assert autotune.main(["--kernel", "syr2k", "--backend", "cpu", "--max-evals", "2",

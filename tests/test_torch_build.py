@@ -107,3 +107,40 @@ def test_ptxas_entries_reads_each_instantiation():
              spill_stores=0, spill_loads=0),
     ]
     assert build.ptxas_entries("") == []
+
+
+class _Event:
+    def __init__(self):
+        self.streams = []
+
+    def record(self, stream=None):
+        self.streams.append(stream)
+
+
+def test_launch_mark_records_once_and_disarms():
+    ev = _Event()
+    build.mark_launch()  # none armed: nothing happens
+    build.arm_launch_mark(ev, "stream")
+    build.mark_launch()
+    build.mark_launch()  # a call's later launches leave the first mark alone
+    assert ev.streams == ["stream"]
+    assert build.disarm_launch_mark() is True
+    build.arm_launch_mark(ev, "stream")
+    assert build.disarm_launch_mark() is False  # armed, but nothing launched
+    build.mark_launch()
+    assert ev.streams == ["stream"]
+
+
+WRAPPERS = ("covariance", "decode_attention", "flash_attention", "floyd_warshall", "heat3d",
+            "lu", "matmul", "syr2k")
+
+
+@pytest.mark.parametrize("module", WRAPPERS)
+def test_every_launcher_call_is_marked(module):
+    # a shadow sample starts at its call's first launch only if every
+    # wrapper marks the launch just before calling its launcher
+    src = (build.CSRC.parent / f"{module}.py").read_text().splitlines()
+    calls = [i for i, line in enumerate(src) if re.search(r"\blib\.\w+_launch\(", line)]
+    assert calls
+    for i in calls:
+        assert src[i - 1].strip() == "build.mark_launch()", (module, i + 1, src[i])

@@ -22,7 +22,9 @@ from repro_torch.dispatch import (
 from repro_torch.dispatch import signature as sig
 from repro_torch.kernels import model_kernels as mk
 from repro_torch.kernels.decode_attention import CacheRows, decode_attention_plain
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+F32TOL = dict(atol=2e-3, rtol=2e-3)  # tests/test_torch_attention.py's attention tolerance
 
 
 def _normal(*shapes, seed=0):
@@ -120,7 +122,11 @@ def test_service_resolves_store_exact_near_and_default(tmp_path):
     assert (svc.stats["store_exact"], svc.stats["store_near"], svc.stats["store_default"]) \
         == (1, 1, 1)
     assert svc.stats["exec_hit"] == 1 and svc.stats["exec_miss"] == 3
-    torch.testing.assert_close(fn(q, k, v), flash_attention_plain(q, k, v))
+    # the dispatched variant is the wrapper at the stored blocks; its output
+    # is held to the default-block plain version at the port's attention
+    # tolerance (a kernel at other blocks sums in another order)
+    assert fn.__wrapped__.fn.func is flash_attention
+    torch.testing.assert_close(fn(q, k, v), flash_attention_plain(q, k, v), **F32TOL)
 
 
 @pytest.mark.parametrize("poison", [dict(impl="pallas", bq=0, bk=64),

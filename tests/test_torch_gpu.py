@@ -1142,6 +1142,27 @@ def test_shadow_sample_is_device_time(cuda, tmp_path):
     assert 0.5 * timed <= shadow <= 2.0 * timed, (shadow, timed)
 
 
+def test_shadow_clock_starts_at_the_first_launch(cuda):
+    # host time before a call's first kernel launch is not in its sample; a
+    # call of torch operations alone is timed from the clock's start
+    import time
+
+    from repro_torch.guard.shadow import ShadowClock
+
+    a, b = _normal(cuda, (256, 256), (256, 256))
+    tiled_matmul(a, b)  # the library's load and first launch
+    torch.cuda.synchronize()
+    clock = ShadowClock((a, b))
+    time.sleep(0.02)
+    tiled_matmul(a, b)
+    launched = clock.stop()
+    clock = ShadowClock((a, b))
+    time.sleep(0.02)
+    torch.matmul(a, b)
+    untracked = clock.stop()
+    assert 0.0 < launched < 0.01 and untracked >= 0.02, (launched, untracked)
+
+
 def test_smem_budget_refuses_what_the_wrappers_refuse(cuda):
     import itertools
 
@@ -1209,3 +1230,24 @@ def test_decode_attention_head_sizes_off_the_multiples_of_16(cuda, hd):
     _close(got, decode_attention_plain(q, CacheRows(kc).rows(), CacheRows(vc).rows(), cp),
            ATTN_TOL)
     assert decode_attention.launches > launches
+
+
+@pytest.mark.parametrize("kernel", sorted(problems.LARGE_SHAPES))
+def test_cost_model_refuses_exactly_what_smem_budget_refuses(cuda, kernel):
+    # the card's own shared-memory numbers: the cost model is +inf exactly
+    # where SmemBudget (and so the wrapper) refuses, and finite at the default
+    from repro_torch.analyze import feasibility
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.spaces import kernel_space
+
+    dims = problems.LARGE_SHAPES[kernel]
+    ctx = feasibility.RuleContext(kernel=kernel, dims=dims, target="gpu")
+    space = kernel_space(kernel, target="gpu", seed=5)
+    for cfg in space.sample_configurations(48, np.random.default_rng(5)):
+        refused = list(feasibility.SmemBudget().check(cfg, ctx))
+        t, info = cost.kernel_cost(kernel, cfg, *dims)
+        assert np.isinf(t) == bool(refused), (cfg, refused, info)
+        if not refused:
+            assert info["smem_bytes"] <= max_shared_memory_per_block(cuda)
+    assert np.isfinite(cost.kernel_cost(kernel, space.default_configuration(), *dims)[0])
+    assert cost.hopper().sms == torch.cuda.get_device_properties(0).multi_processor_count

@@ -38,6 +38,7 @@ from repro_torch.guard import (
     replay_decisions,
     window_stats,
 )
+from repro_torch.guard.shadow import RACE_ROUNDS
 from repro_torch.guard.watch import SHADOW_HISTOGRAM, _decide
 from repro_torch.launch import guard as guard_cli
 from repro_torch.obs import MetricsRegistry, prometheus_text, read_snapshot_file, write_snapshot
@@ -166,14 +167,29 @@ def test_shadow_eval_tells_live_measurement_into_store(tmp_path):
     svc.attach_guard(guard)
     x = torch.arange(4.0)
     fn = svc.dispatch("torch_guard_toy", x)
-    for _ in range(3):
+    n = guard.shadow.policy.tell_window  # the first tell: the median of a full window
+    for _ in range(n):
         torch.testing.assert_close(fn(x), x * 2)
     stats = guard.shadow.snapshot_stats()
-    assert stats["shadow_evals"] == 3 and stats["shadow_tells"] >= 1
+    assert stats["shadow_evals"] == n and stats["shadow_tells"] == 1
     rec = store.get("torch_guard_toy", ((4,),), "cpu")
     assert rec.source == "shadow" and rec.objective < 10.0 and rec.config == {"s": 2}
     shadow = window_stats(None, svc.metrics.snapshot(), SHADOW_HISTOGRAM)
-    assert shadow[("torch_guard_toy", "4", "cpu")]["count"] == 3
+    assert shadow[("torch_guard_toy", "4", "cpu")]["count"] == n
+
+
+def test_one_low_shadow_sample_is_not_told(tmp_path):
+    # the store keeps the least objective told and the watch holds the live
+    # p50 to it: a lone fast sample must not become the record's objective
+    svc, store = _service(tmp_path)
+    store.put(TuningRecord("torch_guard_toy", ((4,),), "cpu", {"s": 2}, 10.0))
+    guard = GuardAgent(svc, shadow=ShadowPolicy(epsilon=1.0, challenger_fraction=0.0,
+                                                tell_window=5))
+    for sample in (1.0, 1.0, 0.01, 1.0, 1.0, 1.0, 1.0):
+        guard.shadow.on_shadow("torch_guard_toy", ((4,),), {"s": 2}, {}, (torch.zeros(4),),
+                               sample, "observe")
+    assert guard.shadow.snapshot_stats()["shadow_tells"] == 1
+    assert store.get("torch_guard_toy", ((4,),), "cpu").objective == 1.0
 
 
 def test_shadow_challenger_races_and_counts(tmp_path):
@@ -188,6 +204,63 @@ def test_shadow_challenger_races_and_counts(tmp_path):
     stats = guard.shadow.snapshot_stats()
     assert stats["challenger_evals"] >= 1
     assert stats["shadow_errors"] == 0
+
+
+def _sleepy_space(target="host", seed=1234):
+    cs = ConfigurationSpace(seed=seed)
+    cs.add_hyperparameter(Ordinal("s", (1, 4), default=4))
+    return cs
+
+
+def test_challenger_objective_is_on_the_live_scale(tmp_path):
+    # the challenger (s=1) and the served config (s=4) are raced back to
+    # back; the told objective is the live sample scaled by their ratio, not
+    # the challenger's own (hot, millisecond) time
+    register("torch_guard_sleepy", space=_sleepy_space,
+             builder=lambda cfg: lambda x: (time.sleep(1e-3 * cfg["s"]), x)[1])
+    store = TuningStore(str(tmp_path))
+    store.put(TuningRecord("torch_guard_sleepy", ((4,),), "cpu", {"s": 4}, 10.0))
+    svc = DispatchService(store, backend="cpu", target="host")
+    guard = GuardAgent(svc, shadow=ShadowPolicy(epsilon=1.0, challenger_fraction=1.0))
+    guard.shadow.on_shadow("torch_guard_sleepy", ((4,),), {"s": 4}, {}, (torch.zeros(4),),
+                           0.5, "challenger")
+    stats = guard.shadow.snapshot_stats()
+    assert stats["challenger_evals"] == 1 and stats["challenger_promoted"] == 1
+    rec = store.get("torch_guard_sleepy", ((4,),), "cpu")
+    assert rec.config == {"s": 1} and rec.source == "shadow_challenger"
+    assert 0.05 < rec.objective < 0.4   # about 0.5 * 1/4
+
+
+@pytest.mark.parametrize("side,outlier", [(4, 0.2), (1, -1e-3)])
+def test_challenger_race_outlasts_one_outlier_call(tmp_path, side, outlier):
+    # one timed call of a side is an outlier: the served config (s=4, 4 ms)
+    # stalls 200 ms, or the challenger (s=1, 1 ms) takes no time at all; each
+    # side's median over its alternating timed calls sets the ratio, so the
+    # challenger is still told at about 0.5 * 1/4
+    calls = []
+
+    def builder(cfg):
+        def run(x):
+            extra = 0.0
+            if cfg["s"] == side:
+                calls.append(1)
+                if len(calls) == 2:  # the one after the warm-up call
+                    extra = outlier
+            time.sleep(1e-3 * cfg["s"] + extra)
+            return x
+        return run
+
+    name = f"torch_guard_outlier_{side}"
+    register(name, space=_sleepy_space, builder=builder)
+    store = TuningStore(str(tmp_path))
+    store.put(TuningRecord(name, ((4,),), "cpu", {"s": 4}, 10.0))
+    svc = DispatchService(store, backend="cpu", target="host")
+    guard = GuardAgent(svc, shadow=ShadowPolicy(epsilon=1.0, challenger_fraction=1.0))
+    guard.shadow.on_shadow(name, ((4,),), {"s": 4}, {}, (torch.zeros(4),), 0.5, "challenger")
+    rec = store.get(name, ((4,),), "cpu")
+    assert len(calls) == 1 + RACE_ROUNDS
+    assert rec.config == {"s": 1} and rec.source == "shadow_challenger"
+    assert 0.05 < rec.objective < 0.4
 
 
 def test_shadow_epsilon_zero_never_samples(tmp_path):

@@ -325,8 +325,15 @@ def test_background_campaign_neither_reads_nor_writes_the_callers_tensors(tmp_pa
 
 
 def test_cascade_campaigns_wait_for_fidelity(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        BackgroundTuner(TuningStore(str(tmp_path)), cascade=True)
+    # repro_torch.fidelity is ported: a cascade tuner is built, and its
+    # campaigns screen on the cost model before they time (more of it:
+    # tests/test_torch_fidelity.py)
+    tuner = BackgroundTuner(TuningStore(str(tmp_path)), cascade=True, cascade_budgets=(8, 2))
+    try:
+        assert tuner.cascade and tuner.cascade_budgets == (8, 2)
+        assert tuner.stats["cascade_campaigns"] == 0
+    finally:
+        tuner.shutdown()
 
 
 def test_a_record_past_the_rules_but_refused_by_the_wrapper_degrades(tmp_path):
