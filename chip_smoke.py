@@ -66,13 +66,17 @@ checks each kernel on the card:
      (c) a `GuardAgent` shadow-times run 2 on the device (epsilon 0.25) with
      no quarantine; then a record of the decode step's output projection at
      1/20 of its measured time is quarantined two watch windows later,
-     serving falls back and a re-campaign is enqueued;
+     serving falls back and a re-campaign is enqueued; what the 8
+     background evaluations found at the decode output projection, (4, 896)
+     @ (896, 896), beside the default config;
   8. the multi-fidelity cascade (repro_torch.fidelity), each part with the
      launch counts set to 0 just before and read just after: (a)
      `launch.fidelity audit` on all nine kernels at LARGE, 16 seeded configs
      of each gpu space, the Hopper cost model's Spearman rho against
      CUDA-event times, strong or weak (the report, with every pair, goes to
-     fidelity_audit.json in $CHIP_SMOKE_OUT, default build/), and the cost
+     fidelity_audit.json in $CHIP_SMOKE_OUT, default build/), the same
+     audit at the proxy rung's PROXY_DIMS (`audit --proxy-dims`) for syr2k,
+     mm3 and covariance, each rho beside LARGE's, and the cost
      model's shared-memory verdicts against SmemBudget's over sampled
      configs; (b) `launch.autotune
      --kernel syr2k --cascade --rung-budgets 64,16,8` at LARGE: records carry
@@ -82,7 +86,18 @@ checks each kernel on the card:
      and the best objective beside phase 5's flat campaign; (c) one
      BackgroundTuner(cascade=True) campaign at the decode output
      projection's signature, (4, 896) @ (896, 896), whose record the service
-     then resolves exactly.
+     then resolves exactly;
+  9. the paper's tables on the card (benchmarks/torch_tables.py), each with
+     the launch counts set to 0 just before and read just after: Tables 1-7
+     at LARGE, the five rows of each (the naive loop, the library, the
+     kernel at the heuristic tiles and at the paper's, the autotuned winner
+     of an RF campaign cut in length to 20 evaluations, heat3d's 12), a
+     config the wrapper refuses printed `rejected` and followed by its
+     `_clipped` row (a time, or `rejected` again); each winner, and each
+     config rows 3-4 ran, against the kernel's plain version at phase 3's
+     tolerances; then the four-learner study (benchmarks/torch_learners.py,
+     syr2k at LARGE, 30 evaluations a learner): each learner's best, where
+     it found it and its skipped duplicates; the phase's seconds.
 
 Phases 3 and 4 also hold flash_attention and decode_attention against their
 plain versions at LARGE, at head_dim 256, at head sizes between the
@@ -215,6 +230,11 @@ TUNE = dict(offline_evals=12, warm_evals=3, bg_evals=8, epsilon=0.25, challenger
 # (kernel, evaluations) of phase 5; heat3d's space has 12 points
 CAMPAIGNS = (("syr2k", 60), ("mm3", 40), ("lu", 30), ("covariance", 30),
              ("floyd_warshall", 30), ("heat3d", 12))
+# phase 8: the kernels audited at the proxy rung's dims beside LARGE
+PROXY_AUDIT = ("syr2k", "mm3", "covariance")
+# phase 9: each table's campaign (heat3d's space has 12 points) and the
+# learner study's campaigns, evaluations each
+TABLE_EVALS = dict(default=20, heat3d=12, learners=30)
 
 
 def phase(name: str) -> None:
@@ -1044,6 +1064,27 @@ def cascade_phase(launches: dict, dev, syr2k_args: tuple, flat: dict) -> None:
     if rc != 0 or sorted(rows) != sorted(cost.KERNEL_COST_FNS) or \
             any(r["n_paired"] < 3 for r in rows.values()):
         raise AssertionError(f"fidelity audit: rc {rc}, rows {sorted(rows)}")
+    # the proxy rung audited at its own dims, beside LARGE's rho
+    for k in PROXY_AUDIT:
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            (rc, n) = counted(lambda: fidelity_cli.main(
+                ["audit", "--kernel", k, "--proxy-dims", "--samples", "16", "--repeats", "3",
+                 "--json"]))
+        proxy = json.loads(buf.getvalue())
+        (p,) = proxy["audit"]
+        if rc != 0 or proxy["dims"] != "proxy" or \
+                tuple(p["dims"]) != problems.PROXY_DIMS[k] or p["n_paired"] < 3:
+            raise AssertionError(f"proxy audit of {k}: rc {rc}, {proxy['dims']}, {p}")
+        rho = "nan" if p["rho"] is None else f"{p['rho']:+.3f}"
+        big = "nan" if rows[k]["rho"] is None else f"{rows[k]['rho']:+.3f}"
+        times_ms = sorted(x["measured_sec"] * 1e3 for x in p["pairs"]
+                          if x["measured_sec"] is not None)
+        print(f"      {k:17s} at PROXY_DIMS {tuple(p['dims'])}: rho {rho} over "
+              f"{p['n_paired']} pairs ({'strong' if p['screen_ok'] else 'weak'}); at LARGE "
+              f"{big}; measured {times_ms[0]:.4f}..{times_ms[-1]:.4f} ms, "
+              f"{time.perf_counter() - t0:.1f} s, launches {n}", flush=True)
     limit = feasibility.smem_limit()
     checked = refused = 0
     for k in sorted(cost.KERNEL_COST_FNS):
@@ -1142,6 +1183,93 @@ def cascade_phase(launches: dict, dev, syr2k_args: tuple, flat: dict) -> None:
               f"{tel['cascade_campaigns']}; the next service resolves it (store_exact "
               f"{again.stats['store_exact']})")
     print(f"  phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
+
+
+def tables_phase(launches: dict, best_check) -> None:
+    """Phase 9: the paper's Tables 1-7 on the card (benchmarks/torch_tables.py)
+    and the four-learner study (benchmarks/torch_learners.py). Each table's
+    rows are printed and checked: a time, or `rejected` followed by its
+    `_clipped` row; the correctness row 1.0; the winner and every config rows
+    3-4 ran against the kernel's plain version by ``best_check(kernel,
+    config)`` (phase 5's checks at phase 3's tolerances). Adds each part's
+    launch counts (set to 0 just before it, read just after) to
+    ``launches``."""
+    import math
+
+    import torch
+
+    from benchmarks import torch_tables
+    from benchmarks.torch_common import emit
+    from benchmarks.torch_learners import learner_campaigns
+    from repro_torch.kernels.covariance import covariance
+    from repro_torch.kernels.floyd_warshall import closure_in_block, minplus_update
+    from repro_torch.kernels.heat3d import heat3d
+    from repro_torch.kernels.lu import lu_factor_diag
+    from repro_torch.kernels.matmul import tiled_matmul
+    from repro_torch.kernels.syr2k import syr2k
+
+    t9 = time.perf_counter()
+    wrappers = (syr2k, tiled_matmul, covariance, minplus_update, closure_in_block, heat3d,
+                lu_factor_diag)
+
+    def counted(fn):
+        for w in wrappers:
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        n = {w.__name__: w.launches for w in wrappers}
+        for name, k in n.items():
+            launches[name] = launches.get(name, 0) + k
+        return out, {k: v for k, v in n.items() if v}
+
+    kernels = ("syr2k", "mm3", "lu", "heat3d", "covariance", "floyd_warshall")
+    for kernel, table in zip(kernels, torch_tables.ALL_TABLES):
+        evals = TABLE_EVALS.get(kernel, TABLE_EVALS["default"])
+        t0 = time.perf_counter()
+        rows, n = counted(lambda: table(None, evals, "RF"))
+        emit(rows)
+        name = rows[0].name.split("/")[0]
+        labels = [r.name.split("/", 1)[1] for r in rows]
+        want = ["naive", "xla_default"]
+        for fixed in ("blocked_heur", "blocked_paper"):
+            want += [fixed, f"{fixed}_clipped"] if f"{fixed}_clipped" in labels else [fixed]
+        want += ["autotuned_RF", "autotuned_correct"]
+        by = {r.name.split("/", 1)[1]: r for r in rows}
+        if labels != want:
+            raise AssertionError(f"{name}: rows {labels}, expected {want}")
+        for label in want[:-1]:
+            us = by[label].us
+            # a refused config is printed `rejected` and followed by its
+            # `_clipped` row, which may be refused in turn
+            rejected = us is None and by[label].derived.startswith("rejected: ") and \
+                (label.endswith("_clipped") or f"{label}_clipped" in by)
+            if not rejected and (us is None or not math.isfinite(us) or us <= 0):
+                raise AssertionError(f"{name}/{label}: {by[label]}")
+        if by["autotuned_correct"].us != 1.0:
+            raise AssertionError(f"{name}: the winner disagrees with ref at 2e-2")
+        # every config that ran, the winner and rows 3-4, against the plain version
+        for label in want[2:-1]:
+            if by[label].us is not None:
+                got, plain, tol = best_check(kernel, by[label].config)
+                torch.cuda.synchronize()
+                compare(f"{name}/{label} {by[label].config} vs plain", got, plain, tol)
+        rank = sorted((r.us, r.name.split("/", 1)[1]) for r in rows[:-1] if r.us is not None)
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s, {evals} RF evaluations, launches "
+              f"{n}; fastest first: " + ", ".join(label for _, label in rank), flush=True)
+
+    t0 = time.perf_counter()
+    evals = TABLE_EVALS["learners"]
+    results, n = counted(lambda: learner_campaigns(evals))
+    for learner, res in results.items():
+        b = res.best
+        if b is None or res.n_evaluated + res.n_skipped + res.n_failed < evals:
+            raise AssertionError(f"learner {learner}: {res.n_evaluated} evaluated, "
+                                 f"{res.n_skipped} skipped, {res.n_failed} failed")
+        print(f"  learners_syr2k/{learner}: best {b.objective * 1e3:.4f} ms (campaign "
+              f"objective) at evaluation {b.index}, {res.n_evaluated} real evaluations of "
+              f"{evals}, skipped duplicates {res.n_skipped}; {b.config}", flush=True)
+    print(f"  learner study: {time.perf_counter() - t0:.1f} s, launches {n}")
+    print(f"  phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
 
 
 def tuning_loop(launches: dict, dev, syr2k_args: tuple, phase6_ms: float) -> None:
@@ -1335,6 +1463,8 @@ def tuning_loop(launches: dict, dev, syr2k_args: tuple, phase6_ms: float) -> Non
                 f"{P}, batch {Bn})", got[:, -1], want[:, -1], LOGIT_TOL)
         if not flips:
             print(f"  (b) greedy tokens of run 2 equal run 1's ({Bn} x {gen})", flush=True)
+        hd_all = cfg.n_heads * cfg.hd
+        proj = ((Bn, hd_all), (hd_all, cfg.d_model))  # the decode step's output projection
         for (kernel, sig), rec in published.items():
             args, static = kernel_inputs(kernel, sig, dev)
             spec = get_variant(kernel)
@@ -1350,6 +1480,17 @@ def tuning_loop(launches: dict, dev, syr2k_args: tuple, phase6_ms: float) -> Non
                   f"calls queued behind a spin kernel): "
                   + ", ".join(f"{k} {v}" for k, v in times.items())
                   + f" ({rec.config}; {final_cfg})", flush=True)
+            if (kernel, sig) == ("matmul", proj):
+                # what the evaluations, timed from the call's first device
+                # operation to its last, find at a kernel of a few tens of
+                # microseconds
+                found = times["background campaign's"]
+                print(f"  (b) output projection {signature_key(sig)}: "
+                      f"{TUNE['bg_evals']} background evaluations found {rec.config} at "
+                      f"{rec.objective * 1e3:.4f} ms (its objective, from the first device "
+                      f"operation to the last); device time queued: default "
+                      f"{times['default']}, found {found}",
+                      flush=True)
             del args
 
         # -- (c) the guard: a clean run, then an impossible baseline
@@ -1369,8 +1510,6 @@ def tuning_loop(launches: dict, dev, syr2k_args: tuple, phase6_ms: float) -> Non
                 or guard.stats["quarantines"]:
             raise AssertionError(f"guard over the clean run: {shadow}, {guard.stats}, "
                                  f"{guard.decisions}")
-        hd_all = cfg.n_heads * cfg.hd
-        proj = ((Bn, hd_all), (hd_all, cfg.d_model))  # the decode step's output projection
         key = signature_key(proj)
         p50 = windows[("matmul", key, "gpu")]["p50"]
         store.refresh()
@@ -2091,6 +2230,11 @@ def main() -> int:
     phase("8. the multi-fidelity cascade: the Hopper cost model's rank audit, "
           "autotune --cascade, a background cascade")
     cascade_phase(launches, dev, (C, A, B), phase5["syr2k"])
+
+    # ---- 9. the paper's tables -------------------------------------------------------
+    phase("9. the paper's tables on the card: Tables 1-7 at LARGE and the four-learner "
+          "study (benchmarks/torch_tables.py, benchmarks/torch_learners.py)")
+    tables_phase(launches, best_check)
 
     def entry(name, source, replaces):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",

@@ -4,7 +4,8 @@ In the paper the plopper substitutes ``#P0..#Pm`` into a code mold, invokes
 ``clang`` and runs the binary (exe.pl). Here the "mold" is a *variant factory*
 — a Python callable ``factory(config) -> (fn, args)`` that closes over the
 configuration — and :class:`TimingEvaluator` runs and times it: with CUDA
-events when the arguments live on the card, with ``perf_counter`` on the CPU.
+events when the arguments live on the card (:class:`LaunchClock`, the clock
+the guard's shadow samples use too), with ``perf_counter`` on the CPU.
 
 Failure contract. Only a configuration the kernel wrapper refuses *before*
 launch (:class:`ConfigRejected`: a tile whose shared memory exceeds the
@@ -26,6 +27,7 @@ import torch
 __all__ = [
     "ConfigRejected",
     "EvalResult",
+    "LaunchClock",
     "TimingEvaluator",
     "DeadlineEvaluator",
     "PENALTY",
@@ -45,8 +47,86 @@ class EvalResult:
     info: dict
 
 
+def _tensors(args: tuple):
+    """The tensor arguments, and the tensor fields of view arguments (such
+    as ``CacheRows``)."""
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            yield a
+        elif dataclasses.is_dataclass(a) and not isinstance(a, type):
+            for f in dataclasses.fields(a):
+                if isinstance(getattr(a, f.name), torch.Tensor):
+                    yield getattr(a, f.name)
+
+
 def _on_cuda(args) -> bool:
-    return any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
+    return any(t.is_cuda for t in _tensors(args))
+
+
+# the spin queued ahead of a timed call's first mark: about 0.1 ms at the
+# H100's clock, longer than the host takes from that mark to its first launch
+LEAD_CYCLES = 200_000
+
+
+class LaunchClock:
+    """Times one call on ``args``, started at construction: on the card a
+    pair of ``torch.cuda.Event`` records on the current stream (device
+    seconds); on the CPU a ``perf_counter`` interval. The one clock of the
+    evaluator's runs and of the guard's shadow samples, so that the store's
+    objective and the live samples the drift watch holds to it measure the
+    same thing.
+
+    On the card the clock first waits for the work already queued on the
+    current stream, so that the call starts on an idle stream. It then
+    times the call from its first device operation to its last: the
+    wrappers record the armed start event before the first device work of
+    their call (:func:`repro_torch.kernels.build.mark_launch`) and the armed
+    end event after each launch and after torch work that follows the last
+    one (:func:`repro_torch.kernels.build.mark_end`). Just before the start
+    is recorded the clock queues a spin of :data:`LEAD_CYCLES` on the
+    stream, so the start fires when the spin ends, by which time the host
+    has queued the call's first kernels: neither the host's Python path
+    around the call nor its launch overhead is in the time of a small call,
+    only the host's pace between the launches of a host-driven schedule
+    (lu, Floyd-Warshall) that outruns the spin. A sampled call's device work
+    starts that much later. Timed on the host, a small call's time rose and
+    fell with the load on the host: the drift watch read a healthy record's
+    live p50 at three times its objective and quarantined it, and a
+    campaign ranked configs by their host path. A call
+    that launches none of the port's kernels (a variant of torch
+    operations) is timed from the clock's start to its return. The waits
+    are on events of this stream, never a device-wide synchronise: a
+    background campaign's stream is not waited for."""
+
+    def __init__(self, args: tuple):
+        self.start = self.end = None
+        if _on_cuda(args):
+            from repro_torch.kernels import build
+
+            queued = torch.cuda.Event()
+            queued.record()
+            queued.synchronize()
+            stream = torch.cuda.current_stream()
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.launch = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.start.record(stream)
+            build.arm_launch_mark(self.launch, stream, end=self.end,
+                                  lead=lambda: torch.cuda._sleep(LEAD_CYCLES))
+        self.t0 = time.perf_counter()
+
+    def stop(self) -> float:
+        """Seconds of the call's device work (on the card) or since
+        construction (on the CPU)."""
+        if self.start is None:
+            return time.perf_counter() - self.t0
+        from repro_torch.kernels import build
+
+        fired, ended = build.disarm_launch_mark()
+        if not ended:  # no launch (torch operations alone, or a copy)
+            self.end.record()
+        self.end.synchronize()
+        return (self.launch if fired else self.start).elapsed_time(self.end) / 1e3
 
 
 class TimingEvaluator:
@@ -54,12 +134,12 @@ class TimingEvaluator:
 
     The variant is warmed up ``warmup`` times, then timed ``repeats`` times;
     the *minimum* is reported (the paper reports the smallest execution time
-    of repeated runs). On the card each run sits between a pair of
-    ``torch.cuda.Event(enable_timing=True)`` records on the current stream,
-    so the number is device time, not enqueue time; timed runs on one card
-    are serialised by a lock so that concurrent evaluations (``parallel>1``)
-    never overlap on the device. On the CPU each run is a ``perf_counter``
-    interval.
+    of repeated runs). On the card each run is timed by a
+    :class:`LaunchClock`, from the run's first device operation to its last
+    (device time, with the host's pace between the launches of a
+    host-driven schedule); timed runs on one card are serialised by a lock
+    so that concurrent evaluations (``parallel>1``) never overlap on the
+    device. On the CPU each run is a ``perf_counter`` interval.
     """
 
     def __init__(self, factory: Callable[[Mapping[str, Any]], tuple], repeats: int = 3,
@@ -86,16 +166,11 @@ class TimingEvaluator:
     def _time_cuda(self, fn, args) -> list[float]:
         for _ in range(self.warmup):
             fn(*args)
-        torch.cuda.synchronize()
         times = []
         for _ in range(self.repeats):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+            clock = LaunchClock(args)
             fn(*args)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / 1e3)
+            times.append(clock.stop())
         return times
 
     def _time_cpu(self, fn, args) -> list[float]:

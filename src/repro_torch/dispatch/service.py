@@ -80,6 +80,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.analyze.feasibility import check_config
+from repro_torch.core.plopper import LaunchClock
 from repro_torch.core.space import config_key
 from repro_torch.dispatch.lookup import Resolution, resolve
 from repro_torch.dispatch.registry import get as get_variant
@@ -87,7 +88,6 @@ from repro_torch.dispatch.signature import shape_signature, signature_key
 from repro_torch.dispatch.store import TuningStore
 from repro_torch.engine.executors import evaluator_for_spec
 from repro_torch.guard.faults import fault_point
-from repro_torch.guard.shadow import ShadowClock
 from repro_torch.kernels.util import ConfigRejected
 from repro_torch.obs.metrics import get_registry, summarize_histograms
 from repro_torch.obs.trace import get_tracer
@@ -301,8 +301,8 @@ class DispatchService:
         enqueue time as the caller observes it; the wrapper does not
         synchronise, which would serialise the pipeline it measures. The
         exception is a shadow-sampled call (epsilon fraction, attached guard
-        only): it is timed on the device from its first kernel launch
-        (:class:`~repro_torch.guard.shadow.ShadowClock`), recorded in
+        only): it is timed on the device from its first device operation
+        (:class:`~repro_torch.core.plopper.LaunchClock`), recorded in
         ``dispatch_shadow_seconds`` and told into the tuning store."""
         metrics, backend = self.metrics, self.backend
 
@@ -311,7 +311,7 @@ class DispatchService:
             guard = self._guard
             mode = guard.shadow_mode(kernel, sig_key) if guard is not None else None
             t0 = time.perf_counter()
-            clock = ShadowClock(a) if mode is not None else None
+            clock = LaunchClock(a) if mode is not None else None
             try:
                 fault_point("dispatch.latency", kernel=kernel, signature=sig_key)
                 if tracer.enabled:

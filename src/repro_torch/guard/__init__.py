@@ -23,7 +23,6 @@ _EXPORTS = {
     "HardenedExecutor": "harden",
     "ShadowPolicy": "shadow",
     "ShadowEvaluator": "shadow",
-    "ShadowClock": "shadow",
     "WatchPolicy": "watch",
     "GuardAgent": "watch",
     "window_stats": "watch",

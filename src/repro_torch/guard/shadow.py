@@ -2,10 +2,11 @@
 counterpart of ``repro.guard.shadow``.
 
 For an epsilon fraction of dispatch executions the instrumented wrapper
-times the call (:class:`ShadowClock`: on the card from its first kernel
-launch to its end by ``torch.cuda.Event`` records on the serving stream,
-waiting on events of that stream only, never a device-wide synchronise; on
-the CPU ``perf_counter``) and hands that time to
+times the call (:class:`~repro_torch.core.plopper.LaunchClock`, the
+evaluator's clock: on the card from its first device operation to its end
+by ``torch.cuda.Event`` records on the serving stream, waiting on events of
+that stream only, never a device-wide synchronise; on the CPU
+``perf_counter``) and hands that time to
 :meth:`ShadowEvaluator.on_shadow`, which ``tell``s the median of the served
 config's last ``tell_window`` samples into the :class:`TuningStore` (the
 store's strict-improvement ``put`` is the accept test). The JAX package
@@ -19,13 +20,18 @@ config — a store neighbor or a seeded space sample — and races it on the
 live arguments against the served config, both warmed and then timed in
 ``RACE_ROUNDS`` alternating rounds; the challenger's objective is the
 median of the recent live samples scaled by the ratio of the two sides'
-median times, and it is promoted (put + hot-swap invalidate) when that
-beats the incumbent. A call repeated at once is not timed in the serving
-loop's conditions, so the challenger's own time is not on the scale of the
-live samples the watch compares with its objective; the ratio is. One
-timed call a side is not enough: a single stall during the served
-config's call made a ratio far below 1, promoted the challenger at a
-fraction of the live latency and had the watch quarantine it. The port runs
+median times, but never less than the challenger's own median, and it is
+promoted (put + hot-swap invalidate) when that beats the incumbent. A call
+repeated at once is not timed in the serving loop's conditions, so the
+challenger's own time is not on the scale of the live samples the watch
+compares with its objective; the ratio is. One timed call a side is not
+enough: a single stall during the served config's call made a ratio far
+below 1, promoted the challenger at a fraction of the live latency and had
+the watch quarantine it. Stalls in two of the served side's three calls
+still make such a ratio (on the card a decode record stood at 2.0 us, a
+sixth of its live p50 and below the device time of any decode call), so the
+ratio only raises the challenger's own time, never lowers it: a timed call
+is never shorter than its device work. The port runs
 eagerly, so there is no traced call to skip, as the JAX package must.
 
 Sampling is deterministic (per-signature call counters, not RNG): every
@@ -39,75 +45,15 @@ from __future__ import annotations
 import collections
 import dataclasses
 import threading
-import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
-import torch
 
-__all__ = ["ShadowPolicy", "ShadowEvaluator", "ShadowClock"]
+from repro_torch.core.plopper import LaunchClock
+
+__all__ = ["ShadowPolicy", "ShadowEvaluator"]
 
 RACE_ROUNDS = 3  # timed calls of each side of a challenger race
-
-
-def _tensors(args: tuple):
-    """The tensor arguments, and the tensor fields of view arguments (such
-    as ``CacheRows``)."""
-    for a in args:
-        if isinstance(a, torch.Tensor):
-            yield a
-        elif dataclasses.is_dataclass(a) and not isinstance(a, type):
-            for f in dataclasses.fields(a):
-                if isinstance(getattr(a, f.name), torch.Tensor):
-                    yield getattr(a, f.name)
-
-
-class ShadowClock:
-    """Times one call on ``args``, started at construction: on the card a
-    pair of ``torch.cuda.Event`` records on the current stream (device
-    seconds); on the CPU a ``perf_counter`` interval.
-
-    On the card the clock first waits for the work already queued on the
-    current stream, so that the call starts on an idle stream, and then
-    times it from its first kernel launch to its last kernel's end: the
-    wrappers record the armed event just before their launcher
-    (:func:`repro_torch.kernels.build.mark_launch`). The host's Python path
-    before that launch is not in the sample. It is most of a small call's
-    time from an idle stream and swings with the load on the host, so a
-    sample that held it rose and fell with the host: on a slow host the
-    drift watch read a healthy record's live p50 at three times its
-    objective and quarantined it. A call that launches none of the port's
-    kernels (a variant of torch operations) is timed from the clock's start.
-    Started behind queued work, the first event would fire only when that
-    work ends, and samples would mix the two kinds of timing. The waits
-    are on events of this stream, never a device-wide synchronise: a
-    background campaign's stream is not waited for."""
-
-    def __init__(self, args: tuple):
-        self.start = self.end = None
-        if any(t.is_cuda for t in _tensors(args)):
-            from repro_torch.kernels import build
-
-            queued = torch.cuda.Event()
-            queued.record()
-            queued.synchronize()
-            stream = torch.cuda.current_stream()
-            self.start = torch.cuda.Event(enable_timing=True)
-            self.launch = torch.cuda.Event(enable_timing=True)
-            self.end = torch.cuda.Event(enable_timing=True)
-            self.start.record(stream)
-            build.arm_launch_mark(self.launch, stream)
-        self.t0 = time.perf_counter()
-
-    def stop(self) -> float:
-        if self.start is None:
-            return time.perf_counter() - self.t0
-        from repro_torch.kernels import build
-
-        first = self.launch if build.disarm_launch_mark() else self.start
-        self.end.record()
-        self.end.synchronize()
-        return first.elapsed_time(self.end) / 1e3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,11 +210,12 @@ class ShadowEvaluator:
         times = ([], [])
         for _ in range(RACE_ROUNDS):  # alternating: an outlier is one sample, not a side
             for variant, side in zip(race, times):
-                clock = ShadowClock(args)  # waits for the queued calls, then times one
+                clock = LaunchClock(args)  # waits for the queued calls, then times one
                 variant(*args)
                 side.append(clock.stop())
-        # on the live samples' scale
-        dt = live_sec * float(np.median(times[0]) / max(np.median(times[1]), 1e-12))
+        # on the live samples' scale, never below the challenger's own time
+        own, served_sec = float(np.median(times[0])), float(np.median(times[1]))
+        dt = own * max(1.0, live_sec / max(served_sec, 1e-12))
         self._count("challenger_evals")
         svc.metrics.add("guard_challenger_evals_total", kernel=kernel)
         if svc.store is not None and self._tell(TuningRecord(

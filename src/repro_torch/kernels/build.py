@@ -26,7 +26,7 @@ import time
 from pathlib import Path
 
 __all__ = ["KERNELS", "NVCC_FLAGS", "SECONDS", "arm_launch_mark", "build_all", "check",
-           "disarm_launch_mark", "load", "mark_launch", "nvcc_path", "ptxas_entries",
+           "disarm_launch_mark", "load", "mark_end", "mark_launch", "nvcc_path", "ptxas_entries",
            "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -242,35 +242,74 @@ def ptxas_entries(report: str) -> list[dict]:
     return out
 
 
-_marks = threading.local()
+class _Marks(threading.local):
+    """This thread's armed marks. The class defaults make a read on a
+    thread that never armed one a plain lookup, where ``getattr`` with a
+    default on a bare ``threading.local`` raises and catches an exception
+    inside, on every launch of a host-paced driver's hundreds."""
+
+    pending = None  # (start event, stream, lead) until the first mark fires
+    end = None  # (end event, stream) while armed
+    ended = False  # the end mark was recorded
 
 
-def arm_launch_mark(event, stream) -> None:
-    """Have the next kernel launch on this thread record ``event`` on
-    ``stream`` just before it: a shadow sample
-    (:class:`repro_torch.guard.shadow.ShadowClock`) is timed from its call's
-    first launch, so the host's Python path before it is not in the sample."""
-    _marks.pending = (event, stream)
+_marks = _Marks()
+
+
+def arm_launch_mark(event, stream, end=None, lead=None) -> None:
+    """Have the next call's first device operation on this thread record
+    ``event`` on ``stream`` just before it, and each launch after that
+    record ``end`` just after it (:func:`mark_end`): an evaluator's run and
+    a shadow sample (:class:`repro_torch.core.plopper.LaunchClock`) are
+    timed between the two, so the host's Python path before the call's
+    first device operation and after its last is not in the time.
+    ``lead``, when given, runs on the host just before the first mark is
+    recorded (the clock queues a short spin there, so that the host
+    enqueues the call while the device is busy)."""
+    _marks.pending = (event, stream, lead)
+    _marks.end = None if end is None else (end, stream)
+    _marks.ended = False
 
 
 def mark_launch() -> None:
-    """Called by every wrapper just before its launcher: records an armed
-    launch mark, once (one thread-local read when none is armed)."""
-    pending = getattr(_marks, "pending", None)
+    """Called by every wrapper just before its launcher, and by a card path
+    that runs torch work ahead of its first launch (a mean, a padded copy,
+    a memset) before that work: records an armed launch mark, once (one
+    thread-local read when none is armed)."""
+    pending = _marks.pending
     if pending is not None:
         _marks.pending = None
-        pending[0].record(pending[1])
+        event, stream, lead = pending
+        if lead is not None:
+            lead()
+        event.record(stream)
 
 
-def disarm_launch_mark() -> bool:
-    """Disarms this thread's mark; True when a launch recorded it."""
-    fired = getattr(_marks, "pending", None) is None
-    _marks.pending = None
-    return fired
+def mark_end() -> None:
+    """Called by :func:`check` after every launch, and by a card path that
+    runs torch work after its last launch (a copy out of a padded buffer)
+    after that work: records the armed end mark again, once the call's first
+    mark has fired, so that the last record is the call's last device
+    operation."""
+    end = _marks.end
+    if end is not None and _marks.pending is None:
+        end[0].record(end[1])
+        _marks.ended = True
+
+
+def disarm_launch_mark() -> tuple[bool, bool]:
+    """Disarms this thread's marks; returns whether the first mark fired and
+    whether the end mark was recorded after it."""
+    fired, ended = _marks.pending is None, _marks.ended
+    _marks.pending = _marks.end = None
+    _marks.ended = False
+    return fired, ended
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise on a nonzero ``cudaError_t`` returned by one of ``lib``'s launchers."""
+    """Raise on a nonzero ``cudaError_t`` returned by one of ``lib``'s
+    launchers; after a launch, the armed end mark (:func:`mark_end`)."""
+    mark_end()
     if err != 0:
         msg = lib.cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA launch failed: cudaError_t {err} ({msg})")

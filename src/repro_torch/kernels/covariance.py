@@ -51,8 +51,8 @@ def covariance_plain(data: torch.Tensor) -> torch.Tensor:
     return (c.T @ c) / (data.shape[0] - 1.0)
 
 
-def covariance_check(data, *, bi: int = 128, bj: int = 128,
-                     bk: int = 256) -> tuple[int, int, int]:
+def covariance_check(data, *, bi: int = 64, bj: int = 64,
+                     bk: int = 32) -> tuple[int, int, int]:
     """The wrapper's checks before a launch, without launching: shape and
     dtype and, on the card, the operand and the tile against the register
     tile and the device's shared memory per block. Raises
@@ -81,9 +81,9 @@ def covariance_check(data, *, bi: int = 128, bj: int = 128,
 def covariance(
     data: torch.Tensor,
     *,
-    bi: int = 128,
-    bj: int = 128,
-    bk: int = 256,
+    bi: int = 64,
+    bj: int = 64,
+    bk: int = 32,
     fuse_center: bool = True,
     interchange: bool = False,
 ) -> torch.Tensor:
@@ -94,6 +94,7 @@ def covariance(
 
     dev = data.device
     limit = max_shared_memory_per_block(dev)
+    build.mark_launch()  # the call's device work starts with the mean
     mean = data.mean(0)
     src = data if fuse_center else (data - mean).contiguous()
     out = torch.empty((M, M), dtype=torch.float32, device=dev)

@@ -280,6 +280,7 @@ def decode_attention(
     else:
         Kh, (sb, ss, _), sh = 1, k.stride(), 0
         kt, vt = k, v
+    build.mark_launch()  # the call's device work starts with the positions
     cp = _positions(cur_pos, BH, dev)
     out = torch.empty((BH, G, hd), dtype=q.dtype, device=dev)
     lib = build.load("decode_attention")

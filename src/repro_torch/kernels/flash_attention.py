@@ -152,6 +152,7 @@ def flash_attention(
 
     dev = q.device
     hdk = flash_attention_head_size(hd)
+    build.mark_launch()  # the call's device work starts with the padding
     if hdk != hd:  # zero columns after the real ones: exact +0*0 terms
         q, k, v = (F.pad(t, (0, hdk - hd)) for t in (q, k, v))
     out = torch.empty((BH, Sq, hdk), dtype=q.dtype, device=dev)
@@ -165,7 +166,10 @@ def flash_attention(
             max_shared_memory_per_block(dev), stream)
     build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
-    return out if hdk == hd else out[..., :hd].contiguous()
+    if hdk != hd:
+        out = out[..., :hd].contiguous()
+        build.mark_end()  # the call's device work ends with the copy out
+    return out
 
 
 flash_attention.launches = 0  # kernel launches since the last reset (chip_smoke reads it)

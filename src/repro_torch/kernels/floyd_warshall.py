@@ -242,6 +242,7 @@ def _blocked(path, bs, bi, bj, minplus, closure):
     writes a second buffer, which becomes the matrix (ping-pong)."""
     N = path.shape[0]
     bs = min(bs, N)
+    build.mark_launch()  # the call's device work starts with the padded copy
     D = pad_to(path, (bs, bs), value=_BIG)
     if D is path:
         D = path.clone()  # the closure works in place; the input is never written
@@ -263,7 +264,9 @@ def _blocked(path, bs, bi, bj, minplus, closure):
         # phase 3: the trailing update, into the other buffer
         minplus(D, col, row, bi, bj, E)
         D, E = E, D
-    return D[:N, :N].contiguous()
+    out = D[:N, :N].contiguous()
+    build.mark_end()  # the call's device work ends with the copy out
+    return out
 
 
 def floyd_warshall_check(path: torch.Tensor, *, bs: int = 64, bi: int = 128, bj: int = 128,

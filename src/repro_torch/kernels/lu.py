@@ -100,6 +100,7 @@ def _blocked(A, bs, factor, matmul):
     N = A.shape[0]
     bs = min(bs, N)
     Np = cdiv(N, bs) * bs
+    build.mark_launch()  # the call's device work starts with the padded copy
     M = torch.zeros((Np, Np), dtype=A.dtype, device=A.device)
     M[:N, :N] = A
     if Np != N:  # the padded diagonal is the identity: padding stays outside A
@@ -118,7 +119,9 @@ def _blocked(A, bs, factor, matmul):
         M[off:end, end:] = U12
         M[end:, off:end] = L21
         M[end:, end:] -= matmul(L21, U12)
-    return M[:N, :N].contiguous()
+    out = M[:N, :N].contiguous()
+    build.mark_end()  # the call's device work ends with the copy out
+    return out
 
 
 def lu_check(A: torch.Tensor, *, bs: int = 32, bm: int = 128, bn: int = 128) -> None:

@@ -32,7 +32,7 @@ from typing import Any, Callable, Mapping
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.covariance import covariance_check
 from repro_torch.kernels.floyd_warshall import floyd_warshall_check
 from repro_torch.kernels.heat3d import heat3d_check
@@ -45,7 +45,7 @@ __all__ = [
     "syr2k_builder", "mm3_builder", "lu_builder", "heat3d_builder", "covariance_builder",
     "floyd_warshall_builder", "DISPATCH_BUILDERS", "register_dispatch_variants",
     "syr2k_host", "mm3_host", "lu_host", "heat3d_host", "covariance_host",
-    "floyd_warshall_host", "HOST_VARIANTS",
+    "floyd_warshall_host", "HOST_VARIANTS", "naive_fns",
 ]
 
 # timed runs per background-campaign evaluation (the minimum is the
@@ -183,3 +183,44 @@ HOST_VARIANTS = {
     "covariance": covariance_host,
     "floyd_warshall": floyd_warshall_host,
 }
+
+
+def naive_fns() -> dict[str, Callable]:
+    """The untransformed loop nests (the paper's "gcc -O3 on the original
+    code" row), the counterpart of ``repro.kernels.variants.naive_fns``: a
+    Python loop over rows, one torch vector-matrix product a row, neither
+    tiled nor handed to a library's matrix product whole. lu, heat3d and
+    Floyd-Warshall take their ``ref`` functions, as the JAX package's do.
+    Only the benchmark tables call these; they are no dispatch variant."""
+
+    def matvec_rows(a, b):
+        out = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype, device=a.device)
+        for i in range(a.shape[0]):
+            out[i] = a[i] @ b
+        return out
+
+    def syr2k(C, A, B):
+        out = torch.empty_like(C)
+        for i in range(A.shape[0]):
+            out[i] = 1.5 * (A[i] @ B.T) + 1.5 * (B[i] @ A.T) + 1.2 * C[i]
+        return out
+
+    def mm3(A, B, C, D):
+        return matvec_rows(matvec_rows(A, B), matvec_rows(C, D))
+
+    def covariance(data):
+        n, m = data.shape
+        c = data - data.mean(0, keepdim=True)
+        out = torch.empty((m, m), dtype=data.dtype, device=data.device)
+        for i in range(m):
+            out[i] = c[:, i] @ c / (n - 1.0)
+        return out
+
+    return {
+        "syr2k": syr2k,
+        "mm3": mm3,
+        "lu": ref.lu_ref,
+        "heat3d": ref.heat3d_ref,
+        "covariance": covariance,
+        "floyd_warshall": ref.floyd_warshall_ref,
+    }

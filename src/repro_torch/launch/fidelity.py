@@ -6,7 +6,8 @@ counterpart of ``repro.launch.fidelity``.
     # kernel and flags the ones too weak to screen on (screen_ok=false);
     # --strict turns a weak kernel into a non-zero exit (the CI gate)
     PYTHONPATH=src python -m repro_torch.launch.fidelity audit [--kernel K] \\
-        [--samples N] [--rho-min R] [--json] [--out FILE] [--strict]
+        [--samples N] [--rho-min R] [--full-dims | --proxy-dims] [--json] \\
+        [--out FILE] [--strict]
 
     # describe a kernel's default cost -> proxy -> hardware ladder: per-rung
     # budgets, promotion counts, and the dims each rung evaluates at
@@ -16,9 +17,14 @@ counterpart of ``repro.launch.fidelity``.
 Both run on the card unless ``--device cpu`` is given. The audit measures
 at the dims a campaign tunes at, which rung 0 screens at: the paper's LARGE
 sizes over the ``gpu`` space on the card, the bench sizes over the ``host``
-space on the CPU. ``--out FILE`` also records every sampled pair, the
-card's description and its name and power limit (``nvidia-smi``), the
-fixture ``tests/test_torch_fidelity.py`` recomputes rho from.
+space on the CPU. ``--full-dims`` asks for those dims by name (the JAX
+package's flag: its audit measures at its proxy dims unless given it);
+``--proxy-dims`` measures at ``PROXY_DIMS``, the dims of the cascade's
+proxy rung, so that rung can be audited too. The JSON names the dims used
+(``"dims": "full"`` or ``"proxy"``, and each row its own). ``--out FILE``
+also records every sampled pair, the card's description and its name and
+power limit (``nvidia-smi``), the fixture ``tests/test_torch_fidelity.py``
+recomputes rho from.
 """
 
 from __future__ import annotations
@@ -44,15 +50,18 @@ def card_name_and_power_limit() -> str | None:
 def cmd_audit(args) -> int:
     from repro_torch.fidelity.audit import audit_kernel
     from repro_torch.kernels.cost import KERNEL_COST_FNS, hopper
+    from repro_torch.kernels.problems import PROXY_DIMS
 
     kernels = [args.kernel] if args.kernel else sorted(KERNEL_COST_FNS)
     rows = [audit_kernel(k, n_samples=args.samples, seed=args.seed,
                          repeats=args.repeats, rho_min=args.rho_min,
+                         dims=PROXY_DIMS[k] if args.proxy_dims else None,
                          target=args.target, device=args.device)
             for k in kernels]
     weak = [r["kernel"] for r in rows if not r["screen_ok"]]
     out = {"rho_min": args.rho_min, "samples": args.samples, "seed": args.seed,
-           "repeats": args.repeats, "device": args.device or "cuda",
+           "repeats": args.repeats, "dims": "proxy" if args.proxy_dims else "full",
+           "device": args.device or "cuda",
            "card": card_name_and_power_limit() if args.device != "cpu" else None,
            "hw": hopper().to_dict(), "audit": rows, "weak_kernels": weak}
     if args.out:
@@ -62,14 +71,14 @@ def cmd_audit(args) -> int:
     if args.json:
         print(json.dumps(out, indent=2))
     else:
-        hdr = f"{'kernel':<18} {'rho':>7} {'pairs':>6} {'dropped':>8}  verdict"
+        hdr = f"{'kernel':<18} {'rho':>7} {'pairs':>6} {'dropped':>8}  verdict    dims"
         print(hdr)
         print("-" * len(hdr))
         for r in rows:
             rho = "nan" if r["rho"] is None else f"{r['rho']:.3f}"
             verdict = "screen_ok" if r["screen_ok"] else "WEAK"
             print(f"{r['kernel']:<18} {rho:>7} {r['n_paired']:>6} "
-                  f"{r['n_dropped']:>8}  {verdict}")
+                  f"{r['n_dropped']:>8}  {verdict:<9}  {out['dims']} {tuple(r['dims'])}")
         if weak:
             print(f"weak: {', '.join(weak)} — cost-model ordering below "
                   f"rho_min={args.rho_min}; cascade these over the proxy "
@@ -126,6 +135,12 @@ def main(argv=None) -> int:
                           "card, host on the CPU)")
     aud.add_argument("--device", default=None, choices=["cuda", "cpu"],
                      help="where to measure (default: the card)")
+    which = aud.add_mutually_exclusive_group()
+    which.add_argument("--full-dims", action="store_true",
+                       help="measure at the dims a campaign tunes at (the default: "
+                            "LARGE on the card, bench dims on the CPU)")
+    which.add_argument("--proxy-dims", action="store_true",
+                       help="measure at PROXY_DIMS, the cascade's proxy rung")
     aud.add_argument("--json", action="store_true")
     aud.add_argument("--out", default=None, metavar="FILE",
                      help="also write the JSON report to FILE (the recorded fixture)")

@@ -118,17 +118,62 @@ class _Event:
 
 
 def test_launch_mark_records_once_and_disarms():
-    ev = _Event()
+    ev, end, leads = _Event(), _Event(), []
     build.mark_launch()  # none armed: nothing happens
+    build.mark_end()
     build.arm_launch_mark(ev, "stream")
     build.mark_launch()
     build.mark_launch()  # a call's later launches leave the first mark alone
     assert ev.streams == ["stream"]
-    assert build.disarm_launch_mark() is True
+    assert build.disarm_launch_mark() == (True, False)
     build.arm_launch_mark(ev, "stream")
-    assert build.disarm_launch_mark() is False  # armed, but nothing launched
+    assert build.disarm_launch_mark() == (False, False)  # armed, but nothing launched
     build.mark_launch()
     assert ev.streams == ["stream"]
+    # the end mark: recorded after every launch once the first mark fired,
+    # so its last record is the call's last launch; the lead runs once,
+    # just before the first mark
+    build.arm_launch_mark(ev, "s", end=end, lead=lambda: leads.append(len(ev.streams)))
+    build.mark_end()  # before the call's first device operation: not yet
+    assert end.streams == [] and leads == []
+    build.mark_launch()
+    build.mark_end()
+    build.mark_launch()
+    build.mark_end()
+    assert leads == [1] and ev.streams == ["stream", "s"] and end.streams == ["s", "s"]
+    assert build.disarm_launch_mark() == (True, True)
+    build.mark_end()
+    assert end.streams == ["s", "s"]
+
+
+class _Lib:
+    @staticmethod
+    def cuda_error_string(err):
+        return b"an error"
+
+
+def test_check_records_the_end_mark_after_a_launch():
+    ev, end = _Event(), _Event()
+    build.arm_launch_mark(ev, "s", end=end)
+    build.mark_launch()
+    build.check(_Lib, 0, "kernel")
+    with pytest.raises(RuntimeError, match="an error"):
+        build.check(_Lib, 1, "kernel")
+    assert end.streams == ["s", "s"]
+    assert build.disarm_launch_mark() == (True, True)
+
+
+@pytest.mark.parametrize("module", ["floyd_warshall", "flash_attention", "lu"])
+def test_a_copy_after_the_last_launch_is_marked(module):
+    # a card path that copies its result out of a padded buffer after its
+    # last launch records the end mark after the copy
+    src = (build.CSRC.parent / f"{module}.py").read_text().splitlines()
+    copies = [i for i, line in enumerate(src) if re.search(r"\[.*:N.*\]\.contiguous\(\)|"
+                                                          r"\[\.\.\., :hd\]\.contiguous\(\)",
+                                                          line)]
+    assert copies
+    for i in copies:
+        assert src[i + 1].strip().startswith("build.mark_end()"), (module, i + 1, src[i])
 
 
 WRAPPERS = ("covariance", "decode_attention", "flash_attention", "floyd_warshall", "heat3d",

@@ -442,6 +442,24 @@ def test_fidelity_show_and_audit_on_the_cpu(tmp_path, capsys):
     assert json.load(open(path))["hw"]["sms"] == cost.hopper().sms
 
 
+@pytest.mark.parametrize("flag,which,table", [
+    ("--full-dims", "full", problems.BENCH_DIMS),
+    ("--proxy-dims", "proxy", problems.PROXY_DIMS),
+])
+def test_fidelity_audit_takes_the_reference_dims(flag, which, table, capsys):
+    # the reference's --full-dims and the cascade's proxy dims; the report
+    # names the dims it measured at
+    rc = fidelity.main(["audit", "--kernel", "mm3", "--device", "cpu", "--samples", "3",
+                        flag, "--json"])
+    assert rc == 0
+    rep = json.loads(capsys.readouterr().out)
+    (row,) = rep["audit"]
+    assert rep["dims"] == which and row["dims"] == list(table["mm3"])
+    assert row["n_sampled"] == 3
+    with pytest.raises(SystemExit):
+        fidelity.main(["audit", "--full-dims", "--proxy-dims"])
+
+
 def test_fidelity_readiness_covers_the_registry():
     cov = problems.fidelity_readiness()
     assert set(cov) == set(registry.registered())

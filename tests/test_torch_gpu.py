@@ -1147,20 +1147,179 @@ def test_shadow_clock_starts_at_the_first_launch(cuda):
     # call of torch operations alone is timed from the clock's start
     import time
 
-    from repro_torch.guard.shadow import ShadowClock
+    from repro_torch.core.plopper import LaunchClock
 
     a, b = _normal(cuda, (256, 256), (256, 256))
     tiled_matmul(a, b)  # the library's load and first launch
     torch.cuda.synchronize()
-    clock = ShadowClock((a, b))
+    clock = LaunchClock((a, b))
     time.sleep(0.02)
     tiled_matmul(a, b)
     launched = clock.stop()
-    clock = ShadowClock((a, b))
+    clock = LaunchClock((a, b))
     time.sleep(0.02)
     torch.matmul(a, b)
     untracked = clock.stop()
     assert 0.0 < launched < 0.01 and untracked >= 0.02, (launched, untracked)
+
+
+def _profiled_device_sec(fn, calls: int = 3, reps: int = 10) -> float:
+    """The most, over ``calls`` profiler sessions of ``reps`` calls of
+    ``fn`` each, of the mean per call of the sum of its device kernels,
+    copies and fills (torch.profiler), in seconds: the profiler at times
+    records only part of a session (a Floyd-Warshall call at N = 1000
+    summed 0.0, 0.19 and 0.48 ms in three sessions of one call; a decode
+    call and a 25 us matmul, 0.0 in each), and a lost event only lowers a
+    sum."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sums = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+                torch.cuda.synchronize()
+        sums.append(sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA) / 1e6 / reps)
+    assert max(sums) > 0, "the profiler recorded no device time"
+    return max(sums)
+
+
+def _queued_device_sec(fn, calls: int = 20) -> float:
+    """Device seconds a call of ``fn``: ``calls`` calls queued behind a spin
+    kernel between two CUDA events, so the host's launch path overlaps the
+    device's work (chip_smoke.py's phase 7 reads a call so)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3 / calls
+
+
+def _mark_paths(dev):
+    """(name, call) of every card path that runs torch work before its first
+    launch of a port kernel, at the shapes the main paths give them."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    (data,) = problems.problem_inputs("covariance", problems.LARGE_SHAPES["covariance"], dev)
+    (A,) = problems.problem_inputs("lu", problems.LARGE_SHAPES["lu"], dev)
+    (W,) = problems.problem_inputs("floyd_warshall", (1000,), dev)
+    q, k, v, cp = problems.problem_inputs("decode_attention", (8, 7, 288, 64), dev)
+    fq, fk, fv = problems.problem_inputs("flash_attention", (8, 512, 512, 80), dev)
+    positions = cp.tolist()  # a host list: the call copies it to the card
+    return {
+        "covariance, fuse_center=False": (
+            lambda: ops.covariance_op(data, config=dict(fuse_center=False)), (data,)),
+        "covariance, fuse_center=True": (lambda: ops.covariance_op(data), (data,)),
+        "lu at LARGE": (lambda: ops.lu_op(A), (A,)),
+        "floyd_warshall at 1000": (lambda: ops.floyd_warshall_op(W), (W,)),
+        "decode_attention, positions from a list": (
+            lambda: decode_attention(q, k, v, positions), (q, k, v)),
+        "flash_attention at hd 80 (padded)": (
+            lambda: flash_attention(fq, fk, fv, causal=True), (fq, fk, fv)),
+    }
+
+
+MARK_PATHS = ("covariance, fuse_center=False", "covariance, fuse_center=True", "lu at LARGE",
+              "floyd_warshall at 1000", "decode_attention, positions from a list",
+              "flash_attention at hd 80 (padded)")
+
+
+@pytest.mark.parametrize("path", MARK_PATHS)
+def test_clock_covers_the_calls_device_kernels(cuda, path):
+    # the clock starts at the call's first device operation: the torch work
+    # a card path runs before its first launch (a mean and the centring
+    # pass, a padded copy, a clone, the positions) is inside the time
+    from repro_torch.core.plopper import LaunchClock
+
+    fn, args = _mark_paths(cuda)[path]
+    for _ in range(2):
+        fn()
+    device = _profiled_device_sec(fn)
+    clocked = []
+    for _ in range(3):
+        clock = LaunchClock(args)
+        fn()
+        clocked.append(clock.stop())
+    assert min(clocked) >= 0.95 * device, (path, clocked, device)
+
+
+@pytest.mark.parametrize("path", ("covariance, fuse_center=False", "lu at LARGE"))
+def test_evaluator_times_cover_the_calls_device_kernels(cuda, path):
+    # TimingEvaluator times each run from the same point as the guard's
+    # shadow samples, so no part of the call's device work is left out
+    fn, args = _mark_paths(cuda)[path]
+    res = TimingEvaluator(lambda cfg: ((lambda *_: fn()), args), repeats=3)({})
+    assert res.ok
+    assert res.objective >= 0.95 * _profiled_device_sec(fn), (path, res.info)
+
+
+def test_clock_ends_at_the_calls_last_launch(cuda):
+    # host time after a call's last launch (its return path, here a sleep)
+    # is not in its time: each launch records the end mark after it
+    import time
+
+    from repro_torch.core.plopper import LaunchClock
+
+    a, b = _normal(cuda, (256, 256), (256, 256))
+    tiled_matmul(a, b)  # the library's load and first launch
+    torch.cuda.synchronize()
+    clock = LaunchClock((a, b))
+    tiled_matmul(a, b)
+    time.sleep(0.02)
+    assert 0.0 < clock.stop() < 0.01
+
+
+def test_a_small_kernels_objective_is_its_device_time(cuda):
+    # a matmul of some 25 us (the serving shape phase 7 tunes in the
+    # background): its objective is within 1.5x of the call's device time
+    # (queued behind a spin), not its launch and return paths on the host
+    x, w = _normal(cuda, (4, 896), (896, 896))
+
+    def call():
+        return tiled_matmul(x, w)
+
+    for _ in range(3):
+        call()
+    device = min(_queued_device_sec(call) for _ in range(3))
+    res = TimingEvaluator(lambda cfg: ((lambda *_: call()), (x, w)), repeats=5)({})
+    assert res.ok
+    assert 0.9 * device <= res.objective <= 1.5 * device, (res.info, device)
+
+
+def test_covariance_default_tiles_run_at_large(cuda):
+    # the wrapper's own defaults are a point the card takes
+    (data,) = problems.problem_inputs("covariance", problems.LARGE_SHAPES["covariance"], cuda)
+    _close(covariance(data), covariance_plain(data), COV_TOL)
+
+
+def test_every_wrappers_default_tiles_pass_its_check_at_large(cuda):
+    from repro_torch.kernels.covariance import covariance_check
+    from repro_torch.kernels.floyd_warshall import floyd_warshall_check
+    from repro_torch.kernels.heat3d import heat3d_check
+    from repro_torch.kernels.lu import lu_check
+    from repro_torch.kernels.matmul import tiled_matmul_check
+    from repro_torch.kernels.syr2k import syr2k_check
+
+    def inputs(name):
+        return problems.problem_inputs(name, problems.LARGE_SHAPES[name], cuda)
+
+    C, A, B = inputs("syr2k")
+    syr2k_check(C, A, B)
+    a, b = _normal(cuda, (1000, 1200), (1200, 1100))
+    tiled_matmul_check(a, b)
+    lu_check(*inputs("lu"))
+    covariance_check(*inputs("covariance"))
+    floyd_warshall_check(*inputs("floyd_warshall"))
+    heat3d_check(inputs("heat3d")[0], problems.LARGE_SHAPES["heat3d"][1])
 
 
 def test_smem_budget_refuses_what_the_wrappers_refuse(cuda):

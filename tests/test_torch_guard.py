@@ -263,6 +263,37 @@ def test_challenger_race_outlasts_one_outlier_call(tmp_path, side, outlier):
     assert 0.05 < rec.objective < 0.4
 
 
+@pytest.mark.parametrize("stalled", [2, 3])
+def test_challenger_is_never_told_below_its_own_race_time(tmp_path, stalled):
+    # the served config (s=4, 4 ms, and 4 ms live) stalls 36 ms in most of
+    # its timed race calls: the ratio of the medians is then about 1/40, but
+    # the challenger (s=1) took at least 1 ms in each of its own calls
+    calls = []
+
+    def builder(cfg):
+        def run(x):
+            extra = 0.0
+            if cfg["s"] == 4:
+                calls.append(1)
+                if 1 < len(calls) <= 1 + stalled:  # timed calls after the warm-up
+                    extra = 0.036
+            time.sleep(1e-3 * cfg["s"] + extra)
+            return x
+        return run
+
+    name = f"torch_guard_stalled_{stalled}"
+    register(name, space=_sleepy_space, builder=builder)
+    store = TuningStore(str(tmp_path))
+    store.put(TuningRecord(name, ((4,),), "cpu", {"s": 4}, 10.0))
+    svc = DispatchService(store, backend="cpu", target="host")
+    guard = GuardAgent(svc, shadow=ShadowPolicy(epsilon=1.0, challenger_fraction=1.0))
+    guard.shadow.on_shadow(name, ((4,),), {"s": 4}, {}, (torch.zeros(4),), 4e-3, "challenger")
+    rec = store.get(name, ((4,),), "cpu")
+    assert len(calls) == 1 + RACE_ROUNDS
+    assert rec.config == {"s": 1} and rec.source == "shadow_challenger"
+    assert 1e-3 <= rec.objective < 4e-3
+
+
 def test_shadow_epsilon_zero_never_samples(tmp_path):
     svc, store = _service(tmp_path)
     store.put(TuningRecord("torch_guard_toy", ((4,),), "cpu", {"s": 2}, 10.0))
