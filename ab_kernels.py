@@ -4,7 +4,7 @@ flash_attention, decode_attention and tiled matmul, the blocked
 Floyd-Warshall (its trailing min-plus update, a phase-2 panel, its in-block
 closure helper, the whole call), the blocked LU (its diagonal-factor helper,
 the whole call) and heat3d (one pass, the whole call) at the paper's LARGE
-sizes.
+sizes, and the matmul at the MoE forward's shapes and a sweep of K.
 
     python3 ab_kernels.py OLD_TREE NEW_TREE [--out FILE]
 
@@ -16,7 +16,10 @@ kernels, and prints one JSON line per run and case: the kernel's time by
 CUDA events over back-to-back calls (``ms``, after warm-up, L2-warm), its
 device time per call under torch.profiler (``device_ms``) and the device
 kernels it ran per call (``device_kernels``), at the shapes the main paths
-give the kernels, at the default configs (``ops.DEFAULTS``). A phase-2 panel
+give the kernels, at the default configs (``ops.DEFAULTS``). A matmul case
+also gives its error against the f64 product of its inputs, the largest
+over the output's root mean square (``err``), beside torch.matmul's
+(``library_err``). A phase-2 panel
 is launched as each tree's driver launches it. A case the tree's wrapper
 refuses is printed with its reason. The card's name and power limit head the
 output. TF32 is off.
@@ -45,6 +48,11 @@ CASES = (
     ("matmul prefill unembed", "matmul", (1024, 896, 151936)),
     ("matmul decode unembed", "matmul", (4, 896, 151936)),
     ("matmul decode output projection", "matmul", (4, 896, 896)),
+    ("matmul K 512", "matmul", (512, 512, 4096)),
+    ("matmul mixtral forward output projection", "matmul", (512, 4096, 4096)),
+    ("matmul mixtral forward unembed", "matmul", (512, 4096, 32000)),
+    ("matmul deepseek forward unembed", "matmul", (512, 5120, 102400)),
+    ("matmul K 8192", "matmul", (512, 8192, 4096)),
     ("minplus trailing update", "minplus", (2800, 64)),
     ("minplus row panel", "minplus_panel", (2800, 64)),
     ("closure helper bs 64", "closure", (64,)),
@@ -177,6 +185,13 @@ def _child(tree: str) -> None:
             else:
                 fn = lambda: ops.heat3d_op(H, shape[1])  # noqa: E731
         rec = dict(tree=tree, case=name, shape=shape, config=cfg)
+        if kernel == "matmul":
+            want = a.double() @ b.double()
+            rms = want.pow(2).mean().sqrt()
+            rec["err"], rec["library_err"] = (
+                float((out.double() - want).abs().max() / rms)
+                for out in (fn(), torch.matmul(a, b)))
+            del want
         big = kernel in ("floyd_warshall", "heat3d", "lu") or shape[0] * shape[-1] > 10 ** 7
         try:
             rec["ms"] = events_ms(fn, 10 if big else 50)

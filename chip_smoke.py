@@ -99,6 +99,21 @@ checks each kernel on the card:
      syr2k at LARGE, 30 evaluations a learner): each learner's best, where
      it found it and its skipped duplicates; the phase's seconds.
 
+ 10. the MoE family (each arch with the launch counts set to 0 just before
+     and read just after its served run): mixtral-8x7b (4 of 32 layers) and
+     deepseek-v2-236b (3 of 60: the dense layer 0 and 2 MoE layers) at full
+     width in f32 from seeded weights, batch 4, prompt 128, 16 new tokens,
+     through greedy_decode and a DispatchService; the matmul's launches per
+     forward and per decode step (mixtral 5, deepseek 1; no attention
+     kernel: mixtral has a sliding window, MLA is plain, as in the JAX
+     package), TTFT, ms per decode step beside two bytes bounds (all weights
+     but the embed table; only the top-k experts), the busy share of one
+     step, the new matmul signatures against torch.matmul, peak memory; MLA's
+     absorbed and naive schedules on one filled cache (1e-3); a
+     PagedKVCache round for mixtral against each request's solo
+     greedy_decode; the card against the CPU at one MoE layer (mixtral 1
+     layer, deepseek 2) on a prompt of 8, beside the least routing margin.
+
 Phases 3 and 4 also hold flash_attention and decode_attention against their
 plain versions at LARGE, at head_dim 256, at head sizes between the
 instantiations (80, 96, 112, 160, 192; decode also with more query heads
@@ -196,6 +211,18 @@ WRAPPER_OF = {"syr2k": "syr2k", "matmul": "tiled_matmul", "covariance": "covaria
               "flash_attention": "flash_attention", "decode_attention": "decode_attention"}
 # the serving phase: qwen2-0.5b at full width, f32
 SERVE = dict(arch="qwen2-0.5b", batch=4, prompt_len=256, gen=32, seed=0)
+# phase 10: the MoE family at full width, f32, depth cut: (arch, layers
+# served, layers of the card-against-CPU check: one MoE layer, deepseek's
+# dense layer 0 before it); batch 4, prompt 128, 16 new tokens; the check's
+# prompt; the paged round's prompts and rounds (mixtral)
+MOE_ARCHS = (("mixtral-8x7b", 4, 1), ("deepseek-v2-236b", 3, 2))
+MOE_SERVE = dict(batch=4, prompt_len=128, gen=16, seed=0, check_prompt=8, check_gen=4,
+                 paged_lens=(16, 40, 64, 100), paged_rounds=8)
+# what may stay allocated on the card after a served MoE model is dropped:
+# cuBLAS's 32 MiB workspace, taken at its first call (the weights are 24-37
+# GB; a leaked view of one layer's output projection keeps mixtral's 4
+# stacked ones, 268 MB)
+MOE_LEFT_BYTES = 64 << 20
 # the instantiations the main paths run at their defaults (ptxas template
 # arguments): syr2k<PACK_A, PACK_B, RT, VEC16> at 64x64 tiles of M = 1000;
 # matmul_tf32<PACK, VEC16> (f32 on the tensor cores) at 64x64 tiles (mm3,
@@ -986,6 +1013,294 @@ def serving(launches: dict, dev) -> float:
         raise AssertionError(f"greedy tokens card {want_toks.tolist()} != CPU {got_toks.tolist()}")
     print(f"  greedy tokens (8), card and CPU: {want_toks[0].tolist()} (equal)", flush=True)
     return r["decode_ms_per_step"]
+
+
+@contextlib.contextmanager
+def routing_margins(out: list):
+    """Record, for every ``moe_ffn`` call inside, the least gap between the
+    k-th and (k+1)-th router probability over its tokens (a measurement
+    hook of this script: the call itself runs unchanged)."""
+    import torch
+
+    from repro_torch.models import blocks
+
+    orig = blocks.moe_ffn
+
+    def recording(p, x, *, top_k, **kw):
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p["router"], dim=-1)
+        top = torch.topk(probs, top_k + 1, dim=-1).values
+        out.append(float((top[:, top_k - 1] - top[:, top_k]).min()))
+        return orig(p, x, top_k=top_k, **kw)
+
+    blocks.moe_ffn = recording
+    try:
+        yield
+    finally:
+        blocks.moe_ffn = orig
+
+
+def expert_bytes(params: dict, cfg) -> tuple[int, int]:
+    """(bytes of the routed experts' weights, of the top_k of them a token
+    routes to) over the stacked MoE layers."""
+    moe = params["layers"]["moe"]
+    total = sum(moe[w].numel() * moe[w].element_size() for w in ("wg", "wu", "wd"))
+    return total, total * cfg.top_k // cfg.n_experts
+
+
+def moe_arch(arch: str, n_layers: int, launches: dict, dev):
+    """Phase 10 for one arch: serve it at full width with ``n_layers``
+    layers through greedy_decode and a DispatchService, with the launch
+    counts set to 0 just before and read just after (added to
+    ``launches``); then per-call launches and times, the decode step's two
+    bytes bounds and busy share, the new matmul signatures against their
+    plain version, MLA's two schedules (deepseek) and a PagedKVCache round
+    (mixtral). Returns (the served config, the prompt generator): the
+    model's tensors die with this call's locals."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dispatch import DispatchService
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.matmul import tiled_matmul
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+    from repro_torch.serve import PagedKVCache, greedy_decode, make_serve_step, prefill
+
+    wrappers = (flash_attention, decode_attention, tiled_matmul)
+    B, P, gen, seed = (MOE_SERVE[k] for k in ("batch", "prompt_len", "gen", "seed"))
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, dtype=torch.float32, n_layers=n_layers)
+    gqa = cfg.attn_type == "gqa"
+    per_step = n_layers + 1 if gqa else 1     # GQA output projections + the unembed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    svc = DispatchService()
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev)
+
+    # -- the main path: greedy_decode (prefill: forward + the prompt's replay)
+    for w in wrappers:
+        w.launches = 0
+    timings: dict = {}
+    toks = greedy_decode(params, cfg, prompt, steps=gen, max_len=P + gen, service=svc,
+                         timings=timings)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(toks.shape) != (B, gen) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{arch}: tokens of shape {tuple(toks.shape)} outside the vocab")
+    want = {"flash_attention": 0, "decode_attention": 0,
+            "tiled_matmul": per_step * (1 + P + gen)}
+    print(f"  {arch} ({n_layers} of {full.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, vocab {cfg.vocab_size}): launches over "
+          f"greedy_decode {counts} (expected {want}: {per_step} matmul per forward and per "
+          f"decode step, {P + gen} steps; no attention kernel, "
+          f"{'a sliding window' if gqa else 'MLA'})")
+    if counts != want:
+        raise AssertionError(f"{arch}: launch counts {counts} != {want}")
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    if svc.stats["build_failed"] or svc.stats["store_default"] == 0:
+        raise AssertionError(f"{arch}: dispatch stats {svc.stats}")
+    print(f"  {arch} dispatch stats: {json.dumps(svc.stats)}; first request "
+          f"{toks[0].tolist()}", flush=True)
+
+    # -- per call: launches, times, the decode step's bounds and busy share
+    fwd = lambda: forward(params, {"tokens": prompt}, cfg, service=svc)  # noqa: E731
+    n_fwd = launches_per_call(fwd, wrappers)
+    cache = init_cache(cfg, B, P + gen, device=dev)
+    tok = prompt[:, -1:]
+    step = lambda: decode_step(params, cache, tok, P, cfg, service=svc)  # noqa: E731
+    n_step = launches_per_call(step, wrappers)
+    one = {"flash_attention": 0, "decode_attention": 0, "tiled_matmul": per_step}
+    print(f"  {arch} launches per prefill forward {n_fwd}, per decode step {n_step}")
+    if n_fwd != one or n_step != one:
+        raise AssertionError(f"{arch}: per-call launch counts differ from {one}")
+    fwd_ms, step_ms = host_ms(fwd, iters=3), host_ms(step, iters=10)
+    embed = params["embed"].numel() * 4          # the lookup reads B rows
+    weights = tree_bytes(params) - embed
+    experts, active = expert_bytes(params, cfg)
+    # the cache a step must read: P + 1 positions of K and V, or of MLA's latent
+    per_pos = 2 * cfg.n_kv_heads * cfg.hd if gqa else cfg.kv_lora_rank + cfg.qk_rope_dim
+    kv = n_layers * B * (P + 1) * per_pos * 4
+    all_ms = (weights + kv) / PEAK_HBM_BYTES * 1e3
+    top_ms = (weights - experts + active + kv) / PEAK_HBM_BYTES * 1e3
+    dev_ms, by_name = device_time(step)
+    n_kernels = sum(c for c, _ in by_name.values())
+    busy = None if dev_ms == 0.0 else dev_ms / step_ms
+    top5 = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:5]
+    print(f"  {arch} memory: peak {peak / 1e9:.3f} GB allocated over the served run "
+          f"(torch.cuda.max_memory_allocated), weights {tree_bytes(params) / 1e9:.3f} GB f32")
+    print(f"  {arch} TTFT {timings['prefill_sec'] * 1e3:.2f} ms (forward + the prompt's replay "
+          f"through decode_step); forward alone {fwd_ms:.3f} ms host wall")
+    print(f"  {arch} decode: {timings['decode_sec'] / gen * 1e3:.4f} ms per step in the run, "
+          f"{step_ms:.4f} ms alone; bounds (bytes at 3.35 TB/s): all weights but the embed "
+          f"table {all_ms:.4f} ms ({(weights + kv) / 1e9:.3f} GB with {kv / 1e6:.1f} MB of "
+          f"cache), only the top-{cfg.top_k} experts {top_ms:.4f} ms "
+          f"({(weights - experts + active + kv) / 1e9:.3f} GB)")
+    print(f"  {arch} one decode step on the device (torch.profiler): "
+          + ("not measured (the profiler recorded no device time)" if busy is None else
+             f"{n_kernels} device kernels, {dev_ms:.4f} ms busy of {step_ms:.4f} ms host "
+             f"wall ({busy:.1%})") + "; largest: "
+          + "; ".join(f"{k[:50]} x{c} {t:.4f} ms" for k, (c, t) in top5), flush=True)
+
+    # -- the new matmul signatures at the rows the path gives them (4 in a
+    # decode step: the FFMA tiles; B*P in the forward: 3xTF32 on the tensor
+    # cores), each held against its plain version (TF32 is off, so
+    # torch.matmul is tiled_matmul_plain's pack=True product) at phase 3's
+    # tolerance, then timed: 10 calls queued behind a spin, between CUDA
+    # events (torch.profiler can lose the events of such calls), beside
+    # torch.matmul and the bound
+    bm = ops.DEFAULTS["matmul"]["bm"]
+    sigs = [("decode unembed", B, params["unembed"], "1 per decode step"),
+            ("forward unembed", B * P, params["unembed"], "1 per forward")]
+    if gqa:
+        wo = params["layers"]["wo"][0]
+        sigs = [("decode output projection", B, wo, f"{n_layers} per decode step"),
+                ("forward output projection", B * P, wo, f"{n_layers} per forward")] + sigs
+    gx = torch.Generator(device=dev).manual_seed(seed + 2)
+    for label, M, w, per in sigs:
+        K, N = w.shape
+        x = torch.randn(M, K, generator=gx, device=dev)
+        fn = svc.dispatch("matmul", x, w)
+        tc = min(bm, M) > 8
+        compare(f"{arch} matmul {label} ({M}, {K}) @ ({K}, {N}) "
+                f"{'3xTF32' if tc else 'FFMA'}, against its plain version",
+                fn(x, w), torch.matmul(x, w), F32_TOL)
+        k_ms, l_ms = queued_ms(lambda: fn(x, w)), queued_ms(lambda: torch.matmul(x, w))
+        b_ms, b_by = bound(2.0 * M * K * N, 4.0 * (M * K + K * N + M * N),
+                           peak=PEAK_3XTF32_FLOPS if tc else PEAK_F32_FLOPS)
+        print(f"  {arch} matmul {label} ({M}, {K}) @ ({K}, {N}), {per}: kernel "
+              + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
+              + f" queued on the device, bound {b_ms:.4f} ms ({b_by}), torch.matmul "
+              + ("not measured" if l_ms is None else f"{l_ms:.4f} ms"), flush=True)
+
+    # -- MLA's two schedules on one filled cache
+    if not gqa:
+        _, filled = prefill(params, {"tokens": prompt}, cfg, max_len=P + gen, service=svc)
+        outs = []
+        for absorb in (True, False):
+            serve = make_serve_step(cfg, mla_absorb=absorb, service=svc)
+            c = {k: {n: t.clone() for n, t in v.items()} for k, v in filled.items()}
+            outs.append(serve(params, c, tok, P)[1])
+        compare(f"{arch} decode logits, absorb=True vs absorb=False on one filled cache "
+                f"(the reference's tolerance)", outs[0], outs[1], dict(atol=1e-3, rtol=1e-3))
+
+    # -- a PagedKVCache round against each request's solo greedy_decode
+    if gqa:
+        rounds, lens = MOE_SERVE["paged_rounds"], MOE_SERVE["paged_lens"]
+        pc = PagedKVCache(cfg, max_batch=8, max_len=max(lens) + rounds + 1, page_size=128,
+                          device=dev)
+        svc.attach_kv_cache(pc)
+        prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=g, device=dev)
+                   for n in lens]
+        solo = [greedy_decode(params, cfg, p, steps=rounds + 1, max_len=pc.alloc,
+                              service=svc)[0] for p in prompts]
+        serve = make_serve_step(cfg, service=svc)
+        slots, out = [0, 3, 4, 6], []
+        for slot, p in zip(slots, prompts):
+            logits, pcache = prefill(params, {"tokens": p}, cfg, max_len=pc.alloc, service=svc)
+            pc.admit(slot, pcache, p.shape[1])
+            out.append([int(torch.argmax(logits[0, -1]))])
+        cur = torch.tensor([[t[-1]] for t in out], device=dev)
+        for _ in range(rounds):
+            bucket = pc.seq_bucket(slots)
+            view = pc.view(slots, bucket)
+            nxt, _, view = serve(params, view, cur, pc.pos_vector(slots) + 1)
+            pc.writeback(slots, bucket, view)
+            pc.advance(slots)
+            for i, t in enumerate(out):
+                t.append(int(nxt[i, 0]))
+            cur = nxt
+        for n, got, want_ in zip(lens, out, solo):
+            if got != want_.tolist():
+                raise AssertionError(f"{arch} paged round, prompt {n}: {got} != solo "
+                                     f"{want_.tolist()}")
+        print(f"  {arch} PagedKVCache: 4 requests (prompts {lens}) in 8 slots, page 128, "
+              f"{rounds} rounds of per-row positions through the routed experts: tokens "
+              f"equal each request's solo greedy_decode; "
+              f"{json.dumps(svc.telemetry()['kv_cache'])}", flush=True)
+    return cfg, g
+
+
+def moe_card_vs_cpu(arch: str, cfg, check_layers: int, g, dev) -> None:
+    """Phase 10's last check for one arch: the card against the CPU, same
+    weights drawn from the seed, at full width with ``check_layers`` layers
+    (one MoE layer), prompt tokens from ``g``: forward logits at LOGIT_TOL
+    and greedy tokens equal, beside the least routing margin."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.dispatch import DispatchService
+    from repro_torch.models import forward, init_params
+    from repro_torch.serve import greedy_decode
+
+    seed = MOE_SERVE["seed"]
+    P1, gen1 = MOE_SERVE["check_prompt"], MOE_SERVE["check_gen"]
+    ccfg = dataclasses.replace(cfg, n_layers=check_layers)
+    cparams = init_params(ccfg, torch.Generator(device=dev).manual_seed(seed))
+    svc = DispatchService()
+    p1 = torch.randint(0, ccfg.vocab_size, (1, P1), generator=g, device=dev)
+    margins: list = []
+    with routing_margins(margins):
+        want_logits, _ = forward(cparams, {"tokens": p1}, ccfg, service=svc)
+        want_toks = greedy_decode(cparams, ccfg, p1, steps=gen1, max_len=P1 + gen1,
+                                  service=svc)
+    cpu = torch.device("cpu")
+    cparams_cpu = tree_to(cparams, cpu)
+    want_logits, want_toks = want_logits.cpu(), want_toks.cpu()
+    del cparams, svc
+    torch.cuda.empty_cache()
+    svc_cpu = DispatchService()
+    got_logits, _ = forward(cparams_cpu, {"tokens": p1.cpu()}, ccfg, service=svc_cpu)
+    got_toks = greedy_decode(cparams_cpu, ccfg, p1.cpu(), steps=gen1, max_len=P1 + gen1,
+                             service=svc_cpu)
+    del cparams_cpu
+    print(f"  {arch} card vs CPU at {check_layers} layer(s), prompt {P1}: least gap between "
+          f"the k-th and (k+1)-th router probability (k = {ccfg.top_k}) over the routed "
+          f"tokens {min(margins):.3e} (the forward and {P1 + gen1} decode steps on the card)")
+    compare(f"{arch} logits, card vs CPU (full width, {check_layers} layer(s), prompt {P1})",
+            want_logits, got_logits, LOGIT_TOL)
+    if not torch.equal(want_toks, got_toks):
+        raise AssertionError(f"{arch} greedy tokens card {want_toks.tolist()} != CPU "
+                             f"{got_toks.tolist()}")
+    print(f"  {arch} greedy tokens ({gen1}), card and CPU: {want_toks[0].tolist()} (equal)",
+          flush=True)
+
+
+def moe_phase(launches: dict, dev) -> None:
+    """Phase 10: the MoE family on the card, one arch after the other. The
+    served model's tensors are gone from the card (within
+    MOE_LEFT_BYTES of what was allocated before it was drawn) before the
+    check's weights, and the next arch's, are drawn."""
+    import gc
+
+    import torch
+
+    t10 = time.perf_counter()
+    for arch, n_layers, check_layers in MOE_ARCHS:
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        cfg, g = moe_arch(arch, n_layers, launches, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() - base
+        print(f"  {arch} after the served run: {left / 1e6:.1f} MB more allocated than "
+              f"before its weights were drawn (at most {MOE_LEFT_BYTES / 1e6:.0f} MB)",
+              flush=True)
+        if left > MOE_LEFT_BYTES:
+            raise AssertionError(f"{arch}: {left} bytes of the served model left on the card")
+        moe_card_vs_cpu(arch, cfg, check_layers, g, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
 
 
 def kernel_inputs(kernel: str, sig: tuple, dev) -> tuple[tuple, dict]:
@@ -2235,6 +2550,11 @@ def main() -> int:
     phase("9. the paper's tables on the card: Tables 1-7 at LARGE and the four-learner "
           "study (benchmarks/torch_tables.py, benchmarks/torch_learners.py)")
     tables_phase(launches, best_check)
+
+    # ---- 10. the MoE family ----------------------------------------------------------
+    phase("10. the MoE family on the card: mixtral-8x7b and deepseek-v2-236b at full width, "
+          "depth cut, f32, through greedy_decode and the dispatch service")
+    moe_phase(launches, dev)
 
     def entry(name, source, replaces):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",

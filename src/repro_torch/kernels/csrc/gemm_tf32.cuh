@@ -5,8 +5,9 @@
 // (x - hi is exact in f32); then x*y = hi_x*hi_y + hi_x*lo_y + lo_x*hi_y +
 // lo_x*lo_y, and the last term, about 2^-22 of the product, is dropped.
 // Three mma.sync.m16n8k8 TF32 products with f32 accumulation (matmul.cu
-// issues them lo*hi, hi*lo, then hi*hi) give about f32's accuracy at a
-// third of the TF32 rate: 495 / 3 = 165 TFLOP/s on an H100 SXM by the data
+// issues them lo*hi, hi*lo, then hi*hi, into a tile fresh for each chunk of
+// K: the mma's accumulation rounds toward zero, which a sum over all of K
+// would carry) give about f32's accuracy at a third of the TF32 rate: 495 / 3 = 165 TFLOP/s on an H100 SXM by the data
 // sheet, against 67 TFLOP/s of f32 FFMA; mma.sync's own TF32 rate is lower
 // than the data sheet's, which wgmma reaches (mma_rate.py measures it).
 //

@@ -23,9 +23,12 @@
 //   * f32 inputs past 8 rows run on the tensor cores in 3xTF32
 //     (gemm_tf32.cuh): each f32 value is split into two TF32 parts as it is
 //     read from shared memory, and three mma.sync.m16n8k8 products with f32
-//     accumulation (lo*hi, hi*lo, hi*hi) keep about f32's accuracy. Warp
+//     accumulation (lo*hi, hi*lo, hi*hi) into a tile fresh for each chunk,
+//     added into the running sum on the CUDA cores, keep about f32's
+//     accuracy (mma.sync's accumulation rounds toward zero). Warp
 //     (wr, wc) of (pm/32) x (pn/32) warps holds a 32 x 32 piece of the tile
-//     as 2 x 4 mma tiles (32 f32 accumulators a thread); the tile is staged
+//     as 2 x 4 mma tiles (32 f32 accumulators a thread, and 32 for the
+//     chunk); the tile is staged
 //     padded to whole pieces (a 24-row tile computes 32 rows, a 40-row one
 //     64; rows and columns past the operands are zeros), so that no mma runs
 //     under a predicate (a version that skipped the padding's mma tiles
@@ -355,6 +358,18 @@ __global__ void __launch_bounds__(MAX_TC_THREADS) matmul_tf32_kernel(Args p) {
     const int k0 = c * p.bk, kcp = gemm::round_up(min(p.bk, p.K - k0), MMA_K);
     const float* pa = sA + (r0 + g) * lda + t;
     const float* pb = sB + t * ldb + c0 + g;
+    // the chunk's products in a fresh f32 tile, added into acc on the CUDA
+    // cores (rounding to nearest): mma.sync's own f32 accumulation rounds
+    // toward zero, so a sum carried through it over all of K drifts toward
+    // zero as K grows (at K = 4096 the largest error was 1.5e-4 of the
+    // output's rms, torch.matmul's 3.3e-6; H100, ab_kernels.py)
+    float part[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
 #pragma unroll 2
     for (int k = 0; k < kcp; k += MMA_K) {
       uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
@@ -378,27 +393,28 @@ __global__ void __launch_bounds__(MAX_TC_THREADS) matmul_tf32_kernel(Args p) {
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
-          tf32::mma(acc[mt][nt], al[mt], bh[nt]);
+          tf32::mma(part[mt][nt], al[mt], bh[nt]);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
-          tf32::mma(acc[mt][nt], ah[mt], bl[nt]);
+          tf32::mma(part[mt][nt], ah[mt], bl[nt]);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
-          tf32::mma(acc[mt][nt], ah[mt], bh[nt]);
+          tf32::mma(part[mt][nt], ah[mt], bh[nt]);
     }
-    if (!PACK) {  // read-modify-write of the O tile in O's dtype, then a fresh chunk
-      store_tile(k0 > 0);
+    // PACK: the running sum; else the chunk alone, for the read-modify-write
+    // of the O tile in O's dtype
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-    }
+        for (int e = 0; e < 4; ++e)
+          acc[mt][nt][e] = PACK ? acc[mt][nt][e] + part[mt][nt][e] : part[mt][nt][e];
+    if (!PACK) store_tile(k0 > 0);
   };
 
   gemm::run_ring((p.K + p.bk - 1) / p.bk, L.stages, load, compute);

@@ -5,12 +5,22 @@ the card through the dispatch service — the counterpart of
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
         --batch 4 --prompt-len 256 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+        --device cpu --reduced
 
-It runs on the card unless ``--device cpu`` is given (without a card it
-raises). It always serves through a :class:`DispatchService` — otherwise no
-kernel runs: prefill attention goes to the flash_attention kernel, every
-decode step's attention to the decode_attention kernel, and the output
-projection and tied unembed to the tiled matmul. The service has no store,
+``--arch`` takes the dense family and the MoE family (``mixtral-8x7b``,
+``deepseek-v2-236b``). It runs on the card unless ``--device cpu`` is given
+(without a card it raises). It always serves through a
+:class:`DispatchService` — otherwise no kernel runs: prefill attention goes
+to the flash_attention kernel, every decode step's attention to the
+decode_attention kernel, and the output projection and the unembed to the
+tiled matmul. As in the JAX package, an arch with a sliding window
+(mixtral) keeps its attention on the plain path, and MLA (deepseek), its
+output projection included, and the routed experts are plain tensor
+operations: there only the matmul call sites run the kernel. The full MoE
+configs do not fit one card in f32 (``param_count()`` x 4 bytes: mixtral
+187 GB, deepseek about 943 GB); ``chip_smoke.py`` serves them with fewer
+layers. The service has no store,
 so the ``gpu`` space defaults apply, unless ``--store DIR`` names a tuning
 store (records an ``autotune --store DIR`` campaign published, or earlier
 runs' background campaigns). With ``--tune`` a store miss (or a too-distant

@@ -1,5 +1,5 @@
-"""repro_torch.models — the LM substrate, dense family (the counterpart of
-``repro.models``)."""
+"""repro_torch.models — the LM substrate, dense and MoE families (the
+counterpart of ``repro.models``)."""
 
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.model import decode_step, forward, init_cache, init_params

@@ -1,10 +1,11 @@
-"""Layer blocks of the dense family — the counterpart of the GQA parts of
-``repro.models.blocks``: init, train-time (prefill) apply and decode-time
-apply of a transformer layer with GQA attention and a dense MLP.
+"""Transformer layer blocks — the counterpart of the attention-layer parts
+of ``repro.models.blocks``: init, train-time (prefill) apply and decode-time
+apply of a layer with GQA or MLA attention and a dense MLP or routed
+experts (the dense and MoE families).
 
-The decode apply writes the new token's K/V into the layer's cache in place
-(``index_put_`` on the layer's slice of the stacked cache), where the JAX
-package returns an updated copy. MLA, Mamba2 and cross-attention layers
+The decode apply writes the new token's K/V (or MLA latent) into the
+layer's cache in place (on the layer's slice of the stacked cache), where
+the JAX package returns an updated copy. Mamba2 and cross-attention layers
 come with their families.
 """
 
@@ -22,7 +23,8 @@ from repro_torch.models.common import (
     rope,
     service_matmul,
 )
-from repro_torch.models.moe import init_mlp, mlp
+from repro_torch.models.mla import init_mla, mla_attention, mla_decode
+from repro_torch.models.moe import init_mlp, init_moe, mlp, moe_ffn
 
 __all__ = ["init_attn_layer", "attn_layer_train", "attn_layer_decode", "layer_windows"]
 
@@ -46,35 +48,39 @@ def layer_windows(cfg: ArchConfig) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# transformer layer (GQA attention, dense MLP)
+# transformer layer (GQA or MLA attention; dense MLP or MoE)
 # ---------------------------------------------------------------------------
 
 
 def init_attn_layer(generator: torch.Generator, cfg: ArchConfig, *, moe: bool = False,
                     d_ff: int | None = None) -> dict:
-    if cfg.attn_type != "gqa":
+    if cfg.attn_type not in ("gqa", "mla"):
         raise NotImplementedError(f"{cfg.attn_type} attention waits for its family "
                                   f"(ROADMAP.md Queue 1, item 5)")
-    if moe:
-        raise NotImplementedError("MoE layers wait for the MoE family "
-                                  "(ROADMAP.md Queue 1, item 5)")
     d = cfg.d_model
     hd = cfg.hd
     dtype = cfg.dtype
     dev = generator.device
     p: dict = {"ln1": torch.zeros(d, device=dev), "ln2": torch.zeros(d, device=dev)}
-    p["wq"] = dense_init((d, cfg.n_heads * hd), generator, 0, dtype)
-    p["wk"] = dense_init((d, cfg.n_kv_heads * hd), generator, 0, dtype)
-    p["wv"] = dense_init((d, cfg.n_kv_heads * hd), generator, 0, dtype)
-    p["wo"] = dense_init((cfg.n_heads * hd, d), generator, 0, dtype)
-    if cfg.qkv_bias:
-        p["bq"] = torch.zeros(cfg.n_heads * hd, device=dev)
-        p["bk"] = torch.zeros(cfg.n_kv_heads * hd, device=dev)
-        p["bv"] = torch.zeros(cfg.n_kv_heads * hd, device=dev)
-    if cfg.qk_norm:
-        p["q_norm"] = torch.zeros(hd, device=dev)
-        p["k_norm"] = torch.zeros(hd, device=dev)
-    p["mlp"] = init_mlp(generator, d, d_ff or cfg.d_ff, dtype)
+    if cfg.attn_type == "mla":
+        p["mla"] = init_mla(generator, cfg, dtype)
+    else:
+        p["wq"] = dense_init((d, cfg.n_heads * hd), generator, 0, dtype)
+        p["wk"] = dense_init((d, cfg.n_kv_heads * hd), generator, 0, dtype)
+        p["wv"] = dense_init((d, cfg.n_kv_heads * hd), generator, 0, dtype)
+        p["wo"] = dense_init((cfg.n_heads * hd, d), generator, 0, dtype)
+        if cfg.qkv_bias:
+            p["bq"] = torch.zeros(cfg.n_heads * hd, device=dev)
+            p["bk"] = torch.zeros(cfg.n_kv_heads * hd, device=dev)
+            p["bv"] = torch.zeros(cfg.n_kv_heads * hd, device=dev)
+        if cfg.qk_norm:
+            p["q_norm"] = torch.zeros(hd, device=dev)
+            p["k_norm"] = torch.zeros(hd, device=dev)
+    if moe:
+        p["moe"] = init_moe(generator, d, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts,
+                            cfg.n_shared_experts, dtype)
+    else:
+        p["mlp"] = init_mlp(generator, d, d_ff or cfg.d_ff, dtype)
     return p
 
 
@@ -102,41 +108,50 @@ def _qkv(p, h, cfg, positions):
     return q, k, v
 
 
-def attn_layer_train(p, x, *, cfg: ArchConfig, positions, window=None,
+def _ffn(p, x, cfg: ArchConfig, moe: bool):
+    """The layer's FFN on the pre-normed residual: (y, the router's aux
+    loss, 0 for a dense MLP)."""
+    if moe:
+        return moe_ffn(p["moe"], x, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                       group_size=cfg.moe_group)
+    return mlp(p["mlp"], x), torch.zeros((), device=x.device)
+
+
+def attn_layer_train(p, x, *, cfg: ArchConfig, positions, window=None, moe: bool = False,
                      causal: bool = True, chunk: int = 512, service=None):
-    """Returns x after the layer. positions: (B, S) or (B, 3, S) for M-RoPE;
-    window: this layer's window (0 = full attention). ``service`` routes
-    attention and the output projection through :mod:`repro_torch.dispatch`
-    tuned variants."""
-    # the flash route is gated statically, as in the JAX package: only archs
-    # with no windowed layers qualify
-    svc_attn = service if not (cfg.sliding_window or cfg.local_global_ratio) else None
+    """Returns (x, aux) after the layer. positions: (B, S) or (B, 3, S) for
+    M-RoPE; window: this layer's window (0 = full attention). ``service``
+    routes GQA attention and its output projection through
+    :mod:`repro_torch.dispatch` tuned variants; MLA and the experts stay
+    plain tensor operations, as in the JAX package."""
     h = rms_norm(x, p["ln1"])
-    q, k, v = _qkv(p, h, cfg, positions)
-    o = gqa_attention(q, k, v, causal=causal, window=window, chunk=chunk,
-                      f32=cfg.attn_f32, service=svc_attn)
-    B, S = x.shape[:2]
-    x = x + service_matmul(o.reshape(B, S, -1), p["wo"], service)
-    return x + mlp(p["mlp"], rms_norm(x, p["ln2"]))
+    if cfg.attn_type == "mla":
+        x = x + mla_attention(p["mla"], h, cfg,
+                              positions if positions.ndim == 2 else positions[:, 0])
+    else:
+        # the flash route is gated statically, as in the JAX package: only
+        # archs with no windowed layers qualify
+        svc_attn = service if not (cfg.sliding_window or cfg.local_global_ratio) else None
+        q, k, v = _qkv(p, h, cfg, positions)
+        o = gqa_attention(q, k, v, causal=causal, window=window, chunk=chunk,
+                          f32=cfg.attn_f32, service=svc_attn)
+        B, S = x.shape[:2]
+        x = x + service_matmul(o.reshape(B, S, -1), p["wo"], service)
+    y, aux = _ffn(p, rms_norm(x, p["ln2"]), cfg, moe)
+    return x + y, aux
 
 
-def attn_layer_decode(p, x, cache, pos, *, cfg: ArchConfig, window=None, service=None):
-    """x: (B, 1, d); cache: {'k': (B, S, K, hd), 'v': ...}, updated in place
-    with this token's K/V. ``pos`` is an int or a (B,) vector (continuous
-    batching: per-sequence positions; the insert becomes a per-row
-    scatter). Returns (x, cache). ``service`` routes the output projection
-    through the tuned tiled matmul and — for archs with no windowed layers
-    — single-token attention through the tuned ``decode_attention``
-    kernel."""
-    B = x.shape[0]
-    h = rms_norm(x, p["ln1"])
+def _gqa_decode(p, h, cache, pos, *, cfg: ArchConfig, window, service):
+    """The GQA half of a decode layer on the normed input ``h``: writes this
+    token's K/V into ``cache`` and returns the projected attention output."""
+    B = h.shape[0]
     svc_attn = service if not (cfg.sliding_window or cfg.local_global_ratio) else None
     scalar = isinstance(pos, (int, np.integer))
     if scalar:  # a Python int: no host-device copy, no synchronisation
         pos = int(pos)
-        positions = torch.full((B, 1), pos, device=x.device)
+        positions = torch.full((B, 1), pos, device=h.device)
     else:
-        pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
+        pos = torch.as_tensor(pos, device=h.device).reshape(-1).expand(B)
         positions = pos[:, None]
     if cfg.mrope:
         positions = positions[:, None, :].expand(B, 3, 1)
@@ -151,11 +166,29 @@ def attn_layer_decode(p, x, cache, pos, *, cfg: ArchConfig, window=None, service
     else:
         # per-sequence positions: row b writes its own slot
         slots = (torch.remainder(pos, S_alloc) if ring else pos).long()
-        rows = torch.arange(B, device=x.device)
+        rows = torch.arange(B, device=h.device)
         cache["k"].index_put_((rows, slots), k[:, 0].to(cache["k"].dtype))
         cache["v"].index_put_((rows, slots), v[:, 0].to(cache["v"].dtype))
     o = gqa_decode(q, cache["k"], cache["v"], pos,
                    window=None if svc_attn is not None else window,
                    ring=ring, service=svc_attn)
-    x = x + service_matmul(o.reshape(B, 1, -1), p["wo"], service)
-    return x + mlp(p["mlp"], rms_norm(x, p["ln2"])), cache
+    return service_matmul(o.reshape(B, 1, -1), p["wo"], service)
+
+
+def attn_layer_decode(p, x, cache, pos, *, cfg: ArchConfig, window=None, moe: bool = False,
+                      mla_absorb: bool = True, service=None):
+    """x: (B, 1, d); cache: {'k': (B, S, K, hd), 'v': ...} or the MLA latent
+    cache, updated in place with this token's entry. ``pos`` is an int, or
+    for the GQA families a (B,) vector (continuous batching: per-sequence
+    positions; the insert becomes a per-row scatter). Returns (x, cache,
+    aux). ``service`` routes the GQA output projection through the tuned
+    tiled matmul and — for archs with no windowed layers — single-token
+    attention through the tuned ``decode_attention`` kernel."""
+    h = rms_norm(x, p["ln1"])
+    if cfg.attn_type == "mla":
+        attn, cache = mla_decode(p["mla"], h, cache, cfg, pos, absorb=mla_absorb)
+    else:
+        attn = _gqa_decode(p, h, cache, pos, cfg=cfg, window=window, service=service)
+    x = x + attn
+    y, aux = _ffn(p, rms_norm(x, p["ln2"]), cfg, moe)
+    return x + y, cache, aux

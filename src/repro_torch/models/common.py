@@ -231,12 +231,14 @@ def dense_init(shape, generator: torch.Generator, in_axis: int = 0,
     """Normal weights with std 1/sqrt(fan_in), drawn in f32 from
     ``generator`` on its device, then cast to ``dtype``. (The JAX package
     draws from a ``jax.random`` key: the two give different numbers; tests
-    carry the JAX package's weights over with ``models.convert``.)"""
+    carry the JAX package's weights over with ``models.convert``.) The scale
+    is applied in place: an expert tensor at DeepSeek-V2's width is 5 GB in
+    f32, and ``w * std`` would hold a second one."""
     fan_in = shape[in_axis] if in_axis < len(shape) else shape[0]
     std = (1.0 / max(fan_in, 1)) ** 0.5
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)
 
 
 ACT = {

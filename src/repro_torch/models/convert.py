@@ -17,9 +17,11 @@ from repro_torch.models.model import tied_unembed
 __all__ = ["params_from_numpy"]
 
 
-# the weight matrices, which the JAX package keeps in cfg.dtype; norm scales
-# and biases stay f32 there
-WEIGHTS = frozenset({"embed", "unembed", "wq", "wk", "wv", "wo", "wg", "wu", "wd"})
+# the weight matrices, which the JAX package keeps in cfg.dtype (GQA and MLA
+# projections, MLPs, shared and routed experts); norm scales, biases and the
+# MoE router stay f32 there
+WEIGHTS = frozenset({"embed", "unembed", "wq", "wk", "wv", "wo", "wg", "wu", "wd",
+                     "wq_a", "wq_b", "wkv_a", "wkv_b"})
 
 
 def _tree(tree: dict, device, dtype) -> dict:
@@ -36,7 +38,8 @@ def _tree(tree: dict, device, dtype) -> dict:
 def params_from_numpy(tree: dict, device="cpu", dtype: torch.dtype = torch.float32,
                       tie_embeddings: bool = True) -> dict:
     """The port's parameter dict for a JAX-package parameter tree of numpy
-    arrays: weight matrices in ``dtype``, norm scales and biases in f32, as
-    the JAX package keeps them."""
+    arrays (any family the port serves, subtrees such as ``dense0``,
+    ``mla`` and ``moe`` included): weight matrices in ``dtype``, norm
+    scales, biases and the router in f32, as the JAX package keeps them."""
     params = _tree(tree, torch.device(device), dtype)
     return tied_unembed(params) if tie_embeddings else params

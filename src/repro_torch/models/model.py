@@ -1,10 +1,11 @@
-"""Model assembly for the dense family: init / forward / cache / decode — the
-counterpart of ``repro.models.model``.
+"""Model assembly for the dense and MoE families: init / forward / cache /
+decode — the counterpart of ``repro.models.model``.
 
 Layers stay stacked on a leading ``L`` axis (the JAX package's layout, which
-it drives with ``lax.scan``) and a Python loop walks them. The other
-families (MoE, MLA, SSM, hybrid, VLM, audio) raise ``NotImplementedError``:
-they are ROADMAP.md Queue 1, item 5.
+it drives with ``lax.scan``) and a Python loop walks them. DeepSeek-V2's
+leading dense layer is a separate stage (``dense0``) before the stack, as
+in the JAX package. The other families (SSM, hybrid, VLM, audio) raise
+``NotImplementedError``: they are ROADMAP.md Queue 1, item 5.
 
 Tied embeddings: the unembed is ``embed.T``, a transposed view the tiled
 matmul kernel cannot take (it needs contiguous operands). The parameter set
@@ -20,16 +21,18 @@ import torch
 
 from repro_torch.models import blocks as B
 from repro_torch.models.common import ArchConfig, dense_init, rms_norm, service_matmul
+from repro_torch.models.mla import init_mla_cache
 
 __all__ = ["init_params", "forward", "init_cache", "decode_step", "make_batch_positions",
            "tied_unembed"]
 
 _NOT_YET = ("the {fam} family is not ported yet (ROADMAP.md Queue 1, item 5: the port "
-            "serves the dense family)")
+            "serves the dense and MoE families)")
+_PORTED = ("dense", "moe")
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+def _ported_only(cfg: ArchConfig) -> None:
+    if cfg.family not in _PORTED:
         raise NotImplementedError(_NOT_YET.format(fam=cfg.family))
 
 
@@ -59,25 +62,57 @@ def _unembed(params: dict, cfg: ArchConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _stack_init(init_one, n: int) -> dict:
+    """``n`` layers drawn one after another by ``init_one()``, stacked on a
+    leading axis. The stack is allocated once and each layer copied in and
+    dropped, so the peak holds the stack and one layer (``torch.stack``
+    would hold the stack and every layer: 30 GB more at DeepSeek-V2's
+    width for two expert layers)."""
+    def alloc(tree):
+        return {k: alloc(v) if isinstance(v, dict) else v.new_empty((n, *v.shape))
+                for k, v in tree.items()}
+
+    def put(stack, tree, i):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                put(stack[k], v, i)
+            else:
+                stack[k][i].copy_(v)
+
+    stack = None
+    for i in range(n):
+        layer = init_one()
+        if stack is None:
+            stack = alloc(layer)
+        put(stack, layer, i)
+        del layer
+    return stack
+
+
+def _dense_ff(cfg: ArchConfig) -> int:
+    # DeepSeek-V2's dense layers use the wide FFN (12288), not the expert width
+    return 12288 if cfg.name.startswith("deepseek") else cfg.d_ff
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
     """Random parameters drawn from ``generator`` on its device, in the JAX
-    package's tree (layers stacked on a leading L axis), plus ``embed_t``
-    for tied embeddings."""
-    _dense_only(cfg)
-    dev = generator.device
+    package's tree (layers stacked on a leading L axis; the MoE family's
+    leading dense layers as ``dense0``), plus ``embed_t`` for tied
+    embeddings."""
+    _ported_only(cfg)
     p: dict = {
         "embed": dense_init((cfg.vocab_size, cfg.d_model), generator, 1, cfg.dtype),
-        "final_norm": torch.zeros(cfg.d_model, device=dev),
+        "final_norm": torch.zeros(cfg.d_model, device=generator.device),
     }
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init((cfg.d_model, cfg.vocab_size), generator, 0, cfg.dtype)
-    layers = [B.init_attn_layer(generator, cfg) for _ in range(cfg.n_layers)]
-
-    def stack(trees):
-        return {k: stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
-                else torch.stack([t[k] for t in trees]) for k in trees[0]}
-
-    p["layers"] = stack(layers)
+    if cfg.family == "moe":
+        if cfg.first_dense_layers:
+            p["dense0"] = B.init_attn_layer(generator, cfg, moe=False, d_ff=_dense_ff(cfg))
+        p["layers"] = _stack_init(lambda: B.init_attn_layer(generator, cfg, moe=True),
+                                  cfg.n_layers - cfg.first_dense_layers)
+    else:
+        p["layers"] = _stack_init(lambda: B.init_attn_layer(generator, cfg), cfg.n_layers)
     return tied_unembed(p) if cfg.tie_embeddings else p
 
 
@@ -97,10 +132,11 @@ def make_batch_positions(cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
 def forward(params: dict, batch: dict, cfg: ArchConfig, *, attn_chunk: int = 512,
             service=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V) in f32, aux loss). ``service`` (a
-    :class:`repro_torch.dispatch.DispatchService`) routes attention, the
+    :class:`repro_torch.dispatch.DispatchService`) routes GQA attention, its
     output projection and the unembed through tuned kernel variants. The aux
-    loss is the MoE router's, 0 for the dense family."""
-    _dense_only(cfg)
+    loss is the MoE routers' summed over the layers, 0 for the dense
+    family."""
+    _ported_only(cfg)
     tokens = batch["tokens"]
     x = params["embed"][tokens].to(cfg.dtype)
     if cfg.name.startswith("gemma"):
@@ -108,13 +144,20 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *, attn_chunk: int = 512
     positions = batch.get("positions", None)
     if positions is None:
         positions = make_batch_positions(cfg, tokens)
-    windows = B.layer_windows(cfg)
-    for i in range(cfg.n_layers):
-        x = B.attn_layer_train(_layer(params["layers"], i), x, cfg=cfg, positions=positions,
-                               window=int(windows[i]), chunk=attn_chunk, service=service)
+    moe = cfg.family == "moe"
+    aux = torch.zeros((), device=x.device)
+    if "dense0" in params:
+        x, a0 = B.attn_layer_train(params["dense0"], x, cfg=cfg, positions=positions,
+                                   window=None, chunk=attn_chunk, service=service)
+        aux = aux + a0
+    windows = B.layer_windows(cfg)[cfg.first_dense_layers:]
+    for i, w in enumerate(windows):
+        x, a = B.attn_layer_train(_layer(params["layers"], i), x, cfg=cfg, positions=positions,
+                                  window=int(w), moe=moe, chunk=attn_chunk, service=service)
+        aux = aux + a
     x = rms_norm(x, params["final_norm"])
     logits = service_matmul(x, _unembed(params, cfg), service)
-    return logits.float(), torch.zeros((), device=x.device)
+    return logits.float(), aux
 
 
 # ---------------------------------------------------------------------------
@@ -123,36 +166,61 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *, attn_chunk: int = 512
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, device=None) -> dict:
-    """Stacked per-layer cache: ``{"layers": {"k", "v": (L, B, S, K, hd)}}``.
-    Uniform-sliding-window archs get a ring buffer of window size instead of
-    max_len, as in the JAX package."""
-    _dense_only(cfg)
+    """Stacked per-layer cache: ``{"layers": {"k", "v": (L, B, S, K, hd)}}``,
+    or for MLA ``{"layers": {"c_kv": (L, B, S, kv_lora), "k_rope": (L, B, S,
+    rope)}}``, with an unstacked ``dense0`` entry for the MoE family's
+    leading dense layer. Uniform-sliding-window archs get a ring buffer of
+    window size instead of max_len, as in the JAX package."""
+    _ported_only(cfg)
     dtype = dtype or cfg.dtype
     alloc = max_len
     if cfg.sliding_window and not cfg.local_global_ratio:
         alloc = min(max_len, cfg.sliding_window)
-    shape = (cfg.n_layers, batch, alloc, cfg.n_kv_heads, cfg.hd)
-    return {"layers": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                       "v": torch.zeros(shape, dtype=dtype, device=device)}}
+
+    def kv(*lead):
+        shape = (*lead, batch, alloc, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    if cfg.family == "dense":
+        return {"layers": kv(cfg.n_layers)}
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    out = {}
+    if cfg.attn_type == "mla":
+        one = init_mla_cache(cfg, batch, max_len, dtype, device)
+        out["layers"] = {k: v.new_zeros((n_moe, *v.shape)) for k, v in one.items()}
+        if cfg.first_dense_layers:
+            out["dense0"] = one
+    else:
+        out["layers"] = kv(n_moe)
+        if cfg.first_dense_layers:
+            out["dense0"] = kv()
+    return out
 
 
 def decode_step(params: dict, cache: dict, token: torch.Tensor, pos, cfg: ArchConfig, *,
-                service=None):
-    """token: (B, 1) int; pos: an int, or (B,) per-sequence positions
-    (continuous batching). Returns (logits (B, V) f32, cache): the cache is
-    updated in place (each layer's K/V written at ``pos``) and returned.
-    ``service`` routes the output projection, the unembed and — where the
-    arch's window schedule is statically empty — single-token attention
+                mla_absorb: bool = True, service=None):
+    """token: (B, 1) int; pos: an int, or for the GQA families (B,)
+    per-sequence positions (continuous batching). Returns (logits (B, V)
+    f32, cache): the cache is updated in place (each layer's entry written
+    at ``pos``) and returned. ``mla_absorb`` picks MLA's decode schedule.
+    ``service`` routes the GQA output projection, the unembed and — where
+    the arch's window schedule is statically empty — single-token attention
     through tuned dispatch variants."""
-    _dense_only(cfg)
+    _ported_only(cfg)
     x = params["embed"][token].to(cfg.dtype)
     if cfg.name.startswith("gemma"):
         x = x * cfg.d_model ** 0.5
-    windows = B.layer_windows(cfg)
+    moe = cfg.family == "moe"
+    if "dense0" in params:
+        x, _, _ = B.attn_layer_decode(params["dense0"], x, cache["dense0"], pos, cfg=cfg,
+                                      window=None, mla_absorb=mla_absorb, service=service)
+    windows = B.layer_windows(cfg)[cfg.first_dense_layers:]
     layers = cache["layers"]
-    for i in range(cfg.n_layers):
-        x, _ = B.attn_layer_decode(_layer(params["layers"], i), x, _layer(layers, i), pos,
-                                   cfg=cfg, window=int(windows[i]), service=service)
+    for i, w in enumerate(windows):
+        x, _, _ = B.attn_layer_decode(_layer(params["layers"], i), x, _layer(layers, i), pos,
+                                      cfg=cfg, window=int(w), moe=moe, mla_absorb=mla_absorb,
+                                      service=service)
     x = rms_norm(x, params["final_norm"])
     logits = service_matmul(x, _unembed(params, cfg), service)
     return logits[:, 0, :].float(), cache

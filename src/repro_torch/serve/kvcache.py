@@ -58,26 +58,47 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-class PagedKVCache:
-    """Slot-managed, page-bucketed KV cache for dense/GQA serving.
+def _map(fn, tree: dict) -> dict:
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
-    Only the GQA attention families qualify (the port serves the dense
-    family); windowed archs already allocate O(window) ring caches."""
+
+def _leaves(tree: dict, other: dict):
+    """(leaf of ``tree``, the leaf of ``other`` under the same keys) pairs:
+    stacked layers are (L, B, S, K, hd), an unstacked site such as a MoE
+    arch's leading dense layer (B, S, K, hd)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, other[k])
+        else:
+            yield v, other[k]
+
+
+class PagedKVCache:
+    """Slot-managed, page-bucketed KV cache for GQA serving (the dense
+    family and GQA MoE archs such as mixtral).
+
+    MLA keeps its latent cache and is refused, as in the JAX package. A
+    uniform sliding window is admitted only while the cache is shorter than
+    the window (``alloc <= sliding_window``): it is then never a ring and
+    the window never masks a key. The JAX package refuses every windowed
+    arch; past its window a windowed arch allocates an O(window) ring cache,
+    and a local:global schedule (gemma3) is refused here as there."""
 
     def __init__(self, cfg: ArchConfig, max_batch: int, max_len: int, *,
                  page_size: int = 128, dtype=None, device=None):
         if cfg.attn_type == "mla" or cfg.family not in ("dense", "vlm", "moe"):
             raise ValueError(f"paged KV cache requires a GQA family, got "
                              f"{cfg.family}/{cfg.attn_type}")
-        if cfg.sliding_window or cfg.local_global_ratio:
-            raise ValueError("paged KV cache does not support windowed archs "
-                             "(their ring cache is already O(window))")
         if page_size <= 0:
             raise ValueError(f"page_size must be positive, got {page_size}")
+        alloc = _cdiv(max_len, page_size) * page_size
+        if cfg.local_global_ratio or (cfg.sliding_window and alloc > cfg.sliding_window):
+            raise ValueError("paged KV cache does not support windowed archs past their "
+                             "window (their ring cache is already O(window))")
         self.cfg = cfg
         self.max_batch = int(max_batch)
         self.page_size = int(page_size)
-        self.alloc = _cdiv(max_len, page_size) * page_size
+        self.alloc = alloc
         self.dtype = dtype or cfg.dtype
         self.buf = init_cache(cfg, self.max_batch, self.alloc, self.dtype, device)
         self.device = self.buf["layers"]["k"].device
@@ -98,9 +119,11 @@ class PagedKVCache:
         harmless: decode masks by position and overwrites slot-by-slot."""
         if self.pos[slot] >= 0:
             raise ValueError(f"slot {slot} is occupied")
-        for name, buf in self.buf["layers"].items():
-            new = prefilled["layers"][name]          # (L, 1, n, K, hd)
-            buf[:, slot, :new.shape[2]] = new[:, 0].to(buf.dtype)
+        for buf, new in _leaves(self.buf, prefilled):
+            if buf.ndim == 5:                        # (L, 1, n, K, hd)
+                buf[:, slot, :new.shape[2]] = new[:, 0].to(buf.dtype)
+            else:                                    # (1, n, K, hd): dense0
+                buf[slot, :new.shape[1]] = new[0].to(buf.dtype)
         self.pos[slot] = prompt_len - 1
 
     def release(self, slot: int) -> None:
@@ -121,14 +144,17 @@ class PagedKVCache:
         decode round's serve step consumes. A gather: a copy of the slots'
         first ``bucket`` positions."""
         idx = torch.as_tensor(list(slots), dtype=torch.long, device=self.device)
-        return {"layers": {name: buf[:, idx, :bucket]
-                           for name, buf in self.buf["layers"].items()}}
+        return _map(lambda a: a[:, idx, :bucket] if a.ndim == 5 else a[idx, :bucket],
+                    self.buf)
 
     def writeback(self, slots, bucket: int, cache: dict) -> None:
         """Scatter a round's updated view back into the backing buffer."""
         idx = torch.as_tensor(list(slots), dtype=torch.long, device=self.device)
-        for name, buf in self.buf["layers"].items():
-            buf[:, idx, :bucket] = cache["layers"][name].to(buf.dtype)
+        for buf, c in _leaves(self.buf, cache):
+            if buf.ndim == 5:
+                buf[:, idx, :bucket] = c.to(buf.dtype)
+            else:
+                buf[idx, :bucket] = c.to(buf.dtype)
 
     def pos_vector(self, slots) -> torch.Tensor:
         """(len(slots),) int32 per-sequence decode positions, on the cache's

@@ -28,7 +28,10 @@ def prefill(params, batch, cfg: ArchConfig, max_len: int, service=None, **fw_kw)
     fused prefill-with-cache is a later optimisation). ``service`` routes the
     prompt forward's attention (flash ``bq``/``bk``) and matmul call sites,
     and the replay's decode attention and matmuls, through
-    :mod:`repro_torch.dispatch`."""
+    :mod:`repro_torch.dispatch`. MLA replays with the absorbed schedule, the
+    JAX package's default. With capacity-limited routing the forward can
+    drop tokens that the replay (one token a row) never drops, so its logits
+    and the filled cache can differ by design."""
     logits, _ = forward(params, batch, cfg, service=service, **fw_kw)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -38,24 +41,26 @@ def prefill(params, batch, cfg: ArchConfig, max_len: int, service=None, **fw_kw)
     return logits, cache
 
 
-def make_serve_step(cfg: ArchConfig, *, service=None):
+def make_serve_step(cfg: ArchConfig, *, mla_absorb: bool = True, service=None):
     """serve_step(params, cache, token, pos) -> (next_token, logits, cache),
-    the cache updated in place.
+    the cache updated in place; ``mla_absorb`` picks MLA's decode schedule.
 
     With a :class:`repro_torch.dispatch.DispatchService`, the step is held in
     the service's executable cache — every caller asking for the same model
-    config shares one entry — and the decode call sites inside resolve tuned
-    variants from the service's store."""
+    config and schedule shares one entry — and the decode call sites inside
+    resolve tuned variants from the service's store."""
 
     def serve_step(params, cache, token, pos):
-        logits, cache = decode_step(params, cache, token, pos, cfg, service=service)
+        logits, cache = decode_step(params, cache, token, pos, cfg,
+                                    mla_absorb=mla_absorb, service=service)
         nxt = torch.argmax(logits, dim=-1).to(token.dtype)[:, None]
         return nxt, logits, cache
 
     if service is not None:
         # key on the full dataclass repr: two configs sharing a name (e.g. a
-        # full model and its reduced() variant) must not share a closure
-        return service.jit_cached(f"serve_step/{cfg!r}", serve_step)
+        # full model and its reduced() variant) must not share a closure, nor
+        # two schedules of one model
+        return service.jit_cached(f"serve_step/{cfg!r}/absorb={mla_absorb}", serve_step)
     return serve_step
 
 

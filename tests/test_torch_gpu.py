@@ -211,6 +211,20 @@ def test_matmul_f32_in_bf16_out(cuda):
                BF16_TOL)
 
 
+@pytest.mark.parametrize("bk", [32, 128])
+@pytest.mark.parametrize("pack", [True, False])
+def test_matmul_3xtf32_keeps_f32_accuracy_over_a_long_k(cuda, pack, bk):
+    # the forward's output projection at mixtral's K (512 rows of a prompt
+    # batch), rows of unit scale so that the outputs are ~N(0, 1): mma.sync's
+    # f32 accumulation rounds toward zero, and a sum carried through it over
+    # all of K was 1.5e-4 off the plain version at this shape
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(512, 4096, generator=g, device=cuda)
+    b = torch.randn(4096, 1024, generator=g, device=cuda) / 64
+    got = tiled_matmul(a, b, bm=64, bn=64, bk=bk, pack=pack)
+    _close(got, tiled_matmul_plain(a, b, bk=bk, pack=pack, out_dtype=torch.float32), F32_TOL)
+
+
 def test_oversized_tiles_are_rejected_before_launch(cuda):
     a, b = problems.problem_inputs("mm3", (300, 300, 300, 1, 1), cuda)[:2]
     before = tiled_matmul.launches
@@ -1410,3 +1424,95 @@ def test_cost_model_refuses_exactly_what_smem_budget_refuses(cuda, kernel):
             assert info["smem_bytes"] <= max_shared_memory_per_block(cuda)
     assert np.isfinite(cost.kernel_cost(kernel, space.default_configuration(), *dims)[0])
     assert cost.hopper().sms == torch.cuda.get_device_properties(0).multi_processor_count
+
+
+# ---------------------------------------------------------------------------
+# the MoE family on the card: routed experts, MLA, launches per decode step
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("mixtral-8x7b", "deepseek-v2-236b")
+
+
+def _moe_model(arch, device):
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_reduced(arch), dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    return cfg, params, _tree_to(params, device)
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("cf", [8.0, 0.5], ids=["no-drop", "drops"])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda, cf):
+    from repro_torch.models.moe import init_moe, moe_ffn
+
+    p = init_moe(torch.Generator().manual_seed(1), 32, 48, n_experts=6, n_shared=1,
+                 dtype=torch.float32)
+    x = torch.randn(3, 10, 32, generator=torch.Generator().manual_seed(2))
+    want, want_aux = moe_ffn(p, x, top_k=2, capacity_factor=cf, group_size=12)
+    got, aux = moe_ffn(_tree_to(p, cuda), x.to(cuda), top_k=2, capacity_factor=cf,
+                       group_size=12)
+    _close(got, want, dict(atol=1e-5, rtol=1e-4))
+    _close(aux, want_aux, dict(atol=1e-6, rtol=1e-5))
+
+
+@pytest.mark.parametrize("absorb", [True, False], ids=["absorb", "naive"])
+def test_mla_decode_on_the_card_matches_the_cpu(cuda, absorb):
+    from repro_torch.models.mla import init_mla_cache, mla_decode
+
+    cfg, params, params_gpu = _moe_model("deepseek-v2-236b", cuda)
+    p, pg = params["dense0"]["mla"], params_gpu["dense0"]["mla"]
+    xs = torch.randn(5, 2, 1, cfg.d_model, generator=torch.Generator().manual_seed(3))
+    cache = init_mla_cache(cfg, 2, 8, torch.float32)
+    cache_gpu = init_mla_cache(cfg, 2, 8, torch.float32, cuda)
+    for t in range(5):
+        want, cache = mla_decode(p, xs[t], cache, cfg, t, absorb=absorb)
+        got, cache_gpu = mla_decode(pg, xs[t].to(cuda), cache_gpu, cfg, t, absorb=absorb)
+        _close(got, want, dict(atol=1e-5, rtol=1e-4))
+    _close(cache_gpu["c_kv"], cache["c_kv"], dict(atol=1e-5, rtol=1e-4))
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_greedy_on_the_card_matches_the_cpu(cuda, arch):
+    from repro_torch.dispatch import DispatchService
+    from repro_torch.serve import greedy_decode
+
+    cfg, params, params_gpu = _moe_model(arch, cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 7), generator=torch.Generator().manual_seed(4))
+    want = greedy_decode(params, cfg, prompt, steps=12, max_len=20,
+                         service=DispatchService())
+    got = greedy_decode(params_gpu, cfg, prompt.to(cuda), steps=12, max_len=20,
+                        service=DispatchService())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_step_launches_the_matmul(cuda, arch):
+    """mixtral: each layer's output projection and the unembed; deepseek:
+    the unembed (MLA's output projection is a plain product, as in the JAX
+    package); neither reaches the attention kernels (a window, MLA)."""
+    from repro_torch.dispatch import DispatchService
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import decode_step, forward, init_cache
+
+    cfg, _, params = _moe_model(arch, cuda)
+    svc = DispatchService()
+    want = cfg.n_layers + 1 if cfg.attn_type == "gqa" else 1
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), device=cuda)
+    before = (flash_attention.launches, decode_attention.launches, tiled_matmul.launches)
+    forward(params, {"tokens": toks}, cfg, service=svc)
+    cache = init_cache(cfg, 2, 12, device=cuda)
+    mid = tiled_matmul.launches
+    logits, _ = decode_step(params, cache, toks[:, :1], 0, cfg, service=svc)
+    torch.cuda.synchronize()
+    assert mid - before[2] == want and tiled_matmul.launches - mid == want
+    assert (flash_attention.launches, decode_attention.launches) == before[:2]
+    assert torch.isfinite(logits).all()

@@ -202,7 +202,7 @@ def test_configs_match_reference():
 
 
 def test_other_families_raise_not_implemented():
-    for arch in ("mixtral-8x7b", "mamba2-780m", "whisper-large-v3"):
+    for arch in ("zamba2-1.2b", "qwen2-vl-7b", "mamba2-780m", "whisper-large-v3"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_params(get_reduced(arch), torch.Generator().manual_seed(0))
 
