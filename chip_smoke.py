@@ -113,6 +113,23 @@ checks each kernel on the card:
      PagedKVCache round for mixtral against each request's solo
      greedy_decode; the card against the CPU at one MoE layer (mixtral 1
      layer, deepseek 2) on a prompt of 8, beside the least routing margin.
+ 11. the SSM, hybrid and VLM families (each arch with the launch counts
+     set to 0 just before and read just after its served run):
+     mamba2-780m (48 Mamba2 layers), zamba2-1.2b (38 Mamba2 layers, the
+     shared attention block at 7 sites) and qwen2-vl-7b (28 layers, M-RoPE)
+     at full width and full depth in f32 from seeded weights, batch 4,
+     prompt 128 (two SSD chunks), 16 new tokens, through greedy_decode and a
+     DispatchService; the launches per forward and per decode step asserted
+     exactly (mamba2: the unembed's matmul; zamba2: 7 flash calls a forward,
+     7 decode_attention launches a step, 8 matmuls each; qwen2-vl: 196 flash
+     calls, 28 decode_attention, 29 matmuls), TTFT, ms per decode step beside
+     its bytes bound (weights but the embed table, zamba2's shared block once
+     a site, the Mamba2 state read and written, the K/V read), the busy share
+     and device kernels of one step, peak memory; the new matmul, flash and
+     decode signatures against their plain versions and timed beside
+     torch.matmul and SDPA; a PagedKVCache round for qwen2-vl; the card
+     against the CPU at the depth cut (mamba2 4 layers, zamba2 7, qwen2-vl
+     2), beside the least gap between the top two logits.
 
 Phases 3 and 4 also hold flash_attention and decode_attention against their
 plain versions at LARGE, at head_dim 256, at head sizes between the
@@ -218,11 +235,20 @@ SERVE = dict(arch="qwen2-0.5b", batch=4, prompt_len=256, gen=32, seed=0)
 MOE_ARCHS = (("mixtral-8x7b", 4, 1), ("deepseek-v2-236b", 3, 2))
 MOE_SERVE = dict(batch=4, prompt_len=128, gen=16, seed=0, check_prompt=8, check_gen=4,
                  paged_lens=(16, 40, 64, 100), paged_rounds=8)
-# what may stay allocated on the card after a served MoE model is dropped:
-# cuBLAS's 32 MiB workspace, taken at its first call (the weights are 24-37
-# GB; a leaked view of one layer's output projection keeps mixtral's 4
-# stacked ones, 268 MB)
-MOE_LEFT_BYTES = 64 << 20
+# phase 11: the SSM, hybrid and VLM families at full width and full depth,
+# f32: (arch, layers of the card-against-CPU check: mamba2 4, zamba2 7 (a
+# segment of 6 and one of 1: both of its shared block's segment shapes),
+# qwen2-vl 2); batch 4, prompt 128 (two SSD chunks of 64), 16 new tokens;
+# the check's prompt, new tokens and SSD chunk (two chunks); the paged
+# round's prompts and rounds (qwen2-vl)
+SSM_ARCHS = (("mamba2-780m", 4), ("zamba2-1.2b", 7), ("qwen2-vl-7b", 2))
+SSM_SERVE = dict(batch=4, prompt_len=128, gen=16, seed=0, check_prompt=16, check_gen=4,
+                 check_chunk=8, paged_lens=(16, 40, 64, 100), paged_rounds=8)
+# what may stay allocated on the card after a served model is dropped
+# (phases 10 and 11): cuBLAS's 32 MiB workspace, taken at its first call
+# (the weights are 3-37 GB; a leaked view of one layer's output projection
+# keeps mixtral's 4 stacked ones, 268 MB)
+LEFT_BYTES = 64 << 20
 # the instantiations the main paths run at their defaults (ptxas template
 # arguments): syr2k<PACK_A, PACK_B, RT, VEC16> at 64x64 tiles of M = 1000;
 # matmul_tf32<PACK, VEC16> (f32 on the tensor cores) at 64x64 tiles (mm3,
@@ -868,6 +894,78 @@ def tree_bytes(tree: dict) -> int:
                for v in tree.values())
 
 
+def paged_round(label: str, cfg, params, svc, g, dev, lens, rounds: int, slots) -> list:
+    """A PagedKVCache round: one request a prompt of each length in
+    ``lens`` (tokens from ``g``) admitted into ``slots`` of 8 (page 128),
+    then ``rounds`` decode rounds on bucketed views at per-row positions;
+    each request's tokens must equal its solo greedy_decode. Attaches the
+    cache to ``svc``; returns the buckets the rounds used."""
+    import torch
+
+    from repro_torch.serve import PagedKVCache, greedy_decode, make_serve_step, prefill
+
+    pc = PagedKVCache(cfg, max_batch=8, max_len=max(lens) + rounds + 1, page_size=128,
+                      device=dev)
+    svc.attach_kv_cache(pc)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=g, device=dev) for n in lens]
+    solo = [greedy_decode(params, cfg, p, steps=rounds + 1, max_len=pc.alloc, service=svc)[0]
+            for p in prompts]
+    serve = make_serve_step(cfg, service=svc)
+    out = []
+    for slot, p in zip(slots, prompts):
+        logits, pcache = prefill(params, {"tokens": p}, cfg, max_len=pc.alloc, service=svc)
+        pc.admit(slot, pcache, p.shape[1])
+        out.append([int(torch.argmax(logits[0, -1]))])
+    cur = torch.tensor([[t[-1]] for t in out], device=dev)
+    buckets = []
+    for _ in range(rounds):
+        bucket = pc.seq_bucket(slots)
+        buckets.append(bucket)
+        view = pc.view(slots, bucket)
+        nxt, _, view = serve(params, view, cur, pc.pos_vector(slots) + 1)
+        pc.writeback(slots, bucket, view)
+        pc.advance(slots)
+        for i, t in enumerate(out):
+            t.append(int(nxt[i, 0]))
+        cur = nxt
+    for n, got, want in zip(lens, out, solo):
+        if got != want.tolist():
+            raise AssertionError(f"{label} paged round, prompt {n}: {got} != solo "
+                                 f"{want.tolist()}")
+    return sorted(set(buckets))
+
+
+def matmul_signatures(arch: str, svc, sigs, dev, seed: int) -> None:
+    """The matmul at new signatures, (label, rows, w, launches), at the rows
+    the path gives them (4 in a decode step: the FFMA tiles; B*P in the
+    forward: 3xTF32 on the tensor cores), each held against its plain
+    version (TF32 is off, so torch.matmul is tiled_matmul_plain's pack=True
+    product) at phase 3's tolerance, then timed: 10 calls queued behind a
+    spin, between CUDA events (torch.profiler can lose the events of such
+    calls), beside torch.matmul and the bound."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    bm = ops.DEFAULTS["matmul"]["bm"]
+    gx = torch.Generator(device=dev).manual_seed(seed)
+    for label, M, w, per in sigs:
+        K, N = w.shape
+        x = torch.randn(M, K, generator=gx, device=dev)
+        fn = svc.dispatch("matmul", x, w)
+        tc = min(bm, M) > 8
+        compare(f"{arch} matmul {label} ({M}, {K}) @ ({K}, {N}) "
+                f"{'3xTF32' if tc else 'FFMA'}, against its plain version",
+                fn(x, w), torch.matmul(x, w), F32_TOL)
+        k_ms, l_ms = queued_ms(lambda: fn(x, w)), queued_ms(lambda: torch.matmul(x, w))
+        b_ms, b_by = bound(2.0 * M * K * N, 4.0 * (M * K + K * N + M * N),
+                           peak=PEAK_3XTF32_FLOPS if tc else PEAK_F32_FLOPS)
+        print(f"  {arch} matmul {label} ({M}, {K}) @ ({K}, {N}), {per}: kernel "
+              + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
+              + f" queued on the device, bound {b_ms:.4f} ms ({b_by}), torch.matmul "
+              + ("not measured" if l_ms is None else f"{l_ms:.4f} ms"), flush=True)
+
+
 def serving(launches: dict, dev) -> float:
     """Phase 6: the serving path at full width on ``dev``. Adds the main
     path's launch counts to ``launches``; returns the serve run's ms per
@@ -883,7 +981,7 @@ def serving(launches: dict, dev) -> float:
     from repro_torch.kernels.matmul import tiled_matmul
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models import decode_step, forward, init_cache, init_params
-    from repro_torch.serve import PagedKVCache, greedy_decode, make_serve_step, prefill
+    from repro_torch.serve import greedy_decode
 
     wrappers = (flash_attention, decode_attention, tiled_matmul)
     B, P, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
@@ -966,35 +1064,9 @@ def serving(launches: dict, dev) -> float:
 
     # -- a PagedKVCache round against each request's solo greedy_decode
     rounds, lens = 16, (64, 128, 200, 256)
-    pc = PagedKVCache(cfg, max_batch=8, max_len=max(lens) + rounds + 1, page_size=128,
-                      device=dev)
-    svc.attach_kv_cache(pc)
-    prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=g, device=dev) for n in lens]
-    solo = [greedy_decode(params, cfg, p, steps=rounds + 1, max_len=pc.alloc, service=svc)[0]
-            for p in prompts]
-    serve = make_serve_step(cfg, service=svc)
-    slots, out = [1, 2, 5, 7], []
-    for slot, p in zip(slots, prompts):
-        logits, pcache = prefill(params, {"tokens": p}, cfg, max_len=pc.alloc, service=svc)
-        pc.admit(slot, pcache, p.shape[1])
-        out.append([int(torch.argmax(logits[0, -1]))])
-    cur = torch.tensor([[t[-1]] for t in out], device=dev)
-    buckets = []
-    for _ in range(rounds):
-        bucket = pc.seq_bucket(slots)
-        buckets.append(bucket)
-        view = pc.view(slots, bucket)
-        nxt, _, view = serve(params, view, cur, pc.pos_vector(slots) + 1)
-        pc.writeback(slots, bucket, view)
-        pc.advance(slots)
-        for i, t in enumerate(out):
-            t.append(int(nxt[i, 0]))
-        cur = nxt
-    for n, got, want_ in zip(lens, out, solo):
-        if got != want_.tolist():
-            raise AssertionError(f"paged round, prompt {n}: {got} != solo {want_.tolist()}")
+    buckets = paged_round(SERVE["arch"], cfg, params, svc, g, dev, lens, rounds, [1, 2, 5, 7])
     print(f"  PagedKVCache: 4 requests (prompts {lens}) in 8 slots, page 128, {rounds} "
-          f"rounds (buckets {sorted(set(buckets))}): tokens equal each request's solo "
+          f"rounds (buckets {buckets}): tokens equal each request's solo "
           f"greedy_decode; {json.dumps(svc.telemetry()['kv_cache'])}", flush=True)
 
     # -- the card against the CPU, same weights, a short run
@@ -1003,7 +1075,7 @@ def serving(launches: dict, dev) -> float:
     want_toks = greedy_decode(params, cfg, p1, steps=8, max_len=40, service=svc)
     cpu = torch.device("cpu")
     params_cpu = tree_to(params, cpu)
-    del params, cache, pc
+    del params, cache
     svc_cpu = DispatchService()
     got_logits, _ = forward(params_cpu, {"tokens": p1.to(cpu)}, cfg, service=svc_cpu)
     got_toks = greedy_decode(params_cpu, cfg, p1.to(cpu), steps=8, max_len=40, service=svc_cpu)
@@ -1064,10 +1136,9 @@ def moe_arch(arch: str, n_layers: int, launches: dict, dev):
     from repro_torch.dispatch import DispatchService
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels import ops
     from repro_torch.kernels.matmul import tiled_matmul
     from repro_torch.models import decode_step, forward, init_cache, init_params
-    from repro_torch.serve import PagedKVCache, greedy_decode, make_serve_step, prefill
+    from repro_torch.serve import greedy_decode, make_serve_step, prefill
 
     wrappers = (flash_attention, decode_attention, tiled_matmul)
     B, P, gen, seed = (MOE_SERVE[k] for k in ("batch", "prompt_len", "gen", "seed"))
@@ -1148,36 +1219,14 @@ def moe_arch(arch: str, n_layers: int, launches: dict, dev):
              f"wall ({busy:.1%})") + "; largest: "
           + "; ".join(f"{k[:50]} x{c} {t:.4f} ms" for k, (c, t) in top5), flush=True)
 
-    # -- the new matmul signatures at the rows the path gives them (4 in a
-    # decode step: the FFMA tiles; B*P in the forward: 3xTF32 on the tensor
-    # cores), each held against its plain version (TF32 is off, so
-    # torch.matmul is tiled_matmul_plain's pack=True product) at phase 3's
-    # tolerance, then timed: 10 calls queued behind a spin, between CUDA
-    # events (torch.profiler can lose the events of such calls), beside
-    # torch.matmul and the bound
-    bm = ops.DEFAULTS["matmul"]["bm"]
+    # -- the new matmul signatures, against their plain version and timed
     sigs = [("decode unembed", B, params["unembed"], "1 per decode step"),
             ("forward unembed", B * P, params["unembed"], "1 per forward")]
     if gqa:
         wo = params["layers"]["wo"][0]
         sigs = [("decode output projection", B, wo, f"{n_layers} per decode step"),
                 ("forward output projection", B * P, wo, f"{n_layers} per forward")] + sigs
-    gx = torch.Generator(device=dev).manual_seed(seed + 2)
-    for label, M, w, per in sigs:
-        K, N = w.shape
-        x = torch.randn(M, K, generator=gx, device=dev)
-        fn = svc.dispatch("matmul", x, w)
-        tc = min(bm, M) > 8
-        compare(f"{arch} matmul {label} ({M}, {K}) @ ({K}, {N}) "
-                f"{'3xTF32' if tc else 'FFMA'}, against its plain version",
-                fn(x, w), torch.matmul(x, w), F32_TOL)
-        k_ms, l_ms = queued_ms(lambda: fn(x, w)), queued_ms(lambda: torch.matmul(x, w))
-        b_ms, b_by = bound(2.0 * M * K * N, 4.0 * (M * K + K * N + M * N),
-                           peak=PEAK_3XTF32_FLOPS if tc else PEAK_F32_FLOPS)
-        print(f"  {arch} matmul {label} ({M}, {K}) @ ({K}, {N}), {per}: kernel "
-              + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
-              + f" queued on the device, bound {b_ms:.4f} ms ({b_by}), torch.matmul "
-              + ("not measured" if l_ms is None else f"{l_ms:.4f} ms"), flush=True)
+    matmul_signatures(arch, svc, sigs, dev, seed + 2)
 
     # -- MLA's two schedules on one filled cache
     if not gqa:
@@ -1193,33 +1242,7 @@ def moe_arch(arch: str, n_layers: int, launches: dict, dev):
     # -- a PagedKVCache round against each request's solo greedy_decode
     if gqa:
         rounds, lens = MOE_SERVE["paged_rounds"], MOE_SERVE["paged_lens"]
-        pc = PagedKVCache(cfg, max_batch=8, max_len=max(lens) + rounds + 1, page_size=128,
-                          device=dev)
-        svc.attach_kv_cache(pc)
-        prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=g, device=dev)
-                   for n in lens]
-        solo = [greedy_decode(params, cfg, p, steps=rounds + 1, max_len=pc.alloc,
-                              service=svc)[0] for p in prompts]
-        serve = make_serve_step(cfg, service=svc)
-        slots, out = [0, 3, 4, 6], []
-        for slot, p in zip(slots, prompts):
-            logits, pcache = prefill(params, {"tokens": p}, cfg, max_len=pc.alloc, service=svc)
-            pc.admit(slot, pcache, p.shape[1])
-            out.append([int(torch.argmax(logits[0, -1]))])
-        cur = torch.tensor([[t[-1]] for t in out], device=dev)
-        for _ in range(rounds):
-            bucket = pc.seq_bucket(slots)
-            view = pc.view(slots, bucket)
-            nxt, _, view = serve(params, view, cur, pc.pos_vector(slots) + 1)
-            pc.writeback(slots, bucket, view)
-            pc.advance(slots)
-            for i, t in enumerate(out):
-                t.append(int(nxt[i, 0]))
-            cur = nxt
-        for n, got, want_ in zip(lens, out, solo):
-            if got != want_.tolist():
-                raise AssertionError(f"{arch} paged round, prompt {n}: {got} != solo "
-                                     f"{want_.tolist()}")
+        paged_round(arch, cfg, params, svc, g, dev, lens, rounds, [0, 3, 4, 6])
         print(f"  {arch} PagedKVCache: 4 requests (prompts {lens}) in 8 slots, page 128, "
               f"{rounds} rounds of per-row positions through the routed experts: tokens "
               f"equal each request's solo greedy_decode; "
@@ -1227,11 +1250,15 @@ def moe_arch(arch: str, n_layers: int, launches: dict, dev):
     return cfg, g
 
 
-def moe_card_vs_cpu(arch: str, cfg, check_layers: int, g, dev) -> None:
-    """Phase 10's last check for one arch: the card against the CPU, same
-    weights drawn from the seed, at full width with ``check_layers`` layers
-    (one MoE layer), prompt tokens from ``g``: forward logits at LOGIT_TOL
-    and greedy tokens equal, beside the least routing margin."""
+def card_vs_cpu(arch: str, cfg, check_layers: int, g, dev, margins_of, margin_what: str,
+                serve: dict, **fw_kw) -> None:
+    """The last check of phases 10 and 11 for one arch: the card against the
+    CPU, same weights drawn from ``serve["seed"]``, at full width with
+    ``check_layers`` layers, a prompt of ``serve["check_prompt"]`` tokens
+    from ``g`` and ``serve["check_gen"]`` new ones (``fw_kw`` to the
+    forward): forward logits at LOGIT_TOL and greedy tokens equal, beside
+    the least margin ``margins_of`` records over the card's greedy run (the
+    router's, or the top two logits')."""
     import dataclasses
 
     import torch
@@ -1240,30 +1267,29 @@ def moe_card_vs_cpu(arch: str, cfg, check_layers: int, g, dev) -> None:
     from repro_torch.models import forward, init_params
     from repro_torch.serve import greedy_decode
 
-    seed = MOE_SERVE["seed"]
-    P1, gen1 = MOE_SERVE["check_prompt"], MOE_SERVE["check_gen"]
+    P1, gen1 = serve["check_prompt"], serve["check_gen"]
     ccfg = dataclasses.replace(cfg, n_layers=check_layers)
-    cparams = init_params(ccfg, torch.Generator(device=dev).manual_seed(seed))
+    cparams = init_params(ccfg, torch.Generator(device=dev).manual_seed(serve["seed"]))
     svc = DispatchService()
     p1 = torch.randint(0, ccfg.vocab_size, (1, P1), generator=g, device=dev)
     margins: list = []
-    with routing_margins(margins):
-        want_logits, _ = forward(cparams, {"tokens": p1}, ccfg, service=svc)
+    with margins_of(margins):
         want_toks = greedy_decode(cparams, ccfg, p1, steps=gen1, max_len=P1 + gen1,
-                                  service=svc)
+                                  service=svc, **fw_kw)
+    want_logits, _ = forward(cparams, {"tokens": p1}, ccfg, service=svc, **fw_kw)
     cpu = torch.device("cpu")
     cparams_cpu = tree_to(cparams, cpu)
     want_logits, want_toks = want_logits.cpu(), want_toks.cpu()
     del cparams, svc
     torch.cuda.empty_cache()
     svc_cpu = DispatchService()
-    got_logits, _ = forward(cparams_cpu, {"tokens": p1.cpu()}, ccfg, service=svc_cpu)
+    got_logits, _ = forward(cparams_cpu, {"tokens": p1.cpu()}, ccfg, service=svc_cpu, **fw_kw)
     got_toks = greedy_decode(cparams_cpu, ccfg, p1.cpu(), steps=gen1, max_len=P1 + gen1,
-                             service=svc_cpu)
+                             service=svc_cpu, **fw_kw)
     del cparams_cpu
-    print(f"  {arch} card vs CPU at {check_layers} layer(s), prompt {P1}: least gap between "
-          f"the k-th and (k+1)-th router probability (k = {ccfg.top_k}) over the routed "
-          f"tokens {min(margins):.3e} (the forward and {P1 + gen1} decode steps on the card)")
+    print(f"  {arch} card vs CPU at {check_layers} of {cfg.n_layers} layer(s), prompt {P1}"
+          + "".join(f", {k} {v}" for k, v in fw_kw.items()) + f": least {margin_what} "
+          f"{min(margins):.3e} (the forward and {P1 + gen1} decode steps on the card)")
     compare(f"{arch} logits, card vs CPU (full width, {check_layers} layer(s), prompt {P1})",
             want_logits, got_logits, LOGIT_TOL)
     if not torch.equal(want_toks, got_toks):
@@ -1273,13 +1299,27 @@ def moe_card_vs_cpu(arch: str, cfg, check_layers: int, g, dev) -> None:
           flush=True)
 
 
-def moe_phase(launches: dict, dev) -> None:
-    """Phase 10: the MoE family on the card, one arch after the other. The
-    served model's tensors are gone from the card (within
-    MOE_LEFT_BYTES of what was allocated before it was drawn) before the
-    check's weights, and the next arch's, are drawn."""
+def released(arch: str, base: int, after: str) -> None:
+    """Check that a served model's tensors (and then the check's) left the
+    card: at most LEFT_BYTES more allocated than ``base``, taken before its
+    weights were drawn."""
     import gc
 
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - base
+    print(f"  {arch} after {after}: {left / 1e6:.1f} MB more allocated than before its "
+          f"weights were drawn (at most {LEFT_BYTES / 1e6:.0f} MB)", flush=True)
+    if left > LEFT_BYTES:
+        raise AssertionError(f"{arch}: {left} bytes of the served model left on the card")
+
+
+def moe_phase(launches: dict, dev) -> None:
+    """Phase 10: the MoE family on the card, one arch after the other. The
+    served model's tensors are gone from the card before the check's
+    weights, and the next arch's, are drawn."""
     import torch
 
     t10 = time.perf_counter()
@@ -1288,19 +1328,246 @@ def moe_phase(launches: dict, dev) -> None:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         cfg, g = moe_arch(arch, n_layers, launches, dev)
-        gc.collect()
-        torch.cuda.empty_cache()
-        left = torch.cuda.memory_allocated() - base
-        print(f"  {arch} after the served run: {left / 1e6:.1f} MB more allocated than "
-              f"before its weights were drawn (at most {MOE_LEFT_BYTES / 1e6:.0f} MB)",
-              flush=True)
-        if left > MOE_LEFT_BYTES:
-            raise AssertionError(f"{arch}: {left} bytes of the served model left on the card")
-        moe_card_vs_cpu(arch, cfg, check_layers, g, dev)
-        gc.collect()
-        torch.cuda.empty_cache()
+        released(arch, base, "the served run")
+        card_vs_cpu(arch, cfg, check_layers, g, dev, routing_margins,
+                    f"gap between the k-th and (k+1)-th router probability (k = {cfg.top_k})",
+                    MOE_SERVE)
+        released(arch, base, "the card-against-CPU check")
         print(f"  {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"  phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
+
+
+@contextlib.contextmanager
+def logit_margins(out: list):
+    """Record, for every forward and decode step the serving loop runs
+    inside (``repro_torch.serve.step``'s), the least gap between the top two
+    logits over its positions and rows (a measurement hook of this script:
+    the calls themselves run unchanged)."""
+    import torch
+
+    from repro_torch.serve import step
+
+    orig_forward, orig_decode = step.forward, step.decode_step
+
+    def record(logits):
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        out.append(float((top[..., 0] - top[..., 1]).min()))
+
+    def forward(*args, **kw):
+        logits, aux = orig_forward(*args, **kw)
+        record(logits)
+        return logits, aux
+
+    def decode_step(*args, **kw):
+        logits, cache = orig_decode(*args, **kw)
+        record(logits)
+        return logits, cache
+
+    step.forward, step.decode_step = forward, decode_step
+    try:
+        yield
+    finally:
+        step.forward, step.decode_step = orig_forward, orig_decode
+
+
+def ssm_launches(cfg) -> tuple[dict, dict]:
+    """The kernel launches one forward and one decode step of ``cfg`` make,
+    as the code implies them: the SSM family's unembed alone; zamba2's
+    shared block at each site (G flash calls a forward, one decode launch a
+    step, its output projection) and the unembed; qwen2-vl's layers as
+    qwen2-0.5b's."""
+    if cfg.family == "ssm":
+        return ({"flash_attention": 0, "decode_attention": 0, "tiled_matmul": 1},
+                {"flash_attention": 0, "decode_attention": 0, "tiled_matmul": 1})
+    n = -(-cfg.n_layers // cfg.attn_every) if cfg.family == "hybrid" else cfg.n_layers
+    G = cfg.n_heads // cfg.n_kv_heads
+    return ({"flash_attention": G * n, "decode_attention": 0, "tiled_matmul": n + 1},
+            {"flash_attention": 0, "decode_attention": n, "tiled_matmul": n + 1})
+
+
+def ssm_arch(arch: str, launches: dict, dev):
+    """Phase 11 for one arch: serve it at full width and full depth through
+    greedy_decode and a DispatchService, with the launch counts set to 0
+    just before and read just after (added to ``launches``); then per-call
+    launches and times, the decode step's bytes bound and busy share, the
+    new matmul and attention signatures against their plain versions and
+    timed, and a PagedKVCache round (qwen2-vl). Returns (the served config,
+    the prompt generator): the model's tensors die with this call's
+    locals."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.dispatch import DispatchService
+    from repro_torch.kernels.decode_attention import (
+        CacheRows,
+        decode_attention,
+        decode_attention_plain,
+    )
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.matmul import tiled_matmul
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+    from repro_torch.serve import greedy_decode
+
+    wrappers = (flash_attention, decode_attention, tiled_matmul)
+    B, P, gen, seed = (SSM_SERVE[k] for k in ("batch", "prompt_len", "gen", "seed"))
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+    L, fam = cfg.n_layers, cfg.family
+    one_fwd, one_step = ssm_launches(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    svc = DispatchService()
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev)
+
+    # -- the main path: greedy_decode (prefill: forward + the prompt's replay)
+    for w in wrappers:
+        w.launches = 0
+    timings: dict = {}
+    toks = greedy_decode(params, cfg, prompt, steps=gen, max_len=P + gen, service=svc,
+                         timings=timings)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(toks.shape) != (B, gen) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{arch}: tokens of shape {tuple(toks.shape)} outside the vocab")
+    steps = P + gen
+    want = {k: one_fwd[k] + one_step[k] * steps for k in one_fwd}
+    print(f"  {arch} ({fam}, {L} layers, d {cfg.d_model}, vocab {cfg.vocab_size}): launches "
+          f"over greedy_decode {counts} (expected {want}: {one_fwd} per forward, {one_step} "
+          f"per decode step, {steps} steps)")
+    if counts != want:
+        raise AssertionError(f"{arch}: launch counts {counts} != {want}")
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    if svc.stats["build_failed"] or svc.stats["store_default"] == 0:
+        raise AssertionError(f"{arch}: dispatch stats {svc.stats}")
+    print(f"  {arch} dispatch stats: {json.dumps(svc.stats)}; first request "
+          f"{toks[0].tolist()}", flush=True)
+
+    # -- per call: launches, times, the decode step's bound and busy share
+    fwd = lambda: forward(params, {"tokens": prompt}, cfg, service=svc)  # noqa: E731
+    n_fwd = launches_per_call(fwd, wrappers)
+    cache = init_cache(cfg, B, P + gen, device=dev)
+    tok = prompt[:, -1:]
+    step = lambda: decode_step(params, cache, tok, P, cfg, service=svc)  # noqa: E731
+    n_step = launches_per_call(step, wrappers)
+    print(f"  {arch} launches per prefill forward {n_fwd}, per decode step {n_step}")
+    if n_fwd != one_fwd or n_step != one_step:
+        raise AssertionError(f"{arch}: per-call launch counts differ from {one_fwd} and "
+                             f"{one_step}")
+    fwd_ms, step_ms = host_ms(fwd, iters=3), host_ms(step, iters=10)
+    # the bytes a step must move: every weight but the embed table (the
+    # lookup reads B rows), zamba2's shared block once a site (268 MB at its
+    # width: the L2 cannot hold it from one site to the next), the Mamba2
+    # state read and written, the K/V of P + 1 positions read
+    weights = tree_bytes(params) - params["embed"].numel() * 4
+    sites = one_step["decode_attention"]
+    if fam == "hybrid":
+        weights += (sites - 1) * tree_bytes(params["shared_attn"])
+    state = 2 * tree_bytes(cache["layers"]) if fam in ("ssm", "hybrid") else 0
+    kv = sites * B * (P + 1) * 2 * cfg.n_kv_heads * cfg.hd * 4
+    step_bound = (weights + state + kv) / PEAK_HBM_BYTES * 1e3
+    dev_ms, by_name = device_time(step)
+    n_kernels = sum(c for c, _ in by_name.values())
+    top5 = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:5]
+    print(f"  {arch} memory: peak {peak / 1e9:.3f} GB allocated over the served run "
+          f"(torch.cuda.max_memory_allocated), weights {tree_bytes(params) / 1e9:.3f} GB f32")
+    print(f"  {arch} TTFT {timings['prefill_sec'] * 1e3:.2f} ms (forward + the prompt's replay "
+          f"through decode_step); forward alone {fwd_ms:.3f} ms host wall")
+    print(f"  {arch} decode: {timings['decode_sec'] / gen * 1e3:.4f} ms per step in the run, "
+          f"{step_ms:.4f} ms alone; bound {step_bound:.4f} ms (bytes at 3.35 TB/s: "
+          f"{weights / 1e9:.3f} GB of weights, {state / 1e6:.1f} MB of Mamba2 state read and "
+          f"written, {kv / 1e6:.1f} MB of K/V read); "
+          f"{B * gen / timings['decode_sec']:.1f} tok/s over the decode steps")
+    print(f"  {arch} one decode step on the device (torch.profiler): "
+          + ("not measured (the profiler recorded no device time)" if dev_ms == 0.0 else
+             f"{n_kernels} device kernels, {dev_ms:.4f} ms busy of {step_ms:.4f} ms host "
+             f"wall ({dev_ms / step_ms:.1%})") + "; largest: "
+          + "; ".join(f"{k[:50]} x{c} {t:.4f} ms" for k, (c, t) in top5), flush=True)
+
+    # -- the new matmul signatures, against their plain version and timed
+    unembed = params["embed_t"] if cfg.tie_embeddings else params["unembed"]
+    sigs = [("decode unembed", B, unembed, "1 per decode step"),
+            ("forward unembed", B * P, unembed, "1 per forward")]
+    if fam != "ssm":
+        wo = params["shared_attn"]["wo"] if fam == "hybrid" else params["layers"]["wo"][0]
+        sigs = [("decode output projection", B, wo, f"{sites} per decode step"),
+                ("forward output projection", B * P, wo, f"{sites} per forward")] + sigs
+    matmul_signatures(arch, svc, sigs, dev, seed + 2)
+
+    # -- the attention signatures: flash at the prompt (one of G calls a
+    # layer or site), decode against the model's (B, S, K, hd) cache read in
+    # place at position P (P + 1 slots), each held against its plain version
+    # at phase 3's tolerance, then queued and timed beside
+    # scaled_dot_product_attention in f32 (a yardstick the port never calls)
+    if fam != "ssm":
+        K, hd, G = cfg.n_kv_heads, cfg.hd, cfg.n_heads // cfg.n_kv_heads
+        BH, S = B * K, P + gen
+        q, k, v = attention_inputs(BH, P, P, hd, dev, seed + 3)
+        fn = svc.dispatch("flash_attention", q, k, v, causal=True)
+        compare(f"{arch} flash_attention ({BH}, {P}, {hd}) causal, against its plain version",
+                fn(q, k, v), flash_attention_plain(q, k, v, causal=True), ATTN_TOL)
+        k_ms = queued_ms(lambda: fn(q, k, v))
+        l_ms = queued_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        b_ms, b_by = bound(4.0 * BH * P * P * hd * 0.5, 4.0 * BH * 4 * P * hd)
+        print(f"  {arch} flash_attention ({BH}, {P}, {hd}) causal, {G * sites} calls a "
+              f"forward: kernel " + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
+              + f" queued on the device, bound {b_ms:.4f} ms ({b_by}), SDPA f32 "
+              + ("not measured" if l_ms is None else f"{l_ms:.4f} ms"), flush=True)
+        gq = torch.Generator(device=dev).manual_seed(seed + 4)
+        qd = torch.randn(BH, G, hd, generator=gq, device=dev)
+        kc, vc = (torch.randn(B, S, K, hd, generator=gq, device=dev) for _ in range(2))
+        cp = torch.full((BH,), P, dtype=torch.int32, device=dev)
+        kr, vr = CacheRows(kc), CacheRows(vc)
+        fn = svc.dispatch("decode_attention", qd, kr, vr, cp, ring=False, window=0)
+        compare(f"{arch} decode_attention ({BH}, {G}, {S}, {hd}) at position {P}, the cache "
+                f"read in place, against its plain version", fn(qd, kr, vr, cp),
+                decode_attention_plain(qd, kr, vr, cp), ATTN_TOL)
+        krow, vrow = kr.rows().contiguous(), vr.rows().contiguous()
+        mask = torch.arange(S, device=dev)[None, None, :] <= cp[:, None, None]
+        k_ms = queued_ms(lambda: fn(qd, kr, vr, cp))
+        l_ms = queued_ms(lambda: F.scaled_dot_product_attention(qd, krow, vrow, attn_mask=mask))
+        slots = BH * (P + 1)
+        b_ms, b_by = bound(4.0 * G * hd * slots, 4.0 * (2 * slots * hd + 2 * BH * G * hd))
+        print(f"  {arch} decode_attention ({BH}, {G}, {S}, {hd}) at position {P}, {sites} a "
+              f"decode step: kernel " + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
+              + f" queued on the device, bound {b_ms:.4f} ms ({b_by}), SDPA f32 on the rows "
+              + ("not measured" if l_ms is None else f"{l_ms:.4f} ms"), flush=True)
+
+    # -- a PagedKVCache round against each request's solo greedy_decode, on
+    # per-row positions through M-RoPE's three sections
+    if fam == "vlm":
+        rounds, lens = SSM_SERVE["paged_rounds"], SSM_SERVE["paged_lens"]
+        paged_round(arch, cfg, params, svc, g, dev, lens, rounds, [1, 2, 5, 7])
+        print(f"  {arch} PagedKVCache: 4 requests (prompts {lens}) in 8 slots, page 128, "
+              f"{rounds} rounds of per-row M-RoPE positions: tokens equal each request's "
+              f"solo greedy_decode; {json.dumps(svc.telemetry()['kv_cache'])}", flush=True)
+    return cfg, g
+
+
+def ssm_phase(launches: dict, dev) -> None:
+    """Phase 11: the SSM, hybrid and VLM families on the card, one arch after
+    the other. The served model's tensors are gone from the card before the
+    check's weights, and the next arch's, are drawn."""
+    import torch
+
+    t11 = time.perf_counter()
+    for arch, check_layers in SSM_ARCHS:
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        cfg, g = ssm_arch(arch, launches, dev)
+        released(arch, base, "the served run")
+        card_vs_cpu(arch, cfg, check_layers, g, dev, logit_margins,
+                    "gap between the top two logits", SSM_SERVE,
+                    ssm_chunk=SSM_SERVE["check_chunk"])
+        released(arch, base, "the card-against-CPU check")
+        print(f"  {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
 
 
 def kernel_inputs(kernel: str, sig: tuple, dev) -> tuple[tuple, dict]:
@@ -2555,6 +2822,12 @@ def main() -> int:
     phase("10. the MoE family on the card: mixtral-8x7b and deepseek-v2-236b at full width, "
           "depth cut, f32, through greedy_decode and the dispatch service")
     moe_phase(launches, dev)
+
+    # ---- 11. the SSM, hybrid and VLM families -------------------------------------------
+    phase("11. the SSM, hybrid and VLM families on the card: mamba2-780m, zamba2-1.2b and "
+          "qwen2-vl-7b at full width and full depth, f32, through greedy_decode and the "
+          "dispatch service")
+    ssm_phase(launches, dev)
 
     def entry(name, source, replaces):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",

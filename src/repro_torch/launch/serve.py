@@ -7,20 +7,36 @@ the card through the dispatch service — the counterpart of
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --device cpu --reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+        --prompt-len 128 --gen 16
 
-``--arch`` takes the dense family and the MoE family (``mixtral-8x7b``,
-``deepseek-v2-236b``). It runs on the card unless ``--device cpu`` is given
-(without a card it raises). It always serves through a
-:class:`DispatchService` — otherwise no kernel runs: prefill attention goes
-to the flash_attention kernel, every decode step's attention to the
-decode_attention kernel, and the output projection and the unembed to the
-tiled matmul. As in the JAX package, an arch with a sliding window
-(mixtral) keeps its attention on the plain path, and MLA (deepseek), its
-output projection included, and the routed experts are plain tensor
-operations: there only the matmul call sites run the kernel. The full MoE
-configs do not fit one card in f32 (``param_count()`` x 4 bytes: mixtral
-187 GB, deepseek about 943 GB); ``chip_smoke.py`` serves them with fewer
-layers. The service has no store,
+``--arch`` takes the dense family, the MoE family (``mixtral-8x7b``,
+``deepseek-v2-236b``), the SSM family (``mamba2-780m``), the hybrid
+(``zamba2-1.2b``) and the VLM family (``qwen2-vl-7b``). It runs on the card
+unless ``--device cpu`` is given (without a card it raises). It always
+serves through a :class:`DispatchService` — otherwise no kernel runs:
+prefill attention goes to the flash_attention kernel, every decode step's
+attention to the decode_attention kernel, and the output projection and the
+unembed to the tiled matmul. As in the JAX package, an arch with a sliding
+window (mixtral) keeps its attention on the plain path, and MLA (deepseek),
+its output projection included, the routed experts and the Mamba2 mixers
+are plain tensor operations. So per arch:
+
+- mamba2-780m: only the unembed, on the tiled matmul (48 Mamba2 layers,
+  no attention);
+- zamba2-1.2b: its shared attention block at each of its 7 sites (38
+  Mamba2 layers in segments of 6, the last of 2): flash_attention per site
+  at prefill (32 heads, 32 KV heads: one call a site), decode_attention per
+  site per step, the site's output projection and the unembed on the
+  matmul;
+- qwen2-vl-7b: as qwen2-0.5b (28 layers), at 7 query heads per KV head and
+  head size 128 (7 flash calls a layer), with M-RoPE positions (the
+  vision frontend is a config field no code reads, in both packages).
+
+The full MoE configs do not fit one card in f32 (``param_count()`` x 4
+bytes: mixtral 187 GB, deepseek about 943 GB); ``chip_smoke.py`` serves
+them with fewer layers. mamba2-780m, zamba2-1.2b and qwen2-vl-7b fit whole
+(3.1, 4.4 and 30.5 GB). The service has no store,
 so the ``gpu`` space defaults apply, unless ``--store DIR`` names a tuning
 store (records an ``autotune --store DIR`` campaign published, or earlier
 runs' background campaigns). With ``--tune`` a store miss (or a too-distant

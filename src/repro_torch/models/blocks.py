@@ -1,12 +1,13 @@
-"""Transformer layer blocks — the counterpart of the attention-layer parts
-of ``repro.models.blocks``: init, train-time (prefill) apply and decode-time
+"""Layer blocks — the counterpart of ``repro.models.blocks`` but its
+cross-attention layers: init, train-time (prefill) apply and decode-time
 apply of a layer with GQA or MLA attention and a dense MLP or routed
-experts (the dense and MoE families).
+experts (the dense, MoE and VLM families, and zamba2's shared attention
+block), and of a Mamba2 layer (the SSM and hybrid families).
 
-The decode apply writes the new token's K/V (or MLA latent) into the
-layer's cache in place (on the layer's slice of the stacked cache), where
-the JAX package returns an updated copy. Mamba2 and cross-attention layers
-come with their families.
+The decode apply writes the new token's K/V (or MLA latent, or Mamba2
+state) into the layer's cache in place (on the layer's slice of the stacked
+cache), where the JAX package returns an updated copy. Cross-attention
+layers come with the audio family.
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.mla import init_mla, mla_attention, mla_decode
 from repro_torch.models.moe import init_mlp, init_moe, mlp, moe_ffn
+from repro_torch.models.ssm import init_mamba2, mamba2_decode, mamba2_forward
 
-__all__ = ["init_attn_layer", "attn_layer_train", "attn_layer_decode", "layer_windows"]
+__all__ = ["init_attn_layer", "attn_layer_train", "attn_layer_decode",
+           "init_mamba_layer", "mamba_layer_train", "mamba_layer_decode", "layer_windows"]
 
 
 # ---------------------------------------------------------------------------
@@ -54,9 +57,8 @@ def layer_windows(cfg: ArchConfig) -> np.ndarray:
 
 def init_attn_layer(generator: torch.Generator, cfg: ArchConfig, *, moe: bool = False,
                     d_ff: int | None = None) -> dict:
-    if cfg.attn_type not in ("gqa", "mla"):
-        raise NotImplementedError(f"{cfg.attn_type} attention waits for its family "
-                                  f"(ROADMAP.md Queue 1, item 5)")
+    """MLA for ``attn_type="mla"``, else GQA: ``"none"`` too, zamba2's
+    shared block under its SSM config, as in the JAX package."""
     d = cfg.d_model
     hd = cfg.hd
     dtype = cfg.dtype
@@ -192,3 +194,28 @@ def attn_layer_decode(p, x, cache, pos, *, cfg: ArchConfig, window=None, moe: bo
     x = x + attn
     y, aux = _ffn(p, rms_norm(x, p["ln2"]), cfg, moe)
     return x + y, cache, aux
+
+
+# ---------------------------------------------------------------------------
+# mamba2 layer (pre-norm residual)
+# ---------------------------------------------------------------------------
+
+
+def init_mamba_layer(generator: torch.Generator, cfg: ArchConfig) -> dict:
+    return {
+        "ln": torch.zeros(cfg.d_model, device=generator.device),
+        "mixer": init_mamba2(generator, cfg.d_model, expand=cfg.ssm_expand,
+                             head_dim=cfg.ssm_head_dim, n_state=cfg.ssm_state,
+                             conv_width=cfg.ssm_conv_width, dtype=cfg.dtype),
+    }
+
+
+def mamba_layer_train(p, x, *, cfg: ArchConfig, chunk: int = 64):
+    return x + mamba2_forward(p["mixer"], rms_norm(x, p["ln"]), cfg, chunk=chunk)
+
+
+def mamba_layer_decode(p, x, cache, *, cfg: ArchConfig):
+    """Returns (x, cache): the layer's conv window and SSM state updated in
+    place."""
+    y, cache = mamba2_decode(p["mixer"], rms_norm(x, p["ln"]), cache, cfg)
+    return x + y, cache

@@ -18,10 +18,11 @@ __all__ = ["params_from_numpy"]
 
 
 # the weight matrices, which the JAX package keeps in cfg.dtype (GQA and MLA
-# projections, MLPs, shared and routed experts); norm scales, biases and the
-# MoE router stay f32 there
+# projections, MLPs, shared and routed experts, the Mamba2 mixer's in and
+# out projections); norm scales, biases, the MoE router and the mixer's
+# conv, A, D and dt bias stay f32 there
 WEIGHTS = frozenset({"embed", "unembed", "wq", "wk", "wv", "wo", "wg", "wu", "wd",
-                     "wq_a", "wq_b", "wkv_a", "wkv_b"})
+                     "wq_a", "wq_b", "wkv_a", "wkv_b", "in_proj", "out_proj"})
 
 
 def _tree(tree: dict, device, dtype) -> dict:
@@ -39,7 +40,7 @@ def params_from_numpy(tree: dict, device="cpu", dtype: torch.dtype = torch.float
                       tie_embeddings: bool = True) -> dict:
     """The port's parameter dict for a JAX-package parameter tree of numpy
     arrays (any family the port serves, subtrees such as ``dense0``,
-    ``mla`` and ``moe`` included): weight matrices in ``dtype``, norm
+    ``mla``, ``moe``, ``mixer`` and ``shared_attn`` included): weight matrices in ``dtype``, norm
     scales, biases and the router in f32, as the JAX package keeps them."""
     params = _tree(tree, torch.device(device), dtype)
     return tied_unembed(params) if tie_embeddings else params

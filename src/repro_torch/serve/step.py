@@ -31,7 +31,10 @@ def prefill(params, batch, cfg: ArchConfig, max_len: int, service=None, **fw_kw)
     :mod:`repro_torch.dispatch`. MLA replays with the absorbed schedule, the
     JAX package's default. With capacity-limited routing the forward can
     drop tokens that the replay (one token a row) never drops, so its logits
-    and the filled cache can differ by design."""
+    and the filled cache can differ by design. ``fw_kw`` reach the forward
+    (``attn_chunk``; ``ssm_chunk``, the SSD scan's chunk, which a prompt
+    longer than it must be a multiple of); the replay fills the Mamba2 state
+    through the recurrence, as in the JAX package."""
     logits, _ = forward(params, batch, cfg, service=service, **fw_kw)
     tokens = batch["tokens"]
     B, S = tokens.shape

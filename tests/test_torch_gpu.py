@@ -1433,13 +1433,15 @@ def test_cost_model_refuses_exactly_what_smem_budget_refuses(cuda, kernel):
 MOE_ARCHS = ("mixtral-8x7b", "deepseek-v2-236b")
 
 
-def _moe_model(arch, device):
+def _reduced_model(arch, device, dtype=torch.float32):
+    """The reduced config of ``arch`` in ``dtype``, weights drawn on the CPU
+    from a seed, and a copy of them on ``device``."""
     import dataclasses
 
     from repro_torch.configs import get_reduced
     from repro_torch.models import init_params
 
-    cfg = dataclasses.replace(get_reduced(arch), dtype=torch.float32)
+    cfg = dataclasses.replace(get_reduced(arch), dtype=dtype)
     params = init_params(cfg, torch.Generator().manual_seed(0))
     return cfg, params, _tree_to(params, device)
 
@@ -1467,7 +1469,7 @@ def test_moe_ffn_on_the_card_matches_the_cpu(cuda, cf):
 def test_mla_decode_on_the_card_matches_the_cpu(cuda, absorb):
     from repro_torch.models.mla import init_mla_cache, mla_decode
 
-    cfg, params, params_gpu = _moe_model("deepseek-v2-236b", cuda)
+    cfg, params, params_gpu = _reduced_model("deepseek-v2-236b", cuda)
     p, pg = params["dense0"]["mla"], params_gpu["dense0"]["mla"]
     xs = torch.randn(5, 2, 1, cfg.d_model, generator=torch.Generator().manual_seed(3))
     cache = init_mla_cache(cfg, 2, 8, torch.float32)
@@ -1484,7 +1486,7 @@ def test_moe_greedy_on_the_card_matches_the_cpu(cuda, arch):
     from repro_torch.dispatch import DispatchService
     from repro_torch.serve import greedy_decode
 
-    cfg, params, params_gpu = _moe_model(arch, cuda)
+    cfg, params, params_gpu = _reduced_model(arch, cuda)
     prompt = torch.randint(0, cfg.vocab_size, (2, 7), generator=torch.Generator().manual_seed(4))
     want = greedy_decode(params, cfg, prompt, steps=12, max_len=20,
                          service=DispatchService())
@@ -1503,7 +1505,7 @@ def test_moe_decode_step_launches_the_matmul(cuda, arch):
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import decode_step, forward, init_cache
 
-    cfg, _, params = _moe_model(arch, cuda)
+    cfg, _, params = _reduced_model(arch, cuda)
     svc = DispatchService()
     want = cfg.n_layers + 1 if cfg.attn_type == "gqa" else 1
     toks = torch.randint(0, cfg.vocab_size, (2, 9), device=cuda)
@@ -1516,3 +1518,88 @@ def test_moe_decode_step_launches_the_matmul(cuda, arch):
     assert mid - before[2] == want and tiled_matmul.launches - mid == want
     assert (flash_attention.launches, decode_attention.launches) == before[:2]
     assert torch.isfinite(logits).all()
+
+
+# ---------------------------------------------------------------------------
+# the SSM, hybrid and VLM families on the card: tokens, launches, f32 state
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("mamba2-780m", "zamba2-1.2b", "qwen2-vl-7b")
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_hybrid_vlm_on_the_card_match_the_cpu(cuda, arch):
+    """Forward logits (SSD chunk 4: two chunks) and 8 greedy tokens of the
+    reduced arch through the dispatch service: the card's kernels against
+    the CPU's plain versions on the same weights."""
+    from repro_torch.dispatch import DispatchService
+    from repro_torch.models import forward
+    from repro_torch.serve import greedy_decode
+
+    cfg, params, params_gpu = _reduced_model(arch, cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(4))
+    want, _ = forward(params, {"tokens": prompt}, cfg, ssm_chunk=4, service=DispatchService())
+    got, _ = forward(params_gpu, {"tokens": prompt.to(cuda)}, cfg, ssm_chunk=4,
+                     service=DispatchService())
+    _close(got, want, dict(atol=1e-4, rtol=1e-3))
+    want = greedy_decode(params, cfg, prompt, steps=8, max_len=16, service=DispatchService())
+    got = greedy_decode(params_gpu, cfg, prompt.to(cuda), steps=8, max_len=16,
+                        service=DispatchService())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("arch,per_forward,per_step", [
+    # mamba2: the unembed alone; zamba2 (5 layers, attention every 2: 3
+    # sites, G = 1): a flash call, a decode launch and an output projection
+    # a site, and the unembed; qwen2-vl (2 layers, G = 2): 2 flash calls, a
+    # decode launch and an output projection a layer, and the unembed
+    ("mamba2-780m", (0, 1), (0, 1)),
+    ("zamba2-1.2b", (3, 4), (3, 4)),
+    ("qwen2-vl-7b", (4, 3), (2, 3)),
+])
+def test_ssm_hybrid_vlm_launches_per_forward_and_step(cuda, arch, per_forward, per_step):
+    """(attention kernel, matmul) launches of one forward (flash) and of one
+    decode step (decode_attention)."""
+    from repro_torch.dispatch import DispatchService
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import decode_step, forward, init_cache
+
+    cfg, _, params = _reduced_model(arch, cuda)
+    svc = DispatchService()
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), device=cuda)
+    f0, d0, m0 = flash_attention.launches, decode_attention.launches, tiled_matmul.launches
+    forward(params, {"tokens": toks}, cfg, service=svc)
+    f1, d1, m1 = flash_attention.launches, decode_attention.launches, tiled_matmul.launches
+    cache = init_cache(cfg, 2, 12, device=cuda)
+    logits, _ = decode_step(params, cache, toks[:, :1], 0, cfg, service=svc)
+    torch.cuda.synchronize()
+    assert (f1 - f0, m1 - m0) == per_forward and d1 == d0
+    assert (decode_attention.launches - d1, tiled_matmul.launches - m1) == per_step
+    assert flash_attention.launches == f1 and torch.isfinite(logits).all()
+
+
+def test_ssd_state_stays_f32_under_bf16_on_the_card(cuda):
+    """A bf16 mamba2: the conv window and SSM state stay f32 through decode
+    steps on the card (against the CPU's at bf16's tolerance), and the
+    chunked scan's final state is f32."""
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.models.ssm import ssd
+
+    cfg, params, params_gpu = _reduced_model("mamba2-780m", cuda, torch.bfloat16)
+    caches = [init_cache(cfg, 2, 8), init_cache(cfg, 2, 8, device=cuda)]
+    toks = torch.randint(0, cfg.vocab_size, (2, 4), generator=torch.Generator().manual_seed(5))
+    for t in range(4):
+        want, _ = decode_step(params, caches[0], toks[:, t:t + 1], t, cfg)
+        got, _ = decode_step(params_gpu, caches[1], toks[:, t:t + 1].to(cuda), t, cfg)
+        _close(got, want, dict(atol=3e-2, rtol=3e-2))
+    for name in ("conv", "ssm"):
+        assert caches[1]["layers"][name].dtype == torch.float32
+        _close(caches[1]["layers"][name], caches[0]["layers"][name], dict(atol=3e-2, rtol=3e-2))
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(2, 16, 4, 8, generator=g, device=cuda).to(torch.bfloat16)
+    dt = torch.rand(2, 16, 4, generator=g, device=cuda)
+    A = -torch.rand(4, generator=g, device=cuda)
+    B, C = (torch.randn(2, 16, 8, generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
+    y, h = ssd(x, dt, A, B, C, chunk=8)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32 and torch.isfinite(h).all()

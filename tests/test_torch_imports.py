@@ -29,7 +29,7 @@ def _imported_modules(path: pathlib.Path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"plopper.py", "syr2k.py", "matmul.py", "autotune.py", "chip_smoke.py",
-            "torch_tables.py", "torch_common.py", "mla.py", "moe.py"} <= names
+            "torch_tables.py", "torch_common.py", "mla.py", "moe.py", "ssm.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
