@@ -130,6 +130,21 @@ checks each kernel on the card:
      torch.matmul and SDPA; a PagedKVCache round for qwen2-vl; the card
      against the CPU at the depth cut (mamba2 4 layers, zamba2 7, qwen2-vl
      2), beside the least gap between the top two logits.
+ 12. training (the launch counts set to 0 before and read after: training
+     passes no dispatch service, as the JAX package's step, so they stay
+     0): (a) `repro_torch.launch.train.run` on qwen2-0.5b at full width and
+     full depth in f32, batch 8 x 512, 8 steps on one repeated batch, the
+     losses and grad norms finite and the last loss below the first; ms a
+     step, tokens/s, the step's FLOPs as a share of the f32 peak, peak
+     memory, one step's device time by kernel class (torch.profiler); (b)
+     the first two steps again under remat "full" and "dots": the first
+     loss equal within 1e-6, the peaks; (c) the card against the CPU at 2
+     layers (batch 2 x 64, 3 steps, the same weights and batches): losses
+     and grad norms per step, the parameters after step 1 (an element past
+     the tolerance must have a gradient Adam's first step cannot resolve);
+     (d) a step of mamba2-780m (full depth) and mixtral-8x7b (1 layer); (e)
+     an AsyncCheckpointer save of (c)'s 2 GB train state restored bit for
+     bit, then `launch.train --reduced` on the card resuming from step 4.
 
 Phases 3 and 4 also hold flash_attention and decode_attention against their
 plain versions at LARGE, at head_dim 256, at head sizes between the
@@ -155,6 +170,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -244,6 +260,33 @@ MOE_SERVE = dict(batch=4, prompt_len=128, gen=16, seed=0, check_prompt=8, check_
 SSM_ARCHS = (("mamba2-780m", 4), ("zamba2-1.2b", 7), ("qwen2-vl-7b", 2))
 SSM_SERVE = dict(batch=4, prompt_len=128, gen=16, seed=0, check_prompt=16, check_gen=4,
                  check_chunk=8, paged_lens=(16, 40, 64, 100), paged_rounds=8)
+# phase 12: training on the card, f32 (TF32 off, phase 1): (a) qwen2-0.5b at
+# full width and full depth through launch.train.run, 8 steps on one
+# repeated batch of 8 x 512; (b) its first two steps again under remat
+# "full" and "dots" (the first's loss, the second's time); (c) the card against the CPU at full width, depth cut to 2
+# layers, batch 2 x 64, 3 steps, the same weights and batches; (d) one step
+# of mamba2-780m (full depth) and of mixtral-8x7b (depth cut to 1), batch 2
+# x 256; (e) an AsyncCheckpointer save of (c)'s train state restored bit for
+# bit, then the CLI's resume at --reduced (steps 4, then 6)
+# (lr 1e-3, a 0.5B model's usual peak, below the CLI's 3e-3 for the reduced
+# configs: Adam moves every weight about lr a step, 3% of qwen2's init scale)
+TRAIN = dict(arch="qwen2-0.5b", batch=8, seq=512, steps=8, seed=0, lr=1e-3)
+TRAIN_CHECK = dict(layers=2, batch=2, seq=64, steps=3)
+TRAIN_ONE_STEP = (("mamba2-780m", None), ("mixtral-8x7b", 1))
+TRAIN_ONE_STEP_SHAPE = dict(batch=2, seq=256)
+# card (cuBLAS) against CPU (its BLAS), f32: a step's loss and grad norm
+# differ by the products' summation orders (relative 1e-4 and 1e-3); the
+# parameters after step 1 (|p| ~ 0.03, moved about lr = 1e-3 each) to 1e-6 +
+# 1e-5*|cpu|. Adam's first step is g / (|g| + eps) per element (eps 1e-8): it
+# follows a gradient's rounding where |g| is within 100 eps (1e-6; the
+# gradients' rms is about 1e-3) or where the two devices do not determine
+# the gradient to 1% (the first moment, (1 - b1) g, tells), and its element
+# then moves up to lr either way: an element past the tolerance must be one
+# of those
+TRAIN_TOL = dict(loss_rtol=1e-4, gnorm_rtol=1e-3, param=dict(atol=1e-6, rtol=1e-5),
+                 grad_rtol=1e-2, grad_floor=1e-6)
+# remat changes no value: the first step's loss under each policy
+REMAT_RTOL = 1e-6
 # what may stay allocated on the card after a served model is dropped
 # (phases 10 and 11): cuBLAS's 32 MiB workspace, taken at its first call
 # (the weights are 3-37 GB; a leaked view of one layer's output projection
@@ -1570,6 +1613,328 @@ def ssm_phase(launches: dict, dev) -> None:
     print(f"  phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
 
 
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """A training step's FLOPs: 6 per parameter and token, plus attention's
+    score and value products over the whole S x S square (the chunked path
+    masks the causal half, it does not skip it), the backward twice the
+    forward."""
+    attn = 3 * 4 * batch * cfg.n_heads * seq * seq * cfg.hd * cfg.n_layers
+    return 6.0 * n_params * batch * seq + attn
+
+
+def train_run(cfg, params: dict, batch: int, seq: int, steps: int, seed: int,
+              snapshot: bool = False, **step_kw):
+    """``steps`` train steps of ``cfg`` from ``params`` (on their device) on
+    SyntheticLM batches drawn from ``seed``: (params, opt state, [(loss,
+    aux, grad norm) a step], with ``snapshot`` (params, first moment) after
+    step 1 on the host, else None)."""
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    dev = tree_leaves(params)[0].device
+    opt = init_train_state(params)
+    step = make_train_step(cfg, **step_kw)
+    stream = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
+    out, first = [], None
+    for s in range(steps):
+        params, opt, m = step(params, opt, make_batch(stream, s, dev))
+        out.append((float(m["loss"]), float(m["aux"]), float(m["grad_norm"])))
+        if s == 0 and snapshot:
+            first = tree_map(lambda t: t.detach().to("cpu", copy=True),
+                             {"params": params, "m": opt["m"]})
+    return params, opt, out, first
+
+
+def train_main(dev) -> None:
+    """Phase 12 (a) and (b): qwen2-0.5b at full width and full depth through
+    ``launch.train.run``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.cost import hopper
+    from repro_torch.launch import train as train_cli
+
+    a = TRAIN
+    cfg = dataclasses.replace(get_config(a["arch"]), dtype=torch.float32)
+    t0 = time.perf_counter()
+    r = train_cli.run(a["arch"], batch=a["batch"], seq=a["seq"], steps=a["steps"],
+                      seed=a["seed"], lr=a["lr"], device=dev, fixed_batch=True, log_every=1)
+    losses, gnorms = r["losses"], r["grad_norms"]
+    if not (all(map(math.isfinite, losses)) and all(map(math.isfinite, gnorms))):
+        raise AssertionError(f"training: non-finite losses {losses} or grad norms {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training: the last loss {losses[-1]} is not below the first "
+                             f"{losses[0]} on a repeated batch")
+    flops = train_flops(cfg, r["params"], a["batch"], a["seq"])
+    peak_flops = hopper().ffma_flops
+    ms = r["ms_per_step"]
+    print(f"  (a) {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{r['params'] / 1e6:.1f}M parameters, batch {a['batch']} x {a['seq']}, "
+          f"{a['steps']} steps on one batch, lr {a['lr']}: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; grad norms "
+          f"{', '.join(f'{x:.3f}' for x in gnorms)}", flush=True)
+    print(f"  (a) ms a step: median {ms:.2f} (each: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in r['step_sec'])}), "
+          f"{r['tokens_per_sec']:,.0f} tokens/s; {flops / 1e12:.3f} TFLOP a step (6 x "
+          f"params x tokens + attention), {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+          f"{flops / (ms * 1e-3) / peak_flops:.1%} of the f32 peak "
+          f"({peak_flops / 1e12:.0f} TFLOP/s, kernels/cost.py:hopper()); peak allocated "
+          f"{r['peak_bytes'] / 1e9:.3f} GB; stragglers {r['stragglers']}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    peaks = {"none": r["peak_bytes"]}
+    for remat in ("full", "dots"):
+        rr = train_cli.run(a["arch"], batch=a["batch"], seq=a["seq"], steps=2, seed=a["seed"],
+                           lr=a["lr"], device=dev, fixed_batch=True, remat=remat)
+        peaks[remat] = rr["peak_bytes"]
+        rel = abs(rr["losses"][0] - losses[0]) / abs(losses[0])
+        print(f"  (b) remat {remat!r}: first loss {rr['losses'][0]:.6f} against "
+              f"{losses[0]:.6f} (relative {rel:.2e}, at most {REMAT_RTOL:g}); the second "
+              f"step {rr['step_sec'][1] * 1e3:.2f} ms against {ms:.2f}", flush=True)
+        if rel > REMAT_RTOL:
+            raise AssertionError(f"remat {remat!r} changed the first loss: {rr['losses'][0]} "
+                                 f"against {losses[0]}")
+    print("  (b) peak allocated over a step: " + ", ".join(
+        f"remat {k!r} {v / 1e9:.3f} GB" for k, v in peaks.items()), flush=True)
+    train_profile(cfg, dev)
+
+
+def train_profile(cfg, dev) -> None:
+    """Phase 12 (a), where a step's time goes: one step of (a)'s shape under
+    torch.profiler (after an unprofiled one), its device time by kernel
+    class (cuBLAS products; the rest: softmax, norms, AdamW's elementwise
+    passes, copies) and the busy share of its wall time."""
+    import gc
+
+    import torch
+
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.models import init_params, trainable
+    from repro_torch.train import init_train_state, make_train_step
+
+    a = TRAIN
+    params = trainable(init_params(cfg, torch.Generator(device=dev).manual_seed(a["seed"])))
+    opt = init_train_state(params)
+    step = make_train_step(cfg, lr=a["lr"])
+    batch = make_batch(SyntheticLM(cfg.vocab_size, a["seq"], a["batch"], seed=a["seed"]), 0, dev)
+    step(params, opt, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, opt, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, by_name = device_time(lambda: step(params, opt, batch))
+    products = {k: v for k, v in by_name.items() if re.search(r"gemm|cutlass|xmma", k, re.I)}
+    gemm_ms = sum(ms for _, ms in products.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    print(f"  (a) one step under torch.profiler: {busy:.2f} ms on the device of {wall:.2f} ms "
+          f"wall ({busy / wall:.1%} busy), {sum(n for n, _ in by_name.values()):,} device "
+          f"kernels; cuBLAS products {gemm_ms:.2f} ms ({gemm_ms / busy:.1%}) in "
+          f"{sum(n for n, _ in products.values())} calls; the rest {busy - gemm_ms:.2f} ms; "
+          "top: " + "; ".join(f"{k[:60]} x{n} {ms:.2f} ms" for k, (n, ms) in top), flush=True)
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_vs_cpu(dev) -> dict:
+    """Phase 12 (c): the same weights (drawn on the CPU) and batches on the
+    card and on the CPU, full width, depth cut; returns the card's train
+    state after the steps."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, trainable
+    from repro_torch.tree import tree_leaves, tree_map
+
+    c, tol = TRAIN_CHECK, TRAIN_TOL
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), dtype=torch.float32,
+                              n_layers=c["layers"])
+    t0 = time.perf_counter()
+    base = trainable(init_params(cfg, torch.Generator().manual_seed(TRAIN["seed"])))
+    runs = {}
+    for name, device in (("cpu", torch.device("cpu")), ("card", dev)):
+        params = tree_map(lambda t: t.to(device, copy=True), base)
+        runs[name] = train_run(cfg, params, c["batch"], c["seq"], c["steps"], TRAIN["seed"],
+                               snapshot=True, lr=TRAIN["lr"])
+    (p_card, opt_card, out_card, first_card), (_, _, out_cpu, first_cpu) = \
+        runs["card"], runs["cpu"]
+    for s, ((l1, _, g1), (l0, _, g0)) in enumerate(zip(out_card, out_cpu)):
+        dl, dg = abs(l1 - l0) / abs(l0), abs(g1 - g0) / abs(g0)
+        print(f"  (c) step {s}: loss card {l1:.6f} cpu {l0:.6f} (relative {dl:.2e}, at most "
+              f"{tol['loss_rtol']:g}); grad norm card {g1:.5f} cpu {g0:.5f} (relative "
+              f"{dg:.2e}, at most {tol['gnorm_rtol']:g})", flush=True)
+        if dl > tol["loss_rtol"] or dg > tol["gnorm_rtol"] or not math.isfinite(l1 + g1):
+            raise AssertionError(f"training, card vs CPU, step {s}: loss {l1} / {l0}, "
+                                 f"grad norm {g1} / {g0}")
+    n = past = sensitive = unexplained = 0
+    worst = g_past = 0.0
+    for p1, p0, m1, m0 in zip(tree_leaves(first_card["params"]), tree_leaves(first_cpu["params"]),
+                              tree_leaves(first_card["m"]), tree_leaves(first_cpu["m"])):
+        diff = (p1 - p0).abs()
+        off = diff > tol["param"]["atol"] + tol["param"]["rtol"] * p0.abs()
+        g = m0.abs() / 0.1  # the first moment after step 1 is (1 - b1) g, b1 = 0.9
+        noisy = ((m1 - m0).abs() > tol["grad_rtol"] * m0.abs()) | (g < tol["grad_floor"])
+        n += p0.numel()
+        past += int(off.sum())
+        sensitive += int(noisy.sum())
+        unexplained += int((off & ~noisy).sum())
+        if bool(off.any()):
+            g_past = max(g_past, float(g[off].max()))
+        if bool((~noisy).any()):
+            worst = max(worst, float(diff[~noisy].max()))
+    print(f"  (c) parameters after step 1: {n:,} elements, {past:,} past 1e-6 + 1e-5*|cpu| "
+          f"(Adam's sign-like first step; their largest gradient {g_past:.3e}); each must be "
+          f"among the {sensitive:,} whose gradient is below {tol['grad_floor']:g} or differs "
+          f"between card and CPU by more than {tol['grad_rtol']:.0%}"
+          f"{'' if unexplained == 0 else f' ({unexplained} are not)'}; largest difference "
+          f"elsewhere {worst:.3e}; {time.perf_counter() - t0:.1f} s", flush=True)
+    if unexplained:
+        raise AssertionError(f"training, card vs CPU: {unexplained} parameters off after "
+                             f"step 1 with the gradient agreeing")
+    return {"params": p_card, "opt": opt_card}
+
+
+def train_one_step(dev) -> None:
+    """Phase 12 (d): one step each of mamba2-780m (full depth: the SSD
+    backward) and mixtral-8x7b (depth cut: the GShard dispatch's backward
+    and the routers' aux loss) from weights drawn on the card."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, trainable
+    from repro_torch.tree import tree_leaves
+
+    sh = TRAIN_ONE_STEP_SHAPE
+    for arch, layers in TRAIN_ONE_STEP:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = trainable(init_params(cfg, torch.Generator(device=dev).manual_seed(0)))
+        n = sum(t.numel() for t in tree_leaves(params))
+        _, _, out, _ = train_run(cfg, params, sh["batch"], sh["seq"], 1, 0, lr=TRAIN["lr"])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        loss, aux, gnorm = out[0]
+        print(f"  (d) {arch}, {cfg.n_layers} layer(s) of {get_config(arch).n_layers}, "
+              f"{n / 1e6:.1f}M parameters, batch {sh['batch']} x {sh['seq']}: loss {loss:.4f}, "
+              f"aux {aux:.4f}, grad norm {gnorm:.4f}; peak allocated {peak / 1e9:.3f} GB; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if not all(map(math.isfinite, (loss, aux, gnorm))) or (cfg.family == "moe") != (aux > 0):
+            raise AssertionError(f"{arch}: a train step gave loss {loss}, aux {aux}, "
+                                 f"grad norm {gnorm}")
+        del params, out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def train_checkpoints(state: dict) -> None:
+    """Phase 12 (e): an AsyncCheckpointer save of ``state`` (on the card)
+    restored bit for bit, then the CLI's resume on the card at --reduced."""
+    import torch
+
+    from repro_torch.ckpt import AsyncCheckpointer, restore
+    from repro_torch.launch import train as train_cli
+    from repro_torch.tree import tree_leaves
+
+    leaves = tree_leaves(state)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        ck = AsyncCheckpointer(tmp)
+        t0 = time.perf_counter()
+        ck.save(state, step=TRAIN_CHECK["steps"])
+        t_snap = time.perf_counter() - t0
+        ck.close()
+        t_save = time.perf_counter() - t0
+        shard = os.path.join(tmp, f"step_{TRAIN_CHECK['steps']:08d}", "shard_0.msgpack.zst")
+        size = os.path.getsize(shard)
+        with open(shard, "rb") as f:
+            flag = f.read(1)
+        t0 = time.perf_counter()
+        got, step = restore(tmp, state)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        same = all(a.dtype == b.dtype and a.device == b.device and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+            for a, b in zip(tree_leaves(got), leaves))
+        print(f"  (e) AsyncCheckpointer: {len(leaves)} leaves, {nbytes / 1e9:.3f} GB on the "
+              f"card; snapshot to the host {t_snap:.2f} s (the caller's thread), written "
+              f"{t_save:.2f} s after the call ({size / 1e9:.3f} GB shard, flag {flag!r}); "
+              f"restore to the card {t_restore:.2f} s; every leaf bit for bit: {same}",
+              flush=True)
+        if step != TRAIN_CHECK["steps"] or not same:
+            raise AssertionError("the restored train state differs from the saved one")
+        del got
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
+        argv = ["--reduced", "--batch", "4", "--seq", "32", "--ckpt-dir", tmp]
+        texts = []
+        for extra in (["--steps", "4", "--ckpt-every", "2"], ["--steps", "6"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = train_cli.main(argv + extra)
+            texts.append(buf.getvalue())
+            if rc != 0:
+                raise AssertionError(f"launch.train {' '.join(argv + extra)} exited {rc}")
+        if "device=cuda" not in texts[0] or "resumed from step 4" not in texts[1] \
+                or "resumed" in texts[0]:
+            raise AssertionError("launch.train did not resume from step 4 on the card:\n"
+                                 + "\n".join(texts))
+        print("  (e) python -m repro_torch.launch.train --reduced (no --device: the card) "
+              "--steps 4 --ckpt-every 2, then --steps 6: "
+              + texts[1].strip().splitlines()[1], flush=True)
+
+
+def training_phase(launches: dict, dev) -> None:
+    """Phase 12: training on the card (no dispatch service: no hand-written
+    kernel runs; the counts, set to 0 before, must stay 0)."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels.covariance import covariance
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.floyd_warshall import closure_in_block, minplus_update
+    from repro_torch.kernels.heat3d import heat3d
+    from repro_torch.kernels.lu import lu_factor_diag
+    from repro_torch.kernels.matmul import tiled_matmul
+    from repro_torch.kernels.syr2k import syr2k
+
+    wrappers = (syr2k, tiled_matmul, covariance, minplus_update, heat3d, lu_factor_diag,
+                closure_in_block, flash_attention, decode_attention)
+    t12 = time.perf_counter()
+    for w in wrappers:
+        w.launches = 0
+    train_main(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = train_vs_cpu(dev)
+    train_one_step(dev)
+    train_checkpoints(state)
+    del state
+    counts = {w.__name__: w.launches for w in wrappers}
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"  launches over phase 12: {counts} (training passes no dispatch service)",
+          flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"training launched a hand-written kernel: {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
+
+
 def kernel_inputs(kernel: str, sig: tuple, dev) -> tuple[tuple, dict]:
     """Seeded inputs of a serving kernel at a dispatch signature, and the
     static keywords the signature folds in (decode's cache fully resident)."""
@@ -2828,6 +3193,12 @@ def main() -> int:
           "qwen2-vl-7b at full width and full depth, f32, through greedy_decode and the "
           "dispatch service")
     ssm_phase(launches, dev)
+
+    # ---- 12. training ---------------------------------------------------------------
+    phase("12. training on the card: qwen2-0.5b at full width and full depth through "
+          "repro_torch.launch.train, remat, card against CPU, mamba2 and mixtral steps, "
+          "checkpoints")
+    training_phase(launches, dev)
 
     def entry(name, source, replaces):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",

@@ -237,19 +237,31 @@ __device__ __forceinline__ float4 ldg4(const float* X, int valid) {
                      valid > 2 ? __ldg(X + 2) : 0.f, valid > 3 ? __ldg(X + 3) : 0.f);
 }
 
-// Raise `kernel`'s dynamic shared-memory limit to `bytes` where it passes the
-// default 48 KB, once per device and size: cudaFuncSetAttribute on every
-// launch would cost the host microseconds per call (a decode step launches
-// decode_attention 24 times). `done` is the caller's per-instantiation record.
+// Let `kernel` take `bytes` of dynamic shared memory where they pass the
+// default 48 KB: its cap is raised to the most it can have (the device's
+// opt-in maximum less the kernel's static shared memory), once per device
+// (`done`, the caller's per-instantiation record: cudaFuncSetAttribute on
+// every launch would cost the host microseconds per call). The cap is that
+// one value whatever the launch, never the launch's own bytes: host threads
+// launching one kernel with different tiles (the background tuner's workers
+// beside the serving thread) would otherwise lower it under each other's
+// launches, which then fail.
 template <typename F>
 inline cudaError_t allow_smem(F* kernel, long long bytes, long long (&done)[16]) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
+  int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 16 && done[dev] >= bytes) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess && dev < 16) done[dev] = bytes;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  const long long cap = (long long)optin - (long long)attr.sharedSizeBytes;
+  if (bytes > cap) return cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cap);
+  if (e == cudaSuccess && dev < 16) done[dev] = cap;
   return e;
 }
 

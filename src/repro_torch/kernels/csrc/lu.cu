@@ -56,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_f32.cuh"
+
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -219,11 +221,9 @@ extern "C" int lu_factor_diag_launch(void* A, int ld, int off, int bs, void* str
   float* a = (float*)A;
   if (bs > MAX_REG_BS) {
     const long long smem = lu_factor_diag_smem_bytes(bs);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          lu_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
+    static long long done[16] = {};
+    const cudaError_t e = gemm::allow_smem(lu_smem_kernel, smem, done);
+    if (e != cudaSuccess) return (int)e;
     lu_smem_kernel<<<1, dim3(LT, LT), (size_t)smem, s>>>(a, ld, off, bs);
     return (int)cudaGetLastError();
   }

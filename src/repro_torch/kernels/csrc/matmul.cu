@@ -421,29 +421,30 @@ __global__ void __launch_bounds__(MAX_TC_THREADS) matmul_tf32_kernel(Args p) {
   if (PACK) store_tile(false);
 }
 
+// `done`: the kernel's gemm::allow_smem record (one per instantiation)
 template <typename F>
-cudaError_t launch_kernel(F* kernel, const Args& p, cudaStream_t stream) {
+cudaError_t launch_kernel(F* kernel, const Args& p, long long (&done)[16],
+                          cudaStream_t stream) {
   const int mi = (p.M + p.bm - 1) / p.bm, nj = (p.N + p.bn - 1) / p.bn;
   const dim3 grid = p.interchange ? dim3(mi, nj) : dim3(nj, mi);
-  if (p.L.bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)p.L.bytes);
-    if (e != cudaSuccess) return e;
-  }
+  const cudaError_t e = gemm::allow_smem(kernel, p.L.bytes, done);
+  if (e != cudaSuccess) return e;
   kernel<<<grid, p.L.threads, p.L.bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <bool PK>
 cudaError_t launch_tf32(const Args& p, bool vec16, cudaStream_t s) {
-  return vec16 ? launch_kernel(matmul_tf32_kernel<PK, true>, p, s)
-               : launch_kernel(matmul_tf32_kernel<PK, false>, p, s);
+  static long long done[2][16] = {};
+  return vec16 ? launch_kernel(matmul_tf32_kernel<PK, true>, p, done[1], s)
+               : launch_kernel(matmul_tf32_kernel<PK, false>, p, done[0], s);
 }
 
 template <typename T, bool PK, int TM, int TN>
 cudaError_t launch_vec(const Args& p, bool vec16, cudaStream_t s) {
-  return vec16 ? launch_kernel(matmul_kernel<T, PK, TM, TN, true>, p, s)
-               : launch_kernel(matmul_kernel<T, PK, TM, TN, false>, p, s);
+  static long long done[2][16] = {};
+  return vec16 ? launch_kernel(matmul_kernel<T, PK, TM, TN, true>, p, done[1], s)
+               : launch_kernel(matmul_kernel<T, PK, TM, TN, false>, p, done[0], s);
 }
 
 template <typename T, bool PK>

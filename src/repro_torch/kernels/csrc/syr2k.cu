@@ -225,12 +225,9 @@ cudaError_t launch(const Args& p, cudaStream_t stream) {
   const int ni = (p.N + p.bi - 1) / p.bi, nj = (p.N + p.bj - 1) / p.bj;
   const dim3 grid = p.interchange ? dim3(ni, nj) : dim3(nj, ni);
   const int threads = (p.L.pi / RT) * (p.L.pj / RT);
-  if (p.L.bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(syr2k_kernel<PA, PB, RT, V16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)p.L.bytes);
-    if (e != cudaSuccess) return e;
-  }
+  static long long done[16] = {};
+  const cudaError_t e = gemm::allow_smem(syr2k_kernel<PA, PB, RT, V16>, p.L.bytes, done);
+  if (e != cudaSuccess) return e;
   syr2k_kernel<PA, PB, RT, V16><<<grid, threads, p.L.bytes, stream>>>(p);
   return cudaGetLastError();
 }

@@ -1603,3 +1603,112 @@ def test_ssd_state_stays_f32_under_bf16_on_the_card(cuda):
     B, C = (torch.randn(2, 16, 8, generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
     y, h = ssd(x, dt, A, B, C, chunk=8)
     assert y.dtype == torch.bfloat16 and h.dtype == torch.float32 and torch.isfinite(h).all()
+
+
+# ---------------------------------------------------------------------------
+# training on the card: the step passes no dispatch service, as the JAX
+# package's does, so it launches no hand-written kernel
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mixtral-8x7b", "mamba2-780m"])
+def test_train_steps_on_the_card_match_the_cpu(cuda, arch):
+    """Three reduced train steps from the same weights and batches: the
+    losses and grad norms of the card within 1e-4 of the CPU's (cuBLAS
+    against the CPU's BLAS, f32), and no kernel launched."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.models import init_params, trainable
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_reduced(arch), dtype=torch.float32)
+    base = trainable(init_params(cfg, torch.Generator().manual_seed(0)))
+    before = tiled_matmul.launches
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        params = tree_map(lambda t: t.to(dev, copy=True), base)
+        opt = init_train_state(params)
+        step = make_train_step(cfg, lr=1e-3, ssm_chunk=8)
+        stream = SyntheticLM(cfg.vocab_size, 16, 4, seed=1)
+        metrics = []
+        for s in range(3):
+            params, opt, m = step(params, opt, make_batch(stream, s, dev))
+            assert m["loss"].device.type == dev.type
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+        out[dev.type] = metrics
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4)
+    assert tiled_matmul.launches == before
+
+
+def test_async_checkpoint_of_cuda_tensors_is_the_steps_own(cuda, tmp_path):
+    """The snapshot holds every update queued before ``save`` and none of
+    those after it, though the loop updates the tensors in place at once."""
+    from repro_torch.ckpt import AsyncCheckpointer, restore
+
+    w = torch.zeros(4_000_000, device=cuda)
+    state = {"w": w, "step": torch.zeros((), dtype=torch.int32, device=cuda)}
+    for _ in range(50):
+        w.add_(1.0)
+    state["step"] += 50
+    ck = AsyncCheckpointer(str(tmp_path))
+    ck.save(state, step=50)
+    w.add_(1000.0)
+    state["step"] += 1
+    ck.close()
+    got, step = restore(str(tmp_path), state)
+    assert step == 50 and got["w"].device == w.device
+    assert torch.equal(got["w"], torch.full_like(w, 50.0)) and int(got["step"]) == 50
+
+
+def test_train_cli_resumes_on_the_card(cuda, tmp_path, capsys):
+    from repro_torch.launch import train as train_cli
+
+    argv = ["--reduced", "--batch", "2", "--seq", "16", "--ckpt-dir", str(tmp_path)]
+    assert train_cli.main(argv + ["--steps", "4", "--ckpt-every", "2"]) == 0
+    assert "device=cuda" in capsys.readouterr().out
+    r = train_cli.run(reduced=True, batch=2, seq=16, steps=6, ckpt_dir=str(tmp_path))
+    assert "resumed from step 4" in capsys.readouterr().out
+    assert r["start"] == 4 and r["device"].startswith("cuda") and r["peak_bytes"] > 0
+    assert all(np.isfinite(r["losses"]))
+
+
+def test_threads_launching_one_kernel_with_different_shared_memory(cuda):
+    """Host threads (the background tuner's workers beside the serving
+    thread) launch one matmul instantiation at once with tiles whose shared
+    memory differs past 48 KB: no launch fails. Each launch used to set the
+    kernel's cap to its own bytes, so one thread could lower it under
+    another's launch ("invalid argument"); the cap is now the device's
+    opt-in maximum."""
+    import threading
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(1024, 896, device=cuda, generator=g)
+    b = torch.randn(896, 896, device=cuda, generator=g)
+    tiles = [dict(bm=128, bn=128, bk=32), dict(bm=96, bn=128, bk=192),
+             dict(bm=64, bn=128, bk=64), dict(bm=128, bn=96, bk=128)]
+    assert all(matmul_smem_bytes(t["bm"], t["bn"], t["bk"]) > 48 * 1024 for t in tiles)
+    errors = []
+
+    def worker(k):
+        stream = torch.cuda.Stream(device=cuda)
+        with torch.cuda.stream(stream):
+            for i in range(1000):
+                try:
+                    tiled_matmul(a, b, **tiles[(i + k) % len(tiles)])
+                except RuntimeError as e:
+                    errors.append(str(e))
+                    break
+        stream.synchronize()
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and errors == []
+    want = a @ b
+    for t in tiles:
+        _close(tiled_matmul(a, b, **t), want, dict(atol=1e-4, rtol=1e-4))
