@@ -145,6 +145,22 @@ checks each kernel on the card:
      (d) a step of mamba2-780m (full depth) and mixtral-8x7b (1 layer); (e)
      an AsyncCheckpointer save of (c)'s 2 GB train state restored bit for
      bit, then `launch.train --reduced` on the card resuming from step 4.
+ 13. the audio family: (a) whisper-large-v3 at full width and full depth
+     (32 encoder layers over 1500 frames, 32 decoder layers with
+     cross-attention) in f32 from seeded weights and frames, batch 4,
+     prompt 64, 16 new tokens, through greedy_decode and a DispatchService,
+     with the launch counts set to 0 just before and read just after: the
+     matmul once a forward and once a decode step (the unembed), no
+     attention kernel; the cross K/V a prefill leaves against the encoder's
+     output recomputed; TTFT, the forward alone, ms per decode step beside
+     its bytes bound (the decoder's weights, the cross and self K/V), the
+     busy share and the largest device kernels of one step, tokens/s, peak
+     memory; (b) the unembed's signatures (4 and 256 rows @ (1280, 51,866):
+     N not a multiple of 4) against their plain version and timed beside
+     torch.matmul; (c) the card against the CPU at 2 + 2 layers; (d) one
+     train step at full depth under remat "full" (FLOPs counted from the
+     leaves), the first step at 4 + 4 layers under each remat policy, the
+     card against the CPU at 2 + 2 layers over 3 steps.
 
 Phases 3 and 4 also hold flash_attention and decode_attention against their
 plain versions at LARGE, at head_dim 256, at head sizes between the
@@ -287,10 +303,25 @@ TRAIN_TOL = dict(loss_rtol=1e-4, gnorm_rtol=1e-3, param=dict(atol=1e-6, rtol=1e-
                  grad_rtol=1e-2, grad_floor=1e-6)
 # remat changes no value: the first step's loss under each policy
 REMAT_RTOL = 1e-6
-# what may stay allocated on the card after a served model is dropped
-# (phases 10 and 11): cuBLAS's 32 MiB workspace, taken at its first call
-# (the weights are 3-37 GB; a leaked view of one layer's output projection
-# keeps mixtral's 4 stacked ones, 268 MB)
+# phase 13: the audio family, whisper-large-v3 at full width and full depth
+# (32 encoder layers over 1500 frames, 32 decoder layers with
+# cross-attention), f32: (a) served through greedy_decode and a
+# DispatchService, batch 4, prompt 64, 16 new tokens, the frames drawn from
+# seed + 2 as launch.serve draws them; (c) the card against the CPU at 2 + 2
+# layers, batch 2, prompt 8, 4 new tokens; (d) one train step at full depth
+# under remat "full" (batch 2 x 128 decoder tokens and the frames; "none"
+# would hold every layer's activations beside 31.3 GB of weights,
+# gradients and moments), the first step under each policy at 4 + 4 layers,
+# and the card against the CPU at 2 + 2 layers (TRAIN_CHECK's shape and
+# steps, phase 12's rule)
+AUDIO = dict(arch="whisper-large-v3", batch=4, prompt_len=64, gen=16, seed=0,
+             check_layers=2, check_batch=2, check_prompt=8, check_gen=4)
+AUDIO_TRAIN = dict(batch=2, seq=128, remat="full", policy_layers=4, check_layers=2)
+# what may stay allocated on the card after a served (or trained) model is
+# dropped (phases 10, 11 and 13), cuBLAS's workspaces freed first (32 MiB
+# for each thread and stream that called it: a backward runs on autograd's
+# own thread): the weights are 3-37 GB; a leaked view of one layer's output
+# projection keeps mixtral's 4 stacked ones, 268 MB
 LEFT_BYTES = 64 << 20
 # the instantiations the main paths run at their defaults (ptxas template
 # arguments): syr2k<PACK_A, PACK_B, RT, VEC16> at 64x64 tiles of M = 1000;
@@ -1351,6 +1382,7 @@ def released(arch: str, base: int, after: str) -> None:
     import torch
 
     gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
     left = torch.cuda.memory_allocated() - base
     print(f"  {arch} after {after}: {left / 1e6:.1f} MB more allocated than before its "
@@ -1622,12 +1654,23 @@ def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
     return 6.0 * n_params * batch * seq + attn
 
 
+def audio_frames(cfg, batch: int, seed: int):
+    """Frame embeddings (batch, encoder_len, d_model), standard normal,
+    drawn on the CPU from ``seed`` (so that the card and the CPU get the
+    same)."""
+    import torch
+
+    return torch.randn(batch, cfg.encoder_len, cfg.d_model,
+                       generator=torch.Generator().manual_seed(seed))
+
+
 def train_run(cfg, params: dict, batch: int, seq: int, steps: int, seed: int,
               snapshot: bool = False, **step_kw):
     """``steps`` train steps of ``cfg`` from ``params`` (on their device) on
-    SyntheticLM batches drawn from ``seed``: (params, opt state, [(loss,
-    aux, grad norm) a step], with ``snapshot`` (params, first moment) after
-    step 1 on the host, else None)."""
+    SyntheticLM batches drawn from ``seed`` (the audio family's with frames
+    from ``audio_frames``): (params, opt state, [(loss, aux, grad norm) a
+    step], with ``snapshot`` (params, first moment) after step 1 on the
+    host, else None)."""
     from repro_torch.data import SyntheticLM, make_batch
     from repro_torch.train import init_train_state, make_train_step
     from repro_torch.tree import tree_leaves, tree_map
@@ -1638,7 +1681,10 @@ def train_run(cfg, params: dict, batch: int, seq: int, steps: int, seed: int,
     stream = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
     out, first = [], None
     for s in range(steps):
-        params, opt, m = step(params, opt, make_batch(stream, s, dev))
+        b = make_batch(stream, s, dev)
+        if cfg.family == "audio":
+            b["enc_embed"] = audio_frames(cfg, batch, seed + 1 + s).to(dev)
+        params, opt, m = step(params, opt, b)
         out.append((float(m["loss"]), float(m["aux"]), float(m["grad_norm"])))
         if s == 0 and snapshot:
             first = tree_map(lambda t: t.detach().to("cpu", copy=True),
@@ -1740,21 +1786,16 @@ def train_profile(cfg, dev) -> None:
     torch.cuda.empty_cache()
 
 
-def train_vs_cpu(dev) -> dict:
-    """Phase 12 (c): the same weights (drawn on the CPU) and batches on the
-    card and on the CPU, full width, depth cut; returns the card's train
-    state after the steps."""
-    import dataclasses
-
+def train_vs_cpu(dev, cfg, label: str) -> dict:
+    """Phase 12 (c) (and 13 (d)): the same weights of ``cfg`` (drawn on the
+    CPU) and batches on the card and on the CPU, full width, depth cut;
+    returns the card's train state after the steps."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models import init_params, trainable
     from repro_torch.tree import tree_leaves, tree_map
 
     c, tol = TRAIN_CHECK, TRAIN_TOL
-    cfg = dataclasses.replace(get_config(TRAIN["arch"]), dtype=torch.float32,
-                              n_layers=c["layers"])
     t0 = time.perf_counter()
     base = trainable(init_params(cfg, torch.Generator().manual_seed(TRAIN["seed"])))
     runs = {}
@@ -1766,11 +1807,11 @@ def train_vs_cpu(dev) -> dict:
         runs["card"], runs["cpu"]
     for s, ((l1, _, g1), (l0, _, g0)) in enumerate(zip(out_card, out_cpu)):
         dl, dg = abs(l1 - l0) / abs(l0), abs(g1 - g0) / abs(g0)
-        print(f"  (c) step {s}: loss card {l1:.6f} cpu {l0:.6f} (relative {dl:.2e}, at most "
+        print(f"  {label} step {s}: loss card {l1:.6f} cpu {l0:.6f} (relative {dl:.2e}, at most "
               f"{tol['loss_rtol']:g}); grad norm card {g1:.5f} cpu {g0:.5f} (relative "
               f"{dg:.2e}, at most {tol['gnorm_rtol']:g})", flush=True)
         if dl > tol["loss_rtol"] or dg > tol["gnorm_rtol"] or not math.isfinite(l1 + g1):
-            raise AssertionError(f"training, card vs CPU, step {s}: loss {l1} / {l0}, "
+            raise AssertionError(f"{cfg.name} training, card vs CPU, step {s}: loss {l1} / {l0}, "
                                  f"grad norm {g1} / {g0}")
     n = past = sensitive = unexplained = 0
     worst = g_past = 0.0
@@ -1788,15 +1829,15 @@ def train_vs_cpu(dev) -> dict:
             g_past = max(g_past, float(g[off].max()))
         if bool((~noisy).any()):
             worst = max(worst, float(diff[~noisy].max()))
-    print(f"  (c) parameters after step 1: {n:,} elements, {past:,} past 1e-6 + 1e-5*|cpu| "
+    print(f"  {label} parameters after step 1: {n:,} elements, {past:,} past 1e-6 + 1e-5*|cpu| "
           f"(Adam's sign-like first step; their largest gradient {g_past:.3e}); each must be "
           f"among the {sensitive:,} whose gradient is below {tol['grad_floor']:g} or differs "
           f"between card and CPU by more than {tol['grad_rtol']:.0%}"
           f"{'' if unexplained == 0 else f' ({unexplained} are not)'}; largest difference "
           f"elsewhere {worst:.3e}; {time.perf_counter() - t0:.1f} s", flush=True)
     if unexplained:
-        raise AssertionError(f"training, card vs CPU: {unexplained} parameters off after "
-                             f"step 1 with the gradient agreeing")
+        raise AssertionError(f"{cfg.name} training, card vs CPU: {unexplained} parameters "
+                             f"off after step 1 with the gradient agreeing")
     return {"params": p_card, "opt": opt_card}
 
 
@@ -1898,10 +1939,12 @@ def train_checkpoints(state: dict) -> None:
 def training_phase(launches: dict, dev) -> None:
     """Phase 12: training on the card (no dispatch service: no hand-written
     kernel runs; the counts, set to 0 before, must stay 0)."""
+    import dataclasses
     import gc
 
     import torch
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels.covariance import covariance
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1919,7 +1962,9 @@ def training_phase(launches: dict, dev) -> None:
     train_main(dev)
     gc.collect()
     torch.cuda.empty_cache()
-    state = train_vs_cpu(dev)
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), dtype=torch.float32,
+                              n_layers=TRAIN_CHECK["layers"])
+    state = train_vs_cpu(dev, cfg, "(c)")
     train_one_step(dev)
     train_checkpoints(state)
     del state
@@ -1933,6 +1978,337 @@ def training_phase(launches: dict, dev) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
+
+
+def layer_of(stack: dict, i: int) -> dict:
+    """Layer ``i``'s parameters (views) out of a stacked tree."""
+    return {k: layer_of(v, i) if isinstance(v, dict) else v[i] for k, v in stack.items()}
+
+
+def audio_serve(launches: dict, dev):
+    """Phase 13 (a) and (b): whisper-large-v3 at full width and full depth
+    through greedy_decode and a DispatchService, with the launch counts set
+    to 0 just before and read just after (added to ``launches``); then the
+    cross cache a prefill leaves against the encoder's output recomputed,
+    per-call launches and times, the decode step's bytes bound and busy
+    share, and the unembed's two signatures against their plain version and
+    timed. Returns the served config: the model's tensors die with this
+    call's locals."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dispatch import DispatchService
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.matmul import tiled_matmul
+    from repro_torch.models import blocks, decode_step, forward, init_params
+    from repro_torch.serve import greedy_decode, prefill
+
+    a = AUDIO
+    wrappers = (flash_attention, decode_attention, tiled_matmul)
+    B, P, gen, seed = a["batch"], a["prompt_len"], a["gen"], a["seed"]
+    cfg = dataclasses.replace(get_config(a["arch"]), dtype=torch.float32)
+    L, Le, Se, K, hd = cfg.n_layers, cfg.n_encoder_layers, cfg.encoder_len, cfg.n_kv_heads, cfg.hd
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    svc = DispatchService()
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    frames = torch.randn(B, Se, cfg.d_model, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(seed + 2))
+
+    # -- the main path: greedy_decode (prefill: forward + the prompt's replay)
+    for w in wrappers:
+        w.launches = 0
+    timings: dict = {}
+    toks = greedy_decode(params, cfg, prompt, steps=gen, max_len=P + gen, service=svc,
+                         timings=timings, enc_embed=frames)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(toks.shape) != (B, gen) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{cfg.name}: tokens of shape {tuple(toks.shape)} outside the vocab")
+    steps = P + gen
+    want = {"flash_attention": 0, "decode_attention": 0, "tiled_matmul": 1 + steps}
+    print(f"  (a) {cfg.name} ({Le} encoder layers over {Se} frames, {L} decoder layers, d "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}), batch {B}, prompt {P}, {gen} tokens: "
+          f"launches over greedy_decode {counts} (expected {want}: the unembed once a forward "
+          f"and once a decode step, {steps} steps; the encoder and decoder layers pass no "
+          f"service, as in the JAX package)")
+    if counts != want:
+        raise AssertionError(f"{cfg.name}: launch counts {counts} != {want}")
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    if svc.stats["build_failed"] or svc.stats["store_default"] == 0:
+        raise AssertionError(f"{cfg.name}: dispatch stats {svc.stats}")
+    print(f"  (a) dispatch stats: {json.dumps(svc.stats)}; first request {toks[0].tolist()}",
+          flush=True)
+
+    # -- the cross cache a prefill leaves, against the encoder's output
+    # recomputed here layer by layer
+    batch = {"tokens": prompt, "enc_embed": frames}
+    _, cache = prefill(params, batch, cfg, max_len=P + gen, service=svc)
+    cross = cache["cross"]
+    empty = [i for i in range(L) if not (bool(cross["k"][i].any()) and bool(cross["v"][i].any()))]
+    if empty:
+        raise AssertionError(f"{cfg.name}: the prefill left the cross K/V of decoder layers "
+                             f"{empty} zero")
+    enc = frames
+    enc_pos = torch.arange(Se, device=dev)[None, :].expand(B, Se)
+    for i in range(Le):
+        enc, _ = blocks.attn_layer_train(layer_of(params["enc_layers"], i), enc, cfg=cfg,
+                                         positions=enc_pos, window=None, causal=False)
+    last = layer_of(params["dec_layers"], L - 1)
+    for name, w in (("k", last["xk"]), ("v", last["xv"])):
+        compare(f"{cfg.name} cross {name.upper()} of decoder layer {L - 1} after prefill "
+                f"(max |.| {float(cross[name][L - 1].abs().max()):.3f}), against the encoder's "
+                f"output recomputed @ x{name}", cross[name][L - 1],
+                (enc @ w).reshape(B, Se, K, hd), F32_TOL)
+    del enc
+
+    # -- per call: launches, times, the decode step's bound and busy share
+    fwd = lambda: forward(params, batch, cfg, service=svc)  # noqa: E731
+    n_fwd = launches_per_call(fwd, wrappers)
+    tok = prompt[:, -1:]
+    step = lambda: decode_step(params, cache, tok, P, cfg, service=svc)  # noqa: E731
+    n_step = launches_per_call(step, wrappers)
+    one = {"flash_attention": 0, "decode_attention": 0, "tiled_matmul": 1}
+    print(f"  (a) launches per prefill forward {n_fwd}, per decode step {n_step}")
+    if n_fwd != one or n_step != one:
+        raise AssertionError(f"{cfg.name}: per-call launch counts differ from {one}")
+    fwd_ms, step_ms = host_ms(fwd, iters=3), host_ms(step, iters=10)
+    # the bytes a step must move: the decoder's weights but xk and xv (the
+    # cross K/V are cached), the unembed embed_t (the lookup reads B rows of
+    # embed), the cross K/V and the self K/V of P + 1 positions read
+    dec = params["dec_layers"]
+    weights = (tree_bytes(dec) - tree_bytes({"xk": dec["xk"], "xv": dec["xv"]})
+               + tree_bytes({"e": params["embed_t"], "n": params["final_norm"]}))
+    cross_b = 2 * L * B * Se * K * hd * 4
+    kv = 2 * L * B * (P + 1) * K * hd * 4
+    step_bound = (weights + cross_b + kv) / PEAK_HBM_BYTES * 1e3
+    dev_ms, by_name = device_time(step)
+    n_kernels = sum(c for c, _ in by_name.values())
+    top5 = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:5]
+    leaves = (tree_bytes(params) - tree_bytes({"e": params["embed_t"]})) // 4  # f32 values
+    print(f"  (a) memory: peak {peak / 1e9:.3f} GB allocated over the served run "
+          f"(torch.cuda.max_memory_allocated); weights {tree_bytes(params) / 1e9:.3f} GB f32 "
+          f"(tree_bytes), of which the contiguous unembed embed_t "
+          f"{params['embed_t'].numel() * 4 / 1e9:.3f} GB; the leaves but embed_t hold "
+          f"{leaves:,} values, param_count() gives {cfg.param_count():,} (it leaves out the "
+          f"decoder's cross-attention: {leaves - cfg.param_count():,}); cross K/V cache "
+          f"{cross_b / 1e9:.3f} GB")
+    print(f"  (a) TTFT {timings['prefill_sec'] * 1e3:.2f} ms (forward, the cross K/V written "
+          f"by it, + the prompt's replay through decode_step); forward alone {fwd_ms:.3f} ms "
+          f"host wall")
+    print(f"  (a) decode: {timings['decode_sec'] / gen * 1e3:.4f} ms per step in the run, "
+          f"{step_ms:.4f} ms alone; bound {step_bound:.4f} ms (bytes at 3.35 TB/s: "
+          f"{weights / 1e9:.3f} GB of weights, {cross_b / 1e9:.3f} GB of cross K/V and "
+          f"{kv / 1e6:.1f} MB of self K/V read); {B * gen / timings['decode_sec']:.1f} tok/s "
+          f"over the decode steps")
+    print(f"  (a) one decode step on the device (torch.profiler): "
+          + ("not measured (the profiler recorded no device time)" if dev_ms == 0.0 else
+             f"{n_kernels} device kernels, {dev_ms:.4f} ms busy of {step_ms:.4f} ms host "
+             f"wall ({dev_ms / step_ms:.1%})") + "; largest: "
+          + "; ".join(f"{k[:50]} x{c} {t:.4f} ms" for k, (c, t) in top5), flush=True)
+
+    # -- (b) the unembed's two signatures (N = 51,866: no operand on 16-byte
+    # words), against their plain version, then timed
+    matmul_signatures(cfg.name, svc, [("decode unembed", B, params["embed_t"], "1 per decode step"),
+                                      ("forward unembed", B * P, params["embed_t"],
+                                       "1 per forward")], dev, seed + 3)
+    return cfg
+
+
+def audio_vs_cpu(cfg, dev) -> None:
+    """Phase 13 (c): the card against the CPU at full width and 1500 frames,
+    depth cut to ``AUDIO["check_layers"]`` encoder and decoder layers, the
+    same weights and frames: forward logits at LOGIT_TOL and greedy tokens
+    equal, beside the least gap between the top two logits."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.dispatch import DispatchService
+    from repro_torch.models import forward, init_params
+    from repro_torch.serve import greedy_decode
+
+    a = AUDIO
+    n, Bc, P1, gen1 = a["check_layers"], a["check_batch"], a["check_prompt"], a["check_gen"]
+    ccfg = dataclasses.replace(cfg, n_layers=n, n_encoder_layers=n)
+    cparams = init_params(ccfg, torch.Generator(device=dev).manual_seed(a["seed"]))
+    g = torch.Generator(device=dev).manual_seed(a["seed"] + 4)
+    p1 = torch.randint(0, ccfg.vocab_size, (Bc, P1), generator=g, device=dev)
+    f1 = torch.randn(Bc, ccfg.encoder_len, ccfg.d_model, generator=g, device=dev)
+    svc = DispatchService()
+    margins: list = []
+    with logit_margins(margins):
+        want_toks = greedy_decode(cparams, ccfg, p1, steps=gen1, max_len=P1 + gen1,
+                                  service=svc, enc_embed=f1)
+    want_logits, _ = forward(cparams, {"tokens": p1, "enc_embed": f1}, ccfg, service=svc)
+    cpu = torch.device("cpu")
+    cparams_cpu = tree_to(cparams, cpu)
+    want_logits, want_toks, p1, f1 = want_logits.cpu(), want_toks.cpu(), p1.cpu(), f1.cpu()
+    del cparams, svc
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    svc_cpu = DispatchService()
+    got_logits, _ = forward(cparams_cpu, {"tokens": p1, "enc_embed": f1}, ccfg, service=svc_cpu)
+    got_toks = greedy_decode(cparams_cpu, ccfg, p1, steps=gen1, max_len=P1 + gen1,
+                             service=svc_cpu, enc_embed=f1)
+    del cparams_cpu
+    print(f"  (c) {cfg.name} card vs CPU at {n} + {n} of {cfg.n_encoder_layers} + "
+          f"{cfg.n_layers} layers, batch {Bc}, prompt {P1}, {ccfg.encoder_len} frames: least gap "
+          f"between the top two logits {min(margins):.3e} (the forward and {P1 + gen1} decode "
+          f"steps on the card); the CPU's side {time.perf_counter() - t0:.1f} s")
+    compare(f"{cfg.name} logits, card vs CPU ({n} + {n} layers, prompt {P1})",
+            want_logits, got_logits, LOGIT_TOL)
+    if not torch.equal(want_toks, got_toks):
+        raise AssertionError(f"{cfg.name} greedy tokens card {want_toks.tolist()} != CPU "
+                             f"{got_toks.tolist()}")
+    print(f"  (c) {cfg.name} greedy tokens ({gen1}), card and CPU: {want_toks.tolist()} (equal)",
+          flush=True)
+
+
+def audio_train_flops(cfg, params: dict, batch: int, seq: int) -> float:
+    """A training step's model FLOPs counted from the leaves: 2 per value of
+    each weight matrix (each layer's slice of a stacked leaf) and each row
+    it multiplies (the encoder's matrices and the decoder's xk, xv: batch x
+    encoder_len rows; the decoder's other matrices and the tied unembed:
+    batch x seq), plus attention's score and value products (the encoder's
+    frames squared, the decoder's whole S x S square, the cross-attention's
+    S x frames), the backward twice the forward. remat's recomputation is
+    not counted. (``param_count()`` leaves out the cross-attention, so 6 x
+    params x tokens would undercount.)"""
+    def matrices(tree: dict) -> int:
+        return sum(matrices(v) if isinstance(v, dict) else (v.numel() if v.ndim == 3 else 0)
+                   for v in tree.values())
+
+    enc_rows, dec_rows = batch * cfg.encoder_len, batch * seq
+    dec = params["dec_layers"]
+    cross_kv = dec["xk"].numel() + dec["xv"].numel()
+    fwd = 2.0 * (matrices(params["enc_layers"]) * enc_rows + cross_kv * enc_rows
+                 + (matrices(dec) - cross_kv) * dec_rows + params["embed"].numel() * dec_rows)
+    Se = cfg.encoder_len
+    attn = 4.0 * batch * cfg.n_heads * cfg.hd * (cfg.n_encoder_layers * Se * Se
+                                                 + cfg.n_layers * (seq * seq + seq * Se))
+    return 3.0 * (fwd + attn)
+
+
+def audio_training(dev) -> None:
+    """Phase 13 (d): whisper-large-v3 trained on the card: two make_train_step
+    steps at full width and full depth under remat "full" on one batch (the
+    first's loss, aux and grad norm; each step's ms; FLOPs counted from the
+    leaves as a share of the f32 peak; peak memory), the first step at 4 + 4
+    layers under each policy (losses equal, peaks), the card against the
+    CPU at 2 + 2 layers over 3 steps."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.kernels.cost import hopper
+    from repro_torch.models import init_params, trainable
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t, seed, lr = AUDIO_TRAIN, AUDIO["seed"], TRAIN["lr"]
+    cfg = dataclasses.replace(get_config(AUDIO["arch"]), dtype=torch.float32)
+
+    def batch_of(c):
+        b = make_batch(SyntheticLM(c.vocab_size, t["seq"], t["batch"], seed=seed), 0, dev)
+        b["enc_embed"] = audio_frames(c, t["batch"], seed + 1).to(dev)
+        return b
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = trainable(init_params(cfg, torch.Generator(device=dev).manual_seed(seed)))
+    n = sum(x.numel() for x in tree_leaves(params))
+    flops = audio_train_flops(cfg, params, t["batch"], t["seq"])
+    opt = init_train_state(params)
+    step = make_train_step(cfg, lr=lr, remat=t["remat"])
+    b = batch_of(cfg)
+    ms, first = [], None
+    for _ in range(2):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - ts) * 1e3)
+        first = first or (float(m["loss"]), float(m["aux"]), float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    loss, aux, gnorm = first
+    peak_flops = hopper().ffma_flops
+    print(f"  (d) {cfg.name}, {cfg.n_encoder_layers} + {cfg.n_layers} layers, {n / 1e6:.1f}M "
+          f"parameters (the train state's leaves), batch {t['batch']} x {t['seq']} decoder "
+          f"tokens + {cfg.encoder_len} frames, remat {t['remat']!r}, lr {lr}: first step loss "
+          f"{loss:.4f}, aux {aux:.4f}, grad norm {gnorm:.4f}; second step loss "
+          f"{float(m['loss']):.4f}", flush=True)
+    print(f"  (d) ms a step: {ms[0]:.1f} (the first) and {ms[1]:.1f}; {flops / 1e12:.3f} TFLOP a "
+          f"step counted from the leaves (remat's recomputation not counted), "
+          f"{flops / (ms[1] * 1e-3) / 1e12:.2f} TFLOP/s in the second, "
+          f"{flops / (ms[1] * 1e-3) / peak_flops:.1%} of the f32 peak "
+          f"({peak_flops / 1e12:.0f} TFLOP/s); peak allocated {peak / 1e9:.3f} GB; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not all(map(math.isfinite, (loss, aux, gnorm))) or aux != 0.0:
+        raise AssertionError(f"{cfg.name}: a train step gave loss {loss}, aux {aux}, "
+                             f"grad norm {gnorm}")
+    del params, opt, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    nl = t["policy_layers"]
+    pcfg = dataclasses.replace(cfg, n_layers=nl, n_encoder_layers=nl)
+    base = trainable(init_params(pcfg, torch.Generator(device=dev).manual_seed(seed)))
+    b = batch_of(pcfg)
+    losses, peaks = {}, {}
+    for remat in ("none", "full", "dots"):
+        params = tree_map(lambda x: x.clone(), base)
+        opt = init_train_state(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, m = make_train_step(pcfg, lr=lr, remat=remat)(params, opt, b)
+        losses[remat] = float(m["loss"])
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated()
+        del params, opt, m
+    rel = {k: abs(v - losses["none"]) / abs(losses["none"]) for k, v in losses.items()}
+    print(f"  (d) {nl} + {nl} layers, the first step under each remat policy: "
+          + ", ".join(f"{k!r} loss {v:.6f} (relative {rel[k]:.2e}), peak {peaks[k] / 1e9:.3f} GB"
+                      for k, v in losses.items()) + f" (at most {REMAT_RTOL:g} apart)",
+          flush=True)
+    if max(rel.values()) > REMAT_RTOL:
+        raise AssertionError(f"{cfg.name}: remat changed the first loss: {losses}")
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    nc = t["check_layers"]
+    train_vs_cpu(dev, dataclasses.replace(cfg, n_layers=nc, n_encoder_layers=nc), "(d)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def audio_phase(launches: dict, dev) -> None:
+    """Phase 13: the audio family on the card. The served model's tensors
+    are gone from the card before the check's weights, and the training
+    parts', are drawn."""
+    import torch
+
+    t13 = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    cfg = audio_serve(launches, dev)
+    released(cfg.name, base, "the served run")
+    audio_vs_cpu(cfg, dev)
+    released(cfg.name, base, "the card-against-CPU check")
+    audio_training(dev)
+    released(cfg.name, base, "training")
+    print(f"  phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
 
 
 def kernel_inputs(kernel: str, sig: tuple, dev) -> tuple[tuple, dict]:
@@ -3199,6 +3575,11 @@ def main() -> int:
           "repro_torch.launch.train, remat, card against CPU, mamba2 and mixtral steps, "
           "checkpoints")
     training_phase(launches, dev)
+
+    # ---- 13. the audio family -----------------------------------------------------------
+    phase("13. the audio family on the card: whisper-large-v3 at full width and full depth, "
+          "f32, served through greedy_decode and the dispatch service, and trained")
+    audio_phase(launches, dev)
 
     def entry(name, source, replaces):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",

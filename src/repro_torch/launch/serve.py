@@ -9,10 +9,13 @@ the card through the dispatch service — the counterpart of
         --device cpu --reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
         --prompt-len 128 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \
+        --device cpu --reduced
 
 ``--arch`` takes the dense family, the MoE family (``mixtral-8x7b``,
 ``deepseek-v2-236b``), the SSM family (``mamba2-780m``), the hybrid
-(``zamba2-1.2b``) and the VLM family (``qwen2-vl-7b``). It runs on the card
+(``zamba2-1.2b``), the VLM family (``qwen2-vl-7b``) and the audio family
+(``whisper-large-v3``). It runs on the card
 unless ``--device cpu`` is given (without a card it raises). It always
 serves through a :class:`DispatchService` — otherwise no kernel runs:
 prefill attention goes to the flash_attention kernel, every decode step's
@@ -20,7 +23,8 @@ attention to the decode_attention kernel, and the output projection and the
 unembed to the tiled matmul. As in the JAX package, an arch with a sliding
 window (mixtral) keeps its attention on the plain path, and MLA (deepseek),
 its output projection included, the routed experts and the Mamba2 mixers
-are plain tensor operations. So per arch:
+are plain tensor operations, and so are whisper's encoder and decoder
+layers. So per arch:
 
 - mamba2-780m: only the unembed, on the tiled matmul (48 Mamba2 layers,
   no attention);
@@ -31,12 +35,21 @@ are plain tensor operations. So per arch:
   matmul;
 - qwen2-vl-7b: as qwen2-0.5b (28 layers), at 7 query heads per KV head and
   head size 128 (7 flash calls a layer), with M-RoPE positions (the
-  vision frontend is a config field no code reads, in both packages).
+  vision frontend is a config field no code reads, in both packages);
+- whisper-large-v3: only the unembed, on the tiled matmul, once a forward
+  and once a decode step (32 encoder layers over the frames, 32 decoder
+  layers with cross-attention, all plain, as in the JAX package). Its
+  frames, ``(batch, encoder_len, d_model)`` standard normal values, are
+  drawn from ``--seed + 2`` (the conv frontend is stubbed in both
+  packages); the prefill fills the cross-attention cache from the
+  encoder's output.
 
 The full MoE configs do not fit one card in f32 (``param_count()`` x 4
 bytes: mixtral 187 GB, deepseek about 943 GB); ``chip_smoke.py`` serves
-them with fewer layers. mamba2-780m, zamba2-1.2b and qwen2-vl-7b fit whole
-(3.1, 4.4 and 30.5 GB). The service has no store,
+them with fewer layers. mamba2-780m, zamba2-1.2b, qwen2-vl-7b and
+whisper-large-v3 fit whole (3.1, 4.4, 30.5 and 7.8 GB; whisper's
+``param_count()`` leaves out the decoder's cross-attention, its leaves hold
+1.95B values). The service has no store,
 so the ``gpu`` space defaults apply, unless ``--store DIR`` names a tuning
 store (records an ``autotune --store DIR`` campaign published, or earlier
 runs' background campaigns). With ``--tune`` a store miss (or a too-distant
@@ -82,11 +95,16 @@ def serve(arch: str = "qwen2-0.5b", *, reduced: bool = False, batch: int = 4,
     max_len = prompt_len + gen
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g, device=dev)
+    kw = {}
+    if cfg.family == "audio":
+        ge = torch.Generator(device=dev).manual_seed(seed + 2)
+        kw["enc_embed"] = torch.randn(batch, cfg.encoder_len, cfg.d_model, generator=ge,
+                                      device=dev)
 
     timings: dict = {}
     t0 = time.perf_counter()
     out = greedy_decode(params, cfg, prompt, steps=gen, max_len=max_len, service=service,
-                        timings=timings)
+                        timings=timings, **kw)
     wall = time.perf_counter() - t0
     return {
         "arch": cfg.name, "device": str(dev), "batch": batch, "prompt_len": prompt_len,

@@ -1,6 +1,5 @@
-"""repro_torch.models — the LM substrate: the dense, MoE, SSM, hybrid and
-VLM families (the counterpart of ``repro.models``; the audio family is not
-ported yet)."""
+"""repro_torch.models — the LM substrate: the dense, MoE, SSM, hybrid, VLM
+and audio families (the counterpart of ``repro.models``)."""
 
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.model import (

@@ -1,13 +1,13 @@
-"""Layer blocks — the counterpart of ``repro.models.blocks`` but its
-cross-attention layers: init, train-time (prefill) apply and decode-time
-apply of a layer with GQA or MLA attention and a dense MLP or routed
-experts (the dense, MoE and VLM families, and zamba2's shared attention
-block), and of a Mamba2 layer (the SSM and hybrid families).
+"""Layer blocks — the counterpart of ``repro.models.blocks``: init,
+train-time (prefill) apply and decode-time apply of a layer with GQA or MLA
+attention and a dense MLP or routed experts (the dense, MoE and VLM
+families, zamba2's shared attention block and whisper's encoder), of a
+Mamba2 layer (the SSM and hybrid families), and of whisper's decoder layer
+with cross-attention to the encoder's output (the audio family).
 
 The decode apply writes the new token's K/V (or MLA latent, or Mamba2
 state) into the layer's cache in place (on the layer's slice of the stacked
-cache), where the JAX package returns an updated copy. Cross-attention
-layers come with the audio family.
+cache), where the JAX package returns an updated copy.
 """
 
 from __future__ import annotations
@@ -29,7 +29,9 @@ from repro_torch.models.moe import init_mlp, init_moe, mlp, moe_ffn
 from repro_torch.models.ssm import init_mamba2, mamba2_decode, mamba2_forward
 
 __all__ = ["init_attn_layer", "attn_layer_train", "attn_layer_decode",
-           "init_mamba_layer", "mamba_layer_train", "mamba_layer_decode", "layer_windows"]
+           "init_mamba_layer", "mamba_layer_train", "mamba_layer_decode",
+           "init_cross_layer", "cross_kv", "cross_layer_train", "cross_layer_decode",
+           "layer_windows"]
 
 
 # ---------------------------------------------------------------------------
@@ -219,3 +221,68 @@ def mamba_layer_decode(p, x, cache, *, cfg: ArchConfig):
     place."""
     y, cache = mamba2_decode(p["mixer"], rms_norm(x, p["ln"]), cache, cfg)
     return x + y, cache
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder (whisper): decoder layer with cross-attention
+# ---------------------------------------------------------------------------
+
+
+def init_cross_layer(generator: torch.Generator, cfg: ArchConfig) -> dict:
+    """A GQA layer with a dense MLP, plus the cross-attention's norm
+    (``ln_x``) and projections (``xq``, ``xk``, ``xv``, ``xo``)."""
+    d, hd = cfg.d_model, cfg.hd
+    p = init_attn_layer(generator, cfg)
+    p["ln_x"] = torch.zeros(d, device=generator.device)
+    p["xq"] = dense_init((d, cfg.n_heads * hd), generator, 0, cfg.dtype)
+    p["xk"] = dense_init((d, cfg.n_kv_heads * hd), generator, 0, cfg.dtype)
+    p["xv"] = dense_init((d, cfg.n_kv_heads * hd), generator, 0, cfg.dtype)
+    p["xo"] = dense_init((cfg.n_heads * hd, d), generator, 0, cfg.dtype)
+    return p
+
+
+def cross_kv(p, enc: torch.Tensor, cfg: ArchConfig) -> dict:
+    """The layer's cross-attention K/V from the encoder's output ``enc``
+    (B, Se, d): ``{"k", "v": (B, Se, K, hd)}``, no rope (the JAX package's
+    ``dec_body``)."""
+    B, Se = enc.shape[:2]
+    shape = (B, Se, cfg.n_kv_heads, cfg.hd)
+    return {"k": (enc @ p["xk"]).reshape(shape).to(cfg.dtype),
+            "v": (enc @ p["xv"]).reshape(shape).to(cfg.dtype)}
+
+
+def _cross_attend(p, x, enc_k, enc_v, cfg):
+    B, S, _ = x.shape
+    h = rms_norm(x, p["ln_x"])
+    q = (h @ p["xq"]).reshape(B, S, cfg.n_heads, cfg.hd).to(cfg.dtype)
+    o = gqa_attention(q, enc_k, enc_v, causal=False, window=None)
+    return x + o.reshape(B, S, -1) @ p["xo"]
+
+
+def cross_layer_train(p, x, enc_kv, *, cfg: ArchConfig, positions):
+    """Decoder layer: causal self-attention, cross-attention to the
+    encoder's K/V, MLP. Every product is plain and attention the chunked
+    path, as in the JAX package (which passes no service here)."""
+    h = rms_norm(x, p["ln1"])
+    q, k, v = _qkv(p, h, cfg, positions)
+    B, S = x.shape[:2]
+    o = gqa_attention(q, k, v, causal=True, window=None)
+    x = x + o.reshape(B, S, -1) @ p["wo"]
+    x = _cross_attend(p, x, enc_kv["k"], enc_kv["v"], cfg)
+    return x + mlp(p["mlp"], rms_norm(x, p["ln2"]))
+
+
+def cross_layer_decode(p, x, cache, enc_kv, pos: int, *, cfg: ArchConfig):
+    """x: (B, 1, d); cache: the layer's self-attention {'k', 'v': (B, S, K,
+    hd)}, this token's entry written at ``pos`` (an int) in place; enc_kv:
+    the layer's cross K/V, filled at prefill. Returns (x, cache)."""
+    B = x.shape[0]
+    pos = int(pos)
+    h = rms_norm(x, p["ln1"])
+    q, k, v = _qkv(p, h, cfg, torch.full((B, 1), pos, device=x.device))
+    cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+    o = gqa_decode(q, cache["k"], cache["v"], pos)
+    x = x + o.reshape(B, 1, -1) @ p["wo"]
+    x = _cross_attend(p, x, enc_kv["k"], enc_kv["v"], cfg)
+    return x + mlp(p["mlp"], rms_norm(x, p["ln2"])), cache

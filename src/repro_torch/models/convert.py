@@ -19,10 +19,12 @@ __all__ = ["params_from_numpy"]
 
 # the weight matrices, which the JAX package keeps in cfg.dtype (GQA and MLA
 # projections, MLPs, shared and routed experts, the Mamba2 mixer's in and
-# out projections); norm scales, biases, the MoE router and the mixer's
-# conv, A, D and dt bias stay f32 there
+# out projections, whisper's cross-attention projections); norm scales
+# (whisper's ln_x too), biases, the MoE router and the mixer's conv, A, D
+# and dt bias stay f32 there
 WEIGHTS = frozenset({"embed", "unembed", "wq", "wk", "wv", "wo", "wg", "wu", "wd",
-                     "wq_a", "wq_b", "wkv_a", "wkv_b", "in_proj", "out_proj"})
+                     "wq_a", "wq_b", "wkv_a", "wkv_b", "in_proj", "out_proj",
+                     "xq", "xk", "xv", "xo"})
 
 
 def _tree(tree: dict, device, dtype) -> dict:
@@ -39,8 +41,9 @@ def _tree(tree: dict, device, dtype) -> dict:
 def params_from_numpy(tree: dict, device="cpu", dtype: torch.dtype = torch.float32,
                       tie_embeddings: bool = True) -> dict:
     """The port's parameter dict for a JAX-package parameter tree of numpy
-    arrays (any family the port serves, subtrees such as ``dense0``,
-    ``mla``, ``moe``, ``mixer`` and ``shared_attn`` included): weight matrices in ``dtype``, norm
+    arrays (any family, subtrees such as ``dense0``, ``mla``, ``moe``,
+    ``mixer``, ``shared_attn``, ``enc_layers`` and ``dec_layers`` included):
+    weight matrices in ``dtype``, norm
     scales, biases and the router in f32, as the JAX package keeps them."""
     params = _tree(tree, torch.device(device), dtype)
     return tied_unembed(params) if tie_embeddings else params

@@ -1,5 +1,6 @@
-"""Model assembly for the dense, MoE, SSM, hybrid and VLM families: init /
-forward / loss / cache / decode — the counterpart of ``repro.models.model``.
+"""Model assembly for the dense, MoE, SSM, hybrid, VLM and audio families:
+init / forward / loss / cache / decode — the counterpart of
+``repro.models.model``.
 
 Layers stay stacked on a leading ``L`` axis (the JAX package's layout, which
 it drives with ``lax.scan``) and a Python loop walks them. DeepSeek-V2's
@@ -7,8 +8,13 @@ leading dense layer is a separate stage (``dense0``) before the stack, and
 Zamba2's one shared attention block (``shared_attn``) closes every segment
 of ``attn_every`` Mamba2 layers, as in the JAX package. The VLM family
 (qwen2-vl) is the dense path with M-RoPE; its vision frontend is a config
-field no code reads, in both packages. The audio family raises
-``NotImplementedError``: it is ROADMAP.md Queue 1, item 5.
+field no code reads, in both packages. The audio family (whisper) is an
+encoder stack (``enc_layers``: non-causal GQA layers over the frame
+embeddings ``batch["enc_embed"]``, the conv frontend stubbed as in the JAX
+package) and a decoder stack (``dec_layers``) whose layers add
+cross-attention to the encoder's output; its cache holds the decoder's
+self-attention K/V and the cross K/V, which :func:`forward` fills when
+given ``cross_cache`` (``serve.step.prefill`` does).
 
 Tied embeddings: the unembed is ``embed.T``, a transposed view the tiled
 matmul kernel cannot take (it needs contiguous operands). The parameter set
@@ -51,14 +57,12 @@ __all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
 
 MOE_AUX_COEF = 0.01
 
-_NOT_YET = ("the {fam} family is not ported yet (ROADMAP.md Queue 1, item 5: the port "
-            "serves the dense, MoE, SSM, hybrid and VLM families)")
-_PORTED = ("dense", "moe", "ssm", "hybrid", "vlm")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
-def _ported_only(cfg: ArchConfig) -> None:
-    if cfg.family not in _PORTED:
-        raise NotImplementedError(_NOT_YET.format(fam=cfg.family))
+def _known_family(cfg: ArchConfig) -> None:
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def _layer(stack: dict, i: int) -> dict:
@@ -172,9 +176,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
     """Random parameters drawn from ``generator`` on its device, in the JAX
     package's tree (layers stacked on a leading L axis; the MoE family's
     leading dense layers as ``dense0``; Mamba2 layers for the SSM and hybrid
-    families, and the hybrid's one ``shared_attn`` block), plus ``embed_t``
-    for tied embeddings."""
-    _ported_only(cfg)
+    families, and the hybrid's one ``shared_attn`` block; the audio family's
+    ``enc_layers`` and ``dec_layers``), plus ``embed_t`` for tied
+    embeddings."""
+    _known_family(cfg)
     p: dict = {
         "embed": dense_init((cfg.vocab_size, cfg.d_model), generator, 1, cfg.dtype),
         "final_norm": torch.zeros(cfg.d_model, device=generator.device),
@@ -190,6 +195,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict:
         p["layers"] = _stack_init(lambda: B.init_mamba_layer(generator, cfg), cfg.n_layers)
         if cfg.family == "hybrid":
             p["shared_attn"] = B.init_attn_layer(generator, cfg)
+    elif cfg.family == "audio":
+        p["enc_layers"] = _stack_init(lambda: B.init_attn_layer(generator, cfg),
+                                      cfg.n_encoder_layers)
+        p["dec_layers"] = _stack_init(lambda: B.init_cross_layer(generator, cfg), cfg.n_layers)
     else:
         p["layers"] = _stack_init(lambda: B.init_attn_layer(generator, cfg), cfg.n_layers)
     return tied_unembed(p) if cfg.tie_embeddings else p
@@ -233,8 +242,8 @@ def _maybe_remat(fn, remat: str):
 
 
 def forward(params: dict, batch: dict, cfg: ArchConfig, *, remat: str = "none",
-            attn_chunk: int = 512, ssm_chunk: int = 64,
-            service=None) -> tuple[torch.Tensor, torch.Tensor]:
+            attn_chunk: int = 512, ssm_chunk: int = 64, service=None,
+            cross_cache: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V) in f32, aux loss). ``service`` (a
     :class:`repro_torch.dispatch.DispatchService`) routes GQA attention, its
     output projection and the unembed through tuned kernel variants; the
@@ -242,9 +251,16 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *, remat: str = "none",
     aux loss is the MoE routers' summed over the layers, 0 for the other
     families. ``ssm_chunk`` is the SSD scan's chunk: a prompt longer than
     it must be a multiple of it. ``remat`` applies to each layer of the
-    stack (each Mamba2 layer, each attention layer), where the JAX package
-    applies it: not to DeepSeek's ``dense0`` nor to zamba2's shared block."""
-    _ported_only(cfg)
+    stack (each Mamba2 layer, each attention layer, each of the audio
+    family's encoder and decoder layers with its cross K/V products), where
+    the JAX package applies it: not to DeepSeek's ``dense0`` nor to
+    zamba2's shared block. The audio family reads the frame embeddings
+    ``batch["enc_embed"]`` (B, encoder_len, d_model); its encoder and
+    decoder pass no service (as in the JAX package), so only the unembed
+    dispatches. ``cross_cache``, an audio cache's ``"cross"`` entry, gets
+    each decoder layer's cross K/V written into it (prefill's use: the
+    encoder runs once for the logits and the cache)."""
+    _known_family(cfg)
     tokens = batch["tokens"]
     x = params["embed"][tokens].to(cfg.dtype)
     if cfg.name.startswith("gemma"):
@@ -254,7 +270,10 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *, remat: str = "none",
         positions = make_batch_positions(cfg, tokens)
     moe = cfg.family == "moe"
     aux = torch.zeros((), device=x.device)
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "audio":
+        x = _encoder_decoder(params, x, batch["enc_embed"], cfg, positions=positions,
+                             remat=remat, attn_chunk=attn_chunk, cross_cache=cross_cache)
+    elif cfg.family in ("ssm", "hybrid"):
         body = _maybe_remat(functools.partial(B.mamba_layer_train, cfg=cfg, chunk=ssm_chunk),
                             remat)
         for i, p_l in enumerate(_layers(params["layers"], cfg.n_layers)):
@@ -280,6 +299,34 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *, remat: str = "none",
     x = rms_norm(x, params["final_norm"])
     logits = service_matmul(x, _unembed(params, cfg, service), service)
     return logits.float(), aux
+
+
+def _encoder_decoder(params: dict, x: torch.Tensor, enc: torch.Tensor, cfg: ArchConfig, *,
+                     positions, remat: str, attn_chunk: int, cross_cache: dict | None):
+    """The audio family's stacks: the encoder over the frames ``enc`` at
+    positions ``arange(Se)``, non-causal, then each decoder layer with its
+    cross K/V made from the encoder's output inside the layer's body."""
+    enc = enc.to(cfg.dtype)
+    Be, Se = enc.shape[:2]
+    enc_pos = torch.arange(Se, device=enc.device)[None, :].expand(Be, Se)
+
+    def enc_body(p_l, h):
+        return B.attn_layer_train(p_l, h, cfg=cfg, positions=enc_pos, window=None,
+                                  causal=False, chunk=attn_chunk)[0]
+
+    def dec_body(p_l, x, enc):
+        kv = B.cross_kv(p_l, enc, cfg)
+        return B.cross_layer_train(p_l, x, kv, cfg=cfg, positions=positions), kv
+
+    enc_body, dec_body = _maybe_remat(enc_body, remat), _maybe_remat(dec_body, remat)
+    for p_l in _layers(params["enc_layers"], cfg.n_encoder_layers):
+        enc = enc_body(p_l, enc)
+    for i, p_l in enumerate(_layers(params["dec_layers"], cfg.n_layers)):
+        x, kv = dec_body(p_l, x, enc)
+        if cross_cache is not None:
+            cross_cache["k"][i].copy_(kv["k"].detach())
+            cross_cache["v"][i].copy_(kv["v"].detach())
+    return x
 
 
 def loss_fn(params: dict, batch: dict, cfg: ArchConfig, **fw_kw):
@@ -308,9 +355,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, device=Non
     leading dense layer; for the SSM and hybrid families ``{"layers":
     {"conv": (L, B, cw-1, Cd), "ssm": (L, B, H, P, N)}}`` in f32 whatever
     ``dtype`` is, and the hybrid's ``shared_attn`` K/V stacked over its
-    sites. Uniform-sliding-window archs get a ring buffer of window size
-    instead of max_len, as in the JAX package."""
-    _ported_only(cfg)
+    sites; for the audio family ``{"dec_layers": {"k", "v": (L, B, S, K,
+    hd)}, "cross": {"k", "v": (L, B, encoder_len, K, hd)}}``, the cross K/V
+    zeros until a prefill fills them. Uniform-sliding-window archs get a
+    ring buffer of window size instead of max_len, as in the JAX package."""
+    _known_family(cfg)
     dtype = dtype or cfg.dtype
     alloc = max_len
     if cfg.sliding_window and not cfg.local_global_ratio:
@@ -323,6 +372,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, device=Non
 
     if cfg.family in ("dense", "vlm"):
         return {"layers": kv(cfg.n_layers)}
+    if cfg.family == "audio":
+        shape = (cfg.n_layers, batch, cfg.encoder_len, cfg.n_kv_heads, cfg.hd)
+        return {"dec_layers": kv(cfg.n_layers),
+                "cross": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                          "v": torch.zeros(shape, dtype=dtype, device=device)}}
     if cfg.family in ("ssm", "hybrid"):
         one = init_ssm_cache(cfg, batch, device=device)
         out = {"layers": {k: v.new_zeros((cfg.n_layers, *v.shape)) for k, v in one.items()}}
@@ -353,18 +407,23 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos, cfg: ArchCo
     ``mla_absorb`` picks MLA's decode schedule. ``service`` routes the GQA
     output projection, the unembed and — where the arch's window schedule is
     statically empty — single-token attention through tuned dispatch
-    variants."""
-    _ported_only(cfg)
+    variants; the audio family's decoder layers pass none (as in the JAX
+    package), so only its unembed dispatches, and its ``pos`` is an int."""
+    _known_family(cfg)
     x = params["embed"][token].to(cfg.dtype)
     if cfg.name.startswith("gemma"):
         x = x * cfg.d_model ** 0.5
     moe = cfg.family == "moe"
-    layers = cache["layers"]
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "audio":
+        for i in range(cfg.n_layers):
+            x, _ = B.cross_layer_decode(_layer(params["dec_layers"], i), x,
+                                        _layer(cache["dec_layers"], i),
+                                        _layer(cache["cross"], i), pos, cfg=cfg)
+    elif cfg.family in ("ssm", "hybrid"):
         site = 0
         for i in range(cfg.n_layers):
-            x, _ = B.mamba_layer_decode(_layer(params["layers"], i), x, _layer(layers, i),
-                                        cfg=cfg)
+            x, _ = B.mamba_layer_decode(_layer(params["layers"], i), x,
+                                        _layer(cache["layers"], i), cfg=cfg)
             if _closes_segment(cfg, i):
                 x, _, _ = B.attn_layer_decode(params["shared_attn"], x,
                                               _layer(cache["shared_attn"], site), pos,
@@ -376,7 +435,8 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos, cfg: ArchCo
                                           window=None, mla_absorb=mla_absorb, service=service)
         windows = B.layer_windows(cfg)[cfg.first_dense_layers:]
         for i, w in enumerate(windows):
-            x, _, _ = B.attn_layer_decode(_layer(params["layers"], i), x, _layer(layers, i),
+            x, _, _ = B.attn_layer_decode(_layer(params["layers"], i), x,
+                                          _layer(cache["layers"], i),
                                           pos, cfg=cfg, window=int(w), moe=moe,
                                           mla_absorb=mla_absorb, service=service)
     x = rms_norm(x, params["final_norm"])

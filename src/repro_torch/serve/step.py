@@ -25,7 +25,13 @@ def _sync(device: torch.device) -> None:
 def prefill(params, batch, cfg: ArchConfig, max_len: int, service=None, **fw_kw):
     """Run the prompt through the model, then replay it through decode_step
     to fill the cache (the JAX package's simple, correct reference path; a
-    fused prefill-with-cache is a later optimisation). ``service`` routes the
+    fused prefill-with-cache is a later optimisation). For the audio family
+    (``batch["enc_embed"]``: the frames) the forward also writes each
+    decoder layer's cross K/V, made from the encoder's one run, into
+    ``cache["cross"]`` before the replay, which attends to them. The JAX
+    package's prefill leaves that entry zeros, so its decode steps attend to
+    no audio; the port follows the JAX package's decode step, which expects
+    it filled (ROADMAP.md Queue 3). ``service`` routes the
     prompt forward's attention (flash ``bq``/``bk``) and matmul call sites,
     and the replay's decode attention and matmuls, through
     :mod:`repro_torch.dispatch`. MLA replays with the absorbed schedule, the
@@ -35,10 +41,12 @@ def prefill(params, batch, cfg: ArchConfig, max_len: int, service=None, **fw_kw)
     (``attn_chunk``; ``ssm_chunk``, the SSD scan's chunk, which a prompt
     longer than it must be a multiple of); the replay fills the Mamba2 state
     through the recurrence, as in the JAX package."""
-    logits, _ = forward(params, batch, cfg, service=service, **fw_kw)
     tokens = batch["tokens"]
     B, S = tokens.shape
     cache = init_cache(cfg, B, max_len, device=tokens.device)
+    if cfg.family == "audio":
+        fw_kw = dict(fw_kw, cross_cache=cache["cross"])
+    logits, _ = forward(params, batch, cfg, service=service, **fw_kw)
     for t in range(S):
         _, cache = decode_step(params, cache, tokens[:, t:t + 1], t, cfg, service=service)
     return logits, cache
@@ -75,13 +83,15 @@ def greedy_decode(params, cfg: ArchConfig, prompt: torch.Tensor, steps: int,
 
     With a ``timings`` dict, records ``prefill_sec`` (prompt forward and
     cache fill, up to the first token) and ``decode_sec`` (the ``steps``
-    decode steps), host wall seconds each ending in a device synchronise."""
-    if cfg.family == "audio":
-        raise NotImplementedError("the audio family is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 5)")
+    decode steps), host wall seconds each ending in a device synchronise.
+    The audio family takes its frames as ``enc_embed=`` (B, encoder_len,
+    d_model)."""
     dev = prompt.device
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompt}, cfg, max_len, service=service, **fw_kw)
+    batch = {"tokens": prompt}
+    if cfg.family == "audio":
+        batch["enc_embed"] = fw_kw.pop("enc_embed")
+    logits, cache = prefill(params, batch, cfg, max_len, service=service, **fw_kw)
     S = prompt.shape[1]
     tok = torch.argmax(logits[:, -1, :], dim=-1).to(prompt.dtype)[:, None]
     if timings is not None:

@@ -1712,3 +1712,81 @@ def test_threads_launching_one_kernel_with_different_shared_memory(cuda):
     want = a @ b
     for t in tiles:
         _close(tiled_matmul(a, b, **t), want, dict(atol=1e-4, rtol=1e-4))
+
+
+# ---------------------------------------------------------------------------
+# the audio family on the card: the unembed's ragged N, tokens, launches
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper-large-v3"
+
+
+@pytest.mark.parametrize("rows", [4, 256], ids=["decode", "forward"])
+def test_matmul_at_the_whisper_unembed(cuda, rows):
+    """(rows, 1280) @ (1280, 51,866) through the dispatch service at its
+    default config, as the model calls it: 51,866 x 4 bytes is no whole
+    number of 16-byte words, so neither operand is read by 16-byte copies
+    (4 rows: the FFMA 8-row tile; 256: 3xTF32), on a NaN-poisoned output."""
+    from repro_torch.dispatch import DispatchService
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(rows, 1280, generator=g, device=cuda)
+    w = torch.randn(1280, 51866, generator=g, device=cuda) / 1280 ** 0.5
+    fn = DispatchService().dispatch("matmul", x, w)
+    torch.full((rows, 51866), float("nan"), device=cuda)
+    before = tiled_matmul.launches
+    got = fn(x, w)
+    torch.cuda.synchronize()
+    assert tiled_matmul.launches == before + 1 and torch.isfinite(got).all()
+    _close(got, tiled_matmul_plain(x, w, bk=32, pack=True, out_dtype=torch.float32), F32_TOL)
+
+
+@pytest.mark.parametrize("rows", [8, 64])
+@pytest.mark.parametrize("pack", [True, False])
+def test_matmul_ragged_n_two_past_a_multiple_of_4(cuda, rows, pack):
+    # N % 4 == 2, as the whisper unembed's: 4-byte copies for both operands,
+    # on the FFMA 8-row tile (element-wise stores) and on 3xTF32 (8-byte
+    # stores: N is even)
+    a, b = problems.problem_inputs("mm3", (rows, 96, 1002, 1, 1), cuda)[:2]
+    torch.full((rows, 1002), float("nan"), device=cuda)
+    got = tiled_matmul(a, b, bm=64, bn=64, bk=32, pack=pack)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _close(got, tiled_matmul_plain(a, b, bk=32, pack=pack, out_dtype=torch.float32), F32_TOL)
+
+
+def test_whisper_on_the_card_matches_the_cpu(cuda):
+    """Reduced whisper through the dispatch service: forward logits and 8
+    greedy tokens (the prefill fills the cross cache from the encoder) on
+    the card against the CPU's plain versions, the same weights and frames;
+    one tiled matmul a forward and one a decode step (the unembed), no
+    attention kernel (the encoder and decoder pass no service)."""
+    from repro_torch.dispatch import DispatchService
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import decode_step, forward
+    from repro_torch.serve import greedy_decode, prefill
+
+    cfg, params, params_gpu = _reduced_model(WHISPER, cuda)
+    gen = torch.Generator().manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 7), generator=gen)
+    frames = torch.randn(2, cfg.encoder_len, cfg.d_model, generator=gen)
+    batch = {"tokens": prompt, "enc_embed": frames}
+    batch_gpu = {k: v.to(cuda) for k, v in batch.items()}
+    want, _ = forward(params, batch, cfg, service=DispatchService())
+    f0, d0, m0 = flash_attention.launches, decode_attention.launches, tiled_matmul.launches
+    svc = DispatchService()
+    got, _ = forward(params_gpu, batch_gpu, cfg, service=svc)
+    m1 = tiled_matmul.launches
+    _, cache = prefill(params_gpu, batch_gpu, cfg, max_len=16, service=svc)
+    m2 = tiled_matmul.launches
+    decode_step(params_gpu, cache, prompt[:, :1].to(cuda), 7, cfg, service=svc)
+    torch.cuda.synchronize()
+    assert (m1 - m0, m2 - m1, tiled_matmul.launches - m2) == (1, 1 + 7, 1)
+    assert (flash_attention.launches, decode_attention.launches) == (f0, d0)
+    _close(got, want, dict(atol=1e-4, rtol=1e-3))
+    want = greedy_decode(params, cfg, prompt, steps=8, max_len=16, service=DispatchService(),
+                         enc_embed=frames)
+    got = greedy_decode(params_gpu, cfg, prompt.to(cuda), steps=8, max_len=16,
+                        service=DispatchService(), enc_embed=frames.to(cuda))
+    assert torch.equal(got.cpu(), want)

@@ -17,10 +17,12 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.configs import get_reduced as jax_get_reduced
 from repro.dispatch import DispatchService as JaxDispatchService
+from repro.models import abstract_params as jax_abstract_params
 from repro.models import forward as jax_forward
 from repro.models import init_params as jax_init_params
 from repro.serve import greedy_decode as jax_greedy_decode
 from repro_torch import kernels as _kernels  # noqa: F401  (package import check)
+from repro_torch.configs import ARCHS as CATALOG
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.dispatch import DispatchService
 from repro_torch.kernels.decode_attention import decode_attention
@@ -37,6 +39,7 @@ from repro_torch.serve import (
     make_serve_step,
     prefill,
 )
+from repro_torch.tree import tree_leaves
 
 F32TOL = dict(atol=2e-3, rtol=2e-3)   # tests/test_kernels.py:30
 ARCH = "qwen2-0.5b"
@@ -201,10 +204,17 @@ def test_configs_match_reference():
         assert get_config(arch).param_count() == jax_get_config(arch).param_count()
 
 
-def test_other_families_raise_not_implemented():
-    # the audio family is the one the port does not serve yet
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(get_reduced("whisper-large-v3"), torch.Generator().manual_seed(0))
+@pytest.mark.parametrize("arch", sorted(CATALOG))
+def test_init_params_builds_every_arch(arch):
+    # no family is refused: every arch of the catalog builds its reduced
+    # parameters on the CPU, in the JAX package's tree
+    def shapes(tree):
+        return {k: shapes(v) if isinstance(v, dict) else tuple(v.shape) for k, v in tree.items()}
+
+    params = init_params(get_reduced(arch), torch.Generator().manual_seed(0))
+    assert all(t.device.type == "cpu" for t in tree_leaves(params))
+    want = shapes(jax_abstract_params(jax_get_reduced(arch)))
+    assert shapes({k: v for k, v in params.items() if k != "embed_t"}) == want
 
 
 def test_launch_serve_on_cpu(capsys):

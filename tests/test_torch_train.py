@@ -1,5 +1,6 @@
 """The port's training stack against the JAX package: ``loss_fn`` and every
-gradient leaf (``jax.grad``) for the seven reduced configs the port has,
+gradient leaf (``jax.grad``) for eight reduced configs (every family, whisper
+with its frames in the batch),
 under each remat policy; AdamW, the LR schedules, the synthetic data and
 three train steps (``accum`` 1 and 4) against ``repro``'s; the tied
 embedding's gradient and serving copy; and ``launch.train`` on the CPU.
@@ -45,7 +46,7 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 # the JAX suite's own tolerance for remat gradients (tests/test_train.py)
 GRADTOL = dict(atol=1e-5, rtol=1e-3)
 ARCHS = ("qwen2-0.5b", "gemma3-1b", "mixtral-8x7b", "deepseek-v2-236b", "mamba2-780m",
-         "zamba2-1.2b", "qwen2-vl-7b")
+         "zamba2-1.2b", "qwen2-vl-7b", "whisper-large-v3")
 # what the JAX package's init leaves at 0 (or D's 1), drawn at random
 RANDOM = ("ln", "ln1", "ln2", "norm", "final_norm", "kv_norm", "q_norm", "k_norm",
           "dt_bias", "D", "conv_b", "bq", "bk", "bv")
@@ -78,16 +79,21 @@ def _port_params(np_params, cfg) -> dict:
 
 
 def _batch_np(cfg, batch: int = 4, seq: int = 16, seed: int = 0, masked: int = 3) -> dict:
-    """A SyntheticLM batch with the last ``masked`` labels of each row -1."""
+    """A SyntheticLM batch with the last ``masked`` labels of each row -1;
+    for the audio family also standard normal frames ``enc_embed``."""
     b = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed).batch_at(0)
     if masked:
         b["labels"] = b["labels"].copy()
         b["labels"][:, -masked:] = -1
+    if cfg.family == "audio":
+        b["enc_embed"] = np.random.default_rng(seed + 1).standard_normal(
+            (batch, cfg.encoder_len, cfg.d_model), dtype=np.float32)
     return b
 
 
 def _torch_batch(b: dict) -> dict:
-    return {k: torch.from_numpy(v.astype(np.int64)) for k, v in b.items()}
+    return {k: torch.from_numpy(v.astype(np.int64) if v.dtype.kind in "iu" else v)
+            for k, v in b.items()}
 
 
 def _jax_batch(b: dict) -> dict:
