@@ -161,6 +161,29 @@ checks each kernel on the card:
      train step at full depth under remat "full" (FLOPs counted from the
      leaves), the first step at 4 + 4 layers under each remat policy, the
      card against the CPU at 2 + 2 layers over 3 steps.
+ 14. serving under load: (a) every decode_attention signature the
+     benchmark's tuned run can meet (batch 1, 2, 4, 8; the page-aligned
+     buckets of every page size, and the full allocation) against the plain
+     version at every bk/hg of the gpu space; then
+     `benchmarks/torch_serve_bench.main` with the launch counts set to 0
+     just before and read just after: qwen2-0.5b at full width in f32, the
+     JAX package's full workload cut to 16 requests (at 12/s, prompts
+     16/32/48),
+     modes einsum (no kernel), default and tuned, the guard's shadow
+     overhead (at most 2%) and drift loop, its tripwires; per mode p50/p99
+     token latency, TTFT p50, tokens/s and launches; each request's ids
+     equal in the default and tuned modes; `launch.obs summarize --metrics`
+     on its snapshot; the typical decode signature timed at the tuned and
+     the default config beside SDPA; (b) gemma3-1b (a prompt of 520, past
+     its window of 512), minitron-4b and qwen1.5-0.5b at full width and full
+     depth through `launch.serve.serve`, batch 4, 16 new tokens, each with
+     the launch counts set to 0 just before and read just after, asserted
+     per forward and per step (gemma3: the matmul alone, its windowed
+     attention plain); TTFT, ms per decode step beside its bytes bound, busy
+     share, peak memory; the new matmul and attention signatures against
+     their plain versions, timed beside torch.matmul and SDPA; the card
+     against the CPU at a cut depth (gemma3 6 layers, one local:global
+     period, also its forward past the window; the others 2).
 
 Phases 3 and 4 also hold flash_attention and decode_attention against their
 plain versions at LARGE, at head_dim 256, at head sizes between the
@@ -317,6 +340,28 @@ REMAT_RTOL = 1e-6
 AUDIO = dict(arch="whisper-large-v3", batch=4, prompt_len=64, gen=16, seed=0,
              check_layers=2, check_batch=2, check_prompt=8, check_gen=4)
 AUDIO_TRAIN = dict(batch=2, seq=128, remat="full", policy_layers=4, check_layers=2)
+# phase 14: serving under load. (a) benchmarks/torch_serve_bench.py's main on
+# qwen2-0.5b at full width, f32, with the JAX package's full workload (rate
+# 12/s, prompts 16/32/48, outputs 4 + geometric mean 24 capped at 48,
+# max_batch 8, max_len 1024, 12 candidates) cut from 24 requests to 16 (the
+# three modes at 24 took 85-110 s of the phase's 196-198 s on an H100 80GB
+# HBM3 at 700 W), and the guard's drift loop; its JSON and obs snapshot
+# written to $CHIP_SMOKE_OUT (default build/); (b)
+# the rest of the dense catalog at full width and full depth through
+# launch.serve.serve, batch 4, 16 new tokens, f32: (arch, prompt, layers of
+# the card-against-CPU check); the check's greedy run at a prompt of 16 (a
+# prompt past gemma3's window there would replay 520 steps on the CPU, 30 s),
+# and for gemma3, whose served prompt crosses its window of 512, the forward's
+# logits at that prompt too; its check at one local:global period (5 local
+# layers, 1 global)
+LOAD_WORKLOAD = dict(requests=16, rate=12.0, prompt_lens=(16, 32, 48), out_mean=24,
+                     out_cap=48, max_batch=8, max_len=1024, seed=1234)
+# the flags that set them (prompts and outputs are the bench's non-quick sizes)
+LOAD_BENCH_ARGV = ["--inject-drift"] + [
+    a for k in ("requests", "rate", "max_batch", "max_len", "seed")
+    for a in (f"--{k.replace('_', '-')}", str(LOAD_WORKLOAD[k]))]
+CATALOG_ARCHS = (("gemma3-1b", 520, 6), ("minitron-4b", 128, 2), ("qwen1.5-0.5b", 128, 2))
+CATALOG_SERVE = dict(batch=4, gen=16, seed=0, check_prompt=16, check_gen=4)
 # what may stay allocated on the card after a served (or trained) model is
 # dropped (phases 10, 11 and 13), cuBLAS's workspaces freed first (32 MiB
 # for each thread and stream that called it: a backward runs on autograd's
@@ -1445,15 +1490,20 @@ def logit_margins(out: list):
         step.forward, step.decode_step = orig_forward, orig_decode
 
 
-def ssm_launches(cfg) -> tuple[dict, dict]:
+def served_launches(cfg) -> tuple[dict, dict]:
     """The kernel launches one forward and one decode step of ``cfg`` make,
     as the code implies them: the SSM family's unembed alone; zamba2's
     shared block at each site (G flash calls a forward, one decode launch a
-    step, its output projection) and the unembed; qwen2-vl's layers as
-    qwen2-0.5b's."""
+    step, its output projection) and the unembed; a windowed arch (gemma3's
+    local:global schedule) each layer's output projection and the unembed,
+    its attention plain as in the JAX package; qwen2-vl's and the other
+    dense archs' layers as qwen2-0.5b's."""
     if cfg.family == "ssm":
         return ({"flash_attention": 0, "decode_attention": 0, "tiled_matmul": 1},
                 {"flash_attention": 0, "decode_attention": 0, "tiled_matmul": 1})
+    if cfg.sliding_window or cfg.local_global_ratio:
+        one = {"flash_attention": 0, "decode_attention": 0, "tiled_matmul": cfg.n_layers + 1}
+        return one, dict(one)
     n = -(-cfg.n_layers // cfg.attn_every) if cfg.family == "hybrid" else cfg.n_layers
     G = cfg.n_heads // cfg.n_kv_heads
     return ({"flash_attention": G * n, "decode_attention": 0, "tiled_matmul": n + 1},
@@ -1472,16 +1522,11 @@ def ssm_arch(arch: str, launches: dict, dev):
     import dataclasses
 
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.dispatch import DispatchService
-    from repro_torch.kernels.decode_attention import (
-        CacheRows,
-        decode_attention,
-        decode_attention_plain,
-    )
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.matmul import tiled_matmul
     from repro_torch.models import decode_step, forward, init_cache, init_params
     from repro_torch.serve import greedy_decode
@@ -1490,7 +1535,7 @@ def ssm_arch(arch: str, launches: dict, dev):
     B, P, gen, seed = (SSM_SERVE[k] for k in ("batch", "prompt_len", "gen", "seed"))
     cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
     L, fam = cfg.n_layers, cfg.family
-    one_fwd, one_step = ssm_launches(cfg)
+    one_fwd, one_step = served_launches(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
@@ -1574,44 +1619,9 @@ def ssm_arch(arch: str, launches: dict, dev):
                 ("forward output projection", B * P, wo, f"{sites} per forward")] + sigs
     matmul_signatures(arch, svc, sigs, dev, seed + 2)
 
-    # -- the attention signatures: flash at the prompt (one of G calls a
-    # layer or site), decode against the model's (B, S, K, hd) cache read in
-    # place at position P (P + 1 slots), each held against its plain version
-    # at phase 3's tolerance, then queued and timed beside
-    # scaled_dot_product_attention in f32 (a yardstick the port never calls)
+    # -- the attention signatures, against their plain versions and timed
     if fam != "ssm":
-        K, hd, G = cfg.n_kv_heads, cfg.hd, cfg.n_heads // cfg.n_kv_heads
-        BH, S = B * K, P + gen
-        q, k, v = attention_inputs(BH, P, P, hd, dev, seed + 3)
-        fn = svc.dispatch("flash_attention", q, k, v, causal=True)
-        compare(f"{arch} flash_attention ({BH}, {P}, {hd}) causal, against its plain version",
-                fn(q, k, v), flash_attention_plain(q, k, v, causal=True), ATTN_TOL)
-        k_ms = queued_ms(lambda: fn(q, k, v))
-        l_ms = queued_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-        b_ms, b_by = bound(4.0 * BH * P * P * hd * 0.5, 4.0 * BH * 4 * P * hd)
-        print(f"  {arch} flash_attention ({BH}, {P}, {hd}) causal, {G * sites} calls a "
-              f"forward: kernel " + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
-              + f" queued on the device, bound {b_ms:.4f} ms ({b_by}), SDPA f32 "
-              + ("not measured" if l_ms is None else f"{l_ms:.4f} ms"), flush=True)
-        gq = torch.Generator(device=dev).manual_seed(seed + 4)
-        qd = torch.randn(BH, G, hd, generator=gq, device=dev)
-        kc, vc = (torch.randn(B, S, K, hd, generator=gq, device=dev) for _ in range(2))
-        cp = torch.full((BH,), P, dtype=torch.int32, device=dev)
-        kr, vr = CacheRows(kc), CacheRows(vc)
-        fn = svc.dispatch("decode_attention", qd, kr, vr, cp, ring=False, window=0)
-        compare(f"{arch} decode_attention ({BH}, {G}, {S}, {hd}) at position {P}, the cache "
-                f"read in place, against its plain version", fn(qd, kr, vr, cp),
-                decode_attention_plain(qd, kr, vr, cp), ATTN_TOL)
-        krow, vrow = kr.rows().contiguous(), vr.rows().contiguous()
-        mask = torch.arange(S, device=dev)[None, None, :] <= cp[:, None, None]
-        k_ms = queued_ms(lambda: fn(qd, kr, vr, cp))
-        l_ms = queued_ms(lambda: F.scaled_dot_product_attention(qd, krow, vrow, attn_mask=mask))
-        slots = BH * (P + 1)
-        b_ms, b_by = bound(4.0 * G * hd * slots, 4.0 * (2 * slots * hd + 2 * BH * G * hd))
-        print(f"  {arch} decode_attention ({BH}, {G}, {S}, {hd}) at position {P}, {sites} a "
-              f"decode step: kernel " + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
-              + f" queued on the device, bound {b_ms:.4f} ms ({b_by}), SDPA f32 on the rows "
-              + ("not measured" if l_ms is None else f"{l_ms:.4f} ms"), flush=True)
+        attention_signatures(arch, svc, cfg, B, P, gen, sites, dev, seed)
 
     # -- a PagedKVCache round against each request's solo greedy_decode, on
     # per-row positions through M-RoPE's three sections
@@ -1622,6 +1632,54 @@ def ssm_arch(arch: str, launches: dict, dev):
               f"{rounds} rounds of per-row M-RoPE positions: tokens equal each request's "
               f"solo greedy_decode; {json.dumps(svc.telemetry()['kv_cache'])}", flush=True)
     return cfg, g
+
+
+def attention_signatures(arch: str, svc, cfg, B: int, P: int, gen: int, sites: int, dev,
+                         seed: int) -> None:
+    """The attention kernels at an arch's signatures: flash at the prompt
+    (one of G calls a layer or site), decode against the model's (B, S, K,
+    hd) cache read in place at position P (P + 1 slots), each held against
+    its plain version at phase 3's tolerance, then queued and timed beside
+    scaled_dot_product_attention in f32 (a yardstick the port never calls)
+    and the bound; ``sites`` is the attention sites a forward or step."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import CacheRows, decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    K, hd, G = cfg.n_kv_heads, cfg.hd, cfg.n_heads // cfg.n_kv_heads
+    BH, S = B * K, P + gen
+    q, k, v = attention_inputs(BH, P, P, hd, dev, seed + 3)
+    fn = svc.dispatch("flash_attention", q, k, v, causal=True)
+    compare(f"{arch} flash_attention ({BH}, {P}, {hd}) causal, against its plain version",
+            fn(q, k, v), flash_attention_plain(q, k, v, causal=True), ATTN_TOL)
+    k_ms = queued_ms(lambda: fn(q, k, v))
+    l_ms = queued_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    b_ms, b_by = bound(4.0 * BH * P * P * hd * 0.5, 4.0 * BH * 4 * P * hd)
+    print(f"  {arch} flash_attention ({BH}, {P}, {hd}) causal, {G * sites} calls a "
+          f"forward: kernel " + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
+          + f" queued on the device, bound {b_ms:.4f} ms ({b_by}), SDPA f32 "
+          + ("not measured" if l_ms is None else f"{l_ms:.4f} ms"), flush=True)
+    gq = torch.Generator(device=dev).manual_seed(seed + 4)
+    qd = torch.randn(BH, G, hd, generator=gq, device=dev)
+    kc, vc = (torch.randn(B, S, K, hd, generator=gq, device=dev) for _ in range(2))
+    cp = torch.full((BH,), P, dtype=torch.int32, device=dev)
+    kr, vr = CacheRows(kc), CacheRows(vc)
+    fn = svc.dispatch("decode_attention", qd, kr, vr, cp, ring=False, window=0)
+    compare(f"{arch} decode_attention ({BH}, {G}, {S}, {hd}) at position {P}, the cache "
+            f"read in place, against its plain version", fn(qd, kr, vr, cp),
+            decode_attention_plain(qd, kr, vr, cp), ATTN_TOL)
+    krow, vrow = kr.rows().contiguous(), vr.rows().contiguous()
+    mask = torch.arange(S, device=dev)[None, None, :] <= cp[:, None, None]
+    k_ms = queued_ms(lambda: fn(qd, kr, vr, cp))
+    l_ms = queued_ms(lambda: F.scaled_dot_product_attention(qd, krow, vrow, attn_mask=mask))
+    slots = BH * (P + 1)
+    b_ms, b_by = bound(4.0 * G * hd * slots, 4.0 * (2 * slots * hd + 2 * BH * G * hd))
+    print(f"  {arch} decode_attention ({BH}, {G}, {S}, {hd}) at position {P}, {sites} a "
+          f"decode step: kernel " + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
+          + f" queued on the device, bound {b_ms:.4f} ms ({b_by}), SDPA f32 on the rows "
+          + ("not measured" if l_ms is None else f"{l_ms:.4f} ms"), flush=True)
 
 
 def ssm_phase(launches: dict, dev) -> None:
@@ -2309,6 +2367,324 @@ def audio_phase(launches: dict, dev) -> None:
     audio_training(dev)
     released(cfg.name, base, "training")
     print(f"  phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
+
+
+def load_bench(launches: dict, dev) -> None:
+    """Phase 14 (a): the serving benchmark at full width. First every
+    decode_attention signature its tuned run can meet (the batch ladder x
+    the page-aligned buckets of every page the campaign can pick, and the
+    replay's full allocation) against the plain version at every bk/hg of
+    the gpu space; then `torch_serve_bench.main` with the launch counts set
+    to 0 just before and read just after (added to ``launches``): its
+    tripwires, the kernels in the default and tuned modes and none in the
+    einsum mode, each request's ids equal between default and tuned, and
+    ``launch.obs summarize --metrics`` on its snapshot."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from benchmarks import torch_serve_bench as tsb
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (
+        CacheRows,
+        decode_attention,
+        decode_attention_plain,
+    )
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.matmul import tiled_matmul
+    from repro_torch.kernels.spaces import PAGE_SIZES_HOST, kernel_space
+    from repro_torch.launch import obs as obs_cli
+
+    w = LOAD_WORKLOAD
+    cfg = get_config("qwen2-0.5b")
+    K, G, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    workload = tsb.make_workload(w["requests"], w["rate"], w["prompt_lens"], w["out_mean"],
+                                 w["out_cap"], w["seed"])
+    max_resident = max(r["prompt_len"] + r["out_len"] for r in workload)
+    buckets = sorted({b for page in PAGE_SIZES_HOST
+                      for b in [*range(page, -(-max_resident // page) * page + 1, page),
+                                -(-w["max_len"] // page) * page]})
+    space = kernel_space("decode_attention", target="gpu")
+    g = torch.Generator(device=dev).manual_seed(14)
+    for bsz in (1, 2, 4, 8):
+        worst, n = 0.0, 0
+        for S in buckets:
+            q = torch.randn(bsz * K, G, hd, generator=g, device=dev)
+            kr, vr = (CacheRows(torch.randn(bsz, S, K, hd, generator=g, device=dev))
+                      for _ in range(2))
+            cp = torch.randint(0, S, (bsz * K,), generator=g, device=dev, dtype=torch.int32)
+            cp[0] = S - 1
+            want = decode_attention_plain(q, kr, vr, cp)
+            for bk in space["bk"].sequence:
+                for hg in space["hg"].sequence:
+                    diff = (decode_attention(q, kr, vr, cp, bk=bk, hg=hg) - want).abs()
+                    if not bool((diff <= ATTN_TOL["atol"] + ATTN_TOL["rtol"]
+                                 * want.abs()).all()):
+                        raise AssertionError(f"decode_attention ({bsz * K}, {G}, {S}, {hd}) "
+                                             f"bk={bk} hg={hg} disagrees with its plain "
+                                             f"version: max abs err {diff.max().item():.3e}")
+                    worst, n = max(worst, diff.max().item()), n + 1
+        print(f"  (a) decode_attention at batch {bsz} ({bsz * K}, {G}, S, {hd}), S in "
+              f"{buckets}, per-row positions: {n} configs x buckets against the plain "
+              f"version, max abs err {worst:.3e} (tol atol {ATTN_TOL['atol']:g} + rtol "
+              f"{ATTN_TOL['rtol']:g}*|want|)", flush=True)
+
+    out_dir = os.environ.get("CHIP_SMOKE_OUT", os.path.join(ROOT, "build"))
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, "BENCH_torch_serve.json")
+    obs_out = os.path.join(out_dir, "BENCH_torch_serve.obs.jsonl")
+    for f in (out, obs_out):
+        if os.path.exists(f):
+            os.remove(f)   # write_snapshot appends
+    wrappers = (flash_attention, decode_attention, tiled_matmul)
+    record: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
+        for wr in wrappers:
+            wr.launches = 0
+        rc = tsb.main(LOAD_BENCH_ARGV + ["--store", tmp, "--out", out, "--obs-out", obs_out],
+                      record=record)
+        torch.cuda.synchronize()
+        counts = {wr.__name__: wr.launches for wr in wrappers}
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    if rc != 0:
+        raise AssertionError(f"torch_serve_bench exited {rc}")
+    modes, payload = record["modes"], record["payload"]
+    for mode, r in modes.items():
+        print(f"  (a) {mode}: token latency p50 {r['token_lat_p50_ms']:.3f} ms, p99 "
+              f"{r['token_lat_p99_ms']:.3f} ms; TTFT p50 {r['ttft_p50_ms']:.1f} ms; "
+              f"{r['throughput_tok_s']:.2f} tok/s ({r['tokens']} tokens in "
+              f"{r['wall_sec']:.2f} s); launches {r['launches']}; page {r['page_size']}; "
+              f"kv_cache at peak {json.dumps(r['kv_cache'])}"
+              + (f"; dispatch {json.dumps(r['dispatch'])}" if "dispatch" in r else ""),
+              flush=True)
+    tuned = modes["tuned"]
+    print(f"  (a) tuned config {tuned['decode_config']} (page {tuned['decode_config']['page']}, "
+          f"{tuned['page_axis']}); the campaign: "
+          + "; ".join(f"{c['config']} {c['seconds'] * 1e3:.4f} ms" for c in tuned["campaign"]),
+          flush=True)
+    guard = payload["guard"]
+    print(f"  (a) guard: the least call {guard['min_shadow_ms']:.4f} ms guarded against "
+          f"{guard['min_plain_ms']:.4f} ms unguarded ({guard['shadow_overhead_frac']:+.2%}; "
+          f"limit 2%), p50 {guard['p50_shadow_ms']:.4f} / {guard['p50_plain_ms']:.4f} ms; "
+          f"drift injected {guard['injected_delay_sec'] * 1e3:.0f} ms a call, "
+          f"{guard['calls_per_window']} calls a window read from "
+          f"{guard['watched_histogram']}: {[d['reason'] for d in guard['decisions']]}, "
+          f"fallback {guard['fallback_ok']}; shadow {json.dumps(guard['shadow'])}", flush=True)
+    print(f"  (a) launches over the benchmark: {counts} (the modes' "
+          + ", ".join(f"{m} {r['launches']}" for m, r in modes.items())
+          + "; the rest the campaign, the probe and the guard phase)", flush=True)
+    if any(modes["einsum"]["launches"].values()) or \
+            min(min(modes[m]["launches"].values()) for m in ("default", "tuned")) < 1:
+        raise AssertionError(f"launches per mode: {[r['launches'] for r in modes.values()]}")
+    ids = {m: r["ids"] for m, r in modes.items()}
+    if ids["default"] != ids["tuned"]:
+        diff = [i for i in ids["default"] if ids["default"][i] != ids["tuned"][i]]
+        raise AssertionError(f"generated ids of requests {diff} differ between the default "
+                             f"and the tuned mode")
+    same = [i for i in ids["einsum"] if ids["einsum"][i] == ids["default"][i]]
+    print(f"  (a) every request's ids equal between default and tuned ({len(ids['tuned'])} "
+          f"requests); einsum (torch operations, no kernel) equal for {len(same)} of "
+          f"{len(ids['einsum'])}", flush=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = obs_cli.main(["summarize", "--metrics", obs_out])
+    hists = [h for h in json.loads(buf.getvalue())["metrics"]["histograms"]
+             if h["name"] == "dispatch_execute_seconds"]
+    kernels = sorted({h["labels"]["kernel"] for h in hists})
+    if rc != 0 or not {"flash_attention", "decode_attention"} <= set(kernels):
+        raise AssertionError(f"launch.obs summarize --metrics: exit {rc}, kernels {kernels}")
+    print(f"  (a) launch.obs summarize --metrics {os.path.relpath(obs_out, ROOT)}: "
+          f"dispatch_execute_seconds of {kernels} over "
+          f"{sum(h['count'] for h in hists)} calls in {len(hists)} signatures; wrote "
+          f"{os.path.relpath(out, ROOT)}", flush=True)
+
+    # the decode signature the tuned run meets most (the full batch at the
+    # median request's bucket), per-row positions, the cache read in place:
+    # the tuned and the default config against the plain version, queued
+    # beside scaled_dot_product_attention in f32 on the rows and the bound
+    import torch.nn.functional as F
+
+    from repro_torch.dispatch.registry import get as get_variant
+    from repro_torch.kernels.model_kernels import decode_attention_builder
+
+    resident = sorted(r["prompt_len"] + r["out_len"] // 2 for r in workload)[len(workload) // 2]
+    page = tuned["decode_config"]["page"]
+    S, BH = min(-(-resident // page) * page, w["max_len"]), w["max_batch"] * K
+    q = torch.randn(BH, G, hd, generator=g, device=dev)
+    kc, vc = (torch.randn(w["max_batch"], S, K, hd, generator=g, device=dev) for _ in range(2))
+    kr, vr = CacheRows(kc), CacheRows(vc)
+    cp = torch.randint(0, S, (BH,), generator=g, device=dev, dtype=torch.int32)
+    want = decode_attention_plain(q, kr, vr, cp)
+    slots = int((cp + 1).sum())
+    b_ms, b_by = bound(4.0 * G * hd * slots, 4.0 * (2 * slots * hd + 2 * BH * G * hd))
+    krow, vrow = kr.rows().contiguous(), vr.rows().contiguous()
+    mask = torch.arange(S, device=dev)[None, None, :] <= cp[:, None, None]
+    l_ms = queued_ms(lambda: F.scaled_dot_product_attention(q, krow, vrow, attn_mask=mask))
+    for label, c in (("tuned", tuned["decode_config"]),
+                     ("default", get_variant("decode_attention").default_config("gpu"))):
+        fn = decode_attention_builder(c)
+        compare(f"(a) decode_attention ({BH}, {G}, {S}, {hd}) at the {label} config {c}, "
+                f"against its plain version", fn(q, kr, vr, cp), want, ATTN_TOL)
+        k_ms = queued_ms(lambda: fn(q, kr, vr, cp))
+        print(f"  (a) decode_attention ({BH}, {G}, {S}, {hd}), {label} config: kernel "
+              + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
+              + f" queued on the device, bound {b_ms:.4f} ms ({b_by}), SDPA f32 on the rows "
+              + ("not measured" if l_ms is None else f"{l_ms:.4f} ms"), flush=True)
+
+
+def catalog_arch(arch: str, P: int, launches: dict, dev):
+    """Phase 14 (b) for one arch: serve it at full width and full depth
+    through launch.serve.serve with the launch counts set to 0 just before
+    and read just after (added to ``launches``); then per-call launches and
+    times, the decode step's bytes bound and busy share, and the new matmul
+    and attention signatures against their plain versions and timed.
+    Returns (the served config, the prompt generator)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dispatch import DispatchService
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.matmul import tiled_matmul
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+
+    wrappers = (flash_attention, decode_attention, tiled_matmul)
+    B, gen, seed = (CATALOG_SERVE[k] for k in ("batch", "gen", "seed"))
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+    L = cfg.n_layers
+    one_fwd, one_step = served_launches(cfg)
+    if cfg.local_global_ratio and P <= cfg.sliding_window:
+        raise AssertionError(f"{arch}: a prompt of {P} does not cross the window")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers:
+        w.launches = 0
+    r = serve_cli.serve(arch, batch=B, prompt_len=P, gen=gen, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    peak = torch.cuda.max_memory_allocated()
+    serve_cli.report(r)
+    toks = r["tokens"]
+    if tuple(toks.shape) != (B, gen) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{arch}: tokens of shape {tuple(toks.shape)} outside the vocab")
+    steps = P + gen
+    want = {k: one_fwd[k] + one_step[k] * steps for k in one_fwd}
+    print(f"  {arch} ({L} layers, d {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+          f"hd {cfg.hd}, vocab {cfg.vocab_size}, "
+          f"{'tied' if cfg.tie_embeddings else 'untied'}"
+          + (f", window {cfg.sliding_window} on {cfg.local_global_ratio} of every "
+             f"{cfg.local_global_ratio + 1} layers" if cfg.local_global_ratio else "")
+          + f"): launches over launch.serve {counts} (expected {want}: {one_fwd} per forward, "
+          f"{one_step} per decode step, {steps} steps)", flush=True)
+    if counts != want:
+        raise AssertionError(f"{arch}: launch counts {counts} != {want}")
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    if r["stats"]["build_failed"] or r["stats"]["store_default"] == 0:
+        raise AssertionError(f"{arch}: dispatch stats {r['stats']}")
+
+    # -- per call, on the same weights and prompt (launch.serve's seeds)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    svc = DispatchService()
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev)
+    fwd = lambda: forward(params, {"tokens": prompt}, cfg, service=svc)  # noqa: E731
+    n_fwd = launches_per_call(fwd, wrappers)
+    cache = init_cache(cfg, B, P + gen, device=dev)
+    tok = prompt[:, -1:]
+    step = lambda: decode_step(params, cache, tok, P, cfg, service=svc)  # noqa: E731
+    n_step = launches_per_call(step, wrappers)
+    print(f"  {arch} launches per prefill forward {n_fwd}, per decode step {n_step}")
+    if n_fwd != one_fwd or n_step != one_step:
+        raise AssertionError(f"{arch}: per-call launch counts differ from {one_fwd} and "
+                             f"{one_step}")
+    fwd_ms, step_ms = host_ms(fwd, iters=3), host_ms(step, iters=10)
+    # the bytes a step must move: every weight but the embed table (the
+    # lookup reads B rows), the K/V of P + 1 positions read
+    weights = tree_bytes(params) - params["embed"].numel() * 4
+    kv = 2 * L * B * (P + 1) * cfg.n_kv_heads * cfg.hd * 4
+    step_bound = (weights + kv) / PEAK_HBM_BYTES * 1e3
+    dev_ms, by_name = device_time(step)
+    n_kernels = sum(c for c, _ in by_name.values())
+    top5 = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:5]
+    print(f"  {arch} memory: peak {peak / 1e9:.3f} GB allocated over the served run "
+          f"(torch.cuda.max_memory_allocated), weights {tree_bytes(params) / 1e9:.3f} GB f32")
+    print(f"  {arch} TTFT {r['prefill_ms']:.2f} ms (forward + the prompt's replay through "
+          f"decode_step); forward alone {fwd_ms:.3f} ms host wall")
+    print(f"  {arch} decode: {r['decode_ms_per_step']:.4f} ms per step in the run, "
+          f"{step_ms:.4f} ms alone; bound {step_bound:.4f} ms (bytes at 3.35 TB/s: "
+          f"{weights / 1e9:.3f} GB of weights, {kv / 1e6:.1f} MB of K/V read); "
+          f"{B * 1e3 / r['decode_ms_per_step']:.1f} tok/s over the decode steps, "
+          f"{r['tokens_per_sec']:.2f} over the run")
+    print(f"  {arch} one decode step on the device (torch.profiler): "
+          + ("not measured (the profiler recorded no device time)" if dev_ms == 0.0 else
+             f"{n_kernels} device kernels, {dev_ms:.4f} ms busy of {step_ms:.4f} ms host "
+             f"wall ({dev_ms / step_ms:.1%})") + "; largest: "
+          + "; ".join(f"{k[:50]} x{c} {t:.4f} ms" for k, (c, t) in top5), flush=True)
+
+    # -- the new signatures, against their plain versions and timed
+    unembed = params["embed_t"] if cfg.tie_embeddings else params["unembed"]
+    wo = params["layers"]["wo"][0]
+    matmul_signatures(arch, svc, [
+        ("decode output projection", B, wo, f"{L} per decode step"),
+        ("forward output projection", B * P, wo, f"{L} per forward"),
+        ("decode unembed", B, unembed, "1 per decode step"),
+        ("forward unembed", B * P, unembed, "1 per forward")], dev, seed + 2)
+    if one_step["decode_attention"]:
+        attention_signatures(arch, svc, cfg, B, P, gen, L, dev, seed)
+    return cfg, g
+
+
+def window_vs_cpu(arch: str, cfg, check_layers: int, P: int, g, dev) -> None:
+    """The forward's logits at a prompt of ``P`` tokens past the window, on
+    the card against the CPU, same weights (from CATALOG_SERVE's seed), at
+    full width with ``check_layers`` layers: the local layers mask there."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.dispatch import DispatchService
+    from repro_torch.models import forward, init_params
+
+    ccfg = dataclasses.replace(cfg, n_layers=check_layers)
+    cparams = init_params(ccfg, torch.Generator(device=dev).manual_seed(CATALOG_SERVE["seed"]))
+    p1 = torch.randint(0, ccfg.vocab_size, (1, P), generator=g, device=dev)
+    want, _ = forward(cparams, {"tokens": p1}, ccfg, service=DispatchService())
+    want = want.cpu()
+    cparams_cpu = tree_to(cparams, torch.device("cpu"))
+    del cparams
+    torch.cuda.empty_cache()
+    got, _ = forward(cparams_cpu, {"tokens": p1.cpu()}, ccfg, service=DispatchService())
+    compare(f"{arch} forward logits, card vs CPU (full width, {check_layers} layers, prompt "
+            f"{P} past the window of {cfg.sliding_window})", want, got, LOGIT_TOL)
+
+
+def load_phase(launches: dict, dev) -> None:
+    """Phase 14: serving under load (the benchmark at full width), then the
+    rest of the dense catalog at full width and full depth, one arch after
+    the other; a served model's tensors are gone from the card before the
+    check's weights, and the next arch's, are drawn."""
+    import torch
+
+    t14 = time.perf_counter()
+    load_bench(launches, dev)
+    print(f"  (a) {time.perf_counter() - t14:.1f} s", flush=True)
+    for arch, P, check_layers in CATALOG_ARCHS:
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        cfg, g = catalog_arch(arch, P, launches, dev)
+        released(arch, base, "the served run")
+        card_vs_cpu(arch, cfg, check_layers, g, dev, logit_margins,
+                    "gap between the top two logits", CATALOG_SERVE)
+        if cfg.local_global_ratio:
+            window_vs_cpu(arch, cfg, check_layers, P, g, dev)
+        released(arch, base, "the card-against-CPU check")
+        print(f"  (b) {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
 
 
 def kernel_inputs(kernel: str, sig: tuple, dev) -> tuple[tuple, dict]:
@@ -3580,6 +3956,12 @@ def main() -> int:
     phase("13. the audio family on the card: whisper-large-v3 at full width and full depth, "
           "f32, served through greedy_decode and the dispatch service, and trained")
     audio_phase(launches, dev)
+
+    # ---- 14. serving under load -----------------------------------------------------------
+    phase("14. serving under load: benchmarks/torch_serve_bench.py at full width (einsum, "
+          "default and tuned modes, the guard's drift loop), then gemma3-1b, minitron-4b and "
+          "qwen1.5-0.5b at full width and full depth through launch.serve")
+    load_phase(launches, dev)
 
     def entry(name, source, replaces):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",

@@ -36,6 +36,15 @@ place of JAX's tracing. Resolution pipeline per call:
      is published to the store and hot-swapped in by invalidating the
      affected executable-cache entries, so later calls pick it up.
 
+**Injected latency** (the ``dispatch.latency`` fault point of
+:mod:`repro_torch.guard.faults`, "the served executable sleeps
+``delay_sec``"): off the card the host sleeps before the call, as in the
+JAX package. On the card the served executable runs on the device, and the
+drift watch reads the device time of the shadow-sampled calls
+(:mod:`repro_torch.guard.watch`), where a host sleep before the call's first
+launch never shows; so there the call's stream spins for ``delay_sec``
+after its launches, inside the call's device time.
+
 The cached executable is the built variant itself, a plain callable (the JAX
 package jits it; there is no ``torch.compile`` here), wrapped so that every
 execution lands in the per-signature latency histogram
@@ -73,6 +82,7 @@ stores the agent; ``sync_*`` stay 0 until ``repro_torch.fleet``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 import time
 from typing import Any, Callable
@@ -87,7 +97,7 @@ from repro_torch.dispatch.registry import get as get_variant
 from repro_torch.dispatch.signature import shape_signature, signature_key
 from repro_torch.dispatch.store import TuningStore
 from repro_torch.engine.executors import evaluator_for_spec
-from repro_torch.guard.faults import fault_point
+from repro_torch.guard.faults import fault_hit
 from repro_torch.kernels.util import ConfigRejected
 from repro_torch.obs.metrics import get_registry, summarize_histograms
 from repro_torch.obs.trace import get_tracer
@@ -305,21 +315,34 @@ class DispatchService:
         (:class:`~repro_torch.core.plopper.LaunchClock`), recorded in
         ``dispatch_shadow_seconds`` and told into the tuning store."""
         metrics, backend = self.metrics, self.backend
+        # this executable's executions since its last shadow sample: a call
+        # that is not sampled pays an increment and a compare, not a call
+        # into the guard (the serving benchmark holds a guarded decode call
+        # to within 2% of an unguarded one, a microsecond or so on the card)
+        since = 0
 
         def timed(*a, **kw):
+            nonlocal since
             tracer = get_tracer()
             guard = self._guard
-            mode = guard.shadow_mode(kernel, sig_key) if guard is not None else None
+            mode = None
+            if guard is not None:
+                since += 1
+                if since >= guard.shadow_period > 0:
+                    since = 0
+                    mode = guard.shadow_sample(kernel, sig_key)
             t0 = time.perf_counter()
             clock = LaunchClock(a) if mode is not None else None
             try:
-                fault_point("dispatch.latency", kernel=kernel, signature=sig_key)
+                stall = _latency_fault(kernel, sig_key, a)
                 if tracer.enabled:
                     with tracer.span("dispatch.execute", kernel=kernel,
                                      signature=sig_key):
                         out = fn(*a, **kw)
                 else:
                     out = fn(*a, **kw)
+                if stall:
+                    _stall_device(stall)
                 if clock is not None:
                     dt = clock.stop()
                     metrics.observe("dispatch_shadow_seconds", dt, kernel=kernel,
@@ -568,6 +591,46 @@ def _hand_off(args: tuple, copy: bool):
         ready = torch.cuda.Event()
         ready.record()
     return own, ready
+
+
+def _latency_fault(kernel: str, sig_key: str, args: tuple) -> float:
+    """The ``dispatch.latency`` fault point of a served call (see
+    :meth:`~repro_torch.guard.faults.Fault.apply`): off the card the host
+    sleeps its delay here. Returns the seconds the caller stalls the device
+    for after the call's launches (0.0 when nothing fired, or off the
+    card)."""
+    fault = fault_hit("dispatch.latency", kernel=kernel, signature=sig_key)
+    if fault is None:
+        return 0.0
+    seen = []
+    for a in args:
+        _map_tensors(a, lambda t: seen.append(t) or t)
+    on_card = any(t.is_cuda for t in seen)
+    fault.apply(delay=not on_card)
+    return fault.delay_sec if on_card else 0.0
+
+
+def _stall_device(seconds: float) -> None:
+    """Spin the current stream for about ``seconds`` (at the rate
+    :func:`_spin_cycles_per_sec` measured), then move an armed end mark of
+    a timed call past the spin (:func:`repro_torch.kernels.build.mark_end`)."""
+    from repro_torch.kernels import build
+
+    torch.cuda._sleep(int(seconds * _spin_cycles_per_sec()))
+    build.mark_end()
+
+
+@functools.lru_cache(maxsize=None)
+def _spin_cycles_per_sec() -> float:
+    """Cycles a second of ``torch.cuda._sleep`` on this card, from one spin
+    of 2^24 cycles between CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(1 << 24)
+    end.record()
+    end.synchronize()
+    return (1 << 24) / (start.elapsed_time(end) / 1e3)
 
 
 def _guarded_build(spec, config: dict, static_kw: dict, args: tuple):

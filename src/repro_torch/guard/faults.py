@@ -103,6 +103,18 @@ class Fault:
         """Unblock any thread parked on this fault's hang."""
         self.release_event.set()
 
+    def apply(self, *, delay: bool = True) -> None:
+        """The fired fault's behavior: sleep ``delay_sec`` (unless
+        ``delay`` is False, for a call site that spends the delay its own
+        way), hang, raise."""
+        if delay and self.delay_sec > 0.0:
+            # interruptible sleep: released early when the fault is disarmed
+            self.release_event.wait(self.delay_sec)
+        if self.hang:
+            self.release_event.wait(self.hang_max_sec)
+        if self.raises:
+            raise self.exc(f"injected fault: {self.point}")
+
 
 _lock = threading.Lock()
 _ACTIVE: Dict[str, Fault] = {}
@@ -166,13 +178,7 @@ def fault_point(point: str, **ctx: Any) -> bool:
     fault = fault_hit(point, **ctx)
     if fault is None:
         return False
-    if fault.delay_sec > 0.0:
-        # interruptible sleep: released early when the fault is disarmed
-        fault.release_event.wait(fault.delay_sec)
-    if fault.hang:
-        fault.release_event.wait(fault.hang_max_sec)
-    if fault.raises:
-        raise fault.exc(f"injected fault: {point}")
+    fault.apply()
     return True
 
 

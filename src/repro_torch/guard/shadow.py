@@ -34,10 +34,17 @@ ratio only raises the challenger's own time, never lowers it: a timed call
 is never shorter than its device work. The port runs
 eagerly, so there is no traced call to skip, as the JAX package must.
 
-Sampling is deterministic (per-signature call counters, not RNG): every
-``round(1/epsilon)``-th execution is shadowed, every
-``round(1/challenger_fraction)``-th shadow tries a challenger. Shadowing
-never breaks serving: every failure path is swallowed into a counter.
+Sampling is deterministic (call counters, not RNG): every
+``round(1/epsilon)``-th execution of a served executable is shadowed, every
+``round(1/challenger_fraction)``-th shadow of a signature tries a
+challenger. The dispatch service's execute wrapper counts its own
+executions inline and asks :meth:`ShadowEvaluator.sample_mode` only on a
+sampled one: on the card a call into the guard on every execution was a
+visible share of a decode call's host time, against the serving
+benchmark's 2% limit. The JAX package counts executions per signature, so
+there a hot swap keeps the count; here the swapped-in executable counts
+from 0. Shadowing never breaks serving: every
+failure path is swallowed into a counter.
 """
 
 from __future__ import annotations
@@ -76,10 +83,8 @@ class ShadowEvaluator:
     def __init__(self, service, policy: ShadowPolicy = ShadowPolicy()):
         self.service = service
         self.policy = policy
-        self._period = policy.shadow_period()           # hoisted off the hot path
         self._challenger_period = policy.challenger_period()
         self._lock = threading.Lock()
-        self._calls: Dict[Tuple[str, str], int] = {}   # per-signature executions
         self._samples: Dict[Tuple[str, str], int] = {}  # per-signature shadows
         self._recent: Dict[tuple, collections.deque] = {}  # per served config: last samples
         self._rng = np.random.default_rng(policy.seed)
@@ -89,21 +94,13 @@ class ShadowEvaluator:
             "challenger_infeasible": 0,
         }
 
-    # -- sampling decision (serving hot path: every dispatch execution pays
-    # this, so it is deliberately lock-free — each get/set is atomic under
-    # the GIL, and a racing increment can at worst lose a count, which only
-    # nudges *when* the next shadow sample lands, never correctness; the
-    # lock stays on the cold paths (stats, challenger RNG))
-    def shadow_mode(self, kernel: str, sig_key: str) -> Optional[str]:
-        """None (don't shadow) | "observe" | "challenger" for this call."""
-        period = self._period
-        if period == 0:
-            return None
+    def sample_mode(self, kernel: str, sig_key: str) -> str:
+        """"observe" | "challenger" for an execution the shadow period
+        selected (the dispatch service's execute wrapper counts its own
+        executions and calls this on every ``shadow_period()``-th). Lock-free:
+        each get/set is atomic under the GIL, and a racing increment can at
+        worst lose a count, which only moves the next challenger."""
         k = (kernel, sig_key)
-        n = self._calls.get(k, 0) + 1
-        self._calls[k] = n
-        if n % period != 0:
-            return None
         s = self._samples.get(k, 0) + 1
         self._samples[k] = s
         ch = self._challenger_period

@@ -168,6 +168,9 @@ class GuardAgent:
                           else EXECUTE_HISTOGRAM)
         self.shadow = (ShadowEvaluator(service, shadow)
                        if isinstance(shadow, ShadowPolicy) else shadow)
+        # every shadow_period-th execution of a served executable is sampled
+        # (0: none); the service's execute wrapper counts inline
+        self.shadow_period = 0 if self.shadow is None else self.shadow.policy.shadow_period()
         self.decisions_path = decisions_path
         self.decisions: List[dict] = []
         self.stats: Dict[str, int] = {
@@ -182,10 +185,9 @@ class GuardAgent:
         self._thread: Optional[threading.Thread] = None
 
     # -- shadow hooks (called from the instrumented execute wrapper) -------
-    def shadow_mode(self, kernel: str, sig_key: str) -> Optional[str]:
-        if self.shadow is None:
-            return None
-        return self.shadow.shadow_mode(kernel, sig_key)
+    def shadow_sample(self, kernel: str, sig_key: str) -> str:
+        """The mode of an execution the shadow period selected."""
+        return self.shadow.sample_mode(kernel, sig_key)
 
     def on_shadow(self, kernel: str, sig, config, static_kw, args,
                   measured_sec: float, mode: str) -> None:

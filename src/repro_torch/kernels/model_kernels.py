@@ -153,8 +153,9 @@ def flash_attention_builder(cfg: Mapping[str, Any], *, causal: bool = True) -> V
 def decode_attention_builder(cfg: Mapping[str, Any], *, ring: bool = False,
                              window: int = 0) -> Variant:
     """Decode-attention variants under one dispatch entry. A ``page`` in
-    the config (the host flavour's and the JAX package's records carry one)
-    is not read: the port has no reader for it yet (see
+    the config (the host flavour's, the serving benchmark's and the JAX
+    package's records carry one) is the paged cache's layout, not the
+    kernel's: the builder does not read it (see
     :func:`~repro_torch.kernels.spaces.decode_attention_space`)."""
     impl = str(cfg.get("impl", "pallas"))
     bk, hg = int(cfg.get("bk", 128)), int(cfg.get("hg", 1))

@@ -176,7 +176,8 @@ def floyd_warshall_space(target: str = "gpu", seed: int = 1234) -> Configuration
 FLASH_TILES_GPU = (16, 32, 64, 128)
 FLASH_TILES_HOST = (16, 32, 64, 128, 256, 512)
 # decode KV blocks (up to one slot per thread of the CUDA kernel's 256);
-# paged-cache page sizes, an axis of the host flavour only (below)
+# paged-cache page sizes, an axis of the host flavour only (below; the
+# serving benchmark draws them beside the gpu flavour's configs)
 DECODE_TILES_GPU = (32, 64, 128, 256)
 DECODE_TILES_HOST = (8, 16, 32, 64, 128, 256)
 PAGE_SIZES_HOST = (8, 16, 32, 64, 128)
@@ -212,10 +213,16 @@ def flash_attention_space(target: str = "gpu", seed: int = 1234) -> Configuratio
 def decode_attention_space(target: str = "gpu", seed: int = 1234) -> ConfigurationSpace:
     """KV block ``bk``, rows per block ``hg`` and the ``impl`` axis. The
     host flavour, the JAX package's, also holds the paged KV cache's
-    ``page`` size, which only the JAX package's cost model and feasibility
-    pass read; the gpu flavour leaves it out until the port has a reader
-    (store records that carry it still resolve: lookup does not consult
-    the space)."""
+    ``page`` size. The gpu flavour leaves it out: the kernel never reads
+    ``page``, and this space is also what background campaigns and the
+    guard's challengers sample, where the axis would only spread their
+    evaluations over configs that launch the same kernel. The serving
+    benchmark (``benchmarks/torch_serve_bench.py``) tunes ``page`` all the
+    same: it draws one from :data:`PAGE_SIZES_HOST` beside each gpu-space
+    candidate and times the candidate at that page's bucket. Store records
+    that carry ``page`` still resolve (lookup does not consult the space),
+    and the feasibility pass holds a record's ``page`` to the signature's
+    bucket."""
     gpu = target == "gpu"
     d = _model_defaults("decode_attention", target,
                         dict(impl="xla", bk=128, hg=1, page=PAGE_SIZES_HOST[-1]))

@@ -1,1 +1,2 @@
-"""repro_torch.launch — command-line entry points (autotune, serve, guard)."""
+"""repro_torch.launch — command-line entry points (autotune, serve, guard,
+fidelity, train, obs)."""

@@ -116,13 +116,14 @@ def serve(arch: str = "qwen2-0.5b", *, reduced: bool = False, batch: int = 4,
     }
 
 
-def service_for(device, store: TuningStore | None, tuner=None) -> DispatchService:
+def service_for(device, store: TuningStore | None, tuner=None, **kw) -> DispatchService:
     """The dispatch service of a run on ``device``: records keyed by the
     ``gpu`` backend and the ``gpu`` spaces on the card, by ``cpu`` and the
-    ``host`` spaces on the CPU (as ``launch.autotune --backend`` keys them)."""
+    ``host`` spaces on the CPU (as ``launch.autotune --backend`` keys them).
+    ``kw`` go to :class:`DispatchService` (``metrics=``, say)."""
     cpu = torch.device(device).type == "cpu"
     return DispatchService(store, backend="cpu" if cpu else "gpu",
-                           target="host" if cpu else "gpu", tuner=tuner)
+                           target="host" if cpu else "gpu", tuner=tuner, **kw)
 
 
 def report(r: dict) -> None:

@@ -1790,3 +1790,171 @@ def test_whisper_on_the_card_matches_the_cpu(cuda):
     got = greedy_decode(params_gpu, cfg, prompt.to(cuda), steps=8, max_len=16,
                         service=DispatchService(), enc_embed=frames.to(cuda))
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# serving under load: the benchmark on the card, the injected latency the
+# drift watch reads, and the signatures of gemma3-1b, minitron-4b and
+# qwen1.5-0.5b at full width
+# ---------------------------------------------------------------------------
+
+def test_serve_bench_quick_on_the_card(cuda, tmp_path, capsys):
+    """``benchmarks/torch_serve_bench.py --quick --reduced --inject-drift``
+    on the card: exit 0; the kernels run in the default and tuned modes and
+    none in the einsum mode; every request's ids equal across the three
+    modes; the drift loop quarantines and falls back, read from the shadow
+    samples' device time; the JSON stamped with the card."""
+    import json
+
+    from benchmarks import torch_serve_bench as tsb
+
+    record = {}
+    out = tmp_path / "b.json"
+    rc = tsb.main(["--quick", "--reduced", "--inject-drift", "--store", str(tmp_path / "s"),
+                   "--out", str(out), "--obs-out", str(tmp_path / "b.obs.jsonl")],
+                  record=record)
+    text = capsys.readouterr().out
+    assert rc == 0, text
+    modes = record["modes"]
+    assert set(modes["einsum"]["launches"].values()) == {0}
+    for mode in ("default", "tuned"):
+        assert min(modes[mode]["launches"].values()) >= 1, modes[mode]["launches"]
+    assert modes["einsum"]["ids"] == modes["default"]["ids"] == modes["tuned"]["ids"]
+    data = json.loads(out.read_text())
+    assert data["meta"]["card"] is not None and data["modes"]["tuned"]["page_axis"] == \
+        "drawn by the bench"
+    g = data["guard"]
+    assert g["watched_histogram"] == "dispatch_shadow_seconds" and g["drift_ok"] \
+        and g["fallback_ok"]
+
+
+def test_injected_latency_is_in_a_shadow_samples_device_time(cuda, tmp_path):
+    """On the card ``dispatch.latency`` spins the call's stream after its
+    launches, inside the shadow clock's interval (a host sleep before the
+    first launch would not be), and stays off the host's enqueue path."""
+    from repro_torch.dispatch import DispatchService, TuningStore
+    from repro_torch.guard import GuardAgent, ShadowPolicy, inject
+    from repro_torch.guard.watch import SHADOW_HISTOGRAM, window_stats
+    from repro_torch.obs import MetricsRegistry
+
+    a, b = _normal(cuda, (4, 896), (896, 896))
+    svc = DispatchService(TuningStore(str(tmp_path)), metrics=MetricsRegistry())
+    fn = svc.dispatch("matmul", a, b)
+    fn(a, b)
+    svc.attach_guard(GuardAgent(svc, shadow=ShadowPolicy(epsilon=1.0,
+                                                         challenger_fraction=0.0)))
+    for _ in range(4):
+        fn(a, b)
+    base = svc.metrics.snapshot()
+    with inject("dispatch.latency", delay_sec=0.02, where={"kernel": "matmul"}):
+        for _ in range(4):
+            fn(a, b)
+    (clean,) = window_stats(None, base, SHADOW_HISTOGRAM).values()
+    (slow,) = window_stats(base, svc.metrics.snapshot(), SHADOW_HISTOGRAM).values()
+    assert clean["count"] == slow["count"] == 4
+    assert clean["sum"] / 4 < 0.002 and 0.015 <= slow["sum"] / 4 <= 0.1, (clean, slow)
+    torch.cuda.synchronize()
+    _close(fn(a, b), tiled_matmul_plain(a, b, bk=32, pack=True, out_dtype=torch.float32),
+           F32_TOL)
+
+
+# (label, rows, K, N): the output projection and the unembed of each, at a
+# decode step's 4 rows and a forward's B * P (gemma3: a prompt of 520, past
+# its window of 512)
+CATALOG_MATMULS = (
+    ("gemma3-1b output projection", 4, 1024, 1152),
+    ("gemma3-1b output projection", 2080, 1024, 1152),
+    ("gemma3-1b tied unembed", 4, 1152, 262144),
+    ("gemma3-1b tied unembed", 2080, 1152, 262144),
+    ("minitron-4b output projection", 4, 3072, 3072),
+    ("minitron-4b output projection", 512, 3072, 3072),
+    ("minitron-4b unembed", 4, 3072, 256000),
+    ("minitron-4b unembed", 512, 3072, 256000),
+    ("qwen1.5-0.5b output projection", 4, 1024, 1024),
+    ("qwen1.5-0.5b output projection", 512, 1024, 1024),
+    ("qwen1.5-0.5b tied unembed", 4, 1024, 151936),
+    ("qwen1.5-0.5b tied unembed", 512, 1024, 151936),
+)
+
+
+@pytest.mark.parametrize("label,rows,K,N", CATALOG_MATMULS,
+                         ids=[f"{c[0].split()[0]}-{c[0].split()[-1]}-{c[1]}"
+                              for c in CATALOG_MATMULS])
+def test_matmul_at_the_catalogs_signatures(cuda, label, rows, K, N):
+    """The tiled matmul at its default config through the dispatch service,
+    as the model calls it (4 rows: the FFMA 8-row tile; more: 3xTF32), on a
+    NaN-poisoned output, against its plain version."""
+    from repro_torch.dispatch import DispatchService
+
+    g = torch.Generator(device=cuda).manual_seed(rows + N)
+    x = torch.randn(rows, K, generator=g, device=cuda)
+    w = torch.randn(K, N, generator=g, device=cuda) / K ** 0.5
+    fn = DispatchService().dispatch("matmul", x, w)
+    torch.full((rows, N), float("nan"), device=cuda)
+    before = tiled_matmul.launches
+    got = fn(x, w)
+    torch.cuda.synchronize()
+    assert tiled_matmul.launches == before + 1 and torch.isfinite(got).all()
+    _close(got, torch.matmul(x, w), F32_TOL)
+
+
+# (arch, batch, kv heads, query heads per kv head, head size, prompt)
+CATALOG_ATTENTION = (("minitron-4b", 4, 8, 3, 128, 128), ("qwen1.5-0.5b", 4, 16, 1, 64, 128))
+
+
+@pytest.mark.parametrize("arch,B,K,G,hd,P", CATALOG_ATTENTION, ids=[c[0] for c in
+                                                                   CATALOG_ATTENTION])
+def test_attention_at_the_catalogs_signatures(cuda, arch, B, K, G, hd, P):
+    """flash_attention at the prompt's (B*K, P, hd), causal, and
+    decode_attention against the model's (B, S, K, hd) cache read in place
+    at per-row positions, through the dispatch service at their defaults,
+    each against its plain version."""
+    from repro_torch.dispatch import DispatchService
+    from repro_torch.kernels.decode_attention import (
+        CacheRows,
+        decode_attention,
+        decode_attention_plain,
+    )
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    svc = DispatchService()
+    q, k, v = _normal(cuda, (B * K, P, hd), (B * K, P, hd), (B * K, P, hd), seed=1)
+    f0, d0 = flash_attention.launches, decode_attention.launches
+    got = svc.dispatch("flash_attention", q, k, v, causal=True)(q, k, v)
+    _close(got, flash_attention_plain(q, k, v, causal=True), ATTN_TOL)
+    S = P + 16
+    qd, kc, vc = _normal(cuda, (B * K, G, hd), (B, S, K, hd), (B, S, K, hd), seed=2)
+    cp = torch.randint(0, S, (B * K,), generator=torch.Generator().manual_seed(3),
+                       dtype=torch.int32).to(cuda)
+    cp[0] = P
+    kr, vr = CacheRows(kc), CacheRows(vc)
+    fn = svc.dispatch("decode_attention", qd, kr, vr, cp, ring=False, window=0)
+    _close(fn(qd, kr, vr, cp), decode_attention_plain(qd, kr, vr, cp), ATTN_TOL)
+    torch.cuda.synchronize()
+    assert flash_attention.launches > f0 and decode_attention.launches > d0
+
+
+@pytest.mark.parametrize("bsz", [1, 2, 4, 8])
+def test_decode_attention_at_the_bench_ladder(cuda, bsz):
+    """qwen2-0.5b's decode (2 kv heads, G = 7, hd 64) at the serving
+    benchmark's batch ladder, across page-aligned buckets of every page size
+    and the full allocation of 1024, per-row positions, against its plain
+    version at the gpu space's default and every bk/hg of the space."""
+    from repro_torch.kernels.decode_attention import (
+        CacheRows,
+        decode_attention,
+        decode_attention_plain,
+    )
+    from repro_torch.kernels.spaces import kernel_space
+
+    space = kernel_space("decode_attention", target="gpu")
+    gen = torch.Generator().manual_seed(bsz)
+    for S in (8, 16, 40, 64, 96, 128, 1024):
+        q, kc, vc = _normal(cuda, (bsz * 2, 7, 64), (bsz, S, 2, 64), (bsz, S, 2, 64),
+                            seed=S)
+        cp = torch.randint(0, S, (bsz * 2,), generator=gen, dtype=torch.int32).to(cuda)
+        kr, vr = CacheRows(kc), CacheRows(vc)
+        want = decode_attention_plain(q, kr, vr, cp)
+        for bk in space["bk"].sequence:
+            for hg in space["hg"].sequence:
+                _close(decode_attention(q, kr, vr, cp, bk=bk, hg=hg), want, ATTN_TOL)

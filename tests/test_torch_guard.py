@@ -294,6 +294,44 @@ def test_challenger_is_never_told_below_its_own_race_time(tmp_path, stalled):
     assert 1e-3 <= rec.objective < 4e-3
 
 
+def test_execute_wrapper_samples_every_period_th_execution(tmp_path):
+    """A served executable counts its own executions inline: every
+    ``1/epsilon``-th is sampled, and every ``1/challenger_fraction``-th
+    sample of the signature races a challenger (the evaluator counts those
+    per signature); a hot swap's new executable counts from 0, where the
+    JAX package's count per signature runs on."""
+    svc, store = _service(tmp_path)
+    store.put(TuningRecord("torch_guard_toy", ((4,),), "cpu", {"s": 2}, 10.0))
+    guard = GuardAgent(svc, shadow=ShadowPolicy(epsilon=0.25, challenger_fraction=0.5))
+    svc.attach_guard(guard)
+    assert guard.shadow_period == 4
+    modes = []
+    guard.on_shadow = lambda kernel, sig, config, static_kw, args, dt, mode: modes.append(mode)
+    x = torch.arange(4.0)
+    fn = svc.dispatch("torch_guard_toy", x)
+    for _ in range(6):
+        fn(x)                       # sampled at its 4th
+    svc.invalidate("torch_guard_toy")
+    fn2 = svc.dispatch("torch_guard_toy", x)
+    assert fn2 is not fn
+    for _ in range(6):
+        fn2(x)                      # its 4th
+    fn(x), fn(x)                    # the first one's 8th
+    assert modes == ["observe", "challenger", "observe"]
+    # one executable alone: its 4th, 8th and 12th of 12, alternating modes
+    svc.invalidate("torch_guard_toy")
+    fn3 = svc.dispatch("torch_guard_toy", x)
+    seen = []
+    for i in range(1, 13):
+        n = len(modes)
+        fn3(x)
+        if len(modes) > n:
+            seen.append((i, modes[-1]))
+    assert seen == [(4, "challenger"), (8, "observe"), (12, "challenger")]
+    assert GuardAgent(svc, shadow=ShadowPolicy(epsilon=0.0)).shadow_period == 0
+    assert GuardAgent(svc).shadow_period == 0
+
+
 def test_shadow_epsilon_zero_never_samples(tmp_path):
     svc, store = _service(tmp_path)
     store.put(TuningRecord("torch_guard_toy", ((4,),), "cpu", {"s": 2}, 10.0))
