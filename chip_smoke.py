@@ -184,6 +184,25 @@ checks each kernel on the card:
      their plain versions, timed beside torch.matmul and SDPA; the card
      against the CPU at a cut depth (gemma3 6 layers, one local:global
      period, also its forward past the window; the others 2).
+ 15. the fleet and the analyzer (each part with the launch counts set to 0
+     just before and read just after): (a) two DispatchServices in one
+     process, hosts A and B, each with its own TuningStore, Replica and
+     SyncAgent over one FileTransport directory: A's BackgroundTuner
+     campaign (8 evaluations) for syr2k at LARGE publishes, and after a
+     sync_once on each, B's calls resolve A's config as an exact hit with
+     no campaign enqueued and launch syr2k once each, against the plain
+     version; (b) B serves mm3 at a record of its own through a jit_cached
+     proxy, A publishes a faster one (both timed here by CUDA events), the
+     sync invalidates B's executable (serve_rebuilt), B launches matmul.cu
+     with A's config, and A's quarantine of that record reaches B, bans its
+     reintroduction and returns B to its own record; (c) a host C pulls over
+     HTTP (a FleetServer on 127.0.0.1, port 0) and serves as B did, bit for
+     bit; (d) `launch.analyze space --json` on all nine kernels (host at the
+     bench dims, cost and gpu at LARGE; written to analyze_space.json in
+     $CHIP_SMOKE_OUT) with each row's infeasible and warned shares, up to 4
+     sampled configs that the gpu target accepts (warned ones first) of
+     each PolyBench kernel launched and held against the plain version,
+     and `launch.analyze lint`: 0 findings over src/repro_torch.
 
 Phases 3 and 4 also hold flash_attention and decode_attention against their
 plain versions at LARGE, at head_dim 256, at head sizes between the
@@ -399,6 +418,15 @@ SERVE_MATMULS = (("decode unembed", (4, 896, 151936), "1 per decode step"),
 # (24 output projections a step: 36 samples of it a window at epsilon 0.25)
 TUNE = dict(offline_evals=12, warm_evals=3, bg_evals=8, epsilon=0.25, challengers=0.1,
             steps_per_window=6)
+# phase 15: the fleet and the analyzer. (a) host A's background campaign
+# for syr2k at LARGE (phase 7's 8 evaluations), and host B's calls of the
+# replicated config; (b) mm3's record that host B serves at first (tiles of
+# 16, which the 3xTF32 route pads to 32) and host A's better one (the
+# defaults, 64 x 64); (d) the sampled configs per (kernel, target) of
+# `launch.analyze space`, the candidates drawn per PolyBench kernel and
+# the most that `gpu` accepts launched (warned ones first)
+FLEET = dict(bg_evals=8, calls=3, mm3_slow=dict(bm=16, bn=16), audit_samples=128,
+             candidates=64, launch_configs=4, seed=1234)
 # (kernel, evaluations) of phase 5; heat3d's space has 12 points
 CAMPAIGNS = (("syr2k", 60), ("mm3", 40), ("lu", 30), ("covariance", 30),
              ("floyd_warshall", 30), ("heat3d", 12))
@@ -3247,6 +3275,263 @@ def tuning_loop(launches: dict, dev, syr2k_args: tuple, phase6_ms: float) -> Non
     print(f"  phase 7: {time.perf_counter() - t7:.1f} s", flush=True)
 
 
+def fleet_phase(launches: dict, dev) -> None:
+    """Phase 15: the fleet and the analyzer on the card (see the module
+    docstring). Adds the launch counts of each part (set to 0 just before
+    it, read just after) to ``launches``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analyze.feasibility import check_config
+    from repro_torch.core.space import config_key
+    from repro_torch.dispatch import (
+        BackgroundTuner,
+        DispatchService,
+        TuningRecord,
+        TuningStore,
+        shape_signature,
+        signature_key,
+    )
+    from repro_torch.fleet import FileTransport, FleetServer, HttpTransport, Replica, SyncAgent
+    from repro_torch.kernels import ops, problems, ref
+    from repro_torch.kernels.covariance import covariance, covariance_plain
+    from repro_torch.kernels.floyd_warshall import (
+        closure_in_block,
+        floyd_warshall_plain,
+        minplus_update,
+    )
+    from repro_torch.kernels.heat3d import heat3d
+    from repro_torch.kernels.lu import lu_factor_diag, lu_plain
+    from repro_torch.kernels.matmul import tiled_matmul
+    from repro_torch.kernels.spaces import kernel_space
+    from repro_torch.kernels.syr2k import syr2k, syr2k_plain
+    from repro_torch.launch import analyze as analyze_cli
+
+    t15 = time.perf_counter()
+
+    def counted(wrappers, fn):
+        for w in wrappers:
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        n = {w.__name__: w.launches for w in wrappers}
+        for name, k in n.items():
+            launches[name] = launches.get(name, 0) + k
+        return out, n
+
+    def served(svc, kernel, *args):
+        return svc.dispatch(kernel, *args).__wrapped__.fn.keywords["config"]
+
+    def host(root, name, transport):
+        store = TuningStore(os.path.join(root, name))
+        tuner = BackgroundTuner(store, max_workers=1, max_evals=FLEET["bg_evals"])
+        svc = DispatchService(store, tuner=tuner)
+        return store, tuner, svc, SyncAgent(Replica(store, service=svc), transport)
+
+    def zero_evals(label, svc, tuner, n, calls, want_cfg):
+        """A host that serves a replicated record: an exact hit, nothing
+        enqueued, no campaign, one launch a call, the replicated config."""
+        st = svc.stats
+        if st["store_exact"] < 1 or st["bg_enqueued"] or tuner.stats["campaigns"] \
+                or st["sync_applied"] < 1 or n["syr2k"] != calls \
+                or {k: served(svc, "syr2k", C, A, B)[k] for k in want_cfg} != want_cfg:
+            raise AssertionError(f"{label}: stats {st}, tuner {tuner.stats}, launches {n}")
+
+    C, A, B = problems.problem_inputs("syr2k", problems.LARGE_SHAPES["syr2k"], dev)
+    sig = shape_signature([C, A, B])
+    want = syr2k_plain(C, A, B)
+    calls = FLEET["calls"]
+    tuners = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        shared = os.path.join(tmp, "shared")
+        try:
+            # -- (a) host A's campaign, served by host B
+            t0 = time.perf_counter()
+            store_a, tuner_a, svc_a, agent_a = host(tmp, "a", FileTransport(shared))
+            store_b, tuner_b, svc_b, agent_b = host(tmp, "b", FileTransport(shared))
+            tuners += [tuner_a, tuner_b]
+            _, n_a = counted((syr2k,), lambda: (svc_a.call("syr2k", C, A, B),
+                                                tuner_a.drain(timeout=240)))
+            rec_a = store_a.get("syr2k", sig, "gpu")
+            if tuner_a.errors or rec_a is None or svc_a.stats["bg_enqueued"] != 1 \
+                    or n_a["syr2k"] < 1 + FLEET["bg_evals"]:
+                raise AssertionError(f"host A's campaign: {tuner_a.errors}, {rec_a}, "
+                                     f"{svc_a.stats}, launches {n_a}")
+            sync_a, sync_b = agent_a.sync_once(), agent_b.sync_once()
+            outs, n_b = counted((syr2k,), lambda: [svc_b.call("syr2k", C, A, B)
+                                                    for _ in range(calls)])
+            zero_evals("host B", svc_b, tuner_b, n_b, calls, rec_a.config)
+            if svc_a.stats["sync_published"] < 1 or "error" in sync_a or "error" in sync_b:
+                raise AssertionError(f"sync: A {sync_a} {svc_a.stats}, B {sync_b}")
+            compare(f"syr2k at LARGE on host B with host A's {rec_a.config} vs plain",
+                    outs[-1], want, SYR2K_TOL)
+            print(f"  (a) host A: {rec_a.n_evals} background evaluations, "
+                  f"{rec_a.objective * 1e3:.4f} ms at {rec_a.config} published for "
+                  f"{signature_key(sig)} (launches {n_a}); sync A {sync_a}, B {sync_b}; "
+                  f"host B: {calls} calls, launches {n_b}, stats {json.dumps(svc_b.stats)}, "
+                  f"campaigns {tuner_b.stats['campaigns']}, telemetry lag "
+                  f"{svc_b.telemetry()['sync_last_age_sec']} s; "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+            # -- (b) hot swap of mm3 on host B, then A's quarantine
+            t0 = time.perf_counter()
+            margs = problems.problem_inputs("mm3", problems.LARGE_SHAPES["mm3"], dev)
+            msig = shape_signature(list(margs))
+            mwant = ref.mm3_ref(*margs)
+            slow = dict(ops.DEFAULTS["mm3"], **FLEET["mm3_slow"])
+            fast = dict(ops.DEFAULTS["mm3"])
+            secs = {k: time_ms(lambda c=c: ops.mm3_op(*margs, config=c)) / 1e3
+                    for k, c in (("slow", slow), ("fast", fast))}
+            if secs["fast"] >= secs["slow"]:
+                raise AssertionError(f"mm3: the defaults {secs['fast']} s do not beat "
+                                     f"tiles of 16 {secs['slow']} s")
+            mine = TuningRecord("mm3", msig, "gpu", slow, secs["slow"], source="hostB")
+            better = TuningRecord("mm3", msig, "gpu", fast, secs["fast"], source="hostA")
+            store_b.put(mine)
+            step = svc_b.jit_cached("fleet_mm3", lambda *a: svc_b.call("mm3", *a))
+            results = {}
+            for label in ("B's own record", "A's record after the sync",
+                          "B's own record after A's quarantine"):
+                if label != "B's own record":
+                    if label.startswith("A's record"):
+                        store_a.put(better)
+                    else:
+                        store_a.quarantine(better, reason="chip_smoke: quarantined on host A")
+                    agent_a.sync_once()
+                    if agent_b.sync_once()["applied"] < 1:
+                        raise AssertionError(f"mm3 {label}: the sync applied nothing")
+                rebuilt = svc_b.stats["serve_rebuilt"]
+                got, n = counted((tiled_matmul,), lambda: step(*margs))
+                cfg = served(svc_b, "mm3", *margs)
+                expect = fast if label.startswith("A's record") else slow
+                if {k: cfg[k] for k in expect} != expect or n["tiled_matmul"] < 1 or \
+                        (label != "B's own record" and svc_b.stats["serve_rebuilt"] != rebuilt + 1):
+                    raise AssertionError(f"mm3 {label}: served {cfg}, launches {n}, stats "
+                                         f"{svc_b.stats}")
+                results[label] = (n, svc_b.stats["serve_rebuilt"] - rebuilt)
+                compare(f"mm3 at LARGE on host B, {label} ({expect['bm']}x{expect['bn']} "
+                        f"tiles) vs plain", got, mwant, F32_TOL)
+            banned = not store_b.put(TuningRecord("mm3", msig, "gpu", fast, secs["fast"] / 2,
+                                                  source="hostB"))
+            if not banned or store_b.get("mm3", msig, "gpu").config != slow:
+                raise AssertionError(f"A's quarantine on host B: banned {banned}, "
+                                     f"{store_b.get('mm3', msig, 'gpu')}")
+            print(f"  (b) mm3 {signature_key(msig)}: B's record {secs['slow'] * 1e3:.4f} ms "
+                  f"(tiles 16x16), A's {secs['fast'] * 1e3:.4f} ms (64x64), CUDA events; "
+                  + "; ".join(f"{k}: launches {v[0]}, serve_rebuilt +{v[1]}"
+                              for k, v in results.items())
+                  + f"; the quarantined config refused by B's store; "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+            # -- (c) the same over HTTP (127.0.0.1, a free port)
+            t0 = time.perf_counter()
+            server = FleetServer(agent_a.replica).start()
+            try:
+                store_c, tuner_c, svc_c, agent_c = host(tmp, "c", HttpTransport(server.url))
+                tuners.append(tuner_c)
+                sync_c = agent_c.sync_once()
+                outs_c, n_c = counted((syr2k,), lambda: [svc_c.call("syr2k", C, A, B)
+                                                          for _ in range(calls)])
+            finally:
+                server.stop()
+            zero_evals("host C (HTTP)", svc_c, tuner_c, n_c, calls, rec_a.config)
+            if "error" in sync_c or not torch.equal(outs_c[-1], outs[-1]):
+                raise AssertionError(f"host C over HTTP: sync {sync_c}, the same bits as "
+                                     f"host B's: {torch.equal(outs_c[-1], outs[-1])}")
+            print(f"  (c) host C over {server.url}: sync {sync_c}, {calls} calls, launches "
+                  f"{n_c}, output bit-identical to host B's; "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        finally:
+            for t in tuners:
+                t.shutdown()
+
+    # -- (d) the analyzer
+    t0 = time.perf_counter()
+    out_dir = os.environ.get("CHIP_SMOKE_OUT", os.path.join(ROOT, "build"))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = analyze_cli.main(["space", "--json", "--samples", str(FLEET["audit_samples"]),
+                               "--seed", str(FLEET["seed"]),
+                               "--out", os.path.join(out_dir, "analyze_space.json")])
+    audit = json.loads(buf.getvalue())
+    rows = audit["audit"]
+    kernels = sorted(problems.LARGE_SHAPES)
+    if rc or not audit["gpu"]["audited"] or \
+            sorted((r["kernel"], r["target"]) for r in rows) != \
+            sorted((k, t) for k in kernels for t in ("host", "cost", "gpu")):
+        raise AssertionError(f"launch.analyze space: rc {rc}, gpu {audit['gpu']}")
+    print(f"  (d) launch.analyze space: {FLEET['audit_samples']} samples and the default a "
+          f"space, gpu against {audit['gpu']['smem_limit']} B of shared memory a block "
+          f"({audit['gpu']['device']}); {time.perf_counter() - t0:.1f} s", flush=True)
+    for r in rows:
+        top = ", ".join(f"{c} {n}" for c, n in list(r["codes"].items())[:3]) or "-"
+        print(f"  (d) {r['kernel']:<16} {r['target']:<4} {r['dims']}: infeasible "
+              f"{r['infeasible_fraction']:.1%}, warned {r['pathological_fraction']:.1%} "
+              f"({top})", flush=True)
+
+    def run_op(kernel, args, dims, cfg):
+        if kernel == "heat3d":
+            return ops.heat3d_op(args[0], dims[1], config=cfg)
+        return {"syr2k": ops.syr2k_op, "mm3": ops.mm3_op, "lu": ops.lu_op,
+                "covariance": ops.covariance_op,
+                "floyd_warshall": ops.floyd_warshall_op}[kernel](*args, config=cfg)
+
+    def plain_of(kernel, args, dims, full):
+        """(what the plain output depends on, the plain version, tolerance):
+        phase 5's checks."""
+        if kernel == "lu":
+            return ((full["bs"], full["pack"]),
+                    lambda: lu_plain(args[0], bs=full["bs"], pack=full["pack"]), LU_TOL)
+        if kernel == "floyd_warshall":
+            return (full["bs"],), lambda: floyd_warshall_plain(args[0], bs=full["bs"]), EXACT
+        plain, tol = {"syr2k": (lambda: syr2k_plain(*args), SYR2K_TOL),
+                      "mm3": (lambda: ref.mm3_ref(*args), F32_TOL),
+                      "covariance": (lambda: covariance_plain(args[0]), COV_TOL),
+                      "heat3d": (lambda: ref.heat3d_ref(args[0], dims[1]), HEAT_TOL)}[kernel]
+        return (), plain, tol
+
+    t0 = time.perf_counter()
+    paths = {"syr2k": (syr2k,), "mm3": (tiled_matmul,),
+             "lu": (tiled_matmul, lu_factor_diag), "covariance": (covariance,),
+             "floyd_warshall": (minplus_update, closure_in_block), "heat3d": (heat3d,)}
+    for kernel, wrappers in paths.items():
+        dims = problems.LARGE_SHAPES[kernel]
+        args = problems.problem_inputs(kernel, dims, dev)
+        space = kernel_space(kernel, "gpu", seed=FLEET["seed"])
+        cands = space.sample_configurations(FLEET["candidates"],
+                                            np.random.default_rng(FLEET["seed"]))
+        verdicts = {config_key(c): (c, check_config(kernel, c, dims=dims, target="gpu"))
+                    for c in cands}
+        accepted = [(c, v) for c, v in verdicts.values() if v.ok]
+        picks = sorted(accepted, key=lambda cv: not cv[1].warnings)[:FLEET["launch_configs"]]
+        plains = {}
+        for cfg, verdict in picks:
+            key, plain, tol = plain_of(kernel, args, dims, dict(ops.DEFAULTS[kernel], **cfg))
+            got, n = counted(wrappers, lambda: run_op(kernel, args, dims, cfg))
+            if key not in plains:
+                plains[key] = plain()
+            if min(n.values()) < 1:
+                raise AssertionError(f"{kernel} {cfg}: accepted by gpu, launches {n}")
+            warned = ",".join(f.code for f in verdict.warnings) or "none"
+            compare(f"{kernel} at LARGE, gpu-accepted {cfg} (warned: {warned}); launches "
+                    f"{n}", got, plains[key], tol)
+        print(f"  (d) {kernel}: {len(accepted)} of {len(verdicts)} sampled configs accepted "
+              f"by gpu, {sum(bool(v.warnings) for _, v in accepted)} of them warned; "
+              f"{len(picks)} launched", flush=True)
+    print(f"  (d) accepted implies launches: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = analyze_cli.main(["lint", "--json"])
+    lint = json.loads(buf.getvalue())
+    port = os.path.realpath(os.path.join(SRC, "repro_torch"))
+    if rc or lint["n_findings"] or os.path.realpath(lint["paths"][0]) != port:
+        raise AssertionError(f"launch.analyze lint: rc {rc}, {lint}")
+    print(f"  (d) launch.analyze lint {lint['paths'][0]}: exit {rc}, "
+          f"{lint['n_findings']} findings", flush=True)
+    print(f"  phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3962,6 +4247,12 @@ def main() -> int:
           "default and tuned modes, the guard's drift loop), then gemma3-1b, minitron-4b and "
           "qwen1.5-0.5b at full width and full depth through launch.serve")
     load_phase(launches, dev)
+
+    # ---- 15. the fleet and the analyzer ----------------------------------------------------
+    phase("15. the fleet and the analyzer on the card: one host's campaign served by another "
+          "with zero local evaluations (file and HTTP transports), a hot swap and a "
+          "quarantine, launch.analyze space and lint")
+    fleet_phase(launches, dev)
 
     def entry(name, source, replaces):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",

@@ -6,16 +6,20 @@ the problem dimensions *without building or launching anything*: structural
 validity (required params present, tiles positive integers, variant choices
 known, fuse factors dividing the step count, pages dividing the seq
 bucket), the card's resource limit (:class:`SmemBudget`: the kernel's own
-shared memory per block against the device's, target ``gpu``), and
-grid-size sanity.
+shared memory per block against the device's, target ``gpu``), schedule
+smells on Hopper (:class:`TileAlign`: tile extents off the CUDA kernels'
+padding grids; :class:`PaddingWaste`: padded work against useful work,
+targets ``gpu`` and ``cost``), and grid-size sanity.
 
 The structural rules and :class:`GridBound` are copies of the JAX
 package's. Its TPU rules (``VmemBudget``, ``MxuAlign``, ``LcmPadding``)
 read the v5e model of ``repro.kernels.cost``; the port's cost model
-(:mod:`repro_torch.kernels.cost`) models Hopper, and its one resource rule
-here is :class:`SmemBudget`, whose numbers (:func:`smem_needs`) the cost
-model's infeasibility reads too. Hopper counterparts of ``MxuAlign`` and
-``LcmPadding`` are not written yet.
+(:mod:`repro_torch.kernels.cost`) models Hopper. :class:`SmemBudget` stands
+for ``VmemBudget`` (its numbers, :func:`smem_needs`, are the ones the cost
+model's infeasibility reads), :class:`TileAlign` for ``MxuAlign`` and
+:class:`PaddingWaste` for ``LcmPadding``. The ``host`` target keeps no
+``LcmPadding``: the port's kernels never pad a dim to ``lcm(bi, bj)``, so
+its ``host`` warnings are the JAX package's less ``padding_waste``.
 
 Findings carry a stable machine-readable ``code`` (e.g.
 ``tile_not_positive:bi``, ``smem_overflow``) and a ``severity``:
@@ -25,8 +29,9 @@ Findings carry a stable machine-readable ``code`` (e.g.
     Errors make :attr:`Feasibility.ok` false; the search path prunes these
     before acquisition scoring and ``DispatchService`` quarantines matching
     store records before its build guard runs.
-  * ``"warn"`` — the config builds but is pathological (oversized grids).
-    Warnings never prune or quarantine.
+  * ``"warn"`` — the config builds but is pathological: misaligned tiles,
+    heavy padding waste, oversized grids. Warnings never prune or
+    quarantine; they feed the ``launch.analyze space`` audit.
 
 The severity split is what keeps the pass zero-false-positive: a config is
 only ever rejected for a reason that is *provably* fatal for that builder,
@@ -63,6 +68,10 @@ WARN = "warn"
 # still runs above this, it just spends its life in per-step overhead
 # (warn-only)
 GRID_WARN_STEPS = 1 << 20
+# the padded tiles' operations (the cost model's, kernels/cost.py) over the
+# useful ones above which a schedule is flagged (warn-only): the JAX
+# package's PAD_WASTE_RATIO
+PAD_WASTE_RATIO = 1.5
 
 
 @dataclass(frozen=True)
@@ -467,6 +476,100 @@ _SMEM_NEEDS = {
 }
 
 
+class TileAlign(Rule):
+    """Targets ``gpu`` and ``cost``, the Hopper counterpart of the JAX
+    package's ``MxuAlign``: the tile kernels on ``csrc/gemm_f32.cuh`` pad
+    each tile extent to a multiple of its ``ALIGN`` (8), and the f32 matmul's
+    3xTF32 route (row tiles past 8) pads rows and columns to its warps'
+    ``TC_PIECE`` x ``TC_PIECE`` (32 x 32) pieces and the k chunk to 8 (its
+    ``mma.sync`` k), where the FFMA route pads the chunk only to 4
+    (``kernels/cost.py``). A tile off its grid computes padding in every
+    block. ``axes`` maps each tile param to the dim it tiles: a tile that
+    covers its whole dim pads only the dim's own remainder, which no config
+    avoids, so it is not flagged. ``tc`` names a matmul tile's (rows,
+    columns, k chunk) params; the rows tile decides the route. One stable
+    code a param, ``tile_misaligned:<name>``. Warn-only — the kernels pad
+    and run."""
+
+    def __init__(self, axes: Mapping[str, int], tc: tuple[str, str, str] | None = None):
+        self.axes = dict(axes)
+        self.tc = tc
+
+    def check(self, cfg, ctx):
+        if ctx.target not in ("gpu", "cost"):
+            return
+        from repro_torch.kernels.cost import ALIGN, TC_PIECE
+
+        def tile(name):
+            v = cfg.get(name)
+            if not (_is_int(v) and v > 0):
+                return None  # PositiveIntTiles owns malformed values
+            di = self.axes[name]
+            if ctx.dims is not None and di < len(ctx.dims) and v >= int(ctx.dims[di]):
+                return None
+            return v
+
+        grids = dict.fromkeys(self.axes, ALIGN)
+        if self.tc is not None:
+            rows, cols, k = self.tc
+            if (tile(rows) or 0) > ALIGN:  # the 3xTF32 route
+                grids.update({rows: TC_PIECE, cols: TC_PIECE})
+            else:
+                del grids[k]  # the FFMA route's chunk: a multiple of 4
+        for name, grid in grids.items():
+            v = tile(name)
+            if v is None:
+                continue
+            if v % ALIGN:
+                yield Finding(f"tile_misaligned:{name}", WARN,
+                              f"{name}={v} pads to {-(-v // ALIGN) * ALIGN} on the "
+                              f"tile kernels' {ALIGN}-element grid", name)
+            elif v % grid:
+                yield Finding(f"tile_misaligned:{name}", WARN,
+                              f"{name}={v} pads to {-(-v // grid) * grid} in the "
+                              f"3xTF32 matmul's {grid} x {grid} warp pieces", name)
+
+    def describe(self):
+        return f"tile alignment on Hopper: {', '.join(self.axes)} (gpu/cost)"
+
+
+class PaddingWaste(Rule):
+    """Targets ``gpu`` and ``cost``, the Hopper counterpart of the JAX
+    package's ``LcmPadding``: the operations of the padded tiles the
+    kernel's launches run (the cost model's ``info["padded_work"]``, tiles
+    padded to their grids, whole diagonal tiles of the symmetric kernels,
+    heat3d's recomputed halos) against the useful operations
+    (``info["flops"]``). Past :data:`PAD_WASTE_RATIO` a third of the work
+    or more is padding. Warn-only: the padded kernel is correct, just
+    wasteful."""
+
+    def check(self, cfg, ctx):
+        if ctx.target not in ("gpu", "cost") or ctx.dims is None:
+            return
+        from repro_torch.kernels.cost import KERNEL_COST_FNS
+
+        fn = KERNEL_COST_FNS.get(ctx.kernel)
+        if fn is None:
+            return
+        try:
+            _, info = fn(cfg, *ctx.dims)
+        except (KeyError, TypeError, ValueError, ZeroDivisionError):
+            # structurally invalid configs are other rules' findings
+            return
+        work, flops = info.get("padded_work"), info.get("flops")
+        if not work or not flops:
+            return  # refused on shared memory: SmemBudget's finding
+        ratio = work / flops
+        if ratio > PAD_WASTE_RATIO:
+            yield Finding(
+                "padding_waste", WARN,
+                f"the padded tiles' {work:.3g} operations are {ratio:.2f}x the "
+                f"{flops:.3g} useful ones")
+
+    def describe(self):
+        return "padded work vs useful work (gpu/cost)"
+
+
 class GridBound(Rule):
     """Grid-size sanity: the number of block steps the schedule implies,
     after the builder's ``min(tile, dim)`` clamp. Oversized grids compile
@@ -507,18 +610,24 @@ KERNEL_RULES: dict[str, tuple[Rule, ...]] = {
         RequiredParams("bi", "bj", "bk"),
         PositiveIntTiles("bi", "bj", "bk"),
         SmemBudget(),
+        TileAlign({"bi": 0, "bj": 0}),
+        PaddingWaste(),
         GridBound({"bi": 0, "bj": 0, "bk": 1}),
     ),
     "mm3": (
         RequiredParams("bm", "bn", "bk"),
         PositiveIntTiles("bm", "bn", "bk"),
         SmemBudget(),
+        TileAlign({"bm": 0, "bn": 4, "bk": 2}, tc=("bm", "bn", "bk")),
+        PaddingWaste(),
         GridBound({"bm": 0, "bn": 4, "bk": 2}),
     ),
     "lu": (
         RequiredParams("bs"),
         PositiveIntTiles("bs", "bm", "bn"),
         SmemBudget(),
+        TileAlign({"bm": 0, "bn": 0, "bs": 0}, tc=("bm", "bn", "bs")),
+        PaddingWaste(),
         GridBound({"bs": 0}),
     ),
     "heat3d": (
@@ -526,12 +635,15 @@ KERNEL_RULES: dict[str, tuple[Rule, ...]] = {
         PositiveIntTiles("bi"),
         FuseDivides("fuse_t"),
         SmemBudget(),
+        PaddingWaste(),
         GridBound({"bi": 0}, steps=2),
     ),
     "covariance": (
         RequiredParams("bi", "bj", "bk"),
         PositiveIntTiles("bi", "bj", "bk"),
         SmemBudget(),
+        TileAlign({"bi": 1, "bj": 1}),
+        PaddingWaste(),
         GridBound({"bi": 1, "bj": 1, "bk": 0}),
     ),
     "floyd_warshall": (
@@ -539,12 +651,14 @@ KERNEL_RULES: dict[str, tuple[Rule, ...]] = {
         PositiveIntTiles("bs", "bi", "bj"),
         ChoiceIn("unroll", (1, 2, 4, 8)),
         SmemBudget(),
+        PaddingWaste(),
         GridBound({"bs": 0, "bi": 0, "bj": 0}),
     ),
     "flash_attention": (
         ChoiceIn("impl", ("pallas", "xla")),
         PositiveIntTiles("bq", "bk"),
         SmemBudget(),
+        PaddingWaste(),
         GridBound({"bq": 1, "bk": 2}),
     ),
     "decode_attention": (
@@ -552,11 +666,14 @@ KERNEL_RULES: dict[str, tuple[Rule, ...]] = {
         PositiveIntTiles("bk", "hg", "page"),
         PageDividesSeq("page", dim_index=2),
         SmemBudget(),
+        PaddingWaste(),
         GridBound({"hg": 0, "bk": 2}),
     ),
     "matmul": (
         PositiveIntTiles("bm", "bn", "bk"),
         SmemBudget(),
+        TileAlign({"bm": 0, "bn": 2, "bk": 1}, tc=("bm", "bn", "bk")),
+        PaddingWaste(),
         GridBound({"bm": 0, "bk": 1, "bn": 2}),
     ),
 }

@@ -17,7 +17,9 @@ propagates: it is a defect of the port, never a slow configuration.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import statistics
 import threading
 import time
 from typing import Any, Callable, Mapping
@@ -63,9 +65,28 @@ def _on_cuda(args) -> bool:
     return any(t.is_cuda for t in _tensors(args))
 
 
-# the spin queued ahead of a timed call's first mark: about 0.1 ms at the
-# H100's clock, longer than the host takes from that mark to its first launch
+# the spin queued ahead of a timed call's first mark: at least 0.1 ms at the
+# H100's clock, longer than a fast host takes from that mark to its first
+# launch; a slower host's spin is longer (lead_cycles)
 LEAD_CYCLES = 200_000
+LEAD_SEC = 1e-4  # LEAD_CYCLES at about 2 GHz
+LEAD_MAX_CYCLES = 20 * LEAD_CYCLES
+
+# host seconds from the first mark to the first launch of recent timed calls
+_lead_paths: collections.deque = collections.deque(maxlen=32)
+
+
+def lead_cycles() -> int:
+    """The spin ahead of a timed call: twice the median host path from the
+    first mark to the first launch over the last timed calls, at least
+    :data:`LEAD_CYCLES`, at most :data:`LEAD_MAX_CYCLES`. A host whose path
+    outlasts a fixed spin leaves the device idle inside the timed span: on
+    a slow host a healthy decode attention read 4.6 times its objective
+    and the drift watch quarantined it."""
+    if not _lead_paths:
+        return LEAD_CYCLES
+    want = 2.0 * statistics.median(_lead_paths) / LEAD_SEC * LEAD_CYCLES
+    return int(min(LEAD_MAX_CYCLES, max(LEAD_CYCLES, want)))
 
 
 class LaunchClock:
@@ -83,9 +104,10 @@ class LaunchClock:
     their call (:func:`repro_torch.kernels.build.mark_launch`) and the armed
     end event after each launch and after torch work that follows the last
     one (:func:`repro_torch.kernels.build.mark_end`). Just before the start
-    is recorded the clock queues a spin of :data:`LEAD_CYCLES` on the
+    is recorded the clock queues a spin of :func:`lead_cycles` on the
     stream, so the start fires when the spin ends, by which time the host
-    has queued the call's first kernels: neither the host's Python path
+    has queued the call's first kernels (the spin follows the host's
+    measured path from that mark to the first launch): neither the host's Python path
     around the call nor its launch overhead is in the time of a small call,
     only the host's pace between the launches of a host-driven schedule
     (lu, Floyd-Warshall) that outruns the spin. A sampled call's device work
@@ -111,8 +133,9 @@ class LaunchClock:
             self.launch = torch.cuda.Event(enable_timing=True)
             self.end = torch.cuda.Event(enable_timing=True)
             self.start.record(stream)
+            cycles = lead_cycles()
             build.arm_launch_mark(self.launch, stream, end=self.end,
-                                  lead=lambda: torch.cuda._sleep(LEAD_CYCLES))
+                                  lead=lambda: torch.cuda._sleep(cycles))
         self.t0 = time.perf_counter()
 
     def stop(self) -> float:
@@ -123,6 +146,9 @@ class LaunchClock:
         from repro_torch.kernels import build
 
         fired, ended = build.disarm_launch_mark()
+        path = build.lead_host_sec()
+        if path is not None:
+            _lead_paths.append(path)
         if not ended:  # no launch (torch operations alone, or a copy)
             self.end.record()
         self.end.synchronize()

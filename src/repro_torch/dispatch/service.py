@@ -75,8 +75,10 @@ too, so on the ``gpu`` backend the drift watch reads that histogram.
 
 ``stats`` counts every path (store_exact / store_near / store_default,
 exec_hit / exec_miss, bg_enqueued, build_failed, infeasible, serve_rebuilt)
-under the JAX package's keys. Not ported yet: fleet sync (``attach_sync``
-stores the agent; ``sync_*`` stay 0 until ``repro_torch.fleet``).
+under the JAX package's keys, and fleet replication (``sync_applied``,
+``sync_published``) once a :class:`repro_torch.fleet.SyncAgent` is attached:
+replicated records invalidate this service's executables, so the next
+dispatch builds the kernel with the fleet's config.
 """
 
 from __future__ import annotations
@@ -387,13 +389,13 @@ class DispatchService:
             # a background campaign just published: push it fleet-wide now
             self._sync.nudge()
 
-    # -- fleet replication, guard -------------------------------------------------
+    # -- fleet replication (repro_torch.fleet), guard --------------------------------
 
     def attach_sync(self, agent) -> None:
-        """Bind a fleet sync agent (``nudge()``, ``lag()``): its replication
-        lag shows up in :meth:`telemetry`, and background-tuning publishes
-        nudge it. The port has no agent yet (``repro_torch.fleet`` waits for
-        ROADMAP.md Queue 1, item 8); this only stores it."""
+        """Bind a :class:`repro_torch.fleet.SyncAgent`: replication counters
+        land in ``stats`` (``sync_applied`` / ``sync_published``), replication
+        lag shows up in :meth:`telemetry`, and local background-tuning
+        publishes nudge the agent to push promptly."""
         self._sync = agent
         if self.tuner is not None and getattr(self.tuner, "on_publish", None) is None:
             self.tuner.on_publish = lambda rec: agent.nudge()

@@ -172,7 +172,10 @@ def build_all(names=None) -> float:
                     errors[n] = str(e)
                 SECONDS[n] = time.perf_counter() - t0
 
-            threads = [threading.Thread(target=finish, args=job) for job in started]
+            # daemon: joined just below, so the flag only keeps an interrupted
+            # build from holding the interpreter open on a stuck nvcc
+            threads = [threading.Thread(target=finish, args=job, daemon=True)
+                       for job in started]
             for t in threads:
                 t.start()
             for t in threads:  # wait for every nvcc, then report
@@ -251,6 +254,8 @@ class _Marks(threading.local):
     pending = None  # (start event, stream, lead) until the first mark fires
     end = None  # (end event, stream) while armed
     ended = False  # the end mark was recorded
+    fired_at = 0.0  # perf_counter when the first mark fired (its lead queued)
+    lead_sec = None  # host seconds from the first mark to the first launch's return
 
 
 _marks = _Marks()
@@ -280,6 +285,7 @@ def mark_launch() -> None:
     if pending is not None:
         _marks.pending = None
         event, stream, lead = pending
+        _marks.fired_at = time.perf_counter()
         if lead is not None:
             lead()
         event.record(stream)
@@ -294,6 +300,8 @@ def mark_end() -> None:
     end = _marks.end
     if end is not None and _marks.pending is None:
         end[0].record(end[1])
+        if not _marks.ended:
+            _marks.lead_sec = time.perf_counter() - _marks.fired_at
         _marks.ended = True
 
 
@@ -304,6 +312,14 @@ def disarm_launch_mark() -> tuple[bool, bool]:
     _marks.pending = _marks.end = None
     _marks.ended = False
     return fired, ended
+
+
+def lead_host_sec() -> float | None:
+    """Host seconds from this thread's last first mark to the return of its
+    call's first launch (the path a timed call's lead spin has to cover),
+    or None when no armed call has launched since the last read."""
+    sec, _marks.lead_sec = _marks.lead_sec, None
+    return sec
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -277,6 +277,9 @@ def _finish(hw: Hopper, launches: list[_Launch], *, flops: float, compulsory: fl
         "hbm_bytes": float(sum(ln.count * ln.hbm for ln in launches)),
         "smem_bytes": None if not parts else max(int(b) for _, b in parts),
         "flops": float(flops),
+        # operations of the padded tiles the launches run (feasibility's
+        # PaddingWaste reads it beside flops)
+        "padded_work": float(sum(ln.count * ln.work for ln in launches)),
         "launches": int(n_launches),
         "modeled_sec": t,
         "device_sec": device,

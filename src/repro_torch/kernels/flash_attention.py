@@ -152,18 +152,19 @@ def flash_attention(
 
     dev = q.device
     hdk = flash_attention_head_size(hd)
-    build.mark_launch()  # the call's device work starts with the padding
-    if hdk != hd:  # zero columns after the real ones: exact +0*0 terms
-        q, k, v = (F.pad(t, (0, hdk - hd)) for t in (q, k, v))
     out = torch.empty((BH, Sq, hdk), dtype=q.dtype, device=dev)
     lib = build.load("flash_attention")
     with torch.cuda.device(dev):
+        # the host's work before the first mark (as decode_attention)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        smem = max_shared_memory_per_block(dev)
+        build.mark_launch()  # the call's device work starts with the padding
+        if hdk != hd:  # zero columns after the real ones: exact +0*0 terms
+            q, k, v = (F.pad(t, (0, hdk - hd)) for t in (q, k, v))
         build.mark_launch()
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Sq, Sk, hdk,
-            bq, bk, float(scale), int(causal), int(q.dtype == torch.bfloat16),
-            max_shared_memory_per_block(dev), stream)
+            bq, bk, float(scale), int(causal), int(q.dtype == torch.bfloat16), smem, stream)
     build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
     if hdk != hd:

@@ -2,8 +2,10 @@
 of the CUDA sources they load, and the build's refusal without nvcc. Runs
 without a card: the sources are read as text, nothing is compiled."""
 
+import collections
 import ctypes
 import re
+import types
 
 import pytest
 
@@ -144,6 +146,42 @@ def test_launch_mark_records_once_and_disarms():
     assert build.disarm_launch_mark() == (True, True)
     build.mark_end()
     assert end.streams == ["s", "s"]
+
+
+def test_lead_host_sec_is_the_path_from_the_first_mark_to_the_first_launch(monkeypatch):
+    ev, end = _Event(), _Event()
+    now = [10.0]
+    monkeypatch.setattr(build, "time", types.SimpleNamespace(perf_counter=lambda: now[0]))
+    build.lead_host_sec()  # whatever an earlier test left
+    build.arm_launch_mark(ev, "s", end=end)
+    now[0] = 11.0
+    build.mark_launch()  # the first mark: the path starts
+    now[0] = 11.25
+    build.mark_end()  # the first launch returned
+    now[0] = 12.0
+    build.mark_launch()
+    build.mark_end()  # a later launch leaves the path alone
+    assert build.disarm_launch_mark() == (True, True)
+    assert build.lead_host_sec() == 0.25
+    assert build.lead_host_sec() is None  # read once
+    build.arm_launch_mark(ev, "s", end=end)
+    build.mark_launch()
+    assert build.disarm_launch_mark() == (True, False)  # no launch: no path
+    assert build.lead_host_sec() is None
+
+
+def test_lead_cycles_follow_the_hosts_path(monkeypatch):
+    from repro_torch.core import plopper
+
+    paths = collections.deque(maxlen=32)
+    monkeypatch.setattr(plopper, "_lead_paths", paths)
+    assert plopper.lead_cycles() == plopper.LEAD_CYCLES  # no timed call yet
+    paths.extend([20e-6] * 9)  # a fast host: the fixed spin covers twice its path
+    assert plopper.lead_cycles() == plopper.LEAD_CYCLES
+    paths.extend([150e-6] * 10 + [5e-3] * 3)  # a slow host, and a few stalls
+    assert plopper.lead_cycles() == int(2 * 150e-6 / plopper.LEAD_SEC * plopper.LEAD_CYCLES)
+    paths.extend([1.0] * 32)  # never more than the cap
+    assert plopper.lead_cycles() == plopper.LEAD_MAX_CYCLES
 
 
 class _Lib:

@@ -996,6 +996,46 @@ def test_dispatch_operand_fault_keeps_a_sound_record(cuda, tmp_path):
     assert store.get("flash_attention", signature, "gpu") is not None
 
 
+def test_fleet_host_b_serves_host_a_config_with_zero_evaluations(cuda, tmp_path):
+    # host A's record reaches host B through the fleet's file transport; B
+    # resolves it as an exact hit, enqueues no campaign and launches the
+    # kernel with A's config
+    from repro_torch.dispatch import (
+        BackgroundTuner,
+        DispatchService,
+        TuningRecord,
+        TuningStore,
+        shape_signature,
+    )
+    from repro_torch.fleet import FileTransport, Replica, SyncAgent
+
+    C, A, B = problems.problem_inputs("syr2k", (200, 130), cuda)
+    signature = shape_signature([C, A, B])
+    cfg = dict(bi=48, bj=80, bk=24, pack_a=True, pack_b=False, interchange=True)
+    shared = str(tmp_path / "shared")
+    store_a = TuningStore(str(tmp_path / "a"))
+    agent_a = SyncAgent(Replica(store_a), FileTransport(shared))
+    store_a.put(TuningRecord("syr2k", signature, "gpu", cfg, 1e-4, n_evals=8,
+                             source="campaign:hostA"))
+    store_b = TuningStore(str(tmp_path / "b"))
+    tuner = BackgroundTuner(store_b, max_workers=1, max_evals=2)
+    try:
+        svc = DispatchService(store_b, tuner=tuner)
+        agent_b = SyncAgent(Replica(store_b, service=svc), FileTransport(shared))
+        agent_a.sync_once()
+        assert agent_b.sync_once()["applied"] == 1
+        before = syr2k.launches
+        got = svc.call("syr2k", C, A, B)
+        served = svc.dispatch("syr2k", C, A, B).__wrapped__.fn.keywords["config"]
+        assert syr2k.launches == before + 1
+        assert {k: served[k] for k in cfg} == cfg
+        assert svc.stats["store_exact"] >= 1 and svc.stats["bg_enqueued"] == 0
+        assert svc.stats["sync_applied"] == 1 and tuner.stats["campaigns"] == 0
+        _close(got, syr2k_plain(C, A, B), SYR2K_TOL)
+    finally:
+        tuner.shutdown()
+
+
 def test_one_decode_step_launches_the_kernels(cuda):
     import dataclasses
 
