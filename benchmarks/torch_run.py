@@ -13,9 +13,10 @@ Knobs (environment, as the JAX package's):
                        also "kernel_tuning" and "learners")
 
 A table that raises prints an ERROR row and the run goes on with the
-others, then exits non-zero. The JAX package's roofline rows
-(``benchmarks/roofline_table.py``) wait for the port's ``perf/`` (ROADMAP
-Queue 1, item 7); this entry point does not print them.
+others, then exits non-zero. The roofline rows come last, as the JAX
+package's: ``benchmarks/torch_roofline_table.py``'s CSV rows of the
+dry-run's results (``python -m repro_torch.launch.dryrun``; none until a
+dry-run has written them).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ def main(argv=None) -> int:
     from benchmarks import torch_tables
     from benchmarks.torch_kernel_tuning import tune_all
     from benchmarks.torch_learners import learner_comparison
+    from benchmarks.torch_roofline_table import csv_rows
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0], epilog=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -51,7 +53,8 @@ def main(argv=None) -> int:
     parts = [(fn.__name__, lambda fn=fn: fn(args.device, evals, learner))
              for fn in torch_tables.ALL_TABLES]
     parts += [("kernel_tuning", lambda: tune_all(max(evals, 40), device=args.device)),
-              ("learners", lambda: learner_comparison(evals, args.device))]
+              ("learners", lambda: learner_comparison(evals, args.device)),
+              ("roofline", lambda: [Row(*r) for r in csv_rows()])]
     t_start = time.time()
     results, failed = {}, []
     for name, run in parts:

@@ -203,6 +203,31 @@ checks each kernel on the card:
      sampled configs that the gpu target accepts (warned ones first) of
      each PolyBench kernel launched and held against the plain version,
      and `launch.analyze lint`: 0 findings over src/repro_torch.
+ 16. parallelism, the roofline and the dry-run (no kernel of the table on
+     this path; the launch counts set to 0 just before and read just after):
+     (a) `python -m repro_torch.launch.dryrun` in subprocesses on the CPU,
+     a fake world of 256 / 512 ranks each: qwen2-0.5b's train_4k,
+     prefill_32k and decode_32k on the 16x16 mesh and one cell of every
+     other family at full width and full depth (mamba2-780m and gemma3-1b
+     on 2x16x16), each row's dominant term and bound, roofline fraction,
+     6ND/counted, collective bytes by kind, peak per device and fits_card
+     (the card's memory), then `benchmarks/torch_roofline_table.py` over
+     them; (b) phase 12's step (qwen2-0.5b, batch 8 x 512, full depth, f32)
+     with its params and AdamW moments as DTensors on `local_mesh("cuda")`
+     (NCCL, world 1) and act_spec/logits_spec, 3 steps' losses against the
+     plain step's (1e-6 relative), ms a step beside the plain step's, and
+     `perf.op_cost.trace_step` of one plain step: FLOPs beside the closed
+     form, bytes, the roofline bound with the card's figures beside the
+     measured ms; (c) `ft.compression.compressed_psum` over NCCL with each
+     payload (the wire dtype read from the counted c10d call), and
+     `benchmarks/torch_compression_bench.py`'s bytes per parameter; (d)
+     `benchmarks/torch_hillclimb.py --probe` on qwen2-0.5b train_4k (16x16,
+     full width and full depth; its rows in 3 worker processes) and a
+     4-evaluation campaign through CostModelEvaluator (2 in flight), then
+     `benchmarks/torch_flash_adjust.py` on the probe's JSON. The
+     subprocesses of (a) and (c) run beside (b); (d)'s start before phase
+     10 and run beside phases 10-13, and phase 14 starts after they end
+     (its timed gates run on a quiet host).
 
 Phases 3 and 4 also hold flash_attention and decode_attention against their
 plain versions at LARGE, at head_dim 256, at head sizes between the
@@ -231,6 +256,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -427,6 +453,23 @@ TUNE = dict(offline_evals=12, warm_evals=3, bg_evals=8, epsilon=0.25, challenger
 # the most that `gpu` accepts launched (warned ones first)
 FLEET = dict(bg_evals=8, calls=3, mm3_slow=dict(bm=16, bn=16), audit_samples=128,
              candidates=64, launch_configs=4, seed=1234)
+# phase 16: (a) the dry-run's cells (arch, shape, multi-pod): qwen2-0.5b's
+# three on 16x16, one of every other family, two of them on 2x16x16, all at
+# full width and full depth, at most DRYRUN_PROCS at once; (b) phase 12's
+# step on the card's own mesh, 3 steps; the losses against the plain step's;
+# (d) the hillclimb's cell (full width, full depth), campaign length and
+# worker processes (the probe's rows, the campaign's evaluations in flight)
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k", False), ("qwen2-0.5b", "prefill_32k", False),
+                ("qwen2-0.5b", "decode_32k", False), ("mixtral-8x7b", "decode_32k", False),
+                ("deepseek-v2-236b", "decode_32k", False),
+                ("mamba2-780m", "decode_32k", True), ("zamba2-1.2b", "decode_32k", False),
+                ("qwen2-vl-7b", "decode_32k", False), ("whisper-large-v3", "decode_32k", False),
+                ("gemma3-1b", "prefill_32k", True))
+DRYRUN_PROCS = 4
+DTENSOR_STEPS = 3
+DTENSOR_LOSS_RTOL = 1e-6
+HILLCLIMB = dict(arch="qwen2-0.5b", shape="train_4k", evals=4, probe_parallel=3,
+                 campaign_parallel=2)
 # (kernel, evaluations) of phase 5; heat3d's space has 12 points
 CAMPAIGNS = (("syr2k", 60), ("mm3", 40), ("lu", 30), ("covariance", 30),
              ("floyd_warshall", 30), ("heat3d", 12))
@@ -3532,6 +3575,344 @@ def fleet_phase(launches: dict, dev) -> None:
     print(f"  phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
 
 
+def spawn(argv: list[str], log: str, **env_vars) -> subprocess.Popen:
+    """A CPU-side subprocess of phase 16 from the repository's root (the
+    port's package and the benchmarks importable), its output to ``log``."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, ROOT]), **env_vars)
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env, stdout=f,
+                                stderr=subprocess.STDOUT)
+
+
+def finished(proc: subprocess.Popen, log: str, what: str, timeout: float = 600) -> str:
+    """Wait for ``proc`` and return its output (without torch's warning lines);
+    raise with the output's end if it failed."""
+    rc = proc.wait(timeout=timeout)
+    with open(log) as f:
+        out = "".join(ln for ln in f if not ln.startswith("[rank0]:W"))
+    if rc != 0:
+        raise AssertionError(f"{what} exited {rc}:\n{out[-3000:]}")
+    return out
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dtensor_step(dev) -> None:
+    """Phase 16 (b): phase 12's step with DTensor params on the card's own
+    mesh against the plain step, and the counted cost of a plain step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.launch.mesh import local_mesh
+    from repro_torch.models import init_params, trainable
+    from repro_torch.parallel import Spec, batch_specs, distribute, make_profile, param_specs
+    from repro_torch.parallel.sharding import named
+    from repro_torch.perf.op_cost import trace_step
+    from repro_torch.perf.roofline import analyze_step, hardware
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    a = TRAIN
+    cfg = dataclasses.replace(get_config(a["arch"]), dtype=torch.float32)
+    params = trainable(init_params(cfg, torch.Generator(device=dev).manual_seed(a["seed"])))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    stream = SyntheticLM(cfg.vocab_size, a["seq"], a["batch"], seed=a["seed"])
+    batches = [make_batch(stream, s, dev) for s in range(DTENSOR_STEPS)]
+    step_p = make_train_step(cfg, lr=a["lr"])
+    with local_mesh(dev) as mesh:
+        prof = make_profile(mesh, "train", a["batch"])
+        p_specs = param_specs(params, mesh, prof, cfg)
+        params_d = distribute(tree_map(torch.clone, params), mesh, p_specs)
+        opt_d = distribute(init_train_state(params), mesh,
+                           {"m": p_specs, "v": p_specs, "step": Spec()})
+        act = named(mesh, Spec(prof.batch_axes, None, None))
+        logits = named(mesh, Spec(prof.batch_axes, None, "model"))
+        step_d = make_train_step(cfg, lr=a["lr"], act_spec=act, logits_spec=logits)
+        print(f"  local mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} over "
+              f"{torch.distributed.get_backend()}, world {torch.distributed.get_world_size()}; "
+              f"embed placed {params_d['embed'].placements}, act_spec {act}, "
+              f"logits_spec {logits}", flush=True)
+        opt_p = init_train_state(params)
+        ms = {"plain": [], "dtensor": []}
+        for i, b in enumerate(batches):
+            b_d = distribute(b, mesh, batch_specs(b, mesh, prof))
+            losses = {}
+            for name, run in (("plain", lambda: step_p(params, opt_p, b)),
+                              ("dtensor", lambda: step_d(params_d, opt_d, b_d))):
+                sync(dev)
+                t0 = time.perf_counter()
+                _, _, m = run()
+                loss = m["loss"]
+                losses[name] = float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                                     else loss)
+                sync(dev)
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+            rel = abs(losses["dtensor"] - losses["plain"]) / abs(losses["plain"])
+            print(f"  step {i}: loss plain {losses['plain']:.7f} dtensor "
+                  f"{losses['dtensor']:.7f} (rel {rel:.2e}, tol {DTENSOR_LOSS_RTOL:g}); ms "
+                  f"plain {ms['plain'][-1]:.1f} dtensor {ms['dtensor'][-1]:.1f}", flush=True)
+            if not rel <= DTENSOR_LOSS_RTOL:
+                raise AssertionError(f"phase 16: the DTensor step's loss is {rel:.2e} off "
+                                     f"the plain step's")
+        del params_d, opt_d
+    steady = {k: statistics.median(v[1:]) for k, v in ms.items()}
+    print(f"  ms a step after the first: plain {steady['plain']:.1f}, DTensor on the local "
+          f"mesh {steady['dtensor']:.1f} ({steady['dtensor'] / steady['plain']:.3f}x)",
+          flush=True)
+    sync(dev)
+    t0 = time.perf_counter()
+    trace = trace_step(step_p, params, opt_p, batches[0])
+    sync(dev)
+    counted_ms = (time.perf_counter() - t0) * 1e3
+    hw = hardware(torch.float32)
+    rep = analyze_step(trace.cost, 1, trace.peak_bytes, None, hw)
+    closed = train_flops(cfg, n_params, a["batch"], a["seq"])
+    print(f"  trace_step of one plain step ({trace.ops} ops, {counted_ms:.0f} ms with the "
+          f"counter on): {trace.cost.flops:.4e} FLOPs (closed form {closed:.4e}, "
+          f"{trace.cost.flops / closed:.3f}x), {trace.cost.bytes:.4e} bytes, collectives "
+          f"{trace.collectives.summary()}", flush=True)
+    print(f"  roofline on {hw.name} (f32 FFMA {hw.peak_flops:.3g} FLOP/s, HBM "
+          f"{hw.hbm_bw:.3g} B/s): compute {rep.compute_sec * 1e3:.1f} ms, memory "
+          f"{rep.memory_sec * 1e3:.1f} ms -> bound {rep.bound_sec * 1e3:.1f} ms "
+          f"({rep.dominant}) against {steady['plain']:.1f} ms measured "
+          f"({rep.bound_sec * 1e3 / steady['plain']:.2f} of it)", flush=True)
+    if not math.isfinite(trace.cost.flops) or trace.cost.flops < closed * 0.8:
+        raise AssertionError(f"phase 16: counted FLOPs {trace.cost.flops:.4e} below the "
+                             f"closed form {closed:.4e}")
+
+
+def compression_on_card(dev) -> None:
+    """Phase 16 (c): compressed_psum over NCCL with each payload, the wire
+    dtype read from the counted c10d call."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.ft.compression import compressed_psum
+    from repro_torch.launch.mesh import local_mesh
+    from repro_torch.perf.op_cost import trace_step
+
+    x = torch.randn(1 << 20, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    with local_mesh(dev):
+        for name, dtype in (("f32", None), ("bf16", torch.bfloat16), ("int8", torch.int8)):
+            if dtype is None:
+                def fn(v):
+                    v = v.clone()
+                    dist.all_reduce(v)
+                    return v
+            else:
+                def fn(v, dtype=dtype):
+                    return compressed_psum(v, dtype=dtype)
+            tr = trace_step(fn, x)
+            y = tr.result
+            sync(dev)
+            err = float((y - x).abs().max())
+            wire = tr.payload_dtypes.get("all-reduce", [])
+            want = {"f32": "float32", "bf16": "bfloat16", "int8": "int8"}[name]
+            bound = {"f32": 0.0, "bf16": float(x.abs().max()) * 2 ** -8,
+                     "int8": float(x.abs().max()) / 127 * 0.5 + 1e-6}[name]
+            print(f"  compressed_psum {name} over NCCL (world 1): wire dtypes {wire}, "
+                  f"all-reduce {tr.cost.coll_by_kind.get('all-reduce', 0) / x.numel():.4f} "
+                  f"B/value, max |psum - x| {err:.3e} (bound {bound:.3e})", flush=True)
+            if want not in wire or err > bound:
+                raise AssertionError(f"phase 16: compressed_psum {name}: wire {wire}, "
+                                     f"error {err:.3e}")
+
+
+def phase16_dir() -> str:
+    return os.path.join(os.environ.get("CHIP_SMOKE_OUT", os.path.join(ROOT, "build")),
+                        "phase16")
+
+
+def hillclimb_start() -> dict:
+    """Phase 16 (d)'s hillclimb, started early: the probe and the campaign
+    at full width and full depth in CPU subprocesses (their evaluations in
+    worker processes), which run beside phases 10-13 and are joined before
+    phase 14's timed gates (:func:`hillclimb_join`); phase 16 reads them.
+    Every process they start is stopped when this script exits."""
+    import atexit
+    import glob
+
+    out = phase16_dir()
+    os.makedirs(out, exist_ok=True)
+    for f in glob.glob(os.path.join(out, "*.json")):
+        os.remove(f)
+    h = HILLCLIMB
+    side = {
+        "probe": spawn(["-m", "benchmarks.torch_hillclimb", "--arch", h["arch"], "--shape",
+                        h["shape"], "--probe", "--parallel", str(h["probe_parallel"]),
+                        "--out", os.path.join(out, "hillclimb_probe.json")],
+                       os.path.join(out, "probe.log")),
+        "campaign": spawn(["-m", "benchmarks.torch_hillclimb", "--arch", h["arch"],
+                           "--shape", h["shape"], "--evals", str(h["evals"]), "--parallel",
+                           str(h["campaign_parallel"]), "--out",
+                           os.path.join(out, "hillclimb.json")],
+                          os.path.join(out, "campaign.log")),
+    }
+    side["t0"] = time.perf_counter()
+
+    def stop():
+        for proc in (side["probe"], side["campaign"]):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(stop)
+    print(f"  phase 16 (d): the hillclimb's probe and campaign ({h['arch']} {h['shape']}, "
+          f"full width and full depth) start in CPU subprocesses beside phases 10-13",
+          flush=True)
+    return side
+
+
+def hillclimb_join(side: dict) -> None:
+    """Wait for the hillclimb's subprocesses (before phase 14's timed gates)."""
+    t = time.perf_counter()
+    for what in ("probe", "campaign"):
+        side[what].wait(timeout=900)
+    now = time.perf_counter()
+    print(f"  phase 16 (d): the hillclimb's subprocesses ended {now - side['t0']:.1f} s "
+          f"after they started ({now - t:.1f} s waited for here)", flush=True)
+
+
+def parallel_phase(launches: dict, dev, hill: dict) -> None:
+    """Phase 16: the dry-run at the production meshes, the card's own mesh,
+    compression and the knobs' hillclimb (see the module docstring; the
+    hillclimb ran beside phases 10-13, ``hill``). No kernel of the table is
+    on this path: its launch counts (0) are added to ``launches``."""
+    from repro_torch.kernels import (
+        covariance,
+        decode_attention,
+        flash_attention,
+        floyd_warshall,
+        heat3d,
+        lu,
+        matmul,
+        syr2k,
+    )
+
+    wrappers = [syr2k.syr2k, matmul.tiled_matmul, covariance.covariance,
+                floyd_warshall.minplus_update, floyd_warshall.closure_in_block, heat3d.heat3d,
+                lu.lu_factor_diag, flash_attention.flash_attention,
+                decode_attention.decode_attention]
+    for w in wrappers:
+        w.launches = 0
+    t16 = time.perf_counter()
+    out = phase16_dir()
+    probe_json = os.path.join(out, "hillclimb_probe.json")
+    side = {
+        "probe": hill["probe"], "campaign": hill["campaign"],
+        "compression": spawn(["-m", "benchmarks.torch_compression_bench", "--out",
+                              os.path.join(out, "compression.json")],
+                             os.path.join(out, "compression.log")),
+    }
+    cells, running = list(DRYRUN_CELLS), []
+
+    def top_up():
+        while cells and sum(p.poll() is None for *_, p in running) < DRYRUN_PROCS:
+            arch, shape, mp = cells.pop(0)
+            name = f"{arch}_{shape}_{'2x16x16' if mp else '16x16'}"
+            log = os.path.join(out, f"dryrun_{name}.log")
+            running.append((name, log, time.perf_counter(), spawn(
+                ["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                 *(["--multi-pod"] if mp else []), "--force", "--out",
+                 os.path.join(out, f"dryrun_{name}.json")], log)))
+
+    try:
+        parallel_parts(dev, out, side, cells, running, top_up, probe_json)
+    finally:  # stop every subprocess this phase started, also when a part failed
+        for proc in [*side.values(), *(p for *_, p in running)]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    counts = {w.__name__: w.launches for w in wrappers}
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"  launches over phase 16: {counts} (no kernel of the table on this path)")
+    print(f"  phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
+
+
+def parallel_parts(dev, out: str, side: dict, cells: list, running: list, top_up,
+                   probe_json: str) -> None:
+    """Phase 16's parts in order, while the subprocesses run."""
+    import glob
+    import json as _json
+
+    h = HILLCLIMB
+    top_up()
+    print("  (b) phase 12's step on the card's own mesh, DTensor against plain "
+          "(the dry-run's subprocesses run meanwhile)", flush=True)
+    dtensor_step(dev)
+    print("  (c) compression on the card", flush=True)
+    compression_on_card(dev)
+    print("  (a) the dry-run at the production meshes (CPU subprocesses, fake worlds of "
+          "256 / 512 ranks; rows traced without the card's compute, with its memory)",
+          flush=True)
+    i = 0
+    while i < len(running) or cells:
+        top_up()
+        name, log, t0, proc = running[i]
+        text = finished(proc, log, f"dryrun {name}")
+        rows = [ln for ln in text.splitlines() if ln.startswith("[ok]") or
+                ln.startswith("[error]") or ln.startswith("[skipped]")]
+        print(f"  {rows[-1] if rows else text[-400:]} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        i += 1
+    merged = []
+    for f in sorted(glob.glob(os.path.join(out, "dryrun_*.json"))):
+        with open(f) as fh:
+            merged += _json.load(fh)
+    bad = [r for r in merged if r["status"] != "ok"]
+    if bad or len(merged) != len(DRYRUN_CELLS):
+        raise AssertionError(f"phase 16: dry-run rows not ok: {bad}")
+    kinds = {r["shape"].split("_")[0] for r in merged}
+    meshes = {r["mesh"] for r in merged}
+    if not ({"train", "prefill", "decode"} <= kinds and {"16x16", "2x16x16"} <= meshes):
+        raise AssertionError(f"phase 16: the dry-run covers kinds {kinds}, meshes {meshes}")
+    table = os.path.join(out, "dryrun_torch.json")
+    with open(table, "w") as fh:
+        _json.dump(merged, fh, indent=1)
+    for mesh in ("16x16", "2x16x16"):
+        text = finished(spawn(["-m", "benchmarks.torch_roofline_table", mesh],
+                              os.path.join(out, f"table_{mesh}.log"),
+                              REPRO_TORCH_DRYRUN_JSON=table),
+                        os.path.join(out, f"table_{mesh}.log"), "roofline_table")
+        print(f"  benchmarks/torch_roofline_table.py {mesh} (H100 figures):")
+        print("\n".join("    " + ln for ln in text.splitlines()), flush=True)
+    print("  (c) benchmarks/torch_compression_bench.py (fake world of 8):", flush=True)
+    text = finished(side["compression"], os.path.join(out, "compression.log"), "compression")
+    print("\n".join("    " + ln for ln in text.splitlines()), flush=True)
+    with open(os.path.join(out, "compression.json")) as fh:
+        per = {k: v["bytes_per_param"] for k, v in _json.load(fh).items()}
+    if not (3.9 < per["f32"] < 4.1 and 1.9 < per["bf16"] < 2.1 and 0.9 < per["int8"] < 1.1):
+        raise AssertionError(f"phase 16: compression bytes per parameter {per}")
+    print("  (d) benchmarks/torch_hillclimb.py --probe and a campaign through "
+          "CostModelEvaluator (full width, full depth; evaluations in worker processes):",
+          flush=True)
+    for what, payload in (("probe", probe_json), ("campaign",
+                                                  os.path.join(out, "hillclimb.json"))):
+        log = os.path.join(out, f"{what}.log")
+        text = finished(side[what], log, f"hillclimb {what}")
+        print("\n".join("    " + ln for ln in text.splitlines()[-8:]), flush=True)
+        with open(payload) as fh:
+            failed = [r for r in _json.load(fh)["log"] if "error" in r]
+        if failed:  # a configuration that cannot be traced is a fault of the port
+            raise AssertionError(f"phase 16: hillclimb {what}: {failed[0]['error']}")
+    text = finished(spawn(["-m", "benchmarks.torch_flash_adjust", "--arch", h["arch"],
+                           "--hillclimb-json", probe_json, "--out",
+                           os.path.join(out, "flash_adjust.json")],
+                          os.path.join(out, "flash_adjust.log")),
+                    os.path.join(out, "flash_adjust.log"), "flash_adjust")
+    print("  benchmarks/torch_flash_adjust.py on the probe's baseline:")
+    print("\n".join("    " + ln for ln in text.splitlines()), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4220,6 +4601,8 @@ def main() -> int:
           "study (benchmarks/torch_tables.py, benchmarks/torch_learners.py)")
     tables_phase(launches, best_check)
 
+    hill = hillclimb_start()
+
     # ---- 10. the MoE family ----------------------------------------------------------
     phase("10. the MoE family on the card: mixtral-8x7b and deepseek-v2-236b at full width, "
           "depth cut, f32, through greedy_decode and the dispatch service")
@@ -4241,6 +4624,7 @@ def main() -> int:
     phase("13. the audio family on the card: whisper-large-v3 at full width and full depth, "
           "f32, served through greedy_decode and the dispatch service, and trained")
     audio_phase(launches, dev)
+    hillclimb_join(hill)
 
     # ---- 14. serving under load -----------------------------------------------------------
     phase("14. serving under load: benchmarks/torch_serve_bench.py at full width (einsum, "
@@ -4253,6 +4637,12 @@ def main() -> int:
           "with zero local evaluations (file and HTTP transports), a hot swap and a "
           "quarantine, launch.analyze space and lint")
     fleet_phase(launches, dev)
+
+    # ---- 16. parallelism, the roofline and the dry-run ----------------------------------
+    phase("16. parallelism, the roofline and the dry-run: launch.dryrun at the production "
+          "meshes, phase 12's step as DTensors on the card's own mesh, compression over "
+          "NCCL, the knobs' hillclimb")
+    parallel_phase(launches, dev, hill)
 
     def entry(name, source, replaces):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",

@@ -7,6 +7,7 @@ from repro_torch.core.findmin import find_min, importance_report
 from repro_torch.core.plopper import (
     PENALTY,
     ConfigRejected,
+    CostModelEvaluator,
     DeadlineEvaluator,
     EvalResult,
     TimingEvaluator,
@@ -42,7 +43,8 @@ __all__ = [
     "GaussianProcess", "make_learner", "LEARNERS",
     "lcb", "expected_improvement", "make_acquisition",
     "PerformanceDatabase", "Record",
-    "EvalResult", "TimingEvaluator", "DeadlineEvaluator", "ConfigRejected", "PENALTY",
+    "EvalResult", "TimingEvaluator", "CostModelEvaluator", "DeadlineEvaluator",
+    "ConfigRejected", "PENALTY",
     "BayesianSearch", "SearchResult", "run_search",
     "autotune", "compare_learners", "find_min", "importance_report",
 ]

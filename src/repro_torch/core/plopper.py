@@ -6,6 +6,8 @@ In the paper the plopper substitutes ``#P0..#Pm`` into a code mold, invokes
 configuration — and :class:`TimingEvaluator` runs and times it: with CUDA
 events when the arguments live on the card (:class:`LaunchClock`, the clock
 the guard's shadow samples use too), with ``perf_counter`` on the CPU.
+:class:`CostModelEvaluator` (backend B2) scores a configuration without
+running it: the roofline bound of a traced step (``repro_torch.perf``).
 
 Failure contract. Only a configuration the kernel wrapper refuses *before*
 launch (:class:`ConfigRejected`: a tile whose shared memory exceeds the
@@ -22,12 +24,14 @@ import dataclasses
 import statistics
 import threading
 import time
+import traceback
 from typing import Any, Callable, Mapping
 
 import torch
 
 __all__ = [
     "ConfigRejected",
+    "CostModelEvaluator",
     "EvalResult",
     "LaunchClock",
     "TimingEvaluator",
@@ -208,6 +212,45 @@ class TimingEvaluator:
             fn(*args)
             times.append(time.perf_counter() - t0)
         return times
+
+
+def _score_planned(built) -> tuple[float, dict]:
+    from repro_torch.perf.roofline import score_cell  # lazy: perf imports the models
+
+    plan, mesh = built
+    return score_cell(plan, mesh)
+
+
+class CostModelEvaluator:
+    """Backend B2: the roofline score of a traced step (nothing runs on a
+    device).
+
+    ``factory(config)`` must return a *thunk* that builds the cell to score
+    (by default a ``(CellPlan, mesh)`` pair, ``launch.cells.plan_cell``), so
+    that building it happens inside the failure guard. ``score(built) ->
+    (seconds, info)`` defaults to the roofline bound of the traced cell
+    (``perf.roofline.score_cell``); injectable for tests. A failure while
+    building or scoring becomes a penalty record, as in the reference: one
+    configuration that cannot be traced must not end a campaign.
+    """
+
+    def __init__(self, factory: Callable[[Mapping[str, Any]], Callable[[], Any]],
+                 score: Callable[[Any], tuple[float, dict]] | None = None,
+                 penalty: float = PENALTY):
+        self.factory = factory
+        self.score = score or _score_planned
+        self.penalty = penalty
+
+    def __call__(self, config: Mapping[str, Any]) -> EvalResult:
+        try:
+            thunk = self.factory(config)
+            seconds, info = self.score(thunk())
+            return EvalResult(float(seconds), True, info)
+        except Exception as e:  # noqa: BLE001 — any failure becomes a penalty
+            return EvalResult(
+                self.penalty, False,
+                {"error": f"{type(e).__name__}: {e}", "trace": traceback.format_exc(limit=3)},
+            )
 
 
 class DeadlineEvaluator:

@@ -3,8 +3,8 @@ copy of ``repro.ft.elastic``.
 
 A shrink/regrow is: pick a new shape from the allowed ladder, rebuild the
 step for it, restore the last checkpoint, continue. This module holds the
-planning logic (pure, unit-testable); the port has no mesh yet (ROADMAP.md
-Queue 1, item 7)."""
+planning logic (pure, unit-testable); ``launch.mesh.make_mesh_from_plan``
+builds a plan's DeviceMesh over the world that exists."""
 
 from __future__ import annotations
 

@@ -47,7 +47,8 @@ from repro_torch.kernels.ops import config_of
 from repro_torch.kernels.util import cdiv
 
 __all__ = ["Hopper", "H100_SXM5", "hopper", "kernel_cost", "KERNEL_COST_FNS",
-           "FFMA_FLOPS", "TF32X3_FLOPS", "MINMAX_OPS", "HBM_BYTES_PER_SEC",
+           "FFMA_FLOPS", "TF32X3_FLOPS", "BF16_FLOPS", "MINMAX_OPS", "HBM_BYTES_PER_SEC",
+           "HBM_BYTES", "NVLINK_BYTES_PER_SEC",
            "L2_BYTES_PER_SEC", "LAUNCH_SEC", "PASS_SEC"]
 
 # the H100 SXM5's peaks, the bounds' figures (PERF.md): f32 FFMA on the CUDA
@@ -57,6 +58,14 @@ FFMA_FLOPS = 67e12
 TF32X3_FLOPS = 165e12
 MINMAX_OPS = 16.75e12
 HBM_BYTES_PER_SEC = 3.35e12
+# the figures of a model step's three-term bound (the ``perf`` package),
+# from NVIDIA's H100 SXM5 data sheet: the dense bf16 tensor-core peak (989 TFLOP/s, no
+# sparsity), the card's 80 GB (the card's own total_memory replaces it at
+# run time), and NVLink's 900 GB/s a card, both directions together: 450 GB/s
+# a direction
+BF16_FLOPS = 989e12
+HBM_BYTES = 80e9
+NVLINK_BYTES_PER_SEC = 4.5e11  # 450 GB/s
 # model parameters, not measured peaks: L2's read rate (about 5.5 TB/s on
 # an H100 by public microbenchmarks); the host's share of one launch issued
 # from Python (lu's 410 device kernels a call take 7.5-10.5 ms, about 18 us
@@ -96,6 +105,9 @@ class Hopper:
     tf32x3_flops: float = TF32X3_FLOPS
     minmax_ops: float = MINMAX_OPS
     hbm_bytes_per_sec: float = HBM_BYTES_PER_SEC
+    bf16_flops: float = BF16_FLOPS
+    hbm_bytes: float = HBM_BYTES
+    nvlink_bytes_per_sec: float = NVLINK_BYTES_PER_SEC
     l2_bytes_per_sec: float = L2_BYTES_PER_SEC
     launch_sec: float = LAUNCH_SEC
     pass_sec: float = PASS_SEC
@@ -121,7 +133,8 @@ def _card(index: int) -> Hopper:
         smem_per_block=max_shared_memory_per_block(torch.device("cuda", index)),
         smem_per_sm=int(getattr(props, "shared_memory_per_multiprocessor",
                                 H100_SXM5.smem_per_sm)),
-        l2_bytes=int(getattr(props, "L2_cache_size", H100_SXM5.l2_bytes)))
+        l2_bytes=int(getattr(props, "L2_cache_size", H100_SXM5.l2_bytes)),
+        hbm_bytes=float(props.total_memory))
 
 
 def hopper() -> Hopper:

@@ -39,7 +39,8 @@ from repro_torch.kernels.util import (
 )
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_smem_bytes",
-           "flash_attention_check", "flash_attention_head_size"]
+           "flash_attention_check", "flash_attention_head_size", "flash_hbm_bytes",
+           "xla_attention_hbm_bytes"]
 
 _NEG = -1.0e30
 DTYPES = (torch.float32, torch.bfloat16)
@@ -174,3 +175,33 @@ def flash_attention(
 
 
 flash_attention.launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+
+
+def flash_hbm_bytes(B: int, H: int, Kh: int, Sq: int, Sk: int, hd: int,
+                    dtype_bytes: int = 4, bq: int = 128, bk: int = 128,
+                    causal: bool = False) -> float:
+    """HBM bytes of this kernel over B sequences of H query heads (Kh kv
+    heads): Q read and O written once, and K and V streamed once per q tile
+    and query head, at the kernel's padded head size and its tiles. The
+    service path runs the kernel once per query head of a kv group
+    (``models.attention._service_attention``), so a kv head's K/V cross HBM
+    once per query head it serves, and Kh does not lower the count (the
+    reference's Pallas kernel reads a kv head once for its group). Under
+    the causal mask a q tile reads the key blocks up to the diagonal
+    only."""
+    hdk = flash_attention_head_size(hd)
+    bq, bk = _tiles(Sq, Sk, bq, bk)
+    keys = sum(min(Sk, cdiv(min((i + 1) * bq, Sq), bk) * bk) if causal else Sk
+               for i in range(cdiv(Sq, bq)))
+    q_io = 2 * B * H * Sq * hdk * dtype_bytes            # read q + write o
+    kv_io = 2 * B * H * keys * hdk * dtype_bytes         # k + v per q tile sweep
+    return float(q_io + kv_io)
+
+
+def xla_attention_hbm_bytes(B: int, H: int, Sq: int, Sk: int, hd: int,
+                            dtype_bytes: int = 4, n_passes: int = 6) -> float:
+    """The materializing path, analytically: score tensors cross HBM
+    ~n_passes times (matmul out, mask, softmax in/out, backward twice), the
+    reference's formula. ``benchmarks/torch_flash_adjust.py`` counts the
+    port's chunked path instead (``perf.op_cost.step_cost``)."""
+    return float(n_passes * B * H * Sq * Sk * dtype_bytes)

@@ -3,6 +3,7 @@ and audio families (the counterpart of ``repro.models``)."""
 
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.model import (
+    abstract_params,
     decode_step,
     forward,
     init_cache,
@@ -12,5 +13,5 @@ from repro_torch.models.model import (
     trainable,
 )
 
-__all__ = ["ArchConfig", "decode_step", "forward", "init_cache", "init_params", "loss_fn",
-           "tied_unembed", "trainable"]
+__all__ = ["ArchConfig", "abstract_params", "decode_step", "forward", "init_cache",
+           "init_params", "loss_fn", "tied_unembed", "trainable"]

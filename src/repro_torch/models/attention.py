@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.decode_attention import CacheRows
+from repro_torch.models.common import einsum, replicate_like, reshape
 
 __all__ = ["gqa_attention", "gqa_decode", "make_positions"]
 
@@ -115,7 +116,7 @@ def gqa_attention(
     cdt = torch.float32 if f32 else q.dtype
     neg = _NEG if f32 else -6.0e4  # bf16-safe mask value
 
-    qg = q.reshape(B, Sq, K, G, hd)
+    qg = reshape(q, B, Sq, K, G, hd)
     kpos = torch.arange(Sk, device=q.device)
     kc, vc = k.to(cdt), v.to(cdt)
     chunk = min(chunk, Sq)
@@ -123,12 +124,12 @@ def gqa_attention(
     for q0 in range(0, Sq, chunk):
         qblk = qg[:, q0:q0 + chunk]
         qpos = torch.arange(q0, q0 + qblk.shape[1], device=q.device)
-        s = torch.einsum("bqkgh,bskh->bkgqs", qblk.to(cdt), kc) * scale
-        m = _mask(qpos, kpos, causal=causal, window=window)
+        s = einsum("bqkgh,bskh->bkgqs", qblk.to(cdt), kc) * scale
+        m = replicate_like(_mask(qpos, kpos, causal=causal, window=window), s)
         s = torch.where(m, s, torch.tensor(neg, dtype=cdt, device=q.device))
         p = torch.softmax(s.float(), dim=-1).to(cdt)
-        outs.append(torch.einsum("bkgqs,bskh->bqkgh", p, vc).to(q.dtype))
-    return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
+        outs.append(einsum("bkgqs,bskh->bqkgh", p, vc).to(q.dtype))
+    return reshape(torch.cat(outs, dim=1), B, Sq, H, hd)
 
 
 def gqa_decode(
@@ -161,8 +162,8 @@ def gqa_decode(
     G = H // K
     scale = scale if scale is not None else hd ** -0.5
 
-    qg = q.reshape(B, K, G, hd)
-    s = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float()) * scale
+    qg = reshape(q, B, K, G, hd)
+    s = einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float()) * scale
     slots = torch.arange(S, device=q.device)
     # (B|1, 1) per-row positions: a scalar broadcasts over the batch
     cpb = torch.as_tensor(cur_pos, device=q.device).reshape(-1)[:, None]
@@ -173,7 +174,7 @@ def gqa_decode(
     valid = (kpos <= cpb) & (kpos >= 0)
     if window is not None and int(window) > 0:
         valid &= (cpb - kpos) < int(window)
-    s = torch.where(valid[:, None, None, :], s, _NEG)
+    s = torch.where(replicate_like(valid[:, None, None, :], s), s, _NEG)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype).float(), v_cache.float())
-    return o.reshape(B, 1, H, hd).to(q.dtype)
+    o = einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype).float(), v_cache.float())
+    return reshape(o, B, 1, H, hd).to(q.dtype)

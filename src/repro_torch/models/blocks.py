@@ -18,8 +18,12 @@ import torch
 from repro_torch.models.attention import gqa_attention, gqa_decode
 from repro_torch.models.common import (
     ArchConfig,
+    constrain,
     dense_init,
+    matmul,
     mrope,
+    replicate_like,
+    reshape,
     rms_norm,
     rope,
     service_matmul,
@@ -91,14 +95,14 @@ def init_attn_layer(generator: torch.Generator, cfg: ArchConfig, *, moe: bool = 
 def _qkv(p, h, cfg, positions):
     B, S, _ = h.shape
     hd = cfg.hd
-    q = h @ p["wq"]
-    k = h @ p["wk"]
-    v = h @ p["wv"]
+    q = matmul(h, p["wq"])
+    k = matmul(h, p["wk"])
+    v = matmul(h, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, cfg.n_heads, hd).to(cfg.dtype)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd).to(cfg.dtype)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd).to(cfg.dtype)
+    q = reshape(q, B, S, cfg.n_heads, hd).to(cfg.dtype)
+    k = reshape(k, B, S, cfg.n_kv_heads, hd).to(cfg.dtype)
+    v = reshape(v, B, S, cfg.n_kv_heads, hd).to(cfg.dtype)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -122,12 +126,15 @@ def _ffn(p, x, cfg: ArchConfig, moe: bool):
 
 
 def attn_layer_train(p, x, *, cfg: ArchConfig, positions, window=None, moe: bool = False,
-                     causal: bool = True, chunk: int = 512, service=None):
+                     causal: bool = True, chunk: int = 512, service=None, act_spec=None):
     """Returns (x, aux) after the layer. positions: (B, S) or (B, 3, S) for
     M-RoPE; window: this layer's window (0 = full attention). ``service``
     routes GQA attention and its output projection through
     :mod:`repro_torch.dispatch` tuned variants; MLA and the experts stay
-    plain tensor operations, as in the JAX package."""
+    plain tensor operations, as in the JAX package. ``act_spec`` (DTensor
+    placements) pins the residual stream after the attention half too: DTensor
+    places each operator on its own, and without the pin it shards the FFN's
+    input over ``model`` and all-reduces the FFN's hidden activations."""
     h = rms_norm(x, p["ln1"])
     if cfg.attn_type == "mla":
         x = x + mla_attention(p["mla"], h, cfg,
@@ -140,7 +147,8 @@ def attn_layer_train(p, x, *, cfg: ArchConfig, positions, window=None, moe: bool
         o = gqa_attention(q, k, v, causal=causal, window=window, chunk=chunk,
                           f32=cfg.attn_f32, service=svc_attn)
         B, S = x.shape[:2]
-        x = x + service_matmul(o.reshape(B, S, -1), p["wo"], service)
+        x = x + service_matmul(reshape(o, B, S, -1), p["wo"], service)
+    x = constrain(x, act_spec)
     y, aux = _ffn(p, rms_norm(x, p["ln2"]), cfg, moe)
     return x + y, aux
 
@@ -153,7 +161,7 @@ def _gqa_decode(p, h, cache, pos, *, cfg: ArchConfig, window, service):
     scalar = isinstance(pos, (int, np.integer))
     if scalar:  # a Python int: no host-device copy, no synchronisation
         pos = int(pos)
-        positions = torch.full((B, 1), pos, device=h.device)
+        positions = replicate_like(torch.full((B, 1), pos, device=h.device), h)
     else:
         pos = torch.as_tensor(pos, device=h.device).reshape(-1).expand(B)
         positions = pos[:, None]
@@ -176,7 +184,7 @@ def _gqa_decode(p, h, cache, pos, *, cfg: ArchConfig, window, service):
     o = gqa_decode(q, cache["k"], cache["v"], pos,
                    window=None if svc_attn is not None else window,
                    ring=ring, service=svc_attn)
-    return service_matmul(o.reshape(B, 1, -1), p["wo"], service)
+    return service_matmul(reshape(o, B, 1, -1), p["wo"], service)
 
 
 def attn_layer_decode(p, x, cache, pos, *, cfg: ArchConfig, window=None, moe: bool = False,
@@ -247,28 +255,30 @@ def cross_kv(p, enc: torch.Tensor, cfg: ArchConfig) -> dict:
     ``dec_body``)."""
     B, Se = enc.shape[:2]
     shape = (B, Se, cfg.n_kv_heads, cfg.hd)
-    return {"k": (enc @ p["xk"]).reshape(shape).to(cfg.dtype),
-            "v": (enc @ p["xv"]).reshape(shape).to(cfg.dtype)}
+    return {"k": reshape(matmul(enc, p["xk"]), *shape).to(cfg.dtype),
+            "v": reshape(matmul(enc, p["xv"]), *shape).to(cfg.dtype)}
 
 
 def _cross_attend(p, x, enc_k, enc_v, cfg):
     B, S, _ = x.shape
     h = rms_norm(x, p["ln_x"])
-    q = (h @ p["xq"]).reshape(B, S, cfg.n_heads, cfg.hd).to(cfg.dtype)
+    q = reshape(matmul(h, p["xq"]), B, S, cfg.n_heads, cfg.hd).to(cfg.dtype)
     o = gqa_attention(q, enc_k, enc_v, causal=False, window=None)
-    return x + o.reshape(B, S, -1) @ p["xo"]
+    return x + matmul(reshape(o, B, S, -1), p["xo"])
 
 
-def cross_layer_train(p, x, enc_kv, *, cfg: ArchConfig, positions):
+def cross_layer_train(p, x, enc_kv, *, cfg: ArchConfig, positions, act_spec=None):
     """Decoder layer: causal self-attention, cross-attention to the
     encoder's K/V, MLP. Every product is plain and attention the chunked
-    path, as in the JAX package (which passes no service here)."""
+    path, as in the JAX package (which passes no service here).
+    ``act_spec`` pins the residual stream after each attention, as in
+    :func:`attn_layer_train`."""
     h = rms_norm(x, p["ln1"])
     q, k, v = _qkv(p, h, cfg, positions)
     B, S = x.shape[:2]
     o = gqa_attention(q, k, v, causal=True, window=None)
-    x = x + o.reshape(B, S, -1) @ p["wo"]
-    x = _cross_attend(p, x, enc_kv["k"], enc_kv["v"], cfg)
+    x = constrain(x + matmul(reshape(o, B, S, -1), p["wo"]), act_spec)
+    x = constrain(_cross_attend(p, x, enc_kv["k"], enc_kv["v"], cfg), act_spec)
     return x + mlp(p["mlp"], rms_norm(x, p["ln2"]))
 
 
@@ -279,10 +289,10 @@ def cross_layer_decode(p, x, cache, enc_kv, pos: int, *, cfg: ArchConfig):
     B = x.shape[0]
     pos = int(pos)
     h = rms_norm(x, p["ln1"])
-    q, k, v = _qkv(p, h, cfg, torch.full((B, 1), pos, device=x.device))
+    q, k, v = _qkv(p, h, cfg, replicate_like(torch.full((B, 1), pos, device=x.device), h))
     cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
     o = gqa_decode(q, cache["k"], cache["v"], pos)
-    x = x + o.reshape(B, 1, -1) @ p["wo"]
+    x = x + matmul(reshape(o, B, 1, -1), p["wo"])
     x = _cross_attend(p, x, enc_kv["k"], enc_kv["v"], cfg)
     return x + mlp(p["mlp"], rms_norm(x, p["ln2"])), cache

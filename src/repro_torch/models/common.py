@@ -5,13 +5,167 @@ initializers, and the architecture config schema — the counterpart of
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 __all__ = ["ArchConfig", "rms_norm", "rope", "mrope", "dense_init",
-           "service_matmul", "ACT"]
+           "service_matmul", "replicate_like", "reshape", "einsum", "matmul", "constrain",
+           "ACT"]
+
+
+def replicate_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t``, a tensor the model makes itself (a mask, positions), as a
+    DTensor replicated on ``ref``'s mesh when ``ref`` is a DTensor (DTensor
+    refuses to mix the two in one operation); ``t`` itself otherwise."""
+    if isinstance(ref, DTensor) and not isinstance(t, DTensor):
+        return DTensor.from_local(t, ref.device_mesh, [Replicate()] * ref.device_mesh.ndim,
+                                  run_check=False)
+    return t
+
+
+def _view_groups(old: tuple, new: tuple) -> list:
+    """The dims of ``old`` and ``new`` (one shape reshaped to the other) in
+    groups of equal size: [(old dims, new dims), ...]."""
+    groups, i, j = [], 0, 0
+    while i < len(old) and j < len(new):
+        a, b, pa, pb = [i], [j], old[i], new[j]
+        i, j = i + 1, j + 1
+        while pa != pb:
+            if pa < pb:
+                a.append(i)
+                pa *= old[i]
+                i += 1
+            else:
+                b.append(j)
+                pb *= new[j]
+                j += 1
+        groups.append((a, b))
+    if groups:  # trailing size-1 dims join the last group
+        groups[-1][0].extend(range(i, len(old)))
+        groups[-1][1].extend(range(j, len(new)))
+    return groups
+
+
+def reshape(x: torch.Tensor, *shape) -> torch.Tensor:
+    """``x.reshape(*shape)``, also for a DTensor sharded where DTensor
+    refuses the reshape: a dim split into parts whose first part the shard
+    count does not divide (qwen2-0.5b's 14 heads on a 16-wide ``model``
+    axis), or a dim merged into the one before it. Those mesh dims are
+    gathered first, an explicit redistribution (XLA reshards silently). The
+    result is pinned to its placements, so its gradient comes back in a
+    layout the reverse reshape takes."""
+    if not isinstance(x, DTensor):
+        return x.reshape(*shape)
+    if -1 in shape:
+        known = math.prod(n for n in shape if n != -1)
+        shape = tuple(x.numel() // max(known, 1) if n == -1 else n for n in shape)
+    mesh, pl = x.device_mesh, list(x.placements)
+    ways = [1] * x.ndim
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            ways[p.dim] *= mesh.size(i)
+    bad = set()
+    for a, b in _view_groups(tuple(x.shape), tuple(shape)):
+        bad.update(d for d in a[1:] if ways[d] > 1)
+        if ways[a[0]] > 1 and len(b) > 1 and shape[b[0]] % ways[a[0]]:
+            bad.add(a[0])
+    if bad:
+        x = x.redistribute(mesh, [Replicate() if p.is_shard() and p.dim in bad else p
+                                  for p in pl])
+    y = x.reshape(*shape)
+    return y.redistribute(mesh, y.placements)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def _local_placements(eq: str, ops: tuple):
+    """(each operand's placements, each operand's gradient's, the output's)
+    for ``torch.einsum(eq, *ops)`` computed on each device's shards. On
+    every mesh dim one subscript is sharded: the one the largest operand
+    shards there (where operands shard different ones); the operands that
+    carry it shard it, the others replicate (a replicated operand takes its
+    local slice, any other is redistributed: the smaller operands move, as a
+    partitioner would choose); a subscript of the output then stays sharded,
+    a contracted one leaves a partial sum. An operand replicated on a mesh
+    dim that shards another subscript met each device's slice of it, so its
+    gradient there is a partial sum."""
+    ins, out = eq.replace(" ", "").split("->")
+    ins = ins.split(",")
+    mesh = ops[0].device_mesh
+    targets, grads = [[] for _ in ops], [[] for _ in ops]
+    placements = []
+    for i in range(mesh.ndim):
+        sharded = [(t.numel(), sub[t.placements[i].dim]) for sub, t in zip(ins, ops)
+                   if t.placements[i].is_shard()]
+        letter = max(sharded)[1] if sharded else None
+        for sub, target, grad in zip(ins, targets, grads):
+            here = Shard(sub.index(letter)) if letter and letter in sub else Replicate()
+            target.append(here)
+            grad.append(Partial() if letter and letter not in sub else here)
+        placements.append(Replicate() if letter is None else
+                          Shard(out.index(letter)) if letter in out else Partial())
+    return targets, grads, placements
+
+
+def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, *ops)``; for DTensor operands, the einsum of each
+    device's shards after the placements :func:`_local_placements` picks, as
+    XLA partitions it (the batch and head dims of attention and the SSD scan
+    stay sharded). DTensor's own einsum flattens the batch dims into one,
+    which it refuses where two of them are sharded in torch's releases
+    before 2.13, and gathers the larger operand (MLA's latent cache, a
+    token's step) where operands shard different dims."""
+    if not any(isinstance(t, DTensor) for t in ops):
+        return torch.einsum(eq, *ops)
+    ref = next(t for t in ops if isinstance(t, DTensor))
+    ops = tuple(replicate_like(t, ref) for t in ops)
+    targets, grads, placements = _local_placements(eq, ops)
+    ops = tuple(t if list(t.placements) == target else t.redistribute(t.device_mesh, target)
+                for t, target in zip(ops, targets))
+    # contiguous, the result and the operands' gradients: DTensor takes a
+    # shard's layout for the global one's, and einsum and its backward return
+    # permuted views (the shards divide evenly, by the sharding rules, so
+    # DTensor infers the global shape)
+    local = torch.einsum(eq, *(_ContiguousGrad.apply(t.to_local(grad_placements=g))
+                               for t, g in zip(ops, grads)))
+    return DTensor.from_local(local.contiguous(), ref.device_mesh, placements,
+                              run_check=False)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a 2-D ``w``; with DTensors, the product of each
+    device's shards (:func:`einsum`). DTensor's own matmul flattens ``x``'s
+    leading dims, which it refuses where two of them are sharded (the batch
+    over ``data`` and the sequence over ``model``: sequence parallelism) in
+    torch's releases before 2.13."""
+    if not (isinstance(x, DTensor) or isinstance(w, DTensor)):
+        return x @ w
+    lead = "abcdefgh"[:x.ndim - 1]
+    return einsum(f"{lead}y,yz->{lead}z", x, w)
+
+
+def constrain(x: torch.Tensor, placements) -> torch.Tensor:
+    """The activation sharding constraint (the JAX package's ``_cst``):
+    ``x`` redistributed to ``placements`` (a tuple of DTensor placements, one
+    per mesh dim, ``parallel.named(mesh, spec)``) when it is a DTensor; a
+    no-op for ``placements`` None or a plain tensor."""
+    if placements is None or not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, tuple(placements))
 
 
 def service_matmul(x: torch.Tensor, w: torch.Tensor, service=None) -> torch.Tensor:
@@ -23,7 +177,7 @@ def service_matmul(x: torch.Tensor, w: torch.Tensor, service=None) -> torch.Tens
     unembed's transpose is made once per parameter set, see
     ``models.model``)."""
     if service is None:
-        return x @ w
+        return matmul(x, w)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     fn = service.dispatch("matmul", x2, w)
@@ -183,7 +337,7 @@ def _rope_angles(positions: torch.Tensor, dim: int, theta: float) -> tuple:
     """positions: (..., S) -> cos/sin (..., S, dim//2), in f32."""
     inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
                                         device=positions.device) / dim))
-    ang = positions.float()[..., None] * inv
+    ang = positions.float()[..., None] * replicate_like(inv, positions)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -214,6 +368,7 @@ def mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float = 1.0e4,
 
     inv = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
                                         device=x.device) / hd))
+    inv = replicate_like(inv, positions3)
     parts, off = [], 0
     for axis, w in enumerate(widths):
         pos = positions3[:, axis, :].float()                  # (B, S)
@@ -234,6 +389,8 @@ def dense_init(shape, generator: torch.Generator, in_axis: int = 0,
     carry the JAX package's weights over with ``models.convert``.) The scale
     is applied in place: an expert tensor at DeepSeek-V2's width is 5 GB in
     f32, and ``w * std`` would hold a second one."""
+    if generator.device.type == "meta":  # models.abstract_params: shapes only
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[in_axis] if in_axis < len(shape) else shape[0]
     std = (1.0 / max(fan_in, 1)) ** 0.5
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,

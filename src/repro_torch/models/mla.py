@@ -21,7 +21,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.common import dense_init, rms_norm, rope
+from repro_torch.models.common import (
+    dense_init,
+    einsum,
+    matmul,
+    replicate_like,
+    reshape,
+    rms_norm,
+    rope,
+)
 
 __all__ = ["init_mla", "mla_attention", "mla_decode", "init_mla_cache"]
 
@@ -49,15 +57,15 @@ def init_mla(generator: torch.Generator, cfg, dtype) -> dict:
 def _project_q(p, x, cfg, positions):
     B, S, _ = x.shape
     H = cfg.n_heads
-    q = rms_norm(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
-    q = q.reshape(B, S, H, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q = matmul(rms_norm(matmul(x, p["wq_a"]), p["q_norm"]), p["wq_b"])
+    q = reshape(q, B, S, H, cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_nope = q[..., :cfg.qk_nope_dim]
     q_rope = rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)
     return q_nope, q_rope
 
 
 def _project_kv_latent(p, x, cfg, positions):
-    c = x @ p["wkv_a"]
+    c = matmul(x, p["wkv_a"])
     c_kv = rms_norm(c[..., :cfg.kv_lora_rank], p["kv_norm"])
     k_rope = c[..., None, cfg.kv_lora_rank:]           # (B, S, 1, rope)
     k_rope = rope(k_rope, positions, cfg.rope_theta)[:, :, 0, :]
@@ -67,7 +75,7 @@ def _project_kv_latent(p, x, cfg, positions):
 def _up_kv(p, c_kv, cfg):
     B, S, _ = c_kv.shape
     H = cfg.n_heads
-    kv = (c_kv @ p["wkv_b"]).reshape(B, S, H, cfg.qk_nope_dim + cfg.v_head_dim)
+    kv = reshape(matmul(c_kv, p["wkv_b"]), B, S, H, cfg.qk_nope_dim + cfg.v_head_dim)
     return kv[..., :cfg.qk_nope_dim], kv[..., cfg.qk_nope_dim:]  # k_nope, v
 
 
@@ -91,13 +99,13 @@ def mla_attention(p: dict, x: torch.Tensor, cfg, positions, chunk: int = 512) ->
     for q0 in range(0, S, chunk):
         qblk = q[:, q0:q0 + chunk]
         qpos = torch.arange(q0, q0 + qblk.shape[1], device=x.device)
-        s = torch.einsum("bqhd,bshd->bhqs", qblk.float(), kf) * scale
-        mask = qpos[:, None] >= kpos[None, :]
+        s = einsum("bqhd,bshd->bhqs", qblk.float(), kf) * scale
+        mask = replicate_like(qpos[:, None] >= kpos[None, :], s)
         s = torch.where(mask[None, None], s, _NEG)
         pr = torch.softmax(s, dim=-1)
-        outs.append(torch.einsum("bhqs,bshd->bqhd", pr, vf).to(x.dtype))
+        outs.append(einsum("bhqs,bshd->bqhd", pr, vf).to(x.dtype))
     out = torch.cat(outs, dim=1)
-    return out.reshape(B, S, H * cfg.v_head_dim) @ p["wo"]
+    return matmul(reshape(out, B, S, H * cfg.v_head_dim), p["wo"])
 
 
 def init_mla_cache(cfg, B: int, S: int, dtype, device=None) -> dict:
@@ -126,7 +134,7 @@ def mla_decode(p: dict, x: torch.Tensor, cache: dict, cfg, pos,
     B = x.shape[0]
     H = cfg.n_heads
     scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
-    positions = torch.full((B, 1), pos, device=x.device)
+    positions = replicate_like(torch.full((B, 1), pos, device=x.device), x)
 
     q_nope, q_rope = _project_q(p, x, cfg, positions)      # (B, 1, H, *)
     c_new, kr_new = _project_kv_latent(p, x, cfg, positions)
@@ -135,31 +143,31 @@ def mla_decode(p: dict, x: torch.Tensor, cache: dict, cfg, pos,
     cache["k_rope"][:, pos] = kr_new[:, 0].to(cache["k_rope"].dtype)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     S = c_kv.shape[1]
-    valid = torch.arange(S, device=x.device)[None, :] <= pos   # (1, S)
+    valid = replicate_like(torch.arange(S, device=x.device)[None, :] <= pos, x)  # (1, S)
 
-    wkv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, H, cfg.qk_nope_dim + cfg.v_head_dim)
+    wkv_b = reshape(p["wkv_b"], cfg.kv_lora_rank, H, cfg.qk_nope_dim + cfg.v_head_dim)
     w_uk = wkv_b[..., :cfg.qk_nope_dim]                    # (lora, H, nope)
     w_uv = wkv_b[..., cfg.qk_nope_dim:]                    # (lora, H, v)
 
     if absorb:
         # fold W_UK into q; attend over the latent cache directly
-        q_eff = torch.einsum("bqhn,lhn->bqhl", q_nope.float(), w_uk.float())
-        s = torch.einsum("bqhl,bsl->bhqs", q_eff, c_kv.float())
-        s = s + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), k_rope.float())
+        q_eff = einsum("bqhn,lhn->bqhl", q_nope.float(), w_uk.float())
+        s = einsum("bqhl,bsl->bhqs", q_eff, c_kv.float())
+        s = s + einsum("bqhr,bsr->bhqs", q_rope.float(), k_rope.float())
         s = torch.where(valid[:, None, None, :], s * scale, _NEG)
         pr = torch.softmax(s, dim=-1)
-        lat = torch.einsum("bhqs,bsl->bqhl", pr, c_kv.float())
-        o = torch.einsum("bqhl,lhv->bqhv", lat, w_uv.float())
+        lat = einsum("bhqs,bsl->bqhl", pr, c_kv.float())
+        o = einsum("bqhl,lhv->bqhv", lat, w_uv.float())
     else:
         # naive: up-project the whole cache each step
         k_nope, v = _up_kv(p, c_kv, cfg)                   # (B, S, H, *)
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, cfg.qk_rope_dim)],
                       dim=-1)
-        s = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * scale
+        s = einsum("bqhd,bshd->bhqs", q.float(), k.float()) * scale
         s = torch.where(valid[:, None, None, :], s, _NEG)
         pr = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhqs,bshv->bqhv", pr, v.float())
+        o = einsum("bhqs,bshv->bqhv", pr, v.float())
 
-    out = o.reshape(B, 1, H * cfg.v_head_dim).to(x.dtype) @ p["wo"]
+    out = matmul(reshape(o, B, 1, H * cfg.v_head_dim).to(x.dtype), p["wo"])
     return out, cache

@@ -11,8 +11,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, matmul, reshape
 
 __all__ = ["init_moe", "moe_ffn", "init_mlp", "mlp"]
 
@@ -31,8 +32,8 @@ def init_mlp(generator: torch.Generator, d: int, ff: int, dtype) -> dict:
 
 
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ p["wg"]) * (x @ p["wu"])
-    return h @ p["wd"]
+    h = F.silu(matmul(x, p["wg"])) * matmul(x, p["wu"])
+    return matmul(h, p["wd"])
 
 
 # ---------------------------------------------------------------------------
@@ -54,6 +55,22 @@ def init_moe(generator: torch.Generator, d: int, eff: int, n_experts: int,
     return p
 
 
+def _topk(probs: torch.Tensor, k: int):
+    """``torch.topk`` over the experts (the last dim). DTensor router
+    probabilities keep the experts whole on every device (the router is
+    replicated over them), so the top k of each device's rows is the top k:
+    taken on the shards, whose backward DTensor does not place before torch
+    2.13 (it scatters into a plain tensor)."""
+    if not isinstance(probs, DTensor):
+        return torch.topk(probs, k, dim=-1)
+    if any(p.is_shard(probs.ndim - 1) for p in probs.placements):
+        raise ValueError("the router's probabilities are sharded over the experts")
+    vals, idx = torch.topk(probs.to_local(), k, dim=-1)
+    mesh, pl = probs.device_mesh, probs.placements
+    return (DTensor.from_local(vals, mesh, pl, run_check=False),
+            DTensor.from_local(idx, mesh, pl, run_check=False))
+
+
 def moe_ffn(
     p: dict,
     x: torch.Tensor,            # (B, S, d)
@@ -73,21 +90,21 @@ def moe_ffn(
     B, S, d = x.shape
     E = p["router"].shape[1]
     T = B * S
-    xt = x.reshape(T, d)
+    xt = reshape(x, T, d)
 
     G = min(group_size, T)
     pad = (-T) % G
     if pad:
         xt = F.pad(xt, (0, 0, 0, pad))
     ng = xt.shape[0] // G
-    xg = xt.reshape(ng, G, d)
+    xg = reshape(xt, ng, G, d)
 
-    logits = xg.float() @ p["router"]                          # (ng, G, E)
+    logits = matmul(xg.float(), p["router"])                   # (ng, G, E)
     probs = torch.softmax(logits, dim=-1)
     # jax.lax.top_k returns the lower index first when values tie; torch.topk
     # leaves the order of tied values unspecified (its CPU and CUDA paths may
     # differ), so exactly tied router probabilities can route differently
-    gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1)      # (ng, G, k)
+    gate_vals, gate_idx = _topk(probs, top_k)                  # (ng, G, k)
     gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
 
     onehot = F.one_hot(gate_idx, E).float()                    # (ng, G, k, E)
@@ -95,8 +112,9 @@ def moe_ffn(
     mask = onehot.sum(dim=2)                                   # (ng, G, E)
 
     # GShard load-balancing aux loss (over real tokens only)
-    me = probs.reshape(-1, E)[:T].mean(dim=0)
-    ce = mask.reshape(-1, E)[:T].mean(dim=0) / max(top_k, 1)
+    real = slice(0, T) if pad else slice(None)  # no slice of a DTensor's sharded dim
+    me = reshape(probs, -1, E)[real].mean(dim=0)
+    ce = reshape(mask, -1, E)[real].mean(dim=0) / max(top_k, 1)
     aux = E * torch.sum(me * ce)
 
     # per-group capacity assignment
@@ -109,12 +127,25 @@ def moe_ffn(
     comb = disp * gates[..., None]
 
     cd = x.dtype
-    xe = torch.einsum("gtec,gtd->gecd", disp.to(cd), xg)       # (ng, E, C, d)
-    h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["wg"]))
-    h = h * torch.einsum("gecd,edf->gecf", xe, p["wu"])
-    ye = torch.einsum("gecf,efd->gecd", h, p["wd"])            # (ng, E, C, d)
-    yt = torch.einsum("gtec,gecd->gtd", comb.to(cd), ye).reshape(ng * G, d)
-    y = yt[:T].reshape(B, S, d)
+    if isinstance(xg, DTensor):
+        # the reference's einsums as batched products over explicit reshapes
+        # (a DTensor's einsum reshapes its shards where DTensor cannot):
+        # dispatch "gtec,gtd->gecd", the experts "gecd,edf->gecf" with the
+        # tokens of all groups in one (E, ng*C, .) batch, combine
+        # "gtec,gecd->gtd"
+        xe = torch.matmul(reshape(disp.to(cd), ng, G, E * C).transpose(1, 2), xg)
+        xe = reshape(reshape(xe, ng, E, C, d).transpose(0, 1).contiguous(), E, ng * C, d)
+        h = F.silu(torch.matmul(xe, p["wg"])) * torch.matmul(xe, p["wu"])
+        ye = reshape(torch.matmul(h, p["wd"]), E, ng, C, d).transpose(0, 1).contiguous()
+        yt = torch.matmul(reshape(comb.to(cd), ng, G, E * C), reshape(ye, ng, E * C, d))
+        y = reshape(reshape(yt, ng * G, d)[real], B, S, d)
+    else:
+        xe = torch.einsum("gtec,gtd->gecd", disp.to(cd), xg)       # (ng, E, C, d)
+        h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["wg"]))
+        h = h * torch.einsum("gecd,edf->gecf", xe, p["wu"])
+        ye = torch.einsum("gecf,efd->gecd", h, p["wd"])            # (ng, E, C, d)
+        yt = torch.einsum("gtec,gecd->gtd", comb.to(cd), ye).reshape(ng * G, d)
+        y = yt[:T].reshape(B, S, d)
 
     if "shared" in p:
         y = y + mlp(p["shared"], x)

@@ -14,8 +14,16 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
-from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.models.common import (
+    dense_init,
+    einsum,
+    matmul,
+    replicate_like,
+    reshape,
+    rms_norm,
+)
 
 __all__ = ["init_mamba2", "mamba2_forward", "mamba2_decode", "init_ssm_cache", "ssd"]
 
@@ -25,13 +33,44 @@ __all__ = ["init_mamba2", "mamba2_forward", "mamba2_decode", "init_ssm_cache", "
 # ---------------------------------------------------------------------------
 
 
+def _linear_on_shards(fn, t: DTensor) -> DTensor:
+    """``fn`` (linear, along dims no placement of ``t`` shards) on each
+    device's shard of ``t``: a partial sum stays one, and its gradient is
+    the whole gradient on every device."""
+    pl = t.placements
+    grad = [Replicate() if p.is_partial() else p for p in pl]
+    return DTensor.from_local(fn(t.to_local(grad_placements=grad)), t.device_mesh, pl,
+                              run_check=False)
+
+
+def _pad(t: torch.Tensor, pad: tuple) -> torch.Tensor:
+    """``F.pad(t, pad)`` (with zeros); a DTensor whose padded dims are not
+    sharded is padded on each device's shard (torch 2.11 has no DTensor rule
+    for ``pad``)."""
+    if isinstance(t, DTensor):
+        dims = {t.ndim - 1 - i // 2 for i, n in enumerate(pad) if n}
+        if not any(p.is_shard() and p.dim in dims for p in t.placements):
+            return _linear_on_shards(lambda x: F.pad(x, pad), t)
+    return F.pad(t, pad)
+
+
+def _cumsum(t: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum`` over the last dim; a DTensor whose last dim is not
+    sharded sums on each device's shard (torch 2.11 has no DTensor rule for
+    the backward's ``flip``)."""
+    if isinstance(t, DTensor) and not any(p.is_shard(t.ndim - 1) for p in t.placements):
+        return _linear_on_shards(lambda x: torch.cumsum(x, dim=-1), t)
+    return torch.cumsum(t, dim=-1)
+
+
 def _segsum(a: torch.Tensor) -> torch.Tensor:
     """(..., L) -> (..., L, L); out[i, j] = sum_{j < t <= i} a[t], -inf above
     the diagonal (exp turns it into an exact 0)."""
     L = a.shape[-1]
-    cs = torch.cumsum(a, dim=-1)
+    cs = _cumsum(a)
     diff = cs[..., :, None] - cs[..., None, :]
-    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=a.device))
+    mask = replicate_like(torch.tril(torch.ones((L, L), dtype=torch.bool, device=a.device)),
+                          diff)
     return diff.masked_fill(~mask, float("-inf"))
 
 
@@ -50,45 +89,45 @@ def ssd(x, dt, A, B, C, chunk: int = 64, initial_state=None):
     c = s // chunk
 
     f32 = torch.float32
-    Xd = (x * dt[..., None]).to(f32).reshape(b, c, chunk, H, P)
-    Ad = (dt * A[None, None, :]).to(f32).reshape(b, c, chunk, H)
+    Xd = reshape((x * dt[..., None]).to(f32), b, c, chunk, H, P)
+    Ad = reshape((dt * A[None, None, :]).to(f32), b, c, chunk, H)
     Ad = Ad.permute(0, 3, 1, 2)                         # (b, H, c, L)
-    Bc = B.to(f32).reshape(b, c, chunk, N)
-    Cc = C.to(f32).reshape(b, c, chunk, N)
+    Bc = reshape(B.to(f32), b, c, chunk, N)
+    Cc = reshape(C.to(f32), b, c, chunk, N)
 
-    A_cum = torch.cumsum(Ad, dim=-1)                    # (b, H, c, L)
+    A_cum = _cumsum(Ad)                                 # (b, H, c, L)
 
     # 1) intra-chunk (diagonal blocks). The reference's one five-operand
     # einsum, contracted as C.B^T over N first (b, c, L, L), times the decay
     # mask (b, H, c, L, L), then against X over the chunk's positions: the
     # largest intermediate is (b, H, c, L, L), never (b, c, L, L, H, P)
     Lmat = torch.exp(_segsum(Ad))                       # (b, H, c, L, L)
-    CB = torch.einsum("bcln,bcsn->bcls", Cc, Bc)
+    CB = einsum("bcln,bcsn->bcls", Cc, Bc)
     M = CB[:, None] * Lmat                              # (b, H, c, L, L)
-    Y_diag = torch.einsum("bhcls,bcshp->bclhp", M, Xd)
+    Y_diag = einsum("bhcls,bcshp->bclhp", M, Xd)
 
     # 2) chunk-final states: X weighted by its decay to the chunk's end,
     # then against B over the chunk's positions
     decay_states = torch.exp(A_cum[..., -1:] - A_cum)   # (b, H, c, L)
     Xw = Xd * decay_states.permute(0, 2, 3, 1)[..., None]
-    states = torch.einsum("bclhp,bcln->bchpn", Xw, Bc)
+    states = einsum("bclhp,bcln->bchpn", Xw, Bc)
 
     # 3) inter-chunk recurrence
     if initial_state is None:
-        initial_state = torch.zeros((b, H, P, N), dtype=f32, device=x.device)
+        initial_state = states.new_zeros((b, H, P, N))
     states = torch.cat([initial_state[:, None].to(f32), states], dim=1)
-    chunk_sums = F.pad(A_cum[..., -1], (1, 0))          # (b, H, c+1)
+    chunk_sums = _pad(A_cum[..., -1], (1, 0))           # (b, H, c+1)
     decay_chunk = torch.exp(_segsum(chunk_sums))        # (b, H, c+1, c+1)
-    new_states = torch.einsum("bhzc,bchpn->bzhpn", decay_chunk, states)
+    new_states = einsum("bhzc,bchpn->bzhpn", decay_chunk, states)
     states_prev, final_state = new_states[:, :-1], new_states[:, -1]
 
     # 4) state -> output contribution: C against the carried state, then
     # the decay from the chunk's start
     out_decay = torch.exp(A_cum)                        # (b, H, c, L)
-    Y_off = torch.einsum("bcln,bchpn->bclhp", Cc, states_prev)
+    Y_off = einsum("bcln,bchpn->bclhp", Cc, states_prev)
     Y_off = Y_off * out_decay.permute(0, 2, 3, 1)[..., None]
 
-    y = (Y_diag + Y_off).reshape(b, s, H, P)
+    y = reshape(Y_diag + Y_off, b, s, H, P)
     return y.to(x.dtype), final_state
 
 
@@ -137,7 +176,7 @@ def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     S = xBC.shape[1]
     x32 = xBC.float()
     out = x32 * w[-1]
-    padded = F.pad(x32, (0, 0, cw - 1, 0))
+    padded = _pad(x32, (0, 0, cw - 1, 0))
     for i in range(cw - 1):
         out = out + padded[:, i: i + S, :] * w[i]
     return F.silu(out + b).to(xBC.dtype)
@@ -148,7 +187,7 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg, chunk: int = 64) -> torch.Tens
     d_in, H, _ = _dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim, cfg.ssm_state)
     N, P = cfg.ssm_state, cfg.ssm_head_dim
 
-    z, xBC, dt = _split_proj(x @ p["in_proj"], d_in, N, H)
+    z, xBC, dt = _split_proj(matmul(x, p["in_proj"]), d_in, N, H)
     xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
     xs = xBC[..., :d_in]
     Bmat = xBC[..., d_in: d_in + N]
@@ -158,13 +197,13 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg, chunk: int = 64) -> torch.Tens
     A = -torch.exp(p["A_log"])
 
     B_, S_, _ = x.shape
-    xh = xs.reshape(B_, S_, H, P)
+    xh = reshape(xs, B_, S_, H, P)
     y, _ = ssd(xh, dt, A, Bmat, Cmat, chunk=chunk)
     y = y + xh.float().to(y.dtype) * p["D"][None, None, :, None].to(y.dtype)
 
-    y = y.reshape(B_, S_, d_in)
+    y = reshape(y, B_, S_, d_in)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"])
-    return y @ p["out_proj"]
+    return matmul(y, p["out_proj"])
 
 
 # ---------------------------------------------------------------------------
@@ -188,13 +227,13 @@ def mamba2_decode(p: dict, x: torch.Tensor, cache: dict, cfg) -> tuple[torch.Ten
     N, P = cfg.ssm_state, cfg.ssm_head_dim
     B_ = x.shape[0]
 
-    z, xBC, dt = _split_proj((x @ p["in_proj"])[:, 0, :], d_in, N, H)
+    z, xBC, dt = _split_proj(matmul(x, p["in_proj"])[:, 0, :], d_in, N, H)
 
     # the window is a new tensor, so the shifted copy into the cache aliases
     # nothing this step still reads: the oldest column drops, the new goes last
     conv = cache["conv"]
     window = torch.cat([conv, xBC[:, None, :].to(conv.dtype)], dim=1)
-    conv_out = torch.einsum("bwc,wc->bc", window.float(), p["conv_w"]) + p["conv_b"]
+    conv_out = einsum("bwc,wc->bc", window.float(), p["conv_w"]) + p["conv_b"]
     conv.copy_(window[:, 1:])
     xBC = F.silu(conv_out)
 
@@ -206,13 +245,13 @@ def mamba2_decode(p: dict, x: torch.Tensor, cache: dict, cfg) -> tuple[torch.Ten
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dt * A[None, :])                             # (B, H), f32
 
-    xh = xs.reshape(B_, H, P).float()
+    xh = reshape(xs, B_, H, P).float()
     contrib = dt[..., None, None] * xh[..., None] * Bmat[:, None, None, :]
     state = cache["ssm"]
     state.mul_(dA[..., None, None]).add_(contrib)               # (B, H, P, N)
 
-    y = torch.einsum("bhpn,bn->bhp", state, Cmat.float())
+    y = einsum("bhpn,bn->bhp", state, Cmat.float())
     y = y + xh * p["D"][None, :, None]
-    y = y.reshape(B_, 1, d_in).to(x.dtype)
+    y = reshape(y, B_, 1, d_in).to(x.dtype)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype)[:, None, :], p["norm"])
-    return y @ p["out_proj"], cache
+    return matmul(y, p["out_proj"]), cache

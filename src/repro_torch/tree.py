@@ -6,7 +6,7 @@ in the other."""
 
 from __future__ import annotations
 
-__all__ = ["tree_leaves", "tree_map", "tree_unflatten", "treedef_str"]
+__all__ = ["tree_leaves", "tree_map", "tree_map_with_path", "tree_unflatten", "treedef_str"]
 
 
 def tree_leaves(tree) -> list:
@@ -48,3 +48,12 @@ def treedef_str(tree) -> str:
         return "*"
 
     return f"PyTreeDef({walk(tree)})"
+
+
+def tree_map_with_path(fn, tree, path: tuple = ()):
+    """``fn(path, leaf)`` over the leaves of ``tree``, ``path`` the tuple of
+    keys from the root (``jax.tree_util.tree_map_with_path``'s, as plain
+    keys), in a tree of that structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, (*path, k)) for k, v in tree.items()}
+    return fn(path, tree)

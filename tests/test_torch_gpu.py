@@ -1998,3 +1998,129 @@ def test_decode_attention_at_the_bench_ladder(cuda, bsz):
         for bk in space["bk"].sequence:
             for hg in space["hg"].sequence:
                 _close(decode_attention(q, kr, vr, cp, bk=bk, hg=hg), want, ATTN_TOL)
+
+
+# ---------------------------------------------------------------------------
+# parallelism on the card's own mesh (chip_smoke.py phase 16 (b), (c))
+# ---------------------------------------------------------------------------
+
+
+def test_a_dtensor_train_step_on_the_cards_mesh_equals_the_plain_step(cuda):
+    """Reduced qwen2-0.5b in f32: params and moments as DTensors on the
+    (1, 1) NCCL mesh with act_spec/logits_spec. Step 0's gradients equal the
+    plain step's at f32 tolerance (atol 1e-6, rtol 1e-5), 3 steps' losses
+    within 1e-6 relative, and after 3 steps each param element equals the
+    plain one at atol 1e-6 + rtol 1e-5, except the elements whose plain
+    gradient, at some step, was non-zero and below ``floor`` (1e-4) of that
+    step's largest gradient element: there the two paths' f32 sums (in
+    other orders) decide the sign and size of Adam's update, which is about
+    lr whatever the gradient's size, so those are held to Adam's bound, 2 lr
+    a step, and counted (printed; at most a twentieth of the elements). On
+    the H100 (700 W) 818 of 90688 elements were under the floor, the
+    elements above it stayed within 0.09 of their tolerance, and under it
+    the k bias's (gradients near 4e-7) went 22x past it."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.launch.mesh import local_mesh
+    from repro_torch.models import init_params, trainable
+    from repro_torch.parallel import Spec, batch_specs, distribute, make_profile, param_specs
+    from repro_torch.parallel.sharding import named
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.step import make_grad_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    lr, steps, floor = 1e-3, 3, 1e-4
+    cfg = dataclasses.replace(get_reduced("qwen2-0.5b"), dtype=torch.float32)
+    params = trainable(init_params(cfg, torch.Generator(device=cuda).manual_seed(0)))
+    stream = SyntheticLM(cfg.vocab_size, 32, 4, seed=1)
+    step = make_train_step(cfg, lr=lr)
+    grads_of = make_grad_step(cfg)
+    opt = init_train_state(params)
+    noise = [torch.zeros_like(p, dtype=torch.bool) for p in tree_leaves(params)]
+    with local_mesh(cuda) as mesh:
+        prof = make_profile(mesh, "train", 4)
+        specs = param_specs(params, mesh, prof, cfg)
+        params_d = distribute(tree_map(torch.clone, params), mesh, specs)
+        opt_d = distribute(init_train_state(params), mesh,
+                           {"m": specs, "v": specs, "step": Spec()})
+        act_spec = named(mesh, Spec(("data",), None, None))
+        logits_spec = named(mesh, Spec(("data",), None, "model"))
+        step_d = make_train_step(cfg, lr=lr, act_spec=act_spec, logits_spec=logits_spec)
+        for s in range(steps):
+            b = make_batch(stream, s, cuda)
+            b_d = distribute(b, mesh, batch_specs(b, mesh, prof))
+            _, _, grads = grads_of(params, b)
+            top = max(float(g.abs().max()) for g in grads)
+            for n, g in zip(noise, grads):
+                n |= (g != 0) & (g.abs() < floor * top)
+            if s == 0:
+                _, _, grads_d = make_grad_step(cfg, act_spec=act_spec,
+                                               logits_spec=logits_spec)(params_d, b_d)
+                for gd, g in zip(grads_d, grads):
+                    torch.testing.assert_close(gd.full_tensor(), g, atol=1e-6, rtol=1e-5)
+            _, _, m = step(params, opt, b)
+            _, _, md = step_d(params_d, opt_d, b_d)
+            want, got = float(m["loss"]), float(md["loss"].full_tensor())
+            assert abs(got - want) <= 1e-6 * abs(want), (s, got, want)
+        under = sum(int(n.sum()) for n in noise)
+        total = sum(n.numel() for n in noise)
+        print(f"{under} of {total} elements under the noise floor")
+        assert under <= total // 20
+        for a, b, n in zip(tree_leaves(params_d), tree_leaves(params), noise):
+            a = a.full_tensor()
+            torch.testing.assert_close(a[~n], b[~n], atol=1e-6, rtol=1e-5)
+            if n.any():
+                assert float((a[n] - b[n]).abs().max()) <= steps * 2 * lr
+
+
+@pytest.mark.parametrize("dtype,wire", [(None, "float32"), (torch.bfloat16, "bfloat16"),
+                                        (torch.int8, "int8")])
+def test_compressed_psum_over_nccl_sends_its_payloads_dtype(cuda, dtype, wire):
+    import torch.distributed as dist
+
+    from repro_torch.ft.compression import compressed_psum
+    from repro_torch.launch.mesh import local_mesh
+    from repro_torch.perf.op_cost import trace_step
+
+    x = torch.randn(4096, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+
+    def psum(v):
+        if dtype is None:
+            v = v.clone()
+            dist.all_reduce(v)
+            return v
+        return compressed_psum(v, dtype=dtype)
+
+    with local_mesh(cuda):
+        trace = trace_step(psum, x)
+    torch.cuda.synchronize()
+    assert wire in trace.payload_dtypes["all-reduce"]
+    per_value = {"float32": 4, "bfloat16": 2, "int8": 1}[wire]
+    assert trace.cost.coll_by_kind["all-reduce"] == pytest.approx(per_value * x.numel(),
+                                                                 abs=8)
+    bound = {"float32": 0.0, "bfloat16": float(x.abs().max()) * 2 ** -8,
+             "int8": float(x.abs().max()) / 127 * 0.5 + 1e-6}[wire]
+    assert float((trace.result - x).abs().max()) <= bound
+
+
+def test_step_cost_counts_a_plain_train_step_on_the_card(cuda):
+    """The counter on CUDA tensors: the reduced train step's FLOPs equal its
+    count on meta tensors (the counter reads shapes), and it launches none
+    of the kernels of the table."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import abstract_params, init_params, trainable
+    from repro_torch.perf.op_cost import step_cost
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_reduced("qwen1.5-0.5b"), dtype=torch.float32)
+    params = trainable(init_params(cfg, torch.Generator(device=cuda).manual_seed(0)))
+    batch = {k: torch.zeros(2, 16, dtype=torch.int64, device=cuda) for k in ("tokens", "labels")}
+    got = step_cost(make_train_step(cfg), params, init_train_state(params), batch)
+    meta = abstract_params(cfg)
+    mbatch = {k: torch.zeros(2, 16, dtype=torch.int64, device="meta") for k in batch}
+    want = step_cost(make_train_step(cfg), meta, init_train_state(meta), mbatch)
+    assert got.flops == want.flops > 0
