@@ -52,7 +52,8 @@ checks each kernel on the card:
      decode_attention and matmul per decode step are asserted; memory,
      prefill, TTFT, ms per decode step beside its bound, tokens/s and the
      device's busy share of one decode step; a PagedKVCache round whose
-     tokens must equal each request's solo greedy_decode; and a short run on
+     tokens must equal each request's solo run (greedy_decode's serve loop
+     on the prefill it was admitted from); and a short run on
      the card against the same weights on the CPU (plain versions there);
   7. the tuning loop: (a) `launch.autotune --store` publishes a syr2k
      campaign's best at LARGE, `DispatchService` resolves it as an exact hit
@@ -110,8 +111,8 @@ checks each kernel on the card:
      but the embed table; only the top-k experts), the busy share of one
      step, the new matmul signatures against torch.matmul, peak memory; MLA's
      absorbed and naive schedules on one filled cache (1e-3); a
-     PagedKVCache round for mixtral against each request's solo
-     greedy_decode; the card against the CPU at one MoE layer (mixtral 1
+     PagedKVCache round for mixtral against each request's solo run; the
+     card against the CPU at one MoE layer (mixtral 1
      layer, deepseek 2) on a prompt of 8, beside the least routing margin.
  11. the SSM, hybrid and VLM families (each arch with the launch counts
      set to 0 just before and read just after its served run):
@@ -228,6 +229,26 @@ checks each kernel on the card:
      subprocesses of (a) and (c) run beside (b); (d)'s start before phase
      10 and run beside phases 10-13, and phase 14 starts after they end
      (its timed gates run on a quiet host).
+ 17. the catalog in its own dtype, bf16 (the matmul's bf16 tensor-core
+     path in the kernels line as matmul_bf16; the launch counts set to 0
+     just before each model's greedy run and read just after): (a) the bf16
+     matmul against its plain version at three served forward products and
+     two ragged shapes, every chunk of the gpu space under tiles that take
+     pack on and off, either raster order, out f32 and bf16; (b)
+     qwen2-0.5b, qwen2-vl-7b (full depth), mixtral-8x7b (16 of 32 layers)
+     and mamba2-780m (full depth) served in bf16 at full width through
+     greedy_decode and a DispatchService (batch 4, prompt 128, 16 tokens):
+     TTFT, ms a decode step beside its bf16 bytes bound, tok/s, peak
+     memory, busy share and device kernels a step beside the f32 phases'
+     figures; each served matmul signature against its plain version, timed
+     beside torch.matmul in bf16; the attention kernels at the bf16 model
+     shapes beside SDPA in bf16; a bf16 PagedKVCache round (qwen2-0.5b),
+     its tokens equal each request's solo run up to a near-tie; (c) the
+     card against the CPU in bf16 at phases 10-12's check depths, beside
+     the least router (mixtral) or top-2 logit margin of the card's run:
+     the logits within a share of the largest |logit|, greedy tokens equal
+     up to a near-tie. Phases 11 and 17 share one serving function
+     (serve_arch), in f32 and in bf16.
 
 Phases 3 and 4 also hold flash_attention and decode_attention against their
 plain versions at LARGE, at head_dim 256, at head sizes between the
@@ -262,6 +283,7 @@ import sys
 import tempfile
 import time
 
+T0 = time.perf_counter()  # the run's start, which each phase's banner counts from
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
@@ -273,13 +295,16 @@ SRC = os.path.join(ROOT, "src")
 # data sheet's 495 TFLOP/s dense TF32); f32 minima, a quarter of the FFMA
 # rate (the CUDA C Programming Guide's throughput table gives compute
 # capability 9.0 64 compare/minimum results per clock and SM against 128 FMA;
-# Floyd-Warshall's add issues beside each, on the FMA pipe)
+# Floyd-Warshall's add issues beside each, on the FMA pipe); the bf16
+# matmul past 8 rows against the data sheet's dense bf16 tensor-core peak
+# (989 TFLOP/s)
 if os.path.isdir(os.path.join(SRC, "repro_torch")):
     sys.path.insert(0, SRC)
     from repro_torch.kernels.cost import FFMA_FLOPS as PEAK_F32_FLOPS
     from repro_torch.kernels.cost import HBM_BYTES_PER_SEC as PEAK_HBM_BYTES
     from repro_torch.kernels.cost import MINMAX_OPS as PEAK_F32_MIN
     from repro_torch.kernels.cost import TF32X3_FLOPS as PEAK_3XTF32_FLOPS
+    from repro_torch.kernels.cost import BF16_FLOPS as PEAK_BF16_FLOPS
 
 # Tolerances scaled to the outputs they hold. syr2k's entries are sums of
 # 1000 unscaled products (|O| up to a few hundred); the JAX suite's atol
@@ -325,7 +350,11 @@ WIDE_HEAD_SIZES = (272, 320, 512)
 WRAPPER_OF = {"syr2k": "syr2k", "matmul": "tiled_matmul", "covariance": "covariance",
               "minplus": "minplus_update", "heat3d": "heat3d",
               "lu_factor_diag": "lu_factor_diag", "closure": "closure_in_block",
-              "flash_attention": "flash_attention", "decode_attention": "decode_attention"}
+              "flash_attention": "flash_attention", "decode_attention": "decode_attention",
+              "matmul_bf16": "matmul_bf16"}
+# each served model's figures, by arch (phases 6, 10 and 11, in f32), which
+# phase 17 prints beside its bf16 ones
+SERVED: dict = {}
 # the serving phase: qwen2-0.5b at full width, f32
 SERVE = dict(arch="qwen2-0.5b", batch=4, prompt_len=256, gen=32, seed=0)
 # phase 10: the MoE family at full width, f32, depth cut: (arch, layers
@@ -343,7 +372,8 @@ MOE_SERVE = dict(batch=4, prompt_len=128, gen=16, seed=0, check_prompt=8, check_
 # round's prompts and rounds (qwen2-vl)
 SSM_ARCHS = (("mamba2-780m", 4), ("zamba2-1.2b", 7), ("qwen2-vl-7b", 2))
 SSM_SERVE = dict(batch=4, prompt_len=128, gen=16, seed=0, check_prompt=16, check_gen=4,
-                 check_chunk=8, paged_lens=(16, 40, 64, 100), paged_rounds=8)
+                 check_chunk=8, paged_arch="qwen2-vl-7b", paged_lens=(16, 40, 64, 100),
+                 paged_rounds=8)
 # phase 12: training on the card, f32 (TF32 off, phase 1): (a) qwen2-0.5b at
 # full width and full depth through launch.train.run, 8 steps on one
 # repeated batch of 8 x 512; (b) its first two steps again under remat
@@ -415,17 +445,19 @@ CATALOG_SERVE = dict(batch=4, gen=16, seed=0, check_prompt=16, check_gen=4)
 LEFT_BYTES = 64 << 20
 # the instantiations the main paths run at their defaults (ptxas template
 # arguments): syr2k<PACK_A, PACK_B, RT, VEC16> at 64x64 tiles of M = 1000;
-# matmul_tf32<PACK, VEC16> (f32 on the tensor cores) at 64x64 tiles (mm3,
-# lu, the prefill unembed) and matmul<input, PACK, TM, TN, VEC16> (FFMA) at
-# the model's 8-row decode tiles; covariance<FUSE_CENTER, RT, VEC16> at
-# 64x64 tiles of M = 1200; flash<dtype, hd, CAUSAL> and decode<dtype, hd,
-# VEC16, MASK, WIDE> at the model's f32, hd 64; minplus<TM, TN, UNROLL, VEC16> at
+# matmul_tc<input, PACK, VEC16> (the tensor cores: f32 in 3xTF32, bf16) at
+# 64x64 tiles (mm3, lu, the prefill's products) and matmul<input, PACK, TM,
+# TN, VEC16> (FFMA) at the model's 8-row decode tiles, f32 and bf16;
+# covariance<FUSE_CENTER, RT, VEC16> at 64x64 tiles of M = 1200;
+# flash<dtype, hd, CAUSAL> and decode<dtype, hd, VEC16, MASK, WIDE> at the
+# model's f32, hd 64; minplus<TM, TN, UNROLL, VEC16> at
 # unroll 4 for the default 64x64 trailing tiles (8x4) and the 64x16 panels
 # (4x4), and closure_tile<BS> and lu_tile<BS, TPR> at the default bs 64;
 # heat3d<FUSE_T, VEC16> at fuse_t 2 on N = 120; phase 2 asserts that they
 # spill nothing (the other instantiations' spills are printed)
 MAIN_PATH_INSTANCES = {"syr2k": ([1, 1, 4, 1],),
-                       "matmul": ([1, 1], ["float", 1, 1, 4, 1]),
+                       "matmul": (["float", 1, 1], ["float", 1, 1, 4, 1],
+                                  ["bfloat16", 1, 1], ["bfloat16", 1, 1, 4, 1]),
                        "covariance": ([1, 4, 1],),
                        "floyd_warshall": ([8, 4, 4, 1], [4, 4, 4, 1], [64]),
                        "heat3d": ([2, 1],),
@@ -465,7 +497,7 @@ DRYRUN_CELLS = (("qwen2-0.5b", "train_4k", False), ("qwen2-0.5b", "prefill_32k",
                 ("mamba2-780m", "decode_32k", True), ("zamba2-1.2b", "decode_32k", False),
                 ("qwen2-vl-7b", "decode_32k", False), ("whisper-large-v3", "decode_32k", False),
                 ("gemma3-1b", "prefill_32k", True))
-DRYRUN_PROCS = 4
+DRYRUN_PROCS = 5  # 10 cells of 24-40 s: two waves on the card machine's 8 cores
 DTENSOR_STEPS = 3
 DTENSOR_LOSS_RTOL = 1e-6
 HILLCLIMB = dict(arch="qwen2-0.5b", shape="train_4k", evals=4, probe_parallel=3,
@@ -478,10 +510,35 @@ PROXY_AUDIT = ("syr2k", "mm3", "covariance")
 # phase 9: each table's campaign (heat3d's space has 12 points) and the
 # learner study's campaigns, evaluations each
 TABLE_EVALS = dict(default=20, heat3d=12, learners=30)
+# phase 17: the catalog in its own dtype, bf16, on the card. (a) the bf16
+# matmul (csrc/gemm_bf16.cuh's tensor cores past 8 rows, the FFMA loop at 8)
+# against its plain version at the served forward products and two ragged
+# shapes; (b) each arch served in bf16 through greedy_decode and a
+# DispatchService: (arch, layers served (None: all), layers of the
+# card-against-CPU check, those of phases 10-11, and phase 12's 2 for
+# qwen2-0.5b); batch 4, prompt 128, 16 new tokens (mixtral's 16 of 32
+# layers: 2.90 GB a layer in bf16, about 47 GB with embed and unembed); the
+# check's prompt, new tokens (prompt + tokens whole SSD chunks) and chunk; the
+# paged round's prompts and rounds (qwen2-0.5b); (c) the card against the CPU
+# in bf16: the logits within BF16_LOGIT_REL of the CPU's largest |logit|
+# (bf16 rounds at other places in cuBLAS and the kernels than on the CPU;
+# about three times the 0.63-0.67% (mamba2 1.75%) measured on an H100 80GB
+# HBM3 at 700 W), greedy tokens equal up to the first step whose CPU top-2
+# margin is under that share
+BF16_ARCHS = (("qwen2-0.5b", None, 2), ("qwen2-vl-7b", None, 2), ("mixtral-8x7b", 16, 1),
+              ("mamba2-780m", None, 4))
+BF16_SERVE = dict(batch=4, prompt_len=128, gen=16, seed=0, check_prompt=16, check_gen=8,
+                  check_chunk=8, paged_arch="qwen2-0.5b", paged_lens=(16, 24, 32, 40),
+                  paged_rounds=8)
+BF16_LOGIT_REL = {"dense": 0.02, "moe": 0.02, "vlm": 0.02, "ssm": 0.04}
+BF16_MATMUL_SHAPES = (("qwen2-0.5b forward output projection", (512, 896, 896)),
+                      ("mixtral-8x7b forward output projection", (512, 4096, 4096)),
+                      ("qwen2-vl-7b forward output projection", (512, 3584, 3584)),
+                      ("ragged", (97, 203, 77)), ("ragged", (200, 136, 520)))
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def compare(name, got, want, tol, probe=None) -> float:
@@ -1084,29 +1141,59 @@ def tree_bytes(tree: dict) -> int:
                for v in tree.values())
 
 
-def paged_round(label: str, cfg, params, svc, g, dev, lens, rounds: int, slots) -> list:
+def near_tie_steps(what: str, got: list, want: list, margins: list, floor: float) -> int:
+    """The steps of ``got`` checked equal to ``want``: up to the first step
+    whose margin (the top two logits' gap where ``want`` was chosen) is
+    under ``floor`` (0: every step); raises at a differing step before it."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if margins[i] < floor:
+            return i
+        if a != b:
+            raise AssertionError(f"{what}: step {i}, token {a} != {b} at a margin "
+                                 f"{margins[i]:.4g} (a near-tie is under {floor:.4g}); {got} "
+                                 f"against {want}")
+    return len(want)
+
+
+def paged_round(label: str, cfg, params, svc, g, dev, lens, rounds: int, slots,
+                near_tie: float = 0.0) -> tuple[list, list]:
     """A PagedKVCache round: one request a prompt of each length in
-    ``lens`` (tokens from ``g``) admitted into ``slots`` of 8 (page 128),
-    then ``rounds`` decode rounds on bucketed views at per-row positions;
-    each request's tokens must equal its solo greedy_decode. Attaches the
-    cache to ``svc``; returns the buckets the rounds used."""
+    ``lens`` (tokens from ``g``), prefilled once and admitted into
+    ``slots`` of 8 (page 128), then ``rounds`` decode rounds on bucketed
+    views at per-row positions; each request's tokens must equal its solo
+    run (greedy_decode's serve loop on the prefilled dense cache), with a
+    ``near_tie`` share (bf16: the paged views' other cache lengths round
+    otherwise) up to the first step whose solo top-2 logit margin is under
+    that share of the solo runs' largest |logit|. Attaches the cache to
+    ``svc``; returns the buckets the rounds used and the steps checked a
+    request."""
     import torch
 
-    from repro_torch.serve import PagedKVCache, greedy_decode, make_serve_step, prefill
+    from repro_torch.serve import PagedKVCache, make_serve_step, prefill
 
     pc = PagedKVCache(cfg, max_batch=8, max_len=max(lens) + rounds + 1, page_size=128,
                       device=dev)
     svc.attach_kv_cache(pc)
     prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=g, device=dev) for n in lens]
-    solo = [greedy_decode(params, cfg, p, steps=rounds + 1, max_len=pc.alloc, service=svc)[0]
-            for p in prompts]
     serve = make_serve_step(cfg, service=svc)
-    out = []
+    solo, margins, scale = [], [], 0.0
     for slot, p in zip(slots, prompts):
-        logits, pcache = prefill(params, {"tokens": p}, cfg, max_len=pc.alloc, service=svc)
-        pc.admit(slot, pcache, p.shape[1])
-        out.append([int(torch.argmax(logits[0, -1]))])
-    cur = torch.tensor([[t[-1]] for t in out], device=dev)
+        logits, cache = prefill(params, {"tokens": p}, cfg, max_len=pc.alloc, service=svc)
+        pc.admit(slot, cache, p.shape[1])   # a copy: the solo run goes on in `cache`
+        lg, toks, ms = logits[0, -1].float(), [], []
+        for t in range(rounds + 1):
+            top = torch.topk(lg, 2).values
+            ms.append(float(top[0] - top[1]))
+            scale = max(scale, float(lg.abs().max()))
+            toks.append(int(torch.argmax(lg)))
+            if t < rounds:
+                _, lgs, cache = serve(params, cache, torch.tensor([[toks[-1]]], device=dev),
+                                      p.shape[1] + t)
+                lg = lgs[0].float()
+        solo.append(toks)
+        margins.append(ms)
+    out = [[t[0]] for t in solo]
+    cur = torch.tensor(out, device=dev)
     buckets = []
     for _ in range(rounds):
         bucket = pc.seq_bucket(slots)
@@ -1118,42 +1205,59 @@ def paged_round(label: str, cfg, params, svc, g, dev, lens, rounds: int, slots) 
         for i, t in enumerate(out):
             t.append(int(nxt[i, 0]))
         cur = nxt
-    for n, got, want in zip(lens, out, solo):
-        if got != want.tolist():
-            raise AssertionError(f"{label} paged round, prompt {n}: {got} != solo "
-                                 f"{want.tolist()}")
-    return sorted(set(buckets))
+    checked = [near_tie_steps(f"{label} paged round, prompt {n}", got, want, ms,
+                              near_tie * scale)
+               for n, got, want, ms in zip(lens, out, solo, margins)]
+    return sorted(set(buckets)), checked
 
 
-def matmul_signatures(arch: str, svc, sigs, dev, seed: int) -> None:
-    """The matmul at new signatures, (label, rows, w, launches), at the rows
-    the path gives them (4 in a decode step: the FFMA tiles; B*P in the
-    forward: 3xTF32 on the tensor cores), each held against its plain
-    version (TF32 is off, so torch.matmul is tiled_matmul_plain's pack=True
-    product) at phase 3's tolerance, then timed: 10 calls queued behind a
-    spin, between CUDA events (torch.profiler can lose the events of such
-    calls), beside torch.matmul and the bound."""
+def matmul_signatures(arch: str, svc, sigs, dev, seed: int, dtype=None,
+                      rows: dict | None = None) -> None:
+    """The matmul at new signatures, (label, rows, w, launches), in ``dtype``
+    (None: f32) at the rows the path gives them (4 in a decode step: the FFMA
+    tiles; B*P in the forward: the tensor cores, f32 in 3xTF32, bf16 one
+    m16n8k16 a k step), each held against its plain version (the pack=True
+    product: for f32 torch.matmul, TF32 being off; for bf16 one rounding of
+    the f32 sum) at phase 3's tolerance for the dtype, then timed: 10 calls
+    queued behind a spin, between CUDA events (torch.profiler can lose the
+    events of such calls; back-to-back calls where the host fell behind the
+    spin), beside torch.matmul in the dtype, the plain version (bf16: in
+    f32 it is torch.matmul) and the bound (the tensor-core route's peak past
+    8 rows, FFMA's at 8). With ``rows``, each row lands in
+    ``rows[(arch, label)]``."""
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.matmul import tiled_matmul_plain
 
     bm = ops.DEFAULTS["matmul"]["bm"]
+    bf16 = dtype == torch.bfloat16
     gx = torch.Generator(device=dev).manual_seed(seed)
     for label, M, w, per in sigs:
         K, N = w.shape
         x = torch.randn(M, K, generator=gx, device=dev)
+        if bf16:
+            x = (x / K ** 0.5).bfloat16()
         fn = svc.dispatch("matmul", x, w)
         tc = min(bm, M) > 8
-        compare(f"{arch} matmul {label} ({M}, {K}) @ ({K}, {N}) "
-                f"{'3xTF32' if tc else 'FFMA'}, against its plain version",
-                fn(x, w), torch.matmul(x, w), F32_TOL)
-        k_ms, l_ms = queued_ms(lambda: fn(x, w)), queued_ms(lambda: torch.matmul(x, w))
-        b_ms, b_by = bound(2.0 * M * K * N, 4.0 * (M * K + K * N + M * N),
-                           peak=PEAK_3XTF32_FLOPS if tc else PEAK_F32_FLOPS)
-        print(f"  {arch} matmul {label} ({M}, {K}) @ ({K}, {N}), {per}: kernel "
-              + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
-              + f" queued on the device, bound {b_ms:.4f} ms ({b_by}), torch.matmul "
-              + ("not measured" if l_ms is None else f"{l_ms:.4f} ms"), flush=True)
+        name = (f"{arch}{' bf16' if bf16 else ''} matmul {label} ({M}, {K}) @ ({K}, {N}) "
+                + (("bf16 mma.sync" if bf16 else "3xTF32") if tc else "FFMA"))
+        plain = lambda: tiled_matmul_plain(x, w, bk=K, pack=True, out_dtype=x.dtype)  # noqa: E731
+        compare(f"{name}, against its plain version", fn(x, w), plain(),
+                BF16_TOL if bf16 else F32_TOL)
+        k_ms = queued_ms(lambda: fn(x, w)) or time_ms(lambda: fn(x, w), iters=10)
+        l_ms = (queued_ms(lambda: torch.matmul(x, w))
+                or time_ms(lambda: torch.matmul(x, w), iters=10))
+        p_ms = time_ms(plain, iters=5) if bf16 else None
+        peak = (PEAK_BF16_FLOPS if bf16 else PEAK_3XTF32_FLOPS) if tc else PEAK_F32_FLOPS
+        b_ms, b_by = bound(2.0 * M * K * N, x.element_size() * (M * K + K * N + M * N),
+                           peak=peak)
+        if rows is not None:
+            rows[(arch, label)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                                       bound_by=b_by)
+        print(f"  {name}, {per}: kernel {k_ms:.4f} ms on the device, bound {b_ms:.4f} ms "
+              f"({b_by}), " + ("" if p_ms is None else f"plain {p_ms:.4f} ms, ")
+              + f"torch.matmul {l_ms:.4f} ms", flush=True)
 
 
 def serving(launches: dict, dev) -> float:
@@ -1251,13 +1355,18 @@ def serving(launches: dict, dev) -> float:
     top = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:5]
     print(f"  one decode step on the device (torch.profiler): {busy}; largest: "
           + "; ".join(f"{k[:50]} x{c} {t:.4f} ms" for k, (c, t) in top), flush=True)
+    SERVED[SERVE["arch"]] = served_record(
+        L, P, gen, B, {"prefill_sec": r["prefill_ms"] / 1e3,
+                       "decode_sec": r["decode_ms_per_step"] * gen / 1e3},
+        step_ms, step_bound, peak, dev_ms, n_kernels)
 
-    # -- a PagedKVCache round against each request's solo greedy_decode
+    # -- a PagedKVCache round against each request's solo run
     rounds, lens = 16, (64, 128, 200, 256)
-    buckets = paged_round(SERVE["arch"], cfg, params, svc, g, dev, lens, rounds, [1, 2, 5, 7])
+    buckets, _ = paged_round(SERVE["arch"], cfg, params, svc, g, dev, lens, rounds,
+                             [1, 2, 5, 7])
     print(f"  PagedKVCache: 4 requests (prompts {lens}) in 8 slots, page 128, {rounds} "
-          f"rounds (buckets {buckets}): tokens equal each request's solo "
-          f"greedy_decode; {json.dumps(svc.telemetry()['kv_cache'])}", flush=True)
+          f"rounds (buckets {buckets}): tokens equal each request's solo run; "
+          f"{json.dumps(svc.telemetry()['kv_cache'])}", flush=True)
 
     # -- the card against the CPU, same weights, a short run
     p1 = prompt[:1, :32]
@@ -1408,6 +1517,8 @@ def moe_arch(arch: str, n_layers: int, launches: dict, dev):
              f"{n_kernels} device kernels, {dev_ms:.4f} ms busy of {step_ms:.4f} ms host "
              f"wall ({busy:.1%})") + "; largest: "
           + "; ".join(f"{k[:50]} x{c} {t:.4f} ms" for k, (c, t) in top5), flush=True)
+    SERVED[arch] = served_record(n_layers, P, gen, B, timings, step_ms, all_ms, peak, dev_ms,
+                                 n_kernels)
 
     # -- the new matmul signatures, against their plain version and timed
     sigs = [("decode unembed", B, params["unembed"], "1 per decode step"),
@@ -1429,26 +1540,30 @@ def moe_arch(arch: str, n_layers: int, launches: dict, dev):
         compare(f"{arch} decode logits, absorb=True vs absorb=False on one filled cache "
                 f"(the reference's tolerance)", outs[0], outs[1], dict(atol=1e-3, rtol=1e-3))
 
-    # -- a PagedKVCache round against each request's solo greedy_decode
+    # -- a PagedKVCache round against each request's solo run
     if gqa:
         rounds, lens = MOE_SERVE["paged_rounds"], MOE_SERVE["paged_lens"]
         paged_round(arch, cfg, params, svc, g, dev, lens, rounds, [0, 3, 4, 6])
         print(f"  {arch} PagedKVCache: 4 requests (prompts {lens}) in 8 slots, page 128, "
               f"{rounds} rounds of per-row positions through the routed experts: tokens "
-              f"equal each request's solo greedy_decode; "
+              f"equal each request's solo run; "
               f"{json.dumps(svc.telemetry()['kv_cache'])}", flush=True)
     return cfg, g
 
 
 def card_vs_cpu(arch: str, cfg, check_layers: int, g, dev, margins_of, margin_what: str,
-                serve: dict, **fw_kw) -> None:
-    """The last check of phases 10 and 11 for one arch: the card against the
-    CPU, same weights drawn from ``serve["seed"]``, at full width with
-    ``check_layers`` layers, a prompt of ``serve["check_prompt"]`` tokens
-    from ``g`` and ``serve["check_gen"]`` new ones (``fw_kw`` to the
-    forward): forward logits at LOGIT_TOL and greedy tokens equal, beside
-    the least margin ``margins_of`` records over the card's greedy run (the
-    router's, or the top two logits')."""
+                serve: dict, near_tie: float = 0.0, **fw_kw) -> None:
+    """The last check of phases 10, 11 and 17 for one arch: the card against
+    the CPU, same weights drawn from ``serve["seed"]`` in ``cfg.dtype``, at
+    full width with ``check_layers`` layers, a prompt of
+    ``serve["check_prompt"]`` tokens from ``g`` and ``serve["check_gen"]``
+    new ones (``fw_kw`` to the forward), beside the least margin
+    ``margins_of`` records over the card's greedy run (the router's, or the
+    top two logits'): forward logits at LOGIT_TOL and greedy tokens equal;
+    with a ``near_tie`` share (bf16, which rounds at other places in cuBLAS
+    and the kernels than on the CPU), the logits within that share of the
+    CPU's largest |logit| and the tokens equal up to the first step whose
+    top-2 margin in the CPU's teacher-forced logits is under it."""
     import dataclasses
 
     import torch
@@ -1476,17 +1591,38 @@ def card_vs_cpu(arch: str, cfg, check_layers: int, g, dev, margins_of, margin_wh
     got_logits, _ = forward(cparams_cpu, {"tokens": p1.cpu()}, ccfg, service=svc_cpu, **fw_kw)
     got_toks = greedy_decode(cparams_cpu, ccfg, p1.cpu(), steps=gen1, max_len=P1 + gen1,
                              service=svc_cpu, **fw_kw)
-    del cparams_cpu
-    print(f"  {arch} card vs CPU at {check_layers} of {cfg.n_layers} layer(s), prompt {P1}"
+    what = f"{arch}{' bf16' if near_tie else ''}"
+    print(f"  {what} card vs CPU at {check_layers} of {cfg.n_layers} layer(s), prompt {P1}"
           + "".join(f", {k} {v}" for k, v in fw_kw.items()) + f": least {margin_what} "
           f"{min(margins):.3e} (the forward and {P1 + gen1} decode steps on the card)")
-    compare(f"{arch} logits, card vs CPU (full width, {check_layers} layer(s), prompt {P1})",
-            want_logits, got_logits, LOGIT_TOL)
-    if not torch.equal(want_toks, got_toks):
-        raise AssertionError(f"{arch} greedy tokens card {want_toks.tolist()} != CPU "
-                             f"{got_toks.tolist()}")
-    print(f"  {arch} greedy tokens ({gen1}), card and CPU: {want_toks[0].tolist()} (equal)",
-          flush=True)
+    if not near_tie:
+        del cparams_cpu
+        compare(f"{arch} logits, card vs CPU (full width, {check_layers} layer(s), prompt {P1})",
+                want_logits, got_logits, LOGIT_TOL)
+        if not torch.equal(want_toks, got_toks):
+            raise AssertionError(f"{arch} greedy tokens card {want_toks.tolist()} != CPU "
+                                 f"{got_toks.tolist()}")
+        print(f"  {arch} greedy tokens ({gen1}), card and CPU: {want_toks[0].tolist()} (equal)",
+              flush=True)
+        return
+    forced = forward(cparams_cpu, {"tokens": torch.cat([p1.cpu(), got_toks], 1)}, ccfg,
+                     **fw_kw)[0][0, P1 - 1:P1 - 1 + gen1].float()
+    del cparams_cpu
+    top = torch.topk(forced, 2, dim=-1).values
+    cpu_margins = (top[:, 0] - top[:, 1]).tolist()
+    scale = float(got_logits.abs().max())
+    diff = float((want_logits.float() - got_logits.float()).abs().max())
+    print(f"  {what} logits max |card - CPU| {diff:.4g} = {diff / scale:.3%} of the CPU's "
+          f"largest |logit| {scale:.4g} (tolerance {near_tie:.0%}); CPU top-2 margins "
+          f"{[round(m, 4) for m in cpu_margins]}", flush=True)
+    if not diff <= near_tie * scale:
+        raise AssertionError(f"{what} logits card vs CPU: {diff:.4g} past {near_tie:.0%} of "
+                             f"{scale:.4g}")
+    n = near_tie_steps(f"{what} greedy tokens, card vs CPU", want_toks[0].tolist(),
+                       got_toks[0].tolist(), cpu_margins, near_tie * scale)
+    print(f"  {what} greedy tokens ({gen1}), card {want_toks[0].tolist()}, CPU "
+          f"{got_toks[0].tolist()}: equal over the first {n} (up to a near-tie under "
+          f"{near_tie * scale:.4g})", flush=True)
 
 
 def released(arch: str, base: int, after: str) -> None:
@@ -1581,13 +1717,40 @@ def served_launches(cfg) -> tuple[dict, dict]:
             {"flash_attention": 0, "decode_attention": n, "tiled_matmul": n + 1})
 
 
-def ssm_arch(arch: str, launches: dict, dev):
-    """Phase 11 for one arch: serve it at full width and full depth through
-    greedy_decode and a DispatchService, with the launch counts set to 0
-    just before and read just after (added to ``launches``); then per-call
-    launches and times, the decode step's bytes bound and busy share, the
-    new matmul and attention signatures against their plain versions and
-    timed, and a PagedKVCache round (qwen2-vl). Returns (the served config,
+def served_record(layers: int, prompt: int, gen: int, B: int, timings: dict, alone_ms: float,
+                  bound_ms: float, peak: int, dev_ms: float, kernels: int) -> dict:
+    """A served run's figures, which phase 17 prints beside its bf16 ones:
+    TTFT, ms a decode step in the run and alone, the step's bytes bound,
+    tok/s over the decode steps, peak GB, the step's busy share (None where
+    the profiler recorded no device time) and device kernels."""
+    return dict(layers=layers, prompt=prompt, gen=gen, ttft_ms=timings["prefill_sec"] * 1e3,
+                step_ms=timings["decode_sec"] / gen * 1e3, alone_ms=alone_ms,
+                bound_ms=bound_ms, tok_s=B * gen / timings["decode_sec"], peak_gb=peak / 1e9,
+                busy=None if dev_ms == 0.0 else dev_ms / alone_ms, kernels=kernels)
+
+
+def served_line(fig: dict | None) -> str:
+    if fig is None:
+        return "none (not served by this run)"
+    return (f"{fig['layers']} layers, prompt {fig['prompt']}, {fig['gen']} new tokens: TTFT "
+            f"{fig['ttft_ms']:.2f} ms, decode {fig['step_ms']:.4f} ms per step "
+            f"({fig['alone_ms']:.4f} ms alone) against {fig['bound_ms']:.4f} ms, "
+            f"{fig['tok_s']:.1f} tok/s, peak {fig['peak_gb']:.3f} GB, "
+            + ("busy not measured" if fig["busy"] is None else
+               f"{fig['kernels']} device kernels a step, {fig['busy']:.1%} busy"))
+
+
+def serve_arch(arch: str, launches: dict, dev, serve: dict, dtype, n_layers: int | None = None,
+               rows: dict | None = None):
+    """Phases 11 and 17 for one arch: serve it at full width in ``dtype``
+    with ``n_layers`` layers (None: all) through greedy_decode and a
+    DispatchService, with the launch counts (and the bf16 tensor-core
+    matmul's) set to 0 just before and read just after (added to
+    ``launches``); then per-call launches and times, the decode step's bytes
+    bound and busy share (bf16: beside the f32 phases' figures), the new
+    matmul (``rows``: matmul_signatures's) and attention signatures against
+    their plain versions and timed, and for ``serve["paged_arch"]`` a
+    PagedKVCache round (bf16: up to a near-tie). Returns (the served config,
     the prompt generator): the model's tensors die with this call's
     locals."""
     import dataclasses
@@ -1603,9 +1766,13 @@ def ssm_arch(arch: str, launches: dict, dev):
     from repro_torch.serve import greedy_decode
 
     wrappers = (flash_attention, decode_attention, tiled_matmul)
-    B, P, gen, seed = (SSM_SERVE[k] for k in ("batch", "prompt_len", "gen", "seed"))
-    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+    B, P, gen, seed = (serve[k] for k in ("batch", "prompt_len", "gen", "seed"))
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, dtype=dtype, n_layers=n_layers or full.n_layers)
+    bf16 = dtype == torch.bfloat16
+    what = f"{arch}{' bf16' if bf16 else ''}"
     L, fam = cfg.n_layers, cfg.family
+    windowed = bool(cfg.sliding_window or cfg.local_global_ratio)
     one_fwd, one_step = served_launches(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1617,26 +1784,33 @@ def ssm_arch(arch: str, launches: dict, dev):
     # -- the main path: greedy_decode (prefill: forward + the prompt's replay)
     for w in wrappers:
         w.launches = 0
+    tiled_matmul.bf16_tc_launches = 0
     timings: dict = {}
     toks = greedy_decode(params, cfg, prompt, steps=gen, max_len=P + gen, service=svc,
                          timings=timings)
     torch.cuda.synchronize()
     counts = {w.__name__: w.launches for w in wrappers}
+    tc = tiled_matmul.bf16_tc_launches
     peak = torch.cuda.max_memory_allocated()
     if tuple(toks.shape) != (B, gen) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
-        raise AssertionError(f"{arch}: tokens of shape {tuple(toks.shape)} outside the vocab")
+        raise AssertionError(f"{what}: tokens of shape {tuple(toks.shape)} outside the vocab")
     steps = P + gen
     want = {k: one_fwd[k] + one_step[k] * steps for k in one_fwd}
-    print(f"  {arch} ({fam}, {L} layers, d {cfg.d_model}, vocab {cfg.vocab_size}): launches "
-          f"over greedy_decode {counts} (expected {want}: {one_fwd} per forward, {one_step} "
-          f"per decode step, {steps} steps)")
-    if counts != want:
-        raise AssertionError(f"{arch}: launch counts {counts} != {want}")
+    # bf16: the forward's B * P rows take the tensor cores, a decode step's
+    # B rows the FFMA loop
+    want_tc = one_fwd["tiled_matmul"] if bf16 else 0
+    print(f"  {what} ({fam}, {L} of {full.n_layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}): launches over greedy_decode {counts}, of the matmul's {tc} on "
+          f"the bf16 tensor cores (expected {want} and {want_tc}: {one_fwd} per forward, "
+          f"{one_step} per decode step, {steps} steps)")
+    if counts != want or tc != want_tc:
+        raise AssertionError(f"{what}: launch counts {counts}, {tc} != {want}, {want_tc}")
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
+    launches["matmul_bf16"] = launches.get("matmul_bf16", 0) + tc
     if svc.stats["build_failed"] or svc.stats["store_default"] == 0:
-        raise AssertionError(f"{arch}: dispatch stats {svc.stats}")
-    print(f"  {arch} dispatch stats: {json.dumps(svc.stats)}; first request "
+        raise AssertionError(f"{what}: dispatch stats {svc.stats}")
+    print(f"  {what} dispatch stats: {json.dumps(svc.stats)}; first request "
           f"{toks[0].tolist()}", flush=True)
 
     # -- per call: launches, times, the decode step's bound and busy share
@@ -1646,39 +1820,48 @@ def ssm_arch(arch: str, launches: dict, dev):
     tok = prompt[:, -1:]
     step = lambda: decode_step(params, cache, tok, P, cfg, service=svc)  # noqa: E731
     n_step = launches_per_call(step, wrappers)
-    print(f"  {arch} launches per prefill forward {n_fwd}, per decode step {n_step}")
+    print(f"  {what} launches per prefill forward {n_fwd}, per decode step {n_step}")
     if n_fwd != one_fwd or n_step != one_step:
-        raise AssertionError(f"{arch}: per-call launch counts differ from {one_fwd} and "
+        raise AssertionError(f"{what}: per-call launch counts differ from {one_fwd} and "
                              f"{one_step}")
     fwd_ms, step_ms = host_ms(fwd, iters=3), host_ms(step, iters=10)
     # the bytes a step must move: every weight but the embed table (the
     # lookup reads B rows), zamba2's shared block once a site (268 MB at its
     # width: the L2 cannot hold it from one site to the next), the Mamba2
-    # state read and written, the K/V of P + 1 positions read
-    weights = tree_bytes(params) - params["embed"].numel() * 4
+    # state read and written, the K/V of P + 1 positions read at each
+    # attention site (a windowed arch's attention, plain, at every layer)
+    weights = tree_bytes(params) - params["embed"].numel() * params["embed"].element_size()
     sites = one_step["decode_attention"]
     if fam == "hybrid":
         weights += (sites - 1) * tree_bytes(params["shared_attn"])
     state = 2 * tree_bytes(cache["layers"]) if fam in ("ssm", "hybrid") else 0
-    kv = sites * B * (P + 1) * 2 * cfg.n_kv_heads * cfg.hd * 4
+    kv_sites = L if windowed else sites
+    kv = kv_sites * B * (P + 1) * 2 * cfg.n_kv_heads * cfg.hd * dtype.itemsize
     step_bound = (weights + state + kv) / PEAK_HBM_BYTES * 1e3
     dev_ms, by_name = device_time(step)
     n_kernels = sum(c for c, _ in by_name.values())
     top5 = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:5]
-    print(f"  {arch} memory: peak {peak / 1e9:.3f} GB allocated over the served run "
-          f"(torch.cuda.max_memory_allocated), weights {tree_bytes(params) / 1e9:.3f} GB f32")
-    print(f"  {arch} TTFT {timings['prefill_sec'] * 1e3:.2f} ms (forward + the prompt's replay "
-          f"through decode_step); forward alone {fwd_ms:.3f} ms host wall")
-    print(f"  {arch} decode: {timings['decode_sec'] / gen * 1e3:.4f} ms per step in the run, "
+    fig = served_record(L, P, gen, B, timings, step_ms, step_bound, peak, dev_ms, n_kernels)
+    print(f"  {what} memory: peak {peak / 1e9:.3f} GB allocated over the served run "
+          f"(torch.cuda.max_memory_allocated), weights {tree_bytes(params) / 1e9:.3f} GB "
+          f"{'bf16 (the router, norms and biases f32)' if bf16 else 'f32'}")
+    print(f"  {what} TTFT {fig['ttft_ms']:.2f} ms (forward + the prompt's replay through "
+          f"decode_step); forward alone {fwd_ms:.3f} ms host wall")
+    print(f"  {what} decode: {fig['step_ms']:.4f} ms per step in the run, "
           f"{step_ms:.4f} ms alone; bound {step_bound:.4f} ms (bytes at 3.35 TB/s: "
           f"{weights / 1e9:.3f} GB of weights, {state / 1e6:.1f} MB of Mamba2 state read and "
-          f"written, {kv / 1e6:.1f} MB of K/V read); "
-          f"{B * gen / timings['decode_sec']:.1f} tok/s over the decode steps")
-    print(f"  {arch} one decode step on the device (torch.profiler): "
+          f"written, {kv / 1e6:.1f} MB of K/V read); {fig['tok_s']:.1f} tok/s over the decode "
+          f"steps")
+    print(f"  {what} one decode step on the device (torch.profiler): "
           + ("not measured (the profiler recorded no device time)" if dev_ms == 0.0 else
              f"{n_kernels} device kernels, {dev_ms:.4f} ms busy of {step_ms:.4f} ms host "
              f"wall ({dev_ms / step_ms:.1%})") + "; largest: "
           + "; ".join(f"{k[:50]} x{c} {t:.4f} ms" for k, (c, t) in top5), flush=True)
+    if bf16:
+        print(f"  {what}: {served_line(fig)}; the f32 phase's: {served_line(SERVED.get(arch))}",
+              flush=True)
+    else:
+        SERVED[arch] = fig
 
     # -- the new matmul signatures, against their plain version and timed
     unembed = params["embed_t"] if cfg.tie_embeddings else params["unembed"]
@@ -1686,70 +1869,81 @@ def ssm_arch(arch: str, launches: dict, dev):
             ("forward unembed", B * P, unembed, "1 per forward")]
     if fam != "ssm":
         wo = params["shared_attn"]["wo"] if fam == "hybrid" else params["layers"]["wo"][0]
-        sigs = [("decode output projection", B, wo, f"{sites} per decode step"),
-                ("forward output projection", B * P, wo, f"{sites} per forward")] + sigs
-    matmul_signatures(arch, svc, sigs, dev, seed + 2)
+        sigs = [("decode output projection", B, wo, f"{kv_sites} per decode step"),
+                ("forward output projection", B * P, wo, f"{kv_sites} per forward")] + sigs
+    matmul_signatures(arch, svc, sigs, dev, seed + 2, dtype, rows)
 
     # -- the attention signatures, against their plain versions and timed
-    if fam != "ssm":
-        attention_signatures(arch, svc, cfg, B, P, gen, sites, dev, seed)
+    # (a windowed arch's attention stays plain, as in the JAX package)
+    if fam != "ssm" and not windowed:
+        attention_signatures(arch, svc, cfg, B, P, gen, sites, dev, seed, dtype)
 
-    # -- a PagedKVCache round against each request's solo greedy_decode, on
-    # per-row positions through M-RoPE's three sections
-    if fam == "vlm":
-        rounds, lens = SSM_SERVE["paged_rounds"], SSM_SERVE["paged_lens"]
-        paged_round(arch, cfg, params, svc, g, dev, lens, rounds, [1, 2, 5, 7])
-        print(f"  {arch} PagedKVCache: 4 requests (prompts {lens}) in 8 slots, page 128, "
-              f"{rounds} rounds of per-row M-RoPE positions: tokens equal each request's "
-              f"solo greedy_decode; {json.dumps(svc.telemetry()['kv_cache'])}", flush=True)
+    # -- a PagedKVCache round against each request's solo run, on
+    # per-row positions (qwen2-vl: through M-RoPE's three sections)
+    if arch == serve["paged_arch"]:
+        rounds, lens = serve["paged_rounds"], serve["paged_lens"]
+        near_tie = BF16_LOGIT_REL[fam] if bf16 else 0.0
+        buckets, checked = paged_round(what, cfg, params, svc, g, dev, lens, rounds,
+                                       [1, 2, 5, 7], near_tie)
+        print(f"  {what} PagedKVCache: 4 requests (prompts {lens}) in 8 slots, page 128, "
+              f"{rounds} rounds of per-row positions (buckets {buckets}): tokens equal each "
+              f"request's solo run over {checked} of {rounds + 1} steps"
+              + (f" (up to a near-tie under {near_tie:.0%} of the largest |logit|)"
+                 if near_tie else "") + f"; {json.dumps(svc.telemetry()['kv_cache'])}",
+              flush=True)
     return cfg, g
 
 
 def attention_signatures(arch: str, svc, cfg, B: int, P: int, gen: int, sites: int, dev,
-                         seed: int) -> None:
-    """The attention kernels at an arch's signatures: flash at the prompt
-    (one of G calls a layer or site), decode against the model's (B, S, K,
-    hd) cache read in place at position P (P + 1 slots), each held against
-    its plain version at phase 3's tolerance, then queued and timed beside
-    scaled_dot_product_attention in f32 (a yardstick the port never calls)
-    and the bound; ``sites`` is the attention sites a forward or step."""
+                         seed: int, dtype=None) -> None:
+    """The attention kernels at an arch's signatures in ``dtype`` (None:
+    f32; bf16 in, f32 math, bf16 out): flash at the prompt (one of G calls
+    a layer or site), decode against the model's (B, S, K, hd) cache read in
+    place at position P (P + 1 slots), each held against its plain version
+    at phase 3's tolerance for the dtype, then queued and timed beside
+    scaled_dot_product_attention in the dtype (a yardstick the port never
+    calls) and the bound; ``sites`` is the attention sites a forward or
+    step."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import CacheRows, decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention_plain
 
+    dt = dtype or torch.float32
+    name, tol = ("bf16", ATTN_BF16_TOL) if dt == torch.bfloat16 else ("f32", ATTN_TOL)
+    what, size = f"{arch}{' bf16' if name == 'bf16' else ''}", dt.itemsize
     K, hd, G = cfg.n_kv_heads, cfg.hd, cfg.n_heads // cfg.n_kv_heads
     BH, S = B * K, P + gen
-    q, k, v = attention_inputs(BH, P, P, hd, dev, seed + 3)
+    q, k, v = (t.to(dt) for t in attention_inputs(BH, P, P, hd, dev, seed + 3))
     fn = svc.dispatch("flash_attention", q, k, v, causal=True)
-    compare(f"{arch} flash_attention ({BH}, {P}, {hd}) causal, against its plain version",
-            fn(q, k, v), flash_attention_plain(q, k, v, causal=True), ATTN_TOL)
+    compare(f"{what} flash_attention ({BH}, {P}, {hd}) causal, against its plain version",
+            fn(q, k, v), flash_attention_plain(q, k, v, causal=True), tol)
     k_ms = queued_ms(lambda: fn(q, k, v))
     l_ms = queued_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-    b_ms, b_by = bound(4.0 * BH * P * P * hd * 0.5, 4.0 * BH * 4 * P * hd)
-    print(f"  {arch} flash_attention ({BH}, {P}, {hd}) causal, {G * sites} calls a "
+    b_ms, b_by = bound(4.0 * BH * P * P * hd * 0.5, size * BH * 4 * P * hd)
+    print(f"  {what} flash_attention ({BH}, {P}, {hd}) causal, {G * sites} calls a "
           f"forward: kernel " + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
-          + f" queued on the device, bound {b_ms:.4f} ms ({b_by}), SDPA f32 "
+          + f" queued on the device, bound {b_ms:.4f} ms ({b_by}), SDPA {name} "
           + ("not measured" if l_ms is None else f"{l_ms:.4f} ms"), flush=True)
     gq = torch.Generator(device=dev).manual_seed(seed + 4)
-    qd = torch.randn(BH, G, hd, generator=gq, device=dev)
-    kc, vc = (torch.randn(B, S, K, hd, generator=gq, device=dev) for _ in range(2))
+    qd = torch.randn(BH, G, hd, generator=gq, device=dev).to(dt)
+    kc, vc = (torch.randn(B, S, K, hd, generator=gq, device=dev).to(dt) for _ in range(2))
     cp = torch.full((BH,), P, dtype=torch.int32, device=dev)
     kr, vr = CacheRows(kc), CacheRows(vc)
     fn = svc.dispatch("decode_attention", qd, kr, vr, cp, ring=False, window=0)
-    compare(f"{arch} decode_attention ({BH}, {G}, {S}, {hd}) at position {P}, the cache "
+    compare(f"{what} decode_attention ({BH}, {G}, {S}, {hd}) at position {P}, the cache "
             f"read in place, against its plain version", fn(qd, kr, vr, cp),
-            decode_attention_plain(qd, kr, vr, cp), ATTN_TOL)
+            decode_attention_plain(qd, kr, vr, cp), tol)
     krow, vrow = kr.rows().contiguous(), vr.rows().contiguous()
     mask = torch.arange(S, device=dev)[None, None, :] <= cp[:, None, None]
     k_ms = queued_ms(lambda: fn(qd, kr, vr, cp))
     l_ms = queued_ms(lambda: F.scaled_dot_product_attention(qd, krow, vrow, attn_mask=mask))
     slots = BH * (P + 1)
-    b_ms, b_by = bound(4.0 * G * hd * slots, 4.0 * (2 * slots * hd + 2 * BH * G * hd))
-    print(f"  {arch} decode_attention ({BH}, {G}, {S}, {hd}) at position {P}, {sites} a "
+    b_ms, b_by = bound(4.0 * G * hd * slots, size * (2 * slots * hd + 2 * BH * G * hd))
+    print(f"  {what} decode_attention ({BH}, {G}, {S}, {hd}) at position {P}, {sites} a "
           f"decode step: kernel " + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
-          + f" queued on the device, bound {b_ms:.4f} ms ({b_by}), SDPA f32 on the rows "
+          + f" queued on the device, bound {b_ms:.4f} ms ({b_by}), SDPA {name} on the rows "
           + ("not measured" if l_ms is None else f"{l_ms:.4f} ms"), flush=True)
 
 
@@ -1764,7 +1958,7 @@ def ssm_phase(launches: dict, dev) -> None:
         t0 = time.perf_counter()
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
-        cfg, g = ssm_arch(arch, launches, dev)
+        cfg, g = serve_arch(arch, launches, dev, SSM_SERVE, torch.float32)
         released(arch, base, "the served run")
         card_vs_cpu(arch, cfg, check_layers, g, dev, logit_margins,
                     "gap between the top two logits", SSM_SERVE,
@@ -3913,6 +4107,83 @@ def parallel_parts(dev, out: str, side: dict, cells: list, running: list, top_up
     print("\n".join("    " + ln for ln in text.splitlines()), flush=True)
 
 
+def bf16_matmul_checks(dev, errs: dict) -> None:
+    """Phase 17 (a): the bf16 matmul against its plain version at the
+    served product shapes and two ragged ones: every bk of GPU_TILES_K, each
+    under four tiles that between them take pack on and off, either raster
+    order and out f32 and bf16 (rows past 8: the tensor cores). bf16 outputs
+    at phase 3's bf16 tolerance, f32 ones at its f32 tolerance (the products
+    of bf16 operands are exact in f32 on both sides: only the sums' order
+    differs)."""
+    import torch
+
+    from repro_torch.kernels.matmul import tiled_matmul, tiled_matmul_plain
+    from repro_torch.kernels.spaces import GPU_TILES_K
+
+    t0 = time.perf_counter()
+    tiles = ((64, 64, True, False, torch.bfloat16), (128, 128, False, True, torch.float32),
+             (40, 96, True, True, torch.float32), (128, 64, False, False, torch.bfloat16))
+    n, worst, largest = 0, 0.0, 0.0
+    for label, (M, K, N) in BF16_MATMUL_SHAPES:
+        a, b = (t.bfloat16() for t in model_operands(M, K, N, dev, seed=7))
+        for bk in GPU_TILES_K:
+            for bm, bn, pack, inter, out in tiles:
+                got = tiled_matmul(a, b, bm=bm, bn=bn, bk=bk, pack=pack, interchange=inter,
+                                   out_dtype=out).float()
+                want = tiled_matmul_plain(a, b, bk=min(bk, K), pack=pack,
+                                          out_dtype=out).float()
+                tol = BF16_TOL if out == torch.bfloat16 else F32_TOL
+                diff = (got - want).abs()
+                share = float((diff / (tol["atol"] + tol["rtol"] * want.abs())).max())
+                if not torch.isfinite(got).all() or not share <= 1.0:
+                    raise AssertionError(
+                        f"bf16 matmul {label} ({M}, {K}) @ ({K}, {N}) bm={bm} bn={bn} bk={bk} "
+                        f"pack={pack} interchange={inter} out {out}: {share:.3g} of the "
+                        f"tolerance")
+                worst, largest, n = max(worst, share), max(largest, float(diff.max())), n + 1
+        print(f"  bf16 matmul {label} ({M}, {K}) @ ({K}, {N}): {len(GPU_TILES_K)} chunks x "
+              f"{len(tiles)} tiles agree with the plain version", flush=True)
+    torch.cuda.synchronize()
+    errs["matmul_bf16"] = largest
+    print(f"  bf16 matmul: {n} launches against the plain version, largest error "
+          f"{largest:.3e} ({worst:.3f} of the tolerance), {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def bf16_phase(launches: dict, dev, errs: dict, rows: dict) -> None:
+    """Phase 17: the catalog in its own dtype on the card. The bf16 matmul
+    against its plain version, then each arch served in bf16 and checked
+    against the CPU, one after the other (the served model's tensors leave
+    the card before the check's, and the next arch's, are drawn); the
+    kernels line's matmul_bf16 row is mixtral's forward output projection."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    t17 = time.perf_counter()
+    bf16_matmul_checks(dev, errs)
+    mm_rows: dict = {}
+    for arch, n_layers, check_layers in BF16_ARCHS:
+        if get_config(arch).dtype != torch.bfloat16:
+            raise AssertionError(f"{arch}: the catalog's dtype is {get_config(arch).dtype}")
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        cfg, g = serve_arch(arch, launches, dev, BF16_SERVE, torch.bfloat16, n_layers, mm_rows)
+        released(arch, base, "the bf16 served run")
+        if cfg.family == "moe":
+            margins_of, margin_what = routing_margins, (
+                f"gap between the k-th and (k+1)-th router probability (k = {cfg.top_k})")
+        else:
+            margins_of, margin_what = logit_margins, "gap between the top two logits"
+        card_vs_cpu(arch, cfg, check_layers, g, dev, margins_of, margin_what, BF16_SERVE,
+                    near_tie=BF16_LOGIT_REL[cfg.family], ssm_chunk=BF16_SERVE["check_chunk"])
+        released(arch, base, "the bf16 card-against-CPU check")
+        print(f"  {arch} bf16: {time.perf_counter() - t0:.1f} s", flush=True)
+    rows["matmul_bf16"] = mm_rows[("mixtral-8x7b", "forward output projection")]
+    print(f"  phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4644,6 +4915,12 @@ def main() -> int:
           "NCCL, the knobs' hillclimb")
     parallel_phase(launches, dev, hill)
 
+    # ---- 17. the catalog in its own dtype -----------------------------------------------
+    phase("17. the catalog in bf16 on the card: the matmul's bf16 tensor-core path against "
+          "its plain version, qwen2-0.5b, qwen2-vl-7b, mixtral-8x7b (16 layers) and "
+          "mamba2-780m served in bf16 at full width, the card against the CPU")
+    bf16_phase(launches, dev, errs, rows)
+
     def entry(name, source, replaces):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
                     replaces=replaces, launches=launches[WRAPPER_OF[name]],
@@ -4661,6 +4938,7 @@ def main() -> int:
               "src/repro/kernels/flash_attention.py:37"),
         entry("decode_attention", "decode_attention.cu",
               "src/repro/kernels/decode_attention.py:62"),
+        entry("matmul_bf16", "matmul.cu", "src/repro/kernels/matmul.py:34"),
     ]
     for k in kernels:
         if k["launches"] < 1:

@@ -130,6 +130,9 @@ class RuleContext:
     kernel: str
     dims: tuple | None    # problem dims (kernels.problems order), if known
     target: str           # "gpu" | "host"
+    # the operands' dtype where the caller knows it (a signature carries
+    # none, and a store record serves both f32 and bf16 calls): None, either
+    dtype: object = None
 
 
 class Rule:
@@ -276,10 +279,15 @@ class SmemBudget(Rule):
     kernel has no register tile for the tile (the functions' -1).
 
     The PolyBench kernels are f32 only. The model kernels' (flash and decode
-    attention, matmul) bytes depend on the operands' dtype, which a
-    signature does not carry: they are asked for bf16 operands, the
-    smallest staging, so the rule never refuses a config that fits; the
-    build guard still catches an f32 tile that does not.
+    attention, matmul) bytes depend on the operands' dtype, ``ctx.dtype``
+    where the caller knows it. Where it does not (a signature carries none,
+    and a store record serves f32 and bf16 calls alike), the attention
+    kernels are asked for bf16 operands, their smallest staging, and the
+    matmul for both dtypes, the smaller answer (bf16 pads its tensor-core
+    chunks to 16 in k, f32 to 8, and f32 tiles whose tensor-core stage does
+    not fit take the FFMA loop's), so the rule never refuses a config that
+    fits; the build guard still catches a tile that does not fit the call's
+    own dtype.
 
     Like the JAX package's ``VmemBudget`` on the host, the rule is inert
     where no card is present: the functions need the built library."""
@@ -290,7 +298,9 @@ class SmemBudget(Rule):
         limit = smem_limit()
         if limit is None:
             return
-        yield from smem_findings(smem_needs(ctx.kernel, cfg, ctx.dims, limit), limit)
+        needs = (smem_needs(ctx.kernel, cfg, ctx.dims, limit) if ctx.dtype is None
+                 else smem_needs(ctx.kernel, cfg, ctx.dims, limit, ctx.dtype))
+        yield from smem_findings(needs, limit)
 
     def describe(self):
         return "shared memory per block within the device's limit (gpu)"
@@ -308,18 +318,24 @@ def smem_limit() -> int | None:
     return max_shared_memory_per_block(torch.device("cuda", torch.cuda.current_device()))
 
 
-def smem_needs(kernel: str, cfg: Mapping, dims, limit: int) -> list[tuple[str, int]] | None:
+def smem_needs(kernel: str, cfg: Mapping, dims, limit: int,
+               dtype=None) -> list[tuple[str, int]] | None:
     """``[(what, bytes), ...]``: the shared memory one block of each launch
     of ``kernel``'s schedule needs for ``cfg`` at ``dims`` under a per-block
-    ``limit``, from the kernels' own ``*_smem_bytes`` (-1 where the kernel
-    has no register tile for the tile). None for a kernel without a table
-    or a structurally invalid config (other rules' findings). Needs the
-    built library: ask :func:`smem_limit` first."""
+    ``limit`` for operands of ``dtype`` (None: unknown, as
+    :class:`SmemBudget` reads it; the PolyBench kernels are f32 only), from
+    the kernels' own ``*_smem_bytes`` (-1 where the kernel has no register
+    tile for the tile). None for a kernel without a table or a structurally
+    invalid config (other rules' findings). Needs the built library: ask
+    :func:`smem_limit` first."""
     needs = _SMEM_NEEDS.get(kernel)
     if needs is None:
         return None
+    dims = tuple(int(d) for d in dims)
     try:
-        return needs(cfg, tuple(int(d) for d in dims), limit)
+        if kernel in _MODEL_KERNELS:
+            return needs(cfg, dims, limit, dtype)
+        return needs(cfg, dims, limit)
     except (KeyError, TypeError, ValueError):
         # structurally invalid configs (a ConfigRejected for a non-positive
         # tile included) are other rules' findings
@@ -419,7 +435,7 @@ def _floyd_warshall_smem(cfg, dims, limit):
             for ti, tj in ((bi, bj), (bs, pt), (pt, bs))]
 
 
-def _flash_smem(cfg, dims, limit):
+def _flash_smem(cfg, dims, limit, dtype):
     import torch
 
     from repro_torch.kernels.flash_attention import STEP, flash_attention_smem_bytes
@@ -432,10 +448,10 @@ def _flash_smem(cfg, dims, limit):
     if bq < 1 or bk < 1:
         return []  # PositiveIntTiles owns it
     return [("flash_attention",
-             flash_attention_smem_bytes(bq, bk, hd, torch.bfloat16, limit))]
+             flash_attention_smem_bytes(bq, bk, hd, dtype or torch.bfloat16, limit))]
 
 
-def _decode_smem(cfg, dims, limit):
+def _decode_smem(cfg, dims, limit, dtype):
     import torch
 
     from repro_torch.kernels.decode_attention import (
@@ -450,19 +466,26 @@ def _decode_smem(cfg, dims, limit):
     if bk < 1:
         return []
     Gl = max(g1 - g0 for g0, g1 in decode_attention_head_groups(G, hd))
-    return [("decode_attention", decode_attention_smem_bytes(Gl, bk, hd, torch.bfloat16))]
+    return [("decode_attention",
+             decode_attention_smem_bytes(Gl, bk, hd, dtype or torch.bfloat16))]
 
 
-def _model_matmul_smem(cfg, dims, limit):
+def _model_matmul_smem(cfg, dims, limit, dtype):
     import torch
 
     M, K, N = dims
     bm, bn, bk = (int(cfg.get(k, 128)) for k in ("bm", "bn", "bk"))
     if min(bm, bn, bk) < 1:
         return []
-    return [_matmul_smem(M, K, N, bm, bn, bk, limit, torch.bfloat16)]
+    asks = [_matmul_smem(M, K, N, bm, bn, bk, limit, dt)
+            for dt in ((dtype,) if dtype is not None else (torch.float32, torch.bfloat16))]
+    fits = [a for a in asks if a[1] >= 0]
+    return [min(fits, key=lambda a: a[1]) if fits else asks[0]]
 
 
+# the kernels whose shared memory depends on the operands' dtype (the
+# PolyBench kernels are f32 only)
+_MODEL_KERNELS = ("flash_attention", "decode_attention", "matmul")
 _SMEM_NEEDS = {
     "syr2k": _syr2k_smem,
     "mm3": _mm3_smem,
@@ -480,9 +503,11 @@ class TileAlign(Rule):
     """Targets ``gpu`` and ``cost``, the Hopper counterpart of the JAX
     package's ``MxuAlign``: the tile kernels on ``csrc/gemm_f32.cuh`` pad
     each tile extent to a multiple of its ``ALIGN`` (8), and the f32 matmul's
-    3xTF32 route (row tiles past 8) pads rows and columns to its warps'
-    ``TC_PIECE`` x ``TC_PIECE`` (32 x 32) pieces and the k chunk to 8 (its
-    ``mma.sync`` k), where the FFMA route pads the chunk only to 4
+    tensor-core route (row tiles past 8) pads rows and columns to its warps'
+    ``TC_PIECE`` x ``TC_PIECE`` (32 x 32) pieces and the k chunk to its
+    ``mma.sync`` k (``MMA_K``): 8 for f32 operands (3xTF32; mm3 and lu are
+    f32 only), 16 for bf16, and where ``ctx.dtype`` is unknown the smaller
+    padding, f32's; the FFMA route pads the chunk only to 4
     (``kernels/cost.py``). A tile off its grid computes padding in every
     block. ``axes`` maps each tile param to the dim it tiles: a tile that
     covers its whole dim pads only the dim's own remainder, which no config
@@ -498,7 +523,7 @@ class TileAlign(Rule):
     def check(self, cfg, ctx):
         if ctx.target not in ("gpu", "cost"):
             return
-        from repro_torch.kernels.cost import ALIGN, TC_PIECE
+        from repro_torch.kernels.cost import ALIGN, MMA_K, TC_PIECE
 
         def tile(name):
             v = cfg.get(name)
@@ -512,8 +537,10 @@ class TileAlign(Rule):
         grids = dict.fromkeys(self.axes, ALIGN)
         if self.tc is not None:
             rows, cols, k = self.tc
-            if (tile(rows) or 0) > ALIGN:  # the 3xTF32 route
-                grids.update({rows: TC_PIECE, cols: TC_PIECE})
+            if (tile(rows) or 0) > ALIGN:  # the tensor cores' route
+                k_step = (MMA_K[ctx.dtype.itemsize] if ctx.dtype is not None
+                          else min(MMA_K.values()))
+                grids.update({rows: TC_PIECE, cols: TC_PIECE, k: k_step})
             else:
                 del grids[k]  # the FFMA route's chunk: a multiple of 4
         for name, grid in grids.items():
@@ -525,9 +552,11 @@ class TileAlign(Rule):
                               f"{name}={v} pads to {-(-v // ALIGN) * ALIGN} on the "
                               f"tile kernels' {ALIGN}-element grid", name)
             elif v % grid:
+                where = (f"the tensor-core matmul's mma k of {grid}"
+                         if self.tc is not None and name == self.tc[2] else
+                         f"the tensor-core matmul's {grid} x {grid} warp pieces")
                 yield Finding(f"tile_misaligned:{name}", WARN,
-                              f"{name}={v} pads to {-(-v // grid) * grid} in the "
-                              f"3xTF32 matmul's {grid} x {grid} warp pieces", name)
+                              f"{name}={v} pads to {-(-v // grid) * grid} in {where}", name)
 
     def describe(self):
         return f"tile alignment on Hopper: {', '.join(self.axes)} (gpu/cost)"
@@ -539,26 +568,30 @@ class PaddingWaste(Rule):
     kernel's launches run (the cost model's ``info["padded_work"]``, tiles
     padded to their grids, whole diagonal tiles of the symmetric kernels,
     heat3d's recomputed halos) against the useful operations
-    (``info["flops"]``). Past :data:`PAD_WASTE_RATIO` a third of the work
-    or more is padding. Warn-only: the padded kernel is correct, just
-    wasteful."""
+    (``info["flops"]``), in the layout the kernel runs for ``ctx.dtype``
+    where it is known, else the smaller ratio of f32's and bf16's. Past
+    :data:`PAD_WASTE_RATIO` a third of the work or more is padding.
+    Warn-only: the padded kernel is correct, just wasteful."""
 
     def check(self, cfg, ctx):
         if ctx.target not in ("gpu", "cost") or ctx.dims is None:
             return
-        from repro_torch.kernels.cost import KERNEL_COST_FNS
+        import torch
 
-        fn = KERNEL_COST_FNS.get(ctx.kernel)
-        if fn is None:
+        from repro_torch.kernels.cost import KERNEL_COST_FNS, kernel_cost
+
+        if ctx.kernel not in KERNEL_COST_FNS:
             return
+        dtypes = (ctx.dtype,) if ctx.dtype is not None else (torch.float32, torch.bfloat16)
         try:
-            _, info = fn(cfg, *ctx.dims)
+            infos = [kernel_cost(ctx.kernel, cfg, *ctx.dims, dtype=dt)[1] for dt in dtypes]
         except (KeyError, TypeError, ValueError, ZeroDivisionError):
             # structurally invalid configs are other rules' findings
             return
-        work, flops = info.get("padded_work"), info.get("flops")
-        if not work or not flops:
+        if not all(i.get("padded_work") and i.get("flops") for i in infos):
             return  # refused on shared memory: SmemBudget's finding
+        info = min(infos, key=lambda i: i["padded_work"] / i["flops"])
+        work, flops = info["padded_work"], info["flops"]
         ratio = work / flops
         if ratio > PAD_WASTE_RATIO:
             yield Finding(
@@ -715,6 +748,7 @@ def check_config(
     dims: tuple | None = None,
     signature=None,
     target: str = "host",
+    dtype=None,
 ) -> Feasibility:
     """Statically judge ``config`` for ``kernel``.
 
@@ -722,13 +756,14 @@ def check_config(
     :data:`~repro_torch.kernels.problems.BENCH_DIMS` order; alternatively
     pass the store/runtime ``signature`` and the dims are recovered via
     ``dims_from_signature`` (unknown kernels or shapes degrade to
-    dimension-independent rules only). Kernels with no
-    registered rules are feasible by construction."""
+    dimension-independent rules only). ``dtype``: the operands' where the
+    caller knows it (None: either). Kernels with no registered rules are
+    feasible by construction."""
     rules = KERNEL_RULES.get(kernel)
     if not rules:
         return FEASIBLE
     ctx = RuleContext(kernel=kernel, dims=_dims_for(kernel, signature, dims),
-                      target=target)
+                      target=target, dtype=dtype)
     findings: list[Finding] = []
     for rule in rules:
         findings.extend(rule.check(config, ctx))

@@ -134,9 +134,12 @@ class BackgroundTuner:
         evaluator: Callable,
         max_evals: int | None = None,
         on_done: Callable[[str, ShapeSignature, str], None] | None = None,
+        dtype=None,
     ) -> cf.Future | None:
         """Enqueue one campaign per distinct key; returns None when one is
-        already in flight for this ``(kernel, signature, backend)``."""
+        already in flight for this ``(kernel, signature, backend)``.
+        ``dtype``: the call's operands' (a signature carries none), which the
+        cascade's cost rung screens in."""
         key = (kernel, signature_key(signature), backend)
         with self._lock:
             if key in self._inflight:
@@ -145,7 +148,7 @@ class BackgroundTuner:
         try:
             fut = self._pool.submit(
                 self._campaign, key, kernel, signature, backend, space, evaluator,
-                max_evals or self.max_evals, on_done)
+                max_evals or self.max_evals, on_done, dtype)
         except RuntimeError:  # pool shut down: serving degrades, never crashes
             with self._lock:
                 self._inflight.discard(key)
@@ -166,7 +169,7 @@ class BackgroundTuner:
             self.store, kernel, signature, backend, neighbors=self.warm_neighbors)
 
     def _cascade_ladder(self, kernel, signature, backend, evaluator,
-                        executor, max_evals):
+                        executor, max_evals, dtype=None):
         """Cost → card ladder for this campaign, or None for the flat
         path: cascade off, backend already analytic, kernel not
         fidelity-ready, or dims underivable from the runtime signature."""
@@ -190,13 +193,13 @@ class BackgroundTuner:
                                               max(2, max_evals // 2))
         promote = max(1, min(screen, hw, max(2, hw // 2)))
         return FidelityLadder([
-            Rung(0, "cost", make_cost_evaluator(kernel, dims),
+            Rung(0, "cost", make_cost_evaluator(kernel, dims, dtype=dtype),
                  budget=int(screen), promote=promote),
             Rung(1, "hw", evaluator, budget=int(hw), executor=executor),
         ])
 
     def _campaign(self, key, kernel, signature, backend, space, evaluator,
-                  max_evals, on_done) -> TuningRecord | None:
+                  max_evals, on_done, dtype=None) -> TuningRecord | None:
         sig_key = signature_key(signature)
         registry = get_registry()
         try:
@@ -221,7 +224,7 @@ class BackgroundTuner:
                         evaluator, policy, parallel=self.parallel,
                         metrics=registry, labels={"kernel": kernel})
                 ladder = self._cascade_ladder(
-                    kernel, signature, backend, evaluator, executor, max_evals)
+                    kernel, signature, backend, evaluator, executor, max_evals, dtype)
                 if ladder is not None:
                     from repro_torch.fidelity import CascadeCampaign
 

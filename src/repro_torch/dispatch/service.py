@@ -237,7 +237,9 @@ class DispatchService:
             # feasibility pass proves from the config and the signature's
             # problem dims alone that the variant would be refused. Exact
             # hits are quarantined with the pass's reason codes; near
-            # neighbors just degrade (the build guard's asymmetry below)
+            # neighbors just degrade (the build guard's asymmetry below).
+            # No dtype: a record serves f32 and bf16 calls alike, so the
+            # pass refuses only what fits neither
             verdict = check_config(kernel, config, signature=sig, target=self.target)
             if not verdict.ok:
                 if self.store is not None and res.exact:
@@ -376,9 +378,11 @@ class DispatchService:
 
         # make_evaluator override else CUDA-event (CPU: wall-clock) timing
         evaluator = evaluator_for_spec(spec, factory)
+        first = next((t for t in own if isinstance(t, torch.Tensor)), None)
         fut = self.tuner.submit(
             kernel, sig, self.backend, space=spec.space(self.target),
-            evaluator=evaluator, on_done=self._on_tuned)
+            evaluator=evaluator, on_done=self._on_tuned,
+            dtype=None if first is None else first.dtype)
         if fut is not None:
             with self._lock:
                 self.stats["bg_enqueued"] += 1

@@ -186,8 +186,10 @@ class ShadowEvaluator:
         cand = self._pick_challenger(kernel, sig, config)
         if cand is None:
             return
+        first = next((a for a in args if hasattr(a, "dtype")), None)
         verdict = check_config(kernel, cand, signature=tuple(sig),
-                               target=svc.target)
+                               target=svc.target,
+                               dtype=None if first is None else first.dtype)
         if not verdict.ok:
             self._count("challenger_infeasible")
             return

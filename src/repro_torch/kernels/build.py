@@ -52,8 +52,9 @@ KERNELS: dict[str, dict[str, tuple[list, type]]] = {
     },
     "matmul": {
         # A, B, O, M, K, N, bm, bn, bk, pack, interchange, in_bf16, out_bf16,
-        # smem limit, stream
-        "matmul_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        # smem limit, stream, the route taken (out: 1 the tensor cores, 0 FFMA)
+        "matmul_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                           ctypes.POINTER(_L)], _I),
         # bm, bn, bk, in_bf16, smem limit
         "matmul_smem_bytes": ([_I, _I, _I, _I, _I], _L),
     },

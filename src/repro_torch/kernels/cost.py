@@ -85,7 +85,10 @@ UNSTAGED_REREAD = 2.0
 
 _F32 = 4
 ALIGN = 8           # csrc/gemm_f32.cuh: tile extents padded to multiples of 8
-TC_PIECE = 32       # csrc/matmul.cu: 3xTF32 warps hold 32 x 32 pieces
+TC_PIECE = 32       # csrc/matmul.cu: tensor-core warps hold 32 x 32 pieces
+# csrc/matmul.cu: the mma's k (m16n8k8 TF32 for f32 operands, m16n8k16 for
+# bf16), the multiple a tensor-core chunk is padded to
+MMA_K = {4: 8, 2: 16}
 LANES_PER_SM = 128  # FP32 lanes (4 schedulers x 32)
 THREADS_PER_SM = 2048
 BLOCKS_PER_SM = 32
@@ -203,10 +206,11 @@ def _operands_hbm(hw: Hopper, operands: float, streamed: float) -> float:
 
 def _ffma_gemm(hw, *, M, N, K, bm, bn, bk, smem, out_bytes, extra_hbm=0.0,
                unstaged_a=False, unstaged_b=False, tiles=None, products=1,
-               row_tile=False):
+               row_tile=False, in_bytes=_F32):
     """An FFMA tile product (syr2k, covariance, matmul's FFMA route): the
     tile padded to ALIGN, RT x RT accumulators a thread (1 x 4 for an 8-row
-    matmul tile), K in bk chunks, ``products`` multiply-adds a term."""
+    matmul tile), K in bk chunks, ``products`` multiply-adds a term,
+    operands of ``in_bytes`` an element."""
     pm, pn = _pad(bm, ALIGN), _pad(bn, ALIGN)
     if row_tile and pm == ALIGN:            # matmul's 8-row tile: 1 x 4 a thread
         threads = ALIGN * cdiv(pn, 4)
@@ -218,50 +222,58 @@ def _ffma_gemm(hw, *, M, N, K, bm, bn, bk, smem, out_bytes, extra_hbm=0.0,
     blocks = tiles if tiles is not None else mi * nj
     work = 2.0 * products * blocks * pm * pn * kp
     # every tile streams its A rows and B columns over K (clamped rows)
-    a_panel = (M * nj if tiles is None else blocks * bm) * K * _F32
-    b_panel = (N * mi if tiles is None else blocks * bn) * K * _F32
+    a_panel = (M * nj if tiles is None else blocks * bm) * K * in_bytes
+    b_panel = (N * mi if tiles is None else blocks * bn) * K * in_bytes
     stream = a_panel * (UNSTAGED_REREAD if unstaged_a else 1.0) \
         + b_panel * (UNSTAGED_REREAD if unstaged_b else 1.0)
-    operands = (M + N) * K * _F32
+    operands = (M + N) * K * in_bytes
     hbm = _operands_hbm(hw, operands, a_panel + b_panel) + M * N * out_bytes + extra_hbm
     return _Launch(blocks=blocks, threads=threads, work=work, peak=hw.ffma_flops,
                    hbm=hbm, l2=stream + M * N * out_bytes + extra_hbm, smem=smem)
 
 
 def _matmul_launch(hw, M, K, N, bm, bn, bk, pack, smem, in_bytes=_F32):
-    """One ``tiled_matmul`` launch (csrc/matmul.cu): f32 past 8 rows on the
-    tensor cores in 3xTF32, 8-row tiles (and bf16) on the FFMA loop;
-    ``pack=False`` reads and writes the O tile once per bk chunk."""
+    """One ``tiled_matmul`` launch (csrc/matmul.cu), its output in the
+    operands' dtype (``in_bytes`` an element): past 8 rows on the tensor
+    cores (f32 in 3xTF32, the k chunk padded to 8; bf16 one m16n8k16 a step,
+    the chunk padded to 16, at the bf16 peak), 8-row tiles on the FFMA
+    loop; ``pack=False`` reads and writes the O tile once per bk chunk."""
     bm, bn, bk = min(bm, max(M, 1)), min(bn, max(N, 1)), min(bk, max(K, 1))
-    rmw = 0.0 if pack else 2.0 * (cdiv(K, bk) - 1) * M * N * _F32
-    if bm <= ALIGN or in_bytes != _F32:
+    rmw = 0.0 if pack else 2.0 * (cdiv(K, bk) - 1) * M * N * in_bytes
+    if bm <= ALIGN:
         return _ffma_gemm(hw, M=M, N=N, K=K, bm=bm, bn=bn, bk=bk, smem=smem,
-                          out_bytes=_F32, extra_hbm=rmw, row_tile=True)
+                          out_bytes=in_bytes, extra_hbm=rmw, row_tile=True,
+                          in_bytes=in_bytes)
     pm, pn = _pad(bm, TC_PIECE), _pad(bn, TC_PIECE)
-    kp = cdiv(K, bk) * _pad(bk, ALIGN)
+    kp = cdiv(K, bk) * _pad(bk, MMA_K[in_bytes])
     mi, nj = cdiv(M, bm), cdiv(N, bn)
-    a_panel, b_panel = M * nj * K * _F32, N * mi * K * _F32
-    operands = (M + N) * K * _F32
+    a_panel, b_panel = M * nj * K * in_bytes, N * mi * K * in_bytes
+    operands = (M + N) * K * in_bytes
+    out = M * N * in_bytes
     return _Launch(blocks=mi * nj, threads=(pm // TC_PIECE) * (pn // TC_PIECE) * 32,
-                   work=2.0 * mi * nj * pm * pn * kp, peak=hw.tf32x3_flops,
-                   hbm=_operands_hbm(hw, operands, a_panel + b_panel) + M * N * _F32 + rmw,
-                   l2=a_panel + b_panel + M * N * _F32 + rmw, smem=smem,
-                   tensor_cores=True)
+                   work=2.0 * mi * nj * pm * pn * kp,
+                   peak=hw.tf32x3_flops if in_bytes == _F32 else hw.bf16_flops,
+                   hbm=_operands_hbm(hw, operands, a_panel + b_panel) + out + rmw,
+                   l2=a_panel + b_panel + out + rmw, smem=smem, tensor_cores=True)
 
 
 # ---------------------------------------------------------------------------
 # shared memory (the feasibility pass's numbers) and the result
 # ---------------------------------------------------------------------------
 
-def _smem(kernel: str, cfg: Mapping, dims: tuple) -> tuple[list | None, int | None]:
+def _smem(kernel: str, cfg: Mapping, dims: tuple,
+          dtype=None) -> tuple[list | None, int | None]:
     """(parts, limit): :func:`~repro_torch.analyze.feasibility.smem_needs`
-    on the card, (None, None) without one."""
+    for operands of ``dtype`` (None: unknown) on the card, (None, None)
+    without one."""
     from repro_torch.analyze import feasibility
 
     limit = feasibility.smem_limit()
     if limit is None:
         return None, None
-    return feasibility.smem_needs(kernel, cfg, dims, limit), limit
+    if dtype is None:
+        return feasibility.smem_needs(kernel, cfg, dims, limit), limit
+    return feasibility.smem_needs(kernel, cfg, dims, limit, dtype), limit
 
 
 def _infeasible(parts, limit) -> dict | None:
@@ -305,7 +317,7 @@ def _finish(hw: Hopper, launches: list[_Launch], *, flops: float, compulsory: fl
 # the nine kernels (shape arguments as repro.kernels.cost's)
 # ---------------------------------------------------------------------------
 
-def syr2k_cost(cfg: Mapping, N: int, M: int, *, hw: Hopper | None = None):
+def syr2k_cost(cfg: Mapping, N: int, M: int, *, hw: Hopper | None = None, dtype=None):
     hw = hw or hopper()
     parts, limit = _smem("syr2k", cfg, (N, M))
     bad = _infeasible(parts, limit)
@@ -323,7 +335,8 @@ def syr2k_cost(cfg: Mapping, N: int, M: int, *, hw: Hopper | None = None):
                    peak=hw.ffma_flops, n_launches=1, parts=parts)
 
 
-def covariance_cost(cfg: Mapping, N: int, M: int, *, hw: Hopper | None = None):
+def covariance_cost(cfg: Mapping, N: int, M: int, *, hw: Hopper | None = None,
+                    dtype=None):
     hw = hw or hopper()
     parts, limit = _smem("covariance", cfg, (N, M))
     bad = _infeasible(parts, limit)
@@ -341,18 +354,23 @@ def covariance_cost(cfg: Mapping, N: int, M: int, *, hw: Hopper | None = None):
                    peak=hw.ffma_flops, n_launches=2 if fuse else 3, parts=parts)
 
 
-def matmul_cost(cfg: Mapping, M: int, K: int, N: int, *, hw: Hopper | None = None):
+def matmul_cost(cfg: Mapping, M: int, K: int, N: int, *, hw: Hopper | None = None,
+                dtype: torch.dtype | None = None):
+    """The model's matmul at (M, K) @ (K, N) in ``dtype`` (its operands' and
+    output's: f32, the default, or bf16; a signature carries none), in the
+    route and layout the kernel runs for that dtype."""
     hw = hw or hopper()
-    parts, limit = _smem("matmul", cfg, (M, K, N))
+    parts, limit = _smem("matmul", cfg, (M, K, N), dtype)
     bad = _infeasible(parts, limit)
     if bad:
         return float("inf"), bad
     # model_kernels.matmul_builder's defaults
     bm, bn, bk = (int(cfg.get(k, 128)) for k in ("bm", "bn", "bk"))
-    ln = _matmul_launch(hw, M, K, N, bm, bn, bk, bool(cfg.get("pack", False)), _part(parts))
-    route = hw.tf32x3_flops if ln.tensor_cores else hw.ffma_flops
+    size = torch.tensor([], dtype=dtype or torch.float32).element_size()
+    ln = _matmul_launch(hw, M, K, N, bm, bn, bk, bool(cfg.get("pack", False)), _part(parts),
+                        in_bytes=size)
     return _finish(hw, [ln], flops=2.0 * M * N * K,
-                   compulsory=(M * K + K * N + M * N) * _F32, peak=route,
+                   compulsory=(M * K + K * N + M * N) * size, peak=ln.peak,
                    n_launches=1, parts=parts)
 
 
@@ -373,7 +391,7 @@ def _mm3_products(P, Q, R, S, T) -> tuple:
 
 
 def mm3_cost(cfg: Mapping, P: int, Q: int, R: int, S: int, T: int, *,
-             hw: Hopper | None = None):
+             hw: Hopper | None = None, dtype=None):
     hw = hw or hopper()
     parts, limit = _smem("mm3", cfg, (P, Q, R, S, T))
     bad = _infeasible(parts, limit)
@@ -424,7 +442,7 @@ def _lu_plan(N: int, bs: int) -> tuple[int, int, tuple]:
     return count.n, len(factors), tuple(gemms)
 
 
-def lu_cost(cfg: Mapping, N: int, *, hw: Hopper | None = None):
+def lu_cost(cfg: Mapping, N: int, *, hw: Hopper | None = None, dtype=None):
     hw = hw or hopper()
     parts, limit = _smem("lu", cfg, (N,))
     bad = _infeasible(parts, limit)
@@ -460,7 +478,7 @@ def _fw_plan(N: int, bs: int, bi: int, bj: int) -> tuple[int, int, tuple]:
     return count.n, len(closures), tuple(products)
 
 
-def floyd_warshall_cost(cfg: Mapping, N: int, *, hw: Hopper | None = None):
+def floyd_warshall_cost(cfg: Mapping, N: int, *, hw: Hopper | None = None, dtype=None):
     hw = hw or hopper()
     parts, limit = _smem("floyd_warshall", cfg, (N,))
     bad = _infeasible(parts, limit)
@@ -495,7 +513,8 @@ def floyd_warshall_cost(cfg: Mapping, N: int, *, hw: Hopper | None = None):
 _HEAT_FLOPS = 12  # flops a point per application (7-point masked update)
 
 
-def heat3d_cost(cfg: Mapping, N: int, tsteps: int, *, hw: Hopper | None = None):
+def heat3d_cost(cfg: Mapping, N: int, tsteps: int, *, hw: Hopper | None = None,
+                dtype=None):
     from repro_torch.kernels.heat3d import heat3d_passes
 
     hw = hw or hopper()
@@ -523,12 +542,12 @@ def heat3d_cost(cfg: Mapping, N: int, tsteps: int, *, hw: Hopper | None = None):
 
 
 def flash_attention_cost(cfg: Mapping, BH: int, Sq: int, Sk: int, hd: int, *,
-                         hw: Hopper | None = None):
+                         hw: Hopper | None = None, dtype=None):
     """Causal, as the benchmark problem and the model's prefill call it."""
     from repro_torch.kernels.flash_attention import STEP, flash_attention_head_size
 
     hw = hw or hopper()
-    parts, limit = _smem("flash_attention", cfg, (BH, Sq, Sk, hd))
+    parts, limit = _smem("flash_attention", cfg, (BH, Sq, Sk, hd), dtype)
     bad = _infeasible(parts, limit)
     if bad:
         return float("inf"), bad
@@ -551,12 +570,12 @@ def flash_attention_cost(cfg: Mapping, BH: int, Sq: int, Sk: int, hd: int, *,
 
 
 def decode_attention_cost(cfg: Mapping, BH: int, G: int, S: int, hd: int, *,
-                          hw: Hopper | None = None):
+                          hw: Hopper | None = None, dtype=None):
     """Memory-bound by construction: the cache crosses HBM once per token.
     The kernel splits the key axis in whole ``bk`` blocks, at most 32
     splits, over ``ceil(BH / hg)`` row groups; few blocks leave SMs idle."""
     hw = hw or hopper()
-    parts, limit = _smem("decode_attention", cfg, (BH, G, S, hd))
+    parts, limit = _smem("decode_attention", cfg, (BH, G, S, hd), dtype)
     bad = _infeasible(parts, limit)
     if bad:
         return float("inf"), bad
@@ -592,7 +611,12 @@ KERNEL_COST_FNS = {
 }
 
 
-def kernel_cost(name: str, cfg: Mapping, *shape_args, hw: Hopper | None = None):
+def kernel_cost(name: str, cfg: Mapping, *shape_args, hw: Hopper | None = None,
+                dtype: torch.dtype | None = None):
     """Returns (modeled_seconds, info); +inf with ``info["infeasible"]`` when
-    the config does not fit the card."""
-    return KERNEL_COST_FNS[name](cfg, *shape_args, hw=hw)
+    the config does not fit the card. Every model takes the operands'
+    ``dtype`` where it is known (a served call's; None: unknown): the
+    matmul's route, layout and bytes read it (None: f32), the attention
+    kernels only their shared memory (their bytes are modelled in f32), and
+    the PolyBench kernels, f32 only, not at all."""
+    return KERNEL_COST_FNS[name](cfg, *shape_args, hw=hw, dtype=dtype)

@@ -13,7 +13,10 @@
 // operands and results over the three launches (11 us at 3.35 TB/s):
 // compute-bound. The model's decode unembed, (4, 896) @ (896, 151936), is
 // the other extreme: 1.1 GFLOP against 545 MB of B, bound by HBM bytes
-// (0.163 ms).
+// (0.163 ms; 0.081 ms from bf16 weights). The models' bf16 forward products
+// (mixtral's output projection at 512 rows, (512, 4096) @ (4096, 4096): 17
+// GFLOP, 17 us at the data sheet's 989 TFLOP/s, against 42 MB, 13 us) are
+// compute-bound on the tensor cores.
 //
 // Design: one block per bm x bn tile of O. The block walks K in bk-deep
 // chunks through gemm_f32.cuh's ring of shared-memory stages: A's chunk as
@@ -36,9 +39,18 @@
 //     k step of 8 reads 16 A and 8 B values a thread (fragment reads free of
 //     bank conflicts: A's odd pitch, B's pitch 8 words past a multiple of 32)
 //     for 24 mma; a chunk is padded to a multiple of 8 in k with zeros.
-//   * bf16 inputs, f32 tiles of at most 8 rows, and the few f32 tiles whose
-//     padded layout does not fit the shared memory (128-row tiles with
-//     chunks of 192 or 256) keep the FFMA loop: the
+//   * bf16 inputs past 8 rows run on the tensor cores too (gemm_bf16.cuh):
+//     one mma.sync.m16n8k16 a k step of 16 (a bf16 product is exact in
+//     f32, so no split), on the same warp pieces, padding and chunk sums as
+//     3xTF32; a chunk is padded to a multiple of 16 in k with zeros (bk of
+//     4, 8 and 24 stage 16, 16 and 32). Fragments come from shared memory
+//     by ldmatrix (B's n-contiguous rows transposed by .trans, two n8 tiles
+//     a call): each k step reads 2 + 2 ldmatrix.x4 a warp for 8 mma. Rows
+//     of both operands are an odd number of 16-byte words apart, so each
+//     8-row matrix is free of bank conflicts.
+//   * Tiles of at most 8 rows, and the few tiles whose padded layout does
+//     not fit the shared memory (f32 128-row tiles with chunks of 192 or
+//     256) keep the FFMA loop: the
 //     tile padded to multiples of 8 (pm x pn); (pm/TM) x (pn/TN) threads,
 //     each with a TM x TN register tile: RT x RT (RT = 4 up to 64-wide
 //     tiles, 8 past), or 1 x 4 for an 8-row tile. Thread (ty, tx) owns rows
@@ -49,7 +61,8 @@
 //     bm clamped to 4) an 8-row tile is a 128-thread block that streams 8 KB
 //     of B a chunk with two more chunks in flight: bound by B's bytes, where
 //     the tensor cores would buy nothing (they ran the decode unembed 1.7x
-//     slower, padded to 16 rows).
+//     slower, padded to 16 rows). So every tile the FFMA loop takes is
+//     still taken, whatever the dtype.
 // The schedule knobs:
 //   PACK=true   accumulate the whole K range in f32 registers and store O
 //               once, in its dtype (the TPU kernel's f32 VMEM accumulator);
@@ -67,29 +80,34 @@
 // needs for a tile and input dtype under a device limit (the ring as deep
 // as fits, -1 for a tile past 128), from the same layout() the launcher
 // passes the kernel; the wrapper checks it against the limit before launch.
-// matmul_launch() launches on the given stream, does not synchronise, and
-// returns cudaGetLastError(). Tile extents, the ring's depth, interchange
+// matmul_launch() launches on the given stream, does not synchronise,
+// writes the route it took to *route (1 the tensor cores, 0 the FFMA loop)
+// and returns cudaGetLastError(). Tile extents, the ring's depth, interchange
 // and the output dtype are runtime values; PACK and the copy form are
 // template parameters of both kernels, and of the FFMA kernel also the
-// input dtype and register tile (1x4, 4x4, 8x8): 4 tensor-core and 24 FFMA
-// instantiations.
+// input dtype and register tile (1x4, 4x4, 8x8); the tensor cores' kernel
+// also of the input dtype: 8 tensor-core and 24 FFMA instantiations.
 
+#include "gemm_bf16.cuh"
 #include "gemm_f32.cuh"
 #include "gemm_tf32.cuh"
 
 namespace {
 
-constexpr int MMA_M = 16, MMA_N = 8, MMA_K = 8;
+constexpr int MMA_M = 16, MMA_N = 8;
+// an mma's depth in k: m16n8k8 for TF32 (f32 inputs), m16n8k16 for bf16
+__host__ __device__ constexpr int mma_k(int size) { return size == 4 ? 8 : 16; }
 constexpr int WM = 32, WN = 32;             // a warp's piece of the tile (tensor cores)
 constexpr int MT = WM / MMA_M, NT = WN / MMA_N;
 constexpr int MAX_TC_THREADS = 32 * (gemm::MAX_TILE / WM) * (gemm::MAX_TILE / WN);  // 512
 
 // Shared-memory layout of one block: `stages` stages, each A's chunk (pm
 // rows of kfull elements, pitch_a bytes apart) then B's (kfull rows,
-// pitch_b bytes). Tensor cores: pm and pn padded to 32, kfull to 8, B rows
-// padded by 8 words; FFMA: pm and pn padded to 8, kfull to 4.
+// pitch_b bytes). Tensor cores: pm and pn padded to 32, kfull to the mma's
+// k (8 for f32, 16 for bf16), B rows padded by 8 elements; FFMA: pm and pn
+// padded to 8, kfull to 4.
 struct Layout {
-  bool tc;                  // the tensor cores' kernel (f32 past 8 rows)
+  bool tc;                  // the tensor cores' kernel (past 8 rows)
   int pm, pn, tm, tn;       // padded tile extents; FFMA register tile per thread
   int wr, wc;               // tensor cores: warps along M and N
   int kfull;                // k elements of a staged chunk
@@ -112,10 +130,12 @@ Layout layout(int bm, int bn, int bk, int size, long long limit, bool tc) {
     L.wr = L.pm / WM;
     L.wc = L.pn / WN;
     L.threads = 32 * L.wr * L.wc;
-    L.kfull = gemm::round_up(bk, MMA_K);
-    // B's fragment reads: lanes (t, g) read row t, column g, so rows 8 mod
-    // 32 words apart put the four rows on distinct banks
-    L.pitch_b = 4 * (L.pn + 8);
+    L.kfull = gemm::round_up(bk, mma_k(size));
+    // f32: B's fragment reads (lanes (t, g) read row t, column g), so rows
+    // 8 mod 32 words apart put the four rows on distinct banks; bf16:
+    // ldmatrix's 16-byte rows, an odd number of 16-byte words apart (2 pn
+    // bytes is a multiple of 64), so a matrix's 8 rows take 8 bank quads
+    L.pitch_b = size * (L.pn + 8);
   } else {
     L.pm = gemm::round_up(bm, gemm::ALIGN);
     L.pn = gemm::round_up(bn, gemm::ALIGN);
@@ -136,11 +156,11 @@ Layout layout(int bm, int bn, int bk, int size, long long limit, bool tc) {
   return L;
 }
 
-// f32 tiles past 8 rows take the tensor cores where one stage of their
-// padded layout fits the limit; the others, and bf16, the FFMA loop (so the
-// tensor cores refuse no tile of the gpu space that the FFMA loop takes)
+// Tiles past 8 rows take the tensor cores where one stage of their padded
+// layout fits the limit; the others the FFMA loop (so the tensor cores
+// refuse no tile of the gpu space that the FFMA loop takes)
 Layout layout(int bm, int bn, int bk, int size, long long limit) {
-  if (size == 4 && bm > gemm::ALIGN) {
+  if (bm > gemm::ALIGN) {
     const Layout L = layout(bm, bn, bk, size, limit, true);
     if (L.bytes <= limit) return L;
   }
@@ -282,14 +302,15 @@ __global__ void __launch_bounds__(gemm::MAX_THREADS) matmul_kernel(Args p) {
   if (PACK) store_tile(false);
 }
 
-// The f32 path: 3xTF32 on the tensor cores (see the top of the file).
-template <bool PACK, bool VEC16>
-__global__ void __launch_bounds__(MAX_TC_THREADS) matmul_tf32_kernel(Args p) {
+// The tensor cores' path (see the top of the file): f32 inputs in 3xTF32,
+// bf16 inputs one m16n8k16 product a k step of 16.
+template <typename TI, bool PACK, bool VEC16>
+__global__ void __launch_bounds__(MAX_TC_THREADS) matmul_tc_kernel(Args p) {
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   const Layout& L = p.L;
-  const float* A = static_cast<const float*>(p.A);
-  const float* B = static_cast<const float*>(p.B);
+  const TI* A = static_cast<const TI*>(p.A);
+  const TI* B = static_cast<const TI*>(p.B);
   const bool bf16 = p.out_bf16;
   const int ti = p.interchange ? blockIdx.x : blockIdx.y;
   const int tj = p.interchange ? blockIdx.y : blockIdx.x;
@@ -297,7 +318,7 @@ __global__ void __launch_bounds__(MAX_TC_THREADS) matmul_tf32_kernel(Args p) {
   const int tid = threadIdx.x, nthreads = L.threads;
   const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int r0 = warp / L.wc * WM, c0 = warp % L.wc * WN;  // the warp's piece
-  const int lda = L.pitch_a / 4, ldb = L.pitch_b / 4;       // in floats
+  constexpr int KSTEP = mma_k(sizeof(TI));
 
   float acc[MT][NT][4];
 #pragma unroll
@@ -308,19 +329,19 @@ __global__ void __launch_bounds__(MAX_TC_THREADS) matmul_tf32_kernel(Args p) {
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
   // A's chunk is pm rows of kcp k; B's kcp rows of pn columns (kcp = bk
-  // rounded up to 8, less in a ragged last chunk, which plans anew)
-  const gemm::Plan plan_a = gemm::plan_box<float, VEC16>(L.pm, L.kfull, tid, nthreads);
-  const gemm::Plan plan_b = gemm::plan_box<float, VEC16>(L.kfull, L.pn, tid, nthreads);
+  // rounded up to the k step, less in a ragged last chunk, which plans anew)
+  const gemm::Plan plan_a = gemm::plan_box<TI, VEC16>(L.pm, L.kfull, tid, nthreads);
+  const gemm::Plan plan_b = gemm::plan_box<TI, VEC16>(L.kfull, L.pn, tid, nthreads);
   auto load = [&](int c, int slot) {
     char* sA = smem + slot * L.stage;
     char* sB = sA + L.a_bytes;
-    const int k0 = c * p.bk, kc = min(p.bk, p.K - k0), kcp = gemm::round_up(kc, MMA_K);
+    const int k0 = c * p.bk, kc = min(p.bk, p.K - k0), kcp = gemm::round_up(kc, KSTEP);
     const bool full = kcp == L.kfull;
-    gemm::copy_box<float, VEC16>(
-        full ? plan_a : gemm::plan_box<float, VEC16>(L.pm, kcp, tid, nthreads), sA, L.pitch_a,
+    gemm::copy_box<TI, VEC16>(
+        full ? plan_a : gemm::plan_box<TI, VEC16>(L.pm, kcp, tid, nthreads), sA, L.pitch_a,
         A + (size_t)i0 * p.K + k0, p.K, min(L.pm, p.M - i0), kc, tid, nthreads);
-    gemm::copy_box<float, VEC16>(
-        full ? plan_b : gemm::plan_box<float, VEC16>(kcp, L.pn, tid, nthreads), sB, L.pitch_b,
+    gemm::copy_box<TI, VEC16>(
+        full ? plan_b : gemm::plan_box<TI, VEC16>(kcp, L.pn, tid, nthreads), sB, L.pitch_b,
         B + (size_t)k0 * p.N + j0, p.N, kc, min(L.pn, p.N - j0), tid, nthreads);
   };
 
@@ -353,11 +374,9 @@ __global__ void __launch_bounds__(MAX_TC_THREADS) matmul_tf32_kernel(Args p) {
   };
 
   auto compute = [&](int c, int slot) {
-    const float* sA = reinterpret_cast<const float*>(smem + slot * L.stage);
-    const float* sB = reinterpret_cast<const float*>(smem + slot * L.stage + L.a_bytes);
-    const int k0 = c * p.bk, kcp = gemm::round_up(min(p.bk, p.K - k0), MMA_K);
-    const float* pa = sA + (r0 + g) * lda + t;
-    const float* pb = sB + t * ldb + c0 + g;
+    const char* sA = smem + slot * L.stage;
+    const char* sB = sA + L.a_bytes;
+    const int k0 = c * p.bk, kcp = gemm::round_up(min(p.bk, p.K - k0), KSTEP);
     // the chunk's products in a fresh f32 tile, added into acc on the CUDA
     // cores (rounding to nearest): mma.sync's own f32 accumulation rounds
     // toward zero, so a sum carried through it over all of K drifts toward
@@ -370,40 +389,68 @@ __global__ void __launch_bounds__(MAX_TC_THREADS) matmul_tf32_kernel(Args p) {
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
+    if constexpr (sizeof(TI) == 4) {
+      const int lda = L.pitch_a / 4, ldb = L.pitch_b / 4;  // in floats
+      const float* pa = reinterpret_cast<const float*>(sA) + (r0 + g) * lda + t;
+      const float* pb = reinterpret_cast<const float*>(sB) + t * ldb + c0 + g;
 #pragma unroll 2
-    for (int k = 0; k < kcp; k += MMA_K) {
-      uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+      for (int k = 0; k < kcp; k += KSTEP) {
+        uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const float* q = pa + MMA_M * mt * lda + k;
-        tf32::split(q[0], ah[mt][0], al[mt][0]);
-        tf32::split(q[8 * lda], ah[mt][1], al[mt][1]);
-        tf32::split(q[4], ah[mt][2], al[mt][2]);
-        tf32::split(q[8 * lda + 4], ah[mt][3], al[mt][3]);
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* q = pa + MMA_M * mt * lda + k;
+          tf32::split(q[0], ah[mt][0], al[mt][0]);
+          tf32::split(q[8 * lda], ah[mt][1], al[mt][1]);
+          tf32::split(q[4], ah[mt][2], al[mt][2]);
+          tf32::split(q[8 * lda + 4], ah[mt][3], al[mt][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float* q = pb + k * ldb + MMA_N * nt;
+          tf32::split(q[0], bh[nt][0], bl[nt][0]);
+          tf32::split(q[4 * ldb], bh[nt][1], bl[nt][1]);
+        }
+        // the three terms in turn over the warp's mma tiles, so that each
+        // round issues up to eight independent products
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            tf32::mma(part[mt][nt], al[mt], bh[nt]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            tf32::mma(part[mt][nt], ah[mt], bl[nt]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            tf32::mma(part[mt][nt], ah[mt], bh[nt]);
       }
+    } else {
+      // ldmatrix rows: lane l names row l % 8 of matrix l / 8. A's four
+      // matrices are rows +0/+8 (bit 0) by k +0/+8 (bit 1): a0..a3; B's are
+      // k +0/+8 (bit 0) by columns +0/+8 (bit 1): b0, b1 of two n8 tiles
+      const int lr = (lane & 7) + 8 * ((lane >> 3) & 1), lk = 8 * (lane >> 4);
+      const char* pa = sA + (r0 + lr) * L.pitch_a + lk * 2;
+      const char* pb = sB + lr * L.pitch_b + (c0 + lk) * 2;
+#pragma unroll 2
+      for (int k = 0; k < kcp; k += KSTEP) {
+        uint32_t a[MT][4], b[NT / 2][4];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float* q = pb + k * ldb + MMA_N * nt;
-        tf32::split(q[0], bh[nt][0], bl[nt][0]);
-        tf32::split(q[4 * ldb], bh[nt][1], bl[nt][1]);
+        for (int mt = 0; mt < MT; ++mt)
+          bf16mma::ldmatrix_x4(a[mt], pa + MMA_M * mt * L.pitch_a + k * 2);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np)
+          bf16mma::ldmatrix_x4_trans(b[np], pb + k * L.pitch_b + 2 * MMA_N * np * 2);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            bf16mma::mma(part[mt][nt], a[mt], b[nt / 2][2 * (nt & 1)],
+                         b[nt / 2][2 * (nt & 1) + 1]);
       }
-      // the three terms in turn over the warp's mma tiles, so that each
-      // round issues up to eight independent products
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          tf32::mma(part[mt][nt], al[mt], bh[nt]);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          tf32::mma(part[mt][nt], ah[mt], bl[nt]);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          tf32::mma(part[mt][nt], ah[mt], bh[nt]);
     }
     // PACK: the running sum; else the chunk alone, for the read-modify-write
     // of the O tile in O's dtype
@@ -433,11 +480,17 @@ cudaError_t launch_kernel(F* kernel, const Args& p, long long (&done)[16],
   return cudaGetLastError();
 }
 
-template <bool PK>
-cudaError_t launch_tf32(const Args& p, bool vec16, cudaStream_t s) {
+template <typename T, bool PK>
+cudaError_t launch_tc(const Args& p, bool vec16, cudaStream_t s) {
   static long long done[2][16] = {};
-  return vec16 ? launch_kernel(matmul_tf32_kernel<PK, true>, p, done[1], s)
-               : launch_kernel(matmul_tf32_kernel<PK, false>, p, done[0], s);
+  return vec16 ? launch_kernel(matmul_tc_kernel<T, PK, true>, p, done[1], s)
+               : launch_kernel(matmul_tc_kernel<T, PK, false>, p, done[0], s);
+}
+
+template <bool PK>
+cudaError_t launch_tc(const Args& p, bool in_bf16, bool vec16, cudaStream_t s) {
+  return in_bf16 ? launch_tc<__nv_bfloat16, PK>(p, vec16, s)
+                 : launch_tc<float, PK>(p, vec16, s);
 }
 
 template <typename T, bool PK, int TM, int TN>
@@ -469,7 +522,8 @@ extern "C" long long matmul_smem_bytes(int bm, int bn, int bk, int in_bf16, int 
 
 extern "C" int matmul_launch(const void* A, const void* B, void* O, int M, int K, int N,
                              int bm, int bn, int bk, int pack, int interchange,
-                             int in_bf16, int out_bf16, int limit, void* stream) {
+                             int in_bf16, int out_bf16, int limit, void* stream,
+                             long long* route) {
   const long long smem = matmul_smem_bytes(bm, bn, bk, in_bf16, limit);
   if (smem < 0 || smem > limit) return (int)cudaErrorInvalidValue;
   const int size = in_bf16 ? 2 : 4;
@@ -486,8 +540,10 @@ extern "C" int matmul_launch(const void* A, const void* B, void* O, int M, int K
                       && (L.tc ? N % 2 == 0 && bn % 2 == 0 : N % 4 == 0 && bn % 4 == 0);
   Args p{A, B, O, M, K, N, bm, bn, bk, interchange, out_bf16, vec_out, L};
   cudaStream_t s = (cudaStream_t)stream;
+  *route = p.L.tc ? 1 : 0;
   cudaError_t e;
-  if (p.L.tc) e = pack ? launch_tf32<true>(p, vec16, s) : launch_tf32<false>(p, vec16, s);
+  if (p.L.tc) e = pack ? launch_tc<true>(p, in_bf16, vec16, s)
+                       : launch_tc<false>(p, in_bf16, vec16, s);
   else e = pack ? launch_ffma<true>(p, in_bf16, vec16, s) : launch_ffma<false>(p, in_bf16, vec16, s);
   return (int)e;
 }

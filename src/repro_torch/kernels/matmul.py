@@ -12,9 +12,15 @@ names and clamping as ``repro.kernels.matmul.tiled_matmul``):
                      registers and stores once; ``pack=False`` adds each
                      ``bk`` chunk's product into the output in its own dtype
                      (a read-modify-write per chunk: looser in bf16).
+
+Row tiles past 8 run on the tensor cores, f32 operands in 3xTF32 and bf16
+ones as they are (one m16n8k16 product a k step); tiles of at most 8 rows
+(the decode's skinny products) on the CUDA cores' FFMA loop.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -126,16 +132,23 @@ def tiled_matmul(
     dev = a.device
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     lib = build.load("matmul")
+    route = ctypes.c_longlong(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.mark_launch()
         err = lib.matmul_launch(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N, bm, bn, bk,
             int(pack), int(interchange), int(a.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), max_shared_memory_per_block(dev), stream)
+            int(out_dtype == torch.bfloat16), max_shared_memory_per_block(dev), stream,
+            ctypes.byref(route))
     build.check(lib, err, "tiled_matmul")
     tiled_matmul.launches += 1
+    if a.dtype == torch.bfloat16 and route.value == 1:  # the route the kernel took
+        tiled_matmul.bf16_tc_launches += 1
     return out
 
 
 tiled_matmul.launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+# of them, bf16 operands on the tensor cores (csrc/gemm_bf16.cuh), as
+# matmul_launch reports its route
+tiled_matmul.bf16_tc_launches = 0

@@ -189,9 +189,11 @@ def fidelity_readiness() -> dict[str, bool]:
     return {name: fidelity_ready(name) for name in registered()}
 
 
-def make_cost_evaluator(kernel: str, dims: tuple | None = None) -> Callable:
+def make_cost_evaluator(kernel: str, dims: tuple | None = None,
+                        dtype=None) -> Callable:
     """``config -> EvalResult`` scored by the Hopper cost model at ``dims``
-    (default: :data:`LARGE_SHAPES`). A config that does not fit the card
+    (default: :data:`LARGE_SHAPES`) for operands of ``dtype`` where given
+    (``kernels.cost.kernel_cost``). A config that does not fit the card
     comes back failed at 1e9 with the model's info (the JAX package's
     penalty semantics)."""
     from repro_torch.kernels.cost import kernel_cost
@@ -199,7 +201,7 @@ def make_cost_evaluator(kernel: str, dims: tuple | None = None) -> Callable:
     shape = tuple(dims) if dims is not None else LARGE_SHAPES[kernel]
 
     def evaluate(cfg: Mapping) -> EvalResult:
-        t, info = kernel_cost(kernel, cfg, *shape)
+        t, info = kernel_cost(kernel, cfg, *shape, dtype=dtype)
         if not np.isfinite(t):
             return EvalResult(1e9, False, info)
         return EvalResult(t, True, info)
@@ -210,8 +212,8 @@ def make_cost_evaluator(kernel: str, dims: tuple | None = None) -> Callable:
 def _cost_make_evaluator(kernel: str) -> Callable:
     """A ``VariantSpec.make_evaluator``: given a background campaign's
     ``factory(config) -> (fn, args)``, an evaluator that never runs ``fn``:
-    it derives the problem dims from the args' shapes and scores the config
-    with the cost model."""
+    it derives the problem dims from the args' shapes, and the operands'
+    dtype from the first, and scores the config with the cost model."""
 
     def make(factory: Callable) -> Callable:
         inner: list[Callable] = []  # built once, after dims are derived
@@ -222,7 +224,9 @@ def _cost_make_evaluator(kernel: str) -> Callable:
 
                 _, args = factory(cfg)
                 sig = shape_signature(args)
-                inner.append(make_cost_evaluator(kernel, dims_from_signature(kernel, sig)))
+                dtype = next((a.dtype for a in args if isinstance(a, torch.Tensor)), None)
+                inner.append(make_cost_evaluator(kernel, dims_from_signature(kernel, sig),
+                                                 dtype=dtype))
             return inner[0](cfg)
 
         return evaluate

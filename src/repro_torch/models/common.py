@@ -13,8 +13,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 __all__ = ["ArchConfig", "rms_norm", "rope", "mrope", "dense_init",
-           "service_matmul", "replicate_like", "reshape", "einsum", "matmul", "constrain",
-           "ACT"]
+           "service_matmul", "replicate_like", "replicated_on", "reshape", "einsum", "matmul",
+           "constrain", "ACT"]
 
 
 def replicate_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -25,6 +25,19 @@ def replicate_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
         return DTensor.from_local(t, ref.device_mesh, [Replicate()] * ref.device_mesh.ndim,
                                   run_check=False)
     return t
+
+
+def replicated_on(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t``, a DTensor whose value is small (a scalar), replicated on
+    ``ref``'s mesh where the two meshes differ (the experts of the
+    multi-pod mesh beside the joined one, ``parallel.placement_mesh``);
+    ``t`` itself otherwise."""
+    if not (isinstance(t, DTensor) and isinstance(ref, DTensor)) \
+            or t.device_mesh == ref.device_mesh:
+        return t
+    full = t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim).to_local()
+    return DTensor.from_local(full, ref.device_mesh, [Replicate()] * ref.device_mesh.ndim,
+                              run_check=False)
 
 
 def _view_groups(old: tuple, new: tuple) -> list:

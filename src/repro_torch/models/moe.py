@@ -71,6 +71,62 @@ def _topk(probs: torch.Tensor, k: int):
             DTensor.from_local(idx, mesh, pl, run_check=False))
 
 
+def _experts_on_their_mesh(p: dict, xe: DTensor) -> DTensor:
+    """The experts' products, "gecd,edf->gecf" and back, where the experts'
+    tensors live on the multi-pod mesh ``(pod, data, model)`` itself
+    (``parallel.sharding.placement_mesh``: their experts over ``pod`` or
+    ``data`` alone, which the joined ``(pod+data, model)`` mesh of the rest
+    of the cell cannot place). ``xe`` (ng, E, C, d), the dispatched tokens
+    on the joined mesh, its groups sharded over it or replicated; returns
+    ``ye`` of that shape and placement.
+
+    With the groups sharded, an all-to-all over the experts' axis (``ep``)
+    sends each rank the tokens of its experts from the groups of the ranks
+    along that axis: its local (ng_l, E, C, d) becomes (n_ep * ng_l, E /
+    n_ep, C, d), the experts over ``ep`` and those groups over the other
+    data axis; with the groups replicated, each rank takes its experts'
+    slice. The products then run as :func:`models.common.einsum` partitions
+    them on the mesh (the FSDP all-gather of ``d`` over the other axis, the
+    sum over ``model``), and the all-to-all, or an all-gather of the
+    experts, brings the results back. Both collectives are differentiable."""
+    from torch.distributed._functional_collectives import all_to_all_single_autograd
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.models.common import einsum
+
+    mesh, flat = p["wg"].device_mesh, xe.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    ep = next((i for i, q in enumerate(p["wg"].placements) if q.is_shard(0)), None)
+    if names != ("pod", "data", "model") or ep is None or names[ep] == "model":
+        raise ValueError(f"experts on mesh {names} with placements {p['wg'].placements}: "
+                         f"expected them over pod or data alone")
+    other = 1 - ep  # the other data axis (pod 0, data 1)
+    grouped = xe.placements[0].is_shard(0)
+    xe = xe.redistribute(flat, [Shard(0) if grouped else Replicate(), Replicate()])
+    x = xe.to_local()
+    ng_l, E, C, d = x.shape
+    n_ep = mesh.size(ep)
+    pl = [Replicate()] * 3
+    if grouped:
+        x = x.reshape(ng_l, n_ep, E // n_ep, C, d).transpose(0, 1).contiguous()
+        x = all_to_all_single_autograd(x.reshape(n_ep * ng_l, E // n_ep, C, d), None, None,
+                                       (mesh, ep))
+        pl[ep], pl[other] = Shard(1), Shard(0)
+    x = DTensor.from_local(x, mesh, pl, run_check=False)
+
+    def summed(t):  # a partial sum (d contracted over its shards) before silu
+        return t.redistribute(mesh, [Replicate() if q.is_partial() else q
+                                     for q in t.placements])
+
+    h = F.silu(summed(einsum("gecd,edf->gecf", x, p["wg"]))) \
+        * summed(einsum("gecd,edf->gecf", x, p["wu"]))
+    y = einsum("gecf,efd->gecd", h, p["wd"]).redistribute(mesh, pl).to_local()
+    if grouped:
+        y = all_to_all_single_autograd(y.contiguous(), None, None, (mesh, ep))
+        y = y.reshape(n_ep, ng_l, E // n_ep, C, d).transpose(0, 1).reshape(ng_l, E, C, d)
+    return DTensor.from_local(y.contiguous(), flat, list(xe.placements), run_check=False)
+
+
 def moe_ffn(
     p: dict,
     x: torch.Tensor,            # (B, S, d)
@@ -134,9 +190,12 @@ def moe_ffn(
         # tokens of all groups in one (E, ng*C, .) batch, combine
         # "gtec,gecd->gtd"
         xe = torch.matmul(reshape(disp.to(cd), ng, G, E * C).transpose(1, 2), xg)
-        xe = reshape(reshape(xe, ng, E, C, d).transpose(0, 1).contiguous(), E, ng * C, d)
-        h = F.silu(torch.matmul(xe, p["wg"])) * torch.matmul(xe, p["wu"])
-        ye = reshape(torch.matmul(h, p["wd"]), E, ng, C, d).transpose(0, 1).contiguous()
+        if p["wg"].device_mesh != xg.device_mesh:
+            ye = _experts_on_their_mesh(p, reshape(xe, ng, E, C, d))
+        else:
+            xe = reshape(reshape(xe, ng, E, C, d).transpose(0, 1).contiguous(), E, ng * C, d)
+            h = F.silu(torch.matmul(xe, p["wg"])) * torch.matmul(xe, p["wu"])
+            ye = reshape(torch.matmul(h, p["wd"]), E, ng, C, d).transpose(0, 1).contiguous()
         yt = torch.matmul(reshape(comb.to(cd), ng, G, E * C), reshape(ye, ng, E * C, d))
         y = reshape(reshape(yt, ng * G, d)[real], B, S, d)
     else:

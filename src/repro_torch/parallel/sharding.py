@@ -48,7 +48,7 @@ from repro_torch.tree import tree_map, tree_map_with_path
 
 __all__ = ["Spec", "ShardingProfile", "make_profile", "param_specs", "batch_specs",
            "cache_specs", "named", "mesh_axis_size", "axis_sizes", "distribute",
-           "local_shape", "placement_mesh"]
+           "local_shape", "placement_mesh", "OnMesh"]
 
 
 class Spec(tuple):
@@ -304,10 +304,10 @@ def _placements(mesh, spec: Spec) -> tuple:
 
 def named(mesh, spec_tree):
     """The DTensor placements (one per mesh dim) of each spec in
-    ``spec_tree``."""
+    ``spec_tree`` (an :class:`OnMesh` spec's on its own mesh)."""
     if isinstance(spec_tree, Spec):
-        return _placements(mesh, spec_tree)
-    return tree_map(lambda s: _placements(mesh, s), spec_tree)
+        return _placements(getattr(spec_tree, "mesh", mesh), spec_tree)
+    return tree_map(lambda s: named(mesh, s), spec_tree)
 
 
 def local_shape(shape: tuple, mesh, spec: Spec) -> tuple:
@@ -327,13 +327,13 @@ def distribute(tree: Any, mesh, spec_tree: Any):
     placed by ``spec_tree``. This process's shard is its slice of each
     global tensor (a view; no communication), or for a meta tensor an empty
     meta tensor of the shard's shape, so a device-free trace allocates
-    nothing."""
-    coord = mesh.get_coordinate()
-    names = _axis_names(mesh)
+    nothing. An :class:`OnMesh` spec places its tensor on its own mesh."""
 
     def one(t, spec):
+        mesh_t = getattr(spec, "mesh", mesh)
+        coord, names = mesh_t.get_coordinate(), _axis_names(mesh_t)
         spec = Spec(*spec, *([None] * (t.ndim - len(spec))))
-        shard = local_shape(tuple(t.shape), mesh, spec)
+        shard = local_shape(tuple(t.shape), mesh_t, spec)
         if t.device.type == "meta":
             local = torch.empty(shard, dtype=t.dtype, device="meta")
         else:
@@ -344,10 +344,10 @@ def distribute(tree: Any, mesh, spec_tree: Any):
                 axes = (entry,) if isinstance(entry, str) else tuple(entry)
                 idx = 0
                 for a in axes:  # mesh order: the first axis is the outermost split
-                    idx = idx * axis_sizes(mesh)[a] + coord[names.index(a)]
+                    idx = idx * axis_sizes(mesh_t)[a] + coord[names.index(a)]
                 local = local.narrow(d, idx * shard[d], shard[d])
         stride = tuple(math.prod(t.shape[i + 1:]) for i in range(t.ndim))
-        return DTensor.from_local(local, mesh, _placements(mesh, spec), run_check=False,
+        return DTensor.from_local(local, mesh_t, _placements(mesh_t, spec), run_check=False,
                                   shape=t.shape, stride=stride)
 
     return tree_map(one, tree, spec_tree)
@@ -360,14 +360,44 @@ def distribute(tree: Any, mesh, spec_tree: Any):
 POD_DATA = "pod+data"
 
 
-def _join_spec(spec: Spec) -> Spec:
+class OnMesh(Spec):
+    """A spec whose tensor lives on ``mesh``, a mesh of its own, instead of
+    the placement mesh of the tree around it (:func:`distribute` and
+    :func:`named` read ``mesh``). It compares equal to the plain spec."""
+
+    mesh: Any
+
+    def __new__(cls, spec: Spec, mesh):
+        out = super().__new__(cls, *spec)
+        out.mesh = mesh
+        return out
+
+
+def _axes_of(entry) -> tuple:
+    return () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def _join_spec(spec: Spec, mesh=None) -> Spec:
+    """``spec`` on the joined mesh; or, for an expert tensor (``mesh``
+    given: the multi-pod mesh itself) that shards a dim over ``pod`` or
+    ``data`` alone, the spec as it is on ``mesh``, where each tensor dim is
+    sharded by one mesh dim (``models.moe`` runs the experts' products
+    there). Raises ``ValueError`` for a spec neither mesh can place."""
     out = []
     for entry in spec:
-        axes = () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
+        axes = _axes_of(entry)
         dp = tuple(a for a in axes if a in ("pod", "data"))
         if dp and dp != ("pod", "data"):
-            raise ValueError(f"spec {spec} shards a dim over {dp} alone; the multi-pod "
-                             f"placement joins pod and data into one mesh dim")
+            if mesh is None:
+                raise ValueError(f"spec {spec} shards a dim over {dp} alone; the multi-pod "
+                                 f"placement joins pod and data into one mesh dim, and only "
+                                 f"the experts' tensors are placed on (pod, data, model)")
+            if any(len(_axes_of(e)) > 1 for e in spec):
+                raise ValueError(f"spec {spec} shards a dim over {dp} alone and another "
+                                 f"over two mesh dims: the joined mesh cannot place the "
+                                 f"first, and DTensor's operators refuse the second on the "
+                                 f"(pod, data, model) mesh")
+            return OnMesh(spec, mesh)
         rest = tuple(a for a in axes if a not in ("pod", "data"))
         joined = ((POD_DATA,) if dp else ()) + rest
         out.append(_ax(joined) if joined else None)
@@ -381,10 +411,12 @@ def placement_mesh(mesh):
     where every spec's ``("pod", "data")`` becomes the one joined dim: the
     same layout, and a dim sharded over one mesh dim instead of two
     (DTensor's operators refuse most tensors sharded twice on one dim,
-    ``[Shard(0), Shard(0)]``, in the torch releases before 2.13). A spec
-    that shards over ``pod`` or ``data`` alone (mixtral's 8 experts on
-    ``pod``) cannot be placed there and raises ``ValueError``. Any other
-    mesh is its own placement mesh."""
+    ``[Shard(0), Shard(0)]``, in the torch releases before 2.13). The
+    experts' tensors of a tree (the leaves under a ``moe`` key) that shard
+    over ``pod`` or ``data`` alone (mixtral's 8 experts on ``pod``) stay on
+    the multi-pod mesh itself, as :class:`OnMesh` specs; any other spec
+    that does (a bare spec included) raises ``ValueError``. Any other mesh
+    is its own placement mesh."""
     names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
     if names != ("pod", "data", "model"):
         return mesh, lambda tree: tree
@@ -393,5 +425,11 @@ def placement_mesh(mesh):
     sizes = axis_sizes(mesh)
     flat = init_device_mesh(mesh.device_type, (sizes["pod"] * sizes["data"], sizes["model"]),
                             mesh_dim_names=(POD_DATA, "model"))
-    return flat, lambda tree: _join_spec(tree) if isinstance(tree, Spec) else \
-        tree_map(_join_spec, tree)
+
+    def join(tree):
+        if isinstance(tree, Spec):
+            return _join_spec(tree)
+        return tree_map_with_path(
+            lambda path, spec: _join_spec(spec, mesh if "moe" in path else None), tree)
+
+    return flat, join

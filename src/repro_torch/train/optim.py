@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from repro_torch.models.common import replicated_on
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["AdamW", "adamw_init", "adamw_update", "cosine_lr", "linear_warmup_lr"]
@@ -59,7 +60,8 @@ def adamw_update(grads: dict, state: dict, params: dict, *, lr, b1: float = 0.9,
         # update in place; a bf16 moment is computed in f32 and stored back
         m32 = m.float().mul_(b1).add_((1 - b1) * g32)
         v32 = v.float().mul_(b2).add_((1 - b2) * g32 * g32)
-        delta = (m32 / c1).div_((v32 / c2).sqrt_().add_(eps))
+        delta = (m32 / replicated_on(c1, m32)).div_(
+            (v32 / replicated_on(c2, v32)).sqrt_().add_(eps))
         p32 = p.float()
         if p.ndim >= 2:  # weight decay on matrices only (stacked leaves included)
             delta.add_(weight_decay * p32)

@@ -18,7 +18,7 @@ import math
 import torch
 from torch.distributed.tensor import DTensor, Replicate
 
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import ArchConfig, replicated_on
 from repro_torch.models.model import loss_fn
 from repro_torch.train.optim import adamw_init, adamw_update
 from repro_torch.tree import tree_leaves, tree_unflatten
@@ -122,7 +122,8 @@ def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4, accum: int = 1,
         total, metrics, grads = grad_step(params, batch)
         params, opt_state = adamw_update(tree_unflatten(params, grads), opt_state, params,
                                          lr=lr, weight_decay=weight_decay)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+        sq = [torch.sum(torch.square(g.float())) for g in grads]
+        gnorm = torch.sqrt(sum(replicated_on(q, sq[0]) for q in sq))
         metrics = dict(metrics, total=total, grad_norm=gnorm, step=opt_state["step"].clone())
         return params, opt_state, metrics
 

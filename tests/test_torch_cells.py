@@ -240,13 +240,46 @@ def test_a_dtensor_train_step_on_the_local_mesh_equals_the_plain_and_the_referen
             torch.testing.assert_close(a.full_tensor(), b, atol=1e-6, rtol=1e-5)
 
 
-def test_mixtral_on_the_multi_pod_mesh_is_refused_with_the_reason():
-    """The reference places mixtral's 8 experts on ``pod`` alone there; the
-    port's multi-pod placement joins pod and data (ROADMAP Queue 3)."""
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k", "long_500k"])
+def test_mixtral_on_the_multi_pod_mesh_builds_with_the_references_specs(shape):
+    """The reference places mixtral's 8 experts on ``pod`` alone on the
+    2x16x16 mesh (``Spec(None, 'pod', 'data', 'model')``). The port's cell
+    builds on a fake world of 512 ranks with every parameter's local shape
+    the reference's placement gives (the experts on the (pod, data, model)
+    mesh itself, the rest on the joined (pod+data, model) one), the train
+    cell's moments too; a one-layer cell traces, the experts' all-to-all
+    counted where the groups are sharded."""
+    from repro.configs import get_config as ref_config
+    from repro.parallel.sharding import make_profile as ref_make_profile
+    from repro.parallel.sharding import param_specs as ref_param_specs
     from repro_torch.launch.mesh import make_production_mesh
 
+    ref_mesh = MESHES["2x16x16"]
+    sizes = ref_mesh.shape
     with fake_world(512):
         mesh = make_production_mesh(multi_pod=True)
-        plan = plan_cell("mixtral-8x7b", "decode_32k", mesh)
-        with pytest.raises(ValueError, match=r"\('pod',\) alone"):
-            build_cell(plan, mesh)
+        plan = plan_cell("mixtral-8x7b", shape, mesh)
+        cell, _ = build_cell(plan, mesh)
+        ref_specs = dict(_flat(ref_param_specs(
+            ref_abstract_params(ref_config("mixtral-8x7b")), ref_mesh,
+            ref_make_profile(ref_mesh, plan.kind, plan.shape.global_batch),
+            ref_config("mixtral-8x7b"))))
+        assert tuple(ref_specs[("layers", "moe", "wg")]) == (None, "pod", "data", "model")
+        trees = [cell.args[0]]
+        if plan.kind == "train":
+            trees += [cell.args[1]["m"], cell.args[1]["v"]]
+        for tree in trees:
+            for path, t in _flat(tree):
+                want = list(t.shape)
+                for d, entry in enumerate(tuple(ref_specs[path])):
+                    for a in (() if entry is None else
+                              (entry,) if isinstance(entry, str) else entry):
+                        want[d] //= sizes[a]
+                assert tuple(t.to_local().shape) == tuple(want), (path, ref_specs[path])
+                on_own = t.device_mesh.mesh_dim_names == ("pod", "data", "model")
+                assert on_own == (path[-2:] in (("moe", "wg"), ("moe", "wu"), ("moe", "wd"))), path
+        one = plan_cell("mixtral-8x7b", shape, mesh, {"cfg_overrides": {"n_layers": 1}})
+        cell, _ = build_cell(one, mesh)
+        trace = trace_step(cell.fn, *cell.args)
+    assert trace.cost.flops > 0
+    assert ("all-to-all" in trace.cost.coll_by_kind) == (shape in ("train_4k", "prefill_32k"))

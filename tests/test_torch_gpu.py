@@ -151,13 +151,13 @@ def test_syr2k_smem_accounting(cuda):
 
 
 def test_matmul_smem_accounting(cuda):
-    # f32 past 8 rows (tensor cores): A's chunk (bm and bn padded to whole 32
-    # x 32 warp pieces, bk to the mma's 8; A's rows of f32 padded to 32
-    # bytes plus 16) and B's (those k rows of the padded columns plus 8
-    # words); f32 8-row tiles and bf16 (FFMA): pm and pn padded to 8, bk to
-    # 4; three stages where they fit
-    def tc(pm, pn, kf):
-        return pm * (-(-kf * 4 // 32) * 32 + 16) + kf * 4 * (pn + 8)
+    # past 8 rows (tensor cores): A's chunk (bm and bn padded to whole 32
+    # x 32 warp pieces, bk to the mma's k, 8 for f32 and 16 for bf16; A's
+    # rows padded to 32 bytes plus 16) and B's (those k rows of the padded
+    # columns plus 8 elements); 8-row tiles (FFMA): pm and pn padded to 8,
+    # bk to 4; three stages where they fit
+    def tc(pm, pn, kf, size=4):
+        return pm * (-(-kf * size // 32) * 32 + 16) + kf * size * (pn + 8)
 
     assert matmul_smem_bytes(64, 64, 32, limit=LIMIT) == 3 * tc(64, 64, 32)
     assert matmul_smem_bytes(64, 64, 32, limit=LIMIT) == 3 * (64 * 144 + 32 * 288)
@@ -166,7 +166,10 @@ def test_matmul_smem_accounting(cuda):
     assert matmul_smem_bytes(40, 50, 12, limit=LIMIT) == 3 * tc(64, 64, 16)
     assert matmul_smem_bytes(4, 64, 32, limit=LIMIT) == 3 * (8 * 144 + 32 * 256)
     assert matmul_smem_bytes(8, 24, 4, limit=LIMIT) == 3 * (8 * 48 + 4 * 96)
-    assert matmul_smem_bytes(64, 64, 32, torch.bfloat16, LIMIT) == 3 * (64 * 80 + 32 * 128)
+    assert matmul_smem_bytes(64, 64, 32, torch.bfloat16, LIMIT) == 3 * tc(64, 64, 32, 2)
+    assert matmul_smem_bytes(64, 64, 32, torch.bfloat16, LIMIT) == 3 * (64 * 80 + 32 * 144)
+    assert matmul_smem_bytes(48, 80, 24, torch.bfloat16, LIMIT) == 3 * tc(64, 96, 32, 2)
+    assert matmul_smem_bytes(128, 128, 256, torch.bfloat16, LIMIT) == tc(128, 128, 256, 2)
     assert matmul_smem_bytes(4, 64, 32, torch.bfloat16, LIMIT) == 3 * (8 * 80 + 32 * 128)
     # a tile whose padded tensor-core layout does not fit takes the FFMA
     # loop's: one stage of 112 rows of A and 256 rows of 96 columns
@@ -181,9 +184,10 @@ def test_matmul_smem_accounting(cuda):
 @pytest.mark.parametrize("pack", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_matmul_tiles_pad_to_the_mma(cuda, bm, bn, bk, pack, dtype):
-    # row tiles of 8, 24 and 40 pad to the mma's 16 (f32; bf16 keeps the FFMA
-    # loop), column tiles not a multiple of 4, chunks not a multiple of 8,
-    # ragged edges everywhere; on a NaN-poisoned output
+    # row tiles of 24 and 40 pad to the tensor cores' 32-row warp pieces,
+    # 8-row tiles keep the FFMA loop, column tiles not a multiple of 4,
+    # chunks not a multiple of the mma's k (8 for f32, 16 for bf16), ragged
+    # edges everywhere; on a NaN-poisoned output
     a, b = (t.to(dtype) for t in problems.problem_inputs("mm3", (130, 70, 90, 1, 1), cuda)[:2])
     torch.full((130, 90), float("nan"), device=cuda)
     got = tiled_matmul(a, b, bm=bm, bn=bn, bk=bk, pack=pack, interchange=bm > 32)
@@ -2124,3 +2128,119 @@ def test_step_cost_counts_a_plain_train_step_on_the_card(cuda):
     mbatch = {k: torch.zeros(2, 16, dtype=torch.int64, device="meta") for k in batch}
     want = step_cost(make_train_step(cfg), meta, init_train_state(meta), mbatch)
     assert got.flops == want.flops > 0
+
+
+# ---------------------------------------------------------------------------
+# bf16 on the tensor cores (csrc/gemm_bf16.cuh) and bf16 serving
+# ---------------------------------------------------------------------------
+
+
+def _bf16_operands(device, M, K, N, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return ((torch.randn(M, K, device=device, generator=g) / K ** 0.5).bfloat16(),
+            (torch.randn(K, N, device=device, generator=g) / N ** 0.5).bfloat16())
+
+
+def test_matmul_bf16_at_every_gpu_tile(cuda):
+    """Every tile of the gpu space (11 x 11 row and column tiles, 11 chunks:
+    8-row tiles on the FFMA loop, the rest on the tensor cores, chunks of 4,
+    8 and 24 padded to the mma's 16) at a ragged and an aligned shape."""
+    from repro_torch.kernels.spaces import GPU_TILES, GPU_TILES_K
+
+    for M, K, N in ((97, 203, 77), (200, 136, 520)):
+        a, b = _bf16_operands(cuda, M, K, N)
+        for bm in GPU_TILES:
+            for bn in GPU_TILES:
+                for bk in GPU_TILES_K:
+                    got = tiled_matmul(a, b, bm=bm, bn=bn, bk=bk)
+                    _close(got, tiled_matmul_plain(a, b, bk=min(bk, K), pack=True,
+                                                   out_dtype=torch.bfloat16), BF16_TOL)
+
+
+@pytest.mark.parametrize("shape", [(512, 896, 4864), (512, 4096, 4096), (128, 3584, 18944),
+                                   (4, 896, 151936)])
+@pytest.mark.parametrize("pack", [True, False])
+def test_matmul_bf16_at_the_served_shapes(cuda, shape, pack):
+    """The served products (qwen2-0.5b's MLP width, mixtral's output
+    projection, qwen2-vl's MLP, the decode unembed), output bf16 and f32,
+    either raster order."""
+    M, K, N = shape
+    a, b = _bf16_operands(cuda, M, K, N, seed=1)
+    for bm, bn, bk, inter in ((64, 64, 32, False), (128, 128, 64, True), (40, 96, 24, False),
+                              (4, 128, 64, False)):
+        for out in (torch.bfloat16, torch.float32):
+            got = tiled_matmul(a, b, bm=bm, bn=bn, bk=bk, pack=pack, interchange=inter,
+                               out_dtype=out)
+            assert got.dtype == out
+            _close(got, tiled_matmul_plain(a, b, bk=bk, pack=pack, out_dtype=out),
+                   BF16_TOL if out == torch.bfloat16 or not pack else F32_TOL)
+
+
+@pytest.mark.parametrize("bm,dtype,tc", [(64, torch.bfloat16, 1), (16, torch.bfloat16, 1),
+                                         (8, torch.bfloat16, 0), (4, torch.bfloat16, 0),
+                                         (64, torch.float32, 0)])
+def test_matmul_counts_the_route_the_kernel_reports(cuda, bm, dtype, tc):
+    """bf16_tc_launches counts the launches that matmul_launch reports on
+    the tensor cores with bf16 operands: tiles past 8 rows; 8-row tiles
+    take the FFMA loop, and f32 is not counted."""
+    a, b = (t.to(dtype) for t in _bf16_operands(cuda, 64, 96, 80, seed=3))
+    before = tiled_matmul.bf16_tc_launches
+    tiled_matmul(a, b, bm=bm, bn=64, bk=32)
+    assert tiled_matmul.bf16_tc_launches == before + tc
+
+
+def test_a_bf16_call_runs_a_record_tuned_on_f32_operands(cuda, tmp_path):
+    """A store record carries no dtype, so a record tuned on f32 operands
+    resolves a bf16 call of the same shape: the tile runs on the bf16 path
+    (here past 8 rows: the tensor cores) as an exact hit."""
+    from repro_torch.dispatch import DispatchService, TuningRecord, TuningStore
+    from repro_torch.dispatch.signature import shape_signature
+
+    a, b = _bf16_operands(cuda, 512, 896, 4864, seed=2)
+    store = TuningStore(str(tmp_path))
+    cfg = dict(bm=48, bn=112, bk=24, pack=True, interchange=True)
+    store.put(TuningRecord("matmul", shape_signature([a.float(), b.float()]), "gpu", cfg,
+                           1e-5))
+    svc = DispatchService(store)
+    before, before_tc = tiled_matmul.launches, tiled_matmul.bf16_tc_launches
+    got = svc.call("matmul", a, b)
+    torch.cuda.synchronize()
+    assert svc.stats["store_exact"] == 1 and svc.stats["build_failed"] == 0
+    assert tiled_matmul.launches == before + 1 and got.dtype == torch.bfloat16
+    assert tiled_matmul.bf16_tc_launches == before_tc + 1
+    _close(got, tiled_matmul_plain(a, b, bk=24, pack=True, out_dtype=torch.bfloat16),
+           BF16_TOL)
+
+
+BF16_ARCHS = ("qwen2-0.5b", "mixtral-8x7b", "mamba2-780m", "qwen2-vl-7b")
+# the reduced bf16 models' logits, card against CPU, relative to their
+# largest |logit|: the two round bf16 at other places (cuBLAS and the
+# kernels against the CPU's plain versions)
+BF16_MARGIN = 0.03
+
+
+@pytest.mark.parametrize("arch", BF16_ARCHS)
+def test_bf16_greedy_on_the_card_matches_the_cpu_up_to_a_near_tie(cuda, arch):
+    """A bf16 greedy_decode with a service, on the card and on the CPU, on
+    the same weights: tokens equal up to the first step whose top-2 margin
+    in the CPU's teacher-forced logits is under BF16_MARGIN of the largest
+    |logit|."""
+    from repro_torch.dispatch import DispatchService
+    from repro_torch.models import forward
+    from repro_torch.serve import greedy_decode
+
+    cfg, params, params_gpu = _reduced_model(arch, cuda, torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(4))
+    steps = 8
+    want = greedy_decode(params, cfg, prompt, steps=steps, max_len=16,
+                         service=DispatchService())
+    got = greedy_decode(params_gpu, cfg, prompt.to(cuda), steps=steps, max_len=16,
+                        service=DispatchService()).cpu()
+    logits, _ = forward(params, {"tokens": torch.cat([prompt, want], 1)}, cfg)
+    top2 = logits[:, 7:7 + steps].topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).min(dim=0).values
+    scale = float(logits.abs().max())
+    for i in range(steps):
+        if margin[i] < BF16_MARGIN * scale:
+            break
+        assert torch.equal(got[:, i], want[:, i]), (arch, i)

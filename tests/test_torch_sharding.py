@@ -162,6 +162,36 @@ def test_multi_pod_placement_joins_pod_and_data():
             join(Spec("pod", None))
 
 
+def test_multi_pod_experts_over_one_data_axis_stay_on_the_mesh_itself():
+    """An expert tensor (a leaf under ``moe``) sharded over ``pod`` or
+    ``data`` alone is placed on the (pod, data, model) mesh, each tensor dim
+    by one mesh dim; the same spec elsewhere, or with a dim over two mesh
+    dims, is refused with the reason."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.parallel.sharding import OnMesh
+
+    with fake_world(16):
+        mesh = make_mesh_from_plan(_Plan((2, 2, 4), ("pod", "data", "model")))
+        flat, join = placement_mesh(mesh)
+        for spec, want in ((Spec(None, "pod", "data", "model"),
+                            (Shard(1), Shard(2), Shard(3))),
+                           (Spec(None, "data", "pod", "model"),
+                            (Shard(2), Shard(1), Shard(3))),
+                           (Spec(None, "pod", None, None), (Shard(1), Replicate(), Replicate()))):
+            out = join({"layers": {"moe": {"wg": spec}, "ln": Spec(None, None)}})
+            placed = out["layers"]["moe"]["wg"]
+            assert isinstance(placed, OnMesh) and placed == spec and placed.mesh is mesh
+            assert named(flat, placed) == want
+            assert named(flat, out["layers"]["ln"]) == (Replicate(), Replicate())
+            t = distribute(torch.empty(3, 4, 8, 16, device="meta"), flat, placed)
+            assert t.device_mesh is mesh and t.placements == want
+        with pytest.raises(ValueError, match="alone"):
+            join({"mlp": {"wg": Spec("pod", None)}})
+        with pytest.raises(ValueError, match="two mesh dims"):
+            join({"moe": {"wd": Spec("pod", ("data", "model"))}})
+
+
 class _Plan:
     def __init__(self, shape, axes):
         self.shape, self.axes = shape, axes
