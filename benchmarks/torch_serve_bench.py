@@ -708,26 +708,30 @@ def _run(args, dev: torch.device, store_root: str, record: dict | None) -> int:
 
     # guard tripwires: shadow epsilon must be ~free at the least call, and
     # the injected regression must have been quarantined with fallback
+    def fail(msg: str) -> int:
+        print(f"FAIL: {msg}")
+        if record is not None:
+            record["fail"] = msg
+        return 1
+
     if guard_payload is not None:
         limit = 0.25 if quick else 0.02   # quick runs are too short to bound
         if guard_payload["shadow_overhead_frac"] > limit:
-            print(f"FAIL: shadow epsilon costs "
-                  f"{guard_payload['shadow_overhead_frac']:.1%} of the least call "
-                  f"(limit {limit:.0%})")
-            return 1
+            return fail(f"shadow epsilon costs "
+                        f"{guard_payload['shadow_overhead_frac']:.1%} of the least call "
+                        f"(limit {limit:.0%}; least call "
+                        f"{guard_payload['min_shadow_ms']:.4f} ms guarded against "
+                        f"{guard_payload['min_plain_ms']:.4f} ms unguarded)")
         if not (guard_payload["drift_ok"] and guard_payload["fallback_ok"]):
-            print(f"FAIL: drift-heal loop incomplete: {guard_payload}")
-            return 1
+            return fail(f"drift-heal loop incomplete: {guard_payload}")
 
     # tripwire: p99 must exist, be finite, and be non-degenerate
     for mode, r in results.items():
         p99 = r["token_lat_p99_ms"]
         if p99 is None or not np.isfinite(p99) or p99 <= 0.0:
-            print(f"FAIL: degenerate p99 for mode {mode}: {p99}")
-            return 1
+            return fail(f"degenerate p99 for mode {mode}: {p99}")
         if r["token_lat_p50_ms"] > p99:
-            print(f"FAIL: p50 > p99 for mode {mode}")
-            return 1
+            return fail(f"p50 > p99 for mode {mode}")
     return 0
 
 

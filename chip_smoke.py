@@ -229,12 +229,16 @@ checks each kernel on the card:
      subprocesses of (a) and (c) run beside (b); (d)'s start before phase
      10 and run beside phases 10-13, and phase 14 starts after they end
      (its timed gates run on a quiet host).
- 17. the catalog in its own dtype, bf16 (the matmul's bf16 tensor-core
-     path in the kernels line as matmul_bf16; the launch counts set to 0
-     just before each model's greedy run and read just after): (a) the bf16
-     matmul against its plain version at three served forward products and
-     two ragged shapes, every chunk of the gpu space under tiles that take
-     pack on and off, either raster order, out f32 and bf16; (b)
+ 17. the catalog in its own dtype, bf16 (the matmul's bf16 wgmma route
+     in the kernels line as matmul_bf16, its split stream for the decode's
+     rows as matmul_split; the launch counts set to 0 just before each
+     model's greedy run and read just after): (a) the bf16 matmul against
+     its plain version at three served forward products and two ragged
+     shapes, every chunk of the gpu space under tiles that take pack on and
+     off, either raster order, out f32 and bf16; the split stream (rows 1,
+     4 and 8, f32 and bf16) at every column tile and chunk at mixtral's
+     output projection and whisper's unembed, repeated calls bit-identical,
+     and the wgmma route at every tile past 8 rows; (b)
      qwen2-0.5b, qwen2-vl-7b (full depth), mixtral-8x7b (16 of 32 layers)
      and mamba2-780m (full depth) served in bf16 at full width through
      greedy_decode and a DispatchService (batch 4, prompt 128, 16 tokens):
@@ -262,6 +266,12 @@ decode_attention with per-row positions that leave whole splits of the key
 axis empty, rows at cur_pos = -1 exactly 0, and repeated calls (also after a
 call at another BH) bit-identical; decode_attention also at head sizes off
 the multiples of 16 (40, 72, 100: run at the next one, loads masked).
+
+Phases 6, 10, 11, 13, 14 and 17 also hold the route csrc/matmul.cu reported
+for every served matmul (check_routes): a decode step's rows on the split
+stream in either dtype, a bf16 forward's on wgmma, an f32 forward's on
+mma.sync in 3xTF32; the kernels line's matmul_split row is the split stream
+at mixtral's bf16 decode output projection, (4, 4096) @ (4096, 4096).
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Any failed phase raises and the
@@ -351,7 +361,7 @@ WRAPPER_OF = {"syr2k": "syr2k", "matmul": "tiled_matmul", "covariance": "covaria
               "minplus": "minplus_update", "heat3d": "heat3d",
               "lu_factor_diag": "lu_factor_diag", "closure": "closure_in_block",
               "flash_attention": "flash_attention", "decode_attention": "decode_attention",
-              "matmul_bf16": "matmul_bf16"}
+              "matmul_bf16": "matmul_bf16", "matmul_split": "matmul_split"}
 # each served model's figures, by arch (phases 6, 10 and 11, in f32), which
 # phase 17 prints beside its bf16 ones
 SERVED: dict = {}
@@ -445,9 +455,11 @@ CATALOG_SERVE = dict(batch=4, gen=16, seed=0, check_prompt=16, check_gen=4)
 LEFT_BYTES = 64 << 20
 # the instantiations the main paths run at their defaults (ptxas template
 # arguments): syr2k<PACK_A, PACK_B, RT, VEC16> at 64x64 tiles of M = 1000;
-# matmul_tc<input, PACK, VEC16> (the tensor cores: f32 in 3xTF32, bf16) at
-# 64x64 tiles (mm3, lu, the prefill's products) and matmul<input, PACK, TM,
-# TN, VEC16> (FFMA) at the model's 8-row decode tiles, f32 and bf16;
+# matmul_tc<input, PACK, VEC16> (mma.sync: f32 in 3xTF32) at 64x64 tiles
+# (mm3, lu, the f32 prefill's products), matmul_wgmma<GROUPS, BN> (bf16
+# past 8 rows: one warpgroup, N 64) at the bf16 forward's 64x64 tiles, and
+# matmul_split<input, TM, LB, PACK> (the split stream: 4 rows, 16-byte
+# loads) at the decode's 4-row tiles, f32 and bf16;
 # covariance<FUSE_CENTER, RT, VEC16> at 64x64 tiles of M = 1200;
 # flash<dtype, hd, CAUSAL> and decode<dtype, hd, VEC16, MASK, WIDE> at the
 # model's f32, hd 64; minplus<TM, TN, UNROLL, VEC16> at
@@ -456,8 +468,8 @@ LEFT_BYTES = 64 << 20
 # heat3d<FUSE_T, VEC16> at fuse_t 2 on N = 120; phase 2 asserts that they
 # spill nothing (the other instantiations' spills are printed)
 MAIN_PATH_INSTANCES = {"syr2k": ([1, 1, 4, 1],),
-                       "matmul": (["float", 1, 1], ["float", 1, 1, 4, 1],
-                                  ["bfloat16", 1, 1], ["bfloat16", 1, 1, 4, 1]),
+                       "matmul": (["float", 1, 1], [1, 64], ["float", 4, 16, 1],
+                                  ["bfloat16", 4, 16, 1]),
                        "covariance": ([1, 4, 1],),
                        "floyd_warshall": ([8, 4, 4, 1], [4, 4, 4, 1], [64]),
                        "heat3d": ([2, 1],),
@@ -511,7 +523,7 @@ PROXY_AUDIT = ("syr2k", "mm3", "covariance")
 # learner study's campaigns, evaluations each
 TABLE_EVALS = dict(default=20, heat3d=12, learners=30)
 # phase 17: the catalog in its own dtype, bf16, on the card. (a) the bf16
-# matmul (csrc/gemm_bf16.cuh's tensor cores past 8 rows, the FFMA loop at 8)
+# matmul (wgmma past 8 rows, mma.sync with pack off, the split stream at 8)
 # against its plain version at the served forward products and two ragged
 # shapes; (b) each arch served in bf16 through greedy_decode and a
 # DispatchService: (arch, layers served (None: all), layers of the
@@ -703,6 +715,42 @@ def launches_per_call(fn, wrappers) -> dict:
     before = {w.__name__: w.launches for w in wrappers}
     fn()
     return {w.__name__: w.launches - before[w.__name__] for w in wrappers}
+
+
+def reset_routes() -> None:
+    """Set the matmul's per-route counts to 0 (beside the wrappers' launch
+    counts, just before a main path)."""
+    from repro_torch.kernels.matmul import reset_route_counts
+
+    reset_route_counts()
+
+
+def check_routes(what: str, want: dict, launches: dict | None = None,
+                 only: tuple | None = None) -> dict:
+    """The routes csrc/matmul.cu reported over a main path (counted since
+    reset_routes) against the routes its products must take: a decode step's
+    rows (at most 8) on the split stream in either dtype, a bf16 forward's on
+    wgmma, an f32 forward's on mma.sync (3xTF32). ``only``: where the counts
+    per route are not fixed (the serving benchmark's guard replays sampled
+    calls), the routes that may appear, each at least once. Adds the split
+    and the bf16 tensor-core launches to ``launches`` (the kernels line's
+    matmul_split and matmul_bf16 rows)."""
+    from repro_torch.kernels.matmul import tiled_matmul
+
+    got = {k: v for k, v in tiled_matmul.route_launches.items() if v}
+    if only is not None:
+        print(f"  {what}: the matmul's routes {got} (each of {list(only)}, no other)",
+              flush=True)
+        if set(got) != set(only):
+            raise AssertionError(f"{what}: matmul routes {got}, expected {list(only)}")
+    else:
+        want = {k: v for k, v in want.items() if v}
+        print(f"  {what}: the matmul's routes {got} (expected {want})", flush=True)
+        if got != want:
+            raise AssertionError(f"{what}: matmul routes {got} != {want}")
+    if launches is not None:
+        launches["matmul_split"] = launches.get("matmul_split", 0) + got.get("split", 0)
+    return got
 
 
 def rejected_points(name: str, dims, limit: int) -> tuple[int, int]:
@@ -1214,23 +1262,23 @@ def paged_round(label: str, cfg, params, svc, g, dev, lens, rounds: int, slots,
 def matmul_signatures(arch: str, svc, sigs, dev, seed: int, dtype=None,
                       rows: dict | None = None) -> None:
     """The matmul at new signatures, (label, rows, w, launches), in ``dtype``
-    (None: f32) at the rows the path gives them (4 in a decode step: the FFMA
-    tiles; B*P in the forward: the tensor cores, f32 in 3xTF32, bf16 one
-    m16n8k16 a k step), each held against its plain version (the pack=True
-    product: for f32 torch.matmul, TF32 being off; for bf16 one rounding of
-    the f32 sum) at phase 3's tolerance for the dtype, then timed: 10 calls
-    queued behind a spin, between CUDA events (torch.profiler can lose the
-    events of such calls; back-to-back calls where the host fell behind the
-    spin), beside torch.matmul in the dtype, the plain version (bf16: in
-    f32 it is torch.matmul) and the bound (the tensor-core route's peak past
-    8 rows, FFMA's at 8). With ``rows``, each row lands in
-    ``rows[(arch, label)]``."""
+    (None: f32) at the rows the path gives them (4 in a decode step: the
+    split stream; B*P in the forward: the tensor cores, f32 in 3xTF32 on
+    mma.sync, bf16 on wgmma), each held against its plain version (the
+    pack=True product: for f32 torch.matmul, TF32 being off; for bf16 one
+    rounding of the f32 sum) at phase 3's tolerance for the dtype, then
+    timed: 10 calls queued behind a spin, between CUDA events (torch.profiler
+    can lose the events of such calls; back-to-back calls where the host
+    fell behind the spin), beside torch.matmul in the dtype, the plain
+    version (bf16: in f32 it is torch.matmul) and the bound (the route's
+    peak: the tensor cores' past 8 rows, FFMA's on the split stream). The
+    row names the route matmul_launch reported. With ``rows``, each row
+    lands in ``rows[(arch, label)]``, its largest error under
+    ``max_abs_err``."""
     import torch
 
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.matmul import tiled_matmul_plain
+    from repro_torch.kernels.matmul import tiled_matmul, tiled_matmul_plain
 
-    bm = ops.DEFAULTS["matmul"]["bm"]
     bf16 = dtype == torch.bfloat16
     gx = torch.Generator(device=dev).manual_seed(seed)
     for label, M, w, per in sigs:
@@ -1239,12 +1287,16 @@ def matmul_signatures(arch: str, svc, sigs, dev, seed: int, dtype=None,
         if bf16:
             x = (x / K ** 0.5).bfloat16()
         fn = svc.dispatch("matmul", x, w)
-        tc = min(bm, M) > 8
+        before = dict(tiled_matmul.route_launches)
+        got = fn(x, w)
+        (route,) = [k for k, v in tiled_matmul.route_launches.items() if v != before[k]]
+        tc = route in ("wgmma", "mma_sync")
         name = (f"{arch}{' bf16' if bf16 else ''} matmul {label} ({M}, {K}) @ ({K}, {N}) "
-                + (("bf16 mma.sync" if bf16 else "3xTF32") if tc else "FFMA"))
+                + {"wgmma": "wgmma", "mma_sync": "3xTF32" if not bf16 else "bf16 mma.sync",
+                   "split": "split stream", "ffma": "FFMA"}[route])
         plain = lambda: tiled_matmul_plain(x, w, bk=K, pack=True, out_dtype=x.dtype)  # noqa: E731
-        compare(f"{name}, against its plain version", fn(x, w), plain(),
-                BF16_TOL if bf16 else F32_TOL)
+        err = compare(f"{name}, against its plain version", got, plain(),
+                      BF16_TOL if bf16 else F32_TOL)
         k_ms = queued_ms(lambda: fn(x, w)) or time_ms(lambda: fn(x, w), iters=10)
         l_ms = (queued_ms(lambda: torch.matmul(x, w))
                 or time_ms(lambda: torch.matmul(x, w), iters=10))
@@ -1254,7 +1306,7 @@ def matmul_signatures(arch: str, svc, sigs, dev, seed: int, dtype=None,
                            peak=peak)
         if rows is not None:
             rows[(arch, label)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                                       bound_by=b_by)
+                                       bound_by=b_by, max_abs_err=err)
         print(f"  {name}, {per}: kernel {k_ms:.4f} ms on the device, bound {b_ms:.4f} ms "
               f"({b_by}), " + ("" if p_ms is None else f"plain {p_ms:.4f} ms, ")
               + f"torch.matmul {l_ms:.4f} ms", flush=True)
@@ -1285,6 +1337,7 @@ def serving(launches: dict, dev) -> float:
     # -- the main path, through the serving entry point
     for w in wrappers:
         w.launches = 0
+    reset_routes()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     r = serve_cli.serve(SERVE["arch"], batch=B, prompt_len=P, gen=gen, seed=SERVE["seed"],
@@ -1305,6 +1358,7 @@ def serving(launches: dict, dev) -> float:
           f"per decode step, {steps} steps; {L} + 1 matmuls in the forward)")
     if counts != want:
         raise AssertionError(f"serve launch counts {counts} != {want}")
+    check_routes("serve", {"split": (L + 1) * steps, "mma_sync": L + 1}, launches)
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
     if r["stats"]["build_failed"] or r["stats"]["store_default"] == 0:
@@ -1455,6 +1509,7 @@ def moe_arch(arch: str, n_layers: int, launches: dict, dev):
     # -- the main path: greedy_decode (prefill: forward + the prompt's replay)
     for w in wrappers:
         w.launches = 0
+    reset_routes()
     timings: dict = {}
     toks = greedy_decode(params, cfg, prompt, steps=gen, max_len=P + gen, service=svc,
                          timings=timings)
@@ -1463,6 +1518,7 @@ def moe_arch(arch: str, n_layers: int, launches: dict, dev):
     peak = torch.cuda.max_memory_allocated()
     if tuple(toks.shape) != (B, gen) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         raise AssertionError(f"{arch}: tokens of shape {tuple(toks.shape)} outside the vocab")
+    check_routes(arch, {"split": per_step * (P + gen), "mma_sync": per_step}, launches)
     want = {"flash_attention": 0, "decode_attention": 0,
             "tiled_matmul": per_step * (1 + P + gen)}
     print(f"  {arch} ({n_layers} of {full.n_layers} layers, d {cfg.d_model}, "
@@ -1784,7 +1840,7 @@ def serve_arch(arch: str, launches: dict, dev, serve: dict, dtype, n_layers: int
     # -- the main path: greedy_decode (prefill: forward + the prompt's replay)
     for w in wrappers:
         w.launches = 0
-    tiled_matmul.bf16_tc_launches = 0
+    reset_routes()
     timings: dict = {}
     toks = greedy_decode(params, cfg, prompt, steps=gen, max_len=P + gen, service=svc,
                          timings=timings)
@@ -1796,9 +1852,11 @@ def serve_arch(arch: str, launches: dict, dev, serve: dict, dtype, n_layers: int
         raise AssertionError(f"{what}: tokens of shape {tuple(toks.shape)} outside the vocab")
     steps = P + gen
     want = {k: one_fwd[k] + one_step[k] * steps for k in one_fwd}
-    # bf16: the forward's B * P rows take the tensor cores, a decode step's
-    # B rows the FFMA loop
+    # the forward's B * P rows take the tensor cores (bf16: wgmma; f32:
+    # mma.sync in 3xTF32), a decode step's B rows the split stream
     want_tc = one_fwd["tiled_matmul"] if bf16 else 0
+    check_routes(what, {"split": one_step["tiled_matmul"] * steps,
+                        "wgmma" if bf16 else "mma_sync": one_fwd["tiled_matmul"]}, launches)
     print(f"  {what} ({fam}, {L} of {full.n_layers} layers, d {cfg.d_model}, vocab "
           f"{cfg.vocab_size}): launches over greedy_decode {counts}, of the matmul's {tc} on "
           f"the bf16 tensor cores (expected {want} and {want_tc}: {one_fwd} per forward, "
@@ -2346,6 +2404,7 @@ def audio_serve(launches: dict, dev):
     # -- the main path: greedy_decode (prefill: forward + the prompt's replay)
     for w in wrappers:
         w.launches = 0
+    reset_routes()
     timings: dict = {}
     toks = greedy_decode(params, cfg, prompt, steps=gen, max_len=P + gen, service=svc,
                          timings=timings, enc_embed=frames)
@@ -2355,6 +2414,9 @@ def audio_serve(launches: dict, dev):
     if tuple(toks.shape) != (B, gen) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         raise AssertionError(f"{cfg.name}: tokens of shape {tuple(toks.shape)} outside the vocab")
     steps = P + gen
+    # the unembed: the forward's B * P rows on mma.sync, each step's B rows
+    # on the split stream (N = 51,866: 4-byte loads)
+    check_routes(cfg.name, {"split": steps, "mma_sync": 1}, launches)
     want = {"flash_attention": 0, "decode_attention": 0, "tiled_matmul": 1 + steps}
     print(f"  (a) {cfg.name} ({Le} encoder layers over {Se} frames, {L} decoder layers, d "
           f"{cfg.d_model}, vocab {cfg.vocab_size}), batch {B}, prompt {P}, {gen} tokens: "
@@ -2705,14 +2767,19 @@ def load_bench(launches: dict, dev) -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
         for wr in wrappers:
             wr.launches = 0
+        reset_routes()
         rc = tsb.main(LOAD_BENCH_ARGV + ["--store", tmp, "--out", out, "--obs-out", obs_out],
                       record=record)
         torch.cuda.synchronize()
         counts = {wr.__name__: wr.launches for wr in wrappers}
+    # the prompts' forwards (16-48 rows, f32) on mma.sync, the decode rounds
+    # (at most 8 rows) and the prompts' replays on the split stream
+    check_routes("(a) torch_serve_bench", {}, launches, only=("split", "mma_sync"))
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
     if rc != 0:
-        raise AssertionError(f"torch_serve_bench exited {rc}")
+        raise AssertionError(f"torch_serve_bench exited {rc}: "
+                             f"{record.get('fail', 'no tripwire named')}")
     modes, payload = record["modes"], record["payload"]
     for mode, r in modes.items():
         print(f"  (a) {mode}: token latency p50 {r['token_lat_p50_ms']:.3f} ms, p99 "
@@ -2827,6 +2894,7 @@ def catalog_arch(arch: str, P: int, launches: dict, dev):
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers:
         w.launches = 0
+    reset_routes()
     r = serve_cli.serve(arch, batch=B, prompt_len=P, gen=gen, seed=seed, device=dev)
     torch.cuda.synchronize()
     counts = {w.__name__: w.launches for w in wrappers}
@@ -2846,6 +2914,8 @@ def catalog_arch(arch: str, P: int, launches: dict, dev):
           f"{one_step} per decode step, {steps} steps)", flush=True)
     if counts != want:
         raise AssertionError(f"{arch}: launch counts {counts} != {want}")
+    check_routes(arch, {"split": one_step["tiled_matmul"] * steps,
+                        "mma_sync": one_fwd["tiled_matmul"]}, launches)
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
     if r["stats"]["build_failed"] or r["stats"]["store_default"] == 0:
@@ -4150,6 +4220,78 @@ def bf16_matmul_checks(dev, errs: dict) -> None:
           flush=True)
 
 
+def matmul_route_checks(dev, errs: dict) -> None:
+    """Phase 17 (a): the matmul's split stream and wgmma route against the
+    plain version. The split stream (rows 1, 4 and 8, f32 and bf16) at
+    mixtral's output projection (its K split over a cluster) and whisper's
+    unembed (N = 51,866: narrower loads, element stores): every column tile
+    of the gpu space, each with another chunk, pack on, and two chunks with
+    pack off, out in either dtype, each route reported; repeated calls
+    bit-identical. The wgmma route at every tile past 8 rows of the gpu
+    space, chunk 32, at a ragged shape. (tests/test_torch_gpu.py takes every
+    tile with every chunk.) Phase 3's tolerances; the largest errors land in
+    errs["matmul_split"] and errs["matmul_bf16"]."""
+    import torch
+
+    from repro_torch.kernels.matmul import tiled_matmul, tiled_matmul_plain
+    from repro_torch.kernels.spaces import GPU_TILES, GPU_TILES_K
+
+    t0 = time.perf_counter()
+
+    def check(what, a, b, route, pack, bk, out, **cfg):
+        before = dict(tiled_matmul.route_launches)
+        got = tiled_matmul(a, b, bk=bk, pack=pack, out_dtype=out, **cfg).float()
+        taken = [k for k, v in tiled_matmul.route_launches.items() if v != before[k]]
+        want = tiled_matmul_plain(a, b, bk=min(bk, a.shape[1]), pack=pack,
+                                  out_dtype=out).float()
+        tol = BF16_TOL if out == torch.bfloat16 or (a.dtype == torch.bfloat16 and not pack) \
+            else F32_TOL
+        diff = (got - want).abs()
+        if taken != [route] or not torch.isfinite(got).all() or \
+                not bool((diff <= tol["atol"] + tol["rtol"] * want.abs()).all()):
+            raise AssertionError(f"{what} {cfg} bk={bk} pack={pack} out {out}: route {taken}, "
+                                 f"max_abs_err {float(diff.max()):.3e}")
+        return float(diff.max())
+
+    n, split_err, wg_err = 0, 0.0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+        for K, N in ((4096, 4096), (1280, 51866)):
+            for M in (1, 4, 8):
+                a, b = (t.to(dtype) for t in model_operands(M, K, N, dev, seed=M))
+                for i, (bn, bk) in enumerate(zip(GPU_TILES, GPU_TILES_K)):
+                    split_err = max(split_err, check(
+                        f"split stream ({M}, {K}) @ ({K}, {N})", a, b, "split", True, bk,
+                        (dtype, other)[i % 2], bm=64, bn=bn, interchange=bool(i % 3 == 0)))
+                    n += 1
+                for bk in (32, 256):
+                    split_err = max(split_err, check(
+                        f"split stream ({M}, {K}) @ ({K}, {N})", a, b, "split", False, bk,
+                        dtype, bm=64, bn=64))
+                    n += 1
+                first = tiled_matmul(a, b, bm=64, bn=64, bk=32)
+                if not all(torch.equal(tiled_matmul(a, b, bm=64, bn=64, bk=32), first)
+                           for _ in range(3)):
+                    raise AssertionError(f"split stream ({M}, {K}) @ ({K}, {N}): repeated "
+                                         f"calls differ")
+        print(f"  split stream, {dtype}: rows 1, 4, 8 at (., 4096) @ (4096, 4096) and "
+              f"(., 1280) @ (1280, 51866), every column tile, repeated calls bit-identical",
+              flush=True)
+    a, b = (t.bfloat16() for t in model_operands(97, 136, 520, dev, seed=11))
+    for bm in GPU_TILES[1:]:
+        for i, bn in enumerate(GPU_TILES):
+            wg_err = max(wg_err, check("wgmma (97, 136) @ (136, 520)", a, b, "wgmma", True,
+                                       32, (torch.bfloat16, torch.float32)[i % 2], bm=bm,
+                                       bn=bn, interchange=bool(i % 3 == 0)))
+            n += 1
+    torch.cuda.synchronize()
+    errs["matmul_split"] = max(errs.get("matmul_split", 0.0), split_err)
+    errs["matmul_bf16"] = max(errs["matmul_bf16"], wg_err)
+    print(f"  the matmul's routes: {n} launches against the plain version, largest error "
+          f"split {split_err:.3e}, wgmma {wg_err:.3e}, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def bf16_phase(launches: dict, dev, errs: dict, rows: dict) -> None:
     """Phase 17: the catalog in its own dtype on the card. The bf16 matmul
     against its plain version, then each arch served in bf16 and checked
@@ -4162,6 +4304,7 @@ def bf16_phase(launches: dict, dev, errs: dict, rows: dict) -> None:
 
     t17 = time.perf_counter()
     bf16_matmul_checks(dev, errs)
+    matmul_route_checks(dev, errs)
     mm_rows: dict = {}
     for arch, n_layers, check_layers in BF16_ARCHS:
         if get_config(arch).dtype != torch.bfloat16:
@@ -4180,7 +4323,10 @@ def bf16_phase(launches: dict, dev, errs: dict, rows: dict) -> None:
                     near_tie=BF16_LOGIT_REL[cfg.family], ssm_chunk=BF16_SERVE["check_chunk"])
         released(arch, base, "the bf16 card-against-CPU check")
         print(f"  {arch} bf16: {time.perf_counter() - t0:.1f} s", flush=True)
-    rows["matmul_bf16"] = mm_rows[("mixtral-8x7b", "forward output projection")]
+    rows["matmul_bf16"] = dict(mm_rows[("mixtral-8x7b", "forward output projection")])
+    errs["matmul_bf16"] = max(errs["matmul_bf16"], rows["matmul_bf16"].pop("max_abs_err"))
+    rows["matmul_split"] = dict(mm_rows[("mixtral-8x7b", "decode output projection")])
+    errs["matmul_split"] = max(errs["matmul_split"], rows["matmul_split"].pop("max_abs_err"))
     print(f"  phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
 
 
@@ -4337,7 +4483,7 @@ def main() -> int:
         "mm3 f32 default config", ops.mm3_op(Am, Bm, Cm, Dm), ref.mm3_ref(Am, Bm, Cm, Dm),
         F32_TOL, (probe, "F32_TOL")))
     # skinny M at the model's shapes: the decode unembed and output projection
-    # (8-row tiles: the FFMA loop, not the tensor cores)
+    # (tiles of at most 8 rows: the split stream, not the tensor cores)
     for (M_, K_, N_) in ((1, 896, 151936), (4, 896, 151936), (7, 896, 151936),
                          (1, 896, 896), (4, 896, 896), (7, 896, 896)):
         a, b = model_operands(M_, K_, N_, dev)
@@ -4463,7 +4609,7 @@ def main() -> int:
             lu_plain(Alu, bs=ops.DEFAULTS["lu"]["bs"], pack=ops.DEFAULTS["lu"]["pack"]), LU_TOL,
             (probe, "LU_TOL"))
     # the tensor-core route's probe: its largest error in each class (the
-    # f32 matmul, mm3 and lu cases above; the skinny rows run the FFMA loop)
+    # f32 matmul, mm3 and lu cases above; the skinny rows run the split stream)
     for cls, (abs_err, share) in probe.items():
         print(f"  3xTF32 matmul probe, {cls} {globals()[cls]}: largest max_abs_err "
               f"{abs_err:.3e}, {share:.3f} of the tolerance", flush=True)
@@ -4916,9 +5062,9 @@ def main() -> int:
     parallel_phase(launches, dev, hill)
 
     # ---- 17. the catalog in its own dtype -----------------------------------------------
-    phase("17. the catalog in bf16 on the card: the matmul's bf16 tensor-core path against "
-          "its plain version, qwen2-0.5b, qwen2-vl-7b, mixtral-8x7b (16 layers) and "
-          "mamba2-780m served in bf16 at full width, the card against the CPU")
+    phase("17. the catalog in bf16 on the card: the matmul's bf16 wgmma route and split "
+          "stream against its plain version, qwen2-0.5b, qwen2-vl-7b, mixtral-8x7b "
+          "(16 layers) and mamba2-780m served in bf16 at full width, the card against the CPU")
     bf16_phase(launches, dev, errs, rows)
 
     def entry(name, source, replaces):
@@ -4939,6 +5085,7 @@ def main() -> int:
         entry("decode_attention", "decode_attention.cu",
               "src/repro/kernels/decode_attention.py:62"),
         entry("matmul_bf16", "matmul.cu", "src/repro/kernels/matmul.py:34"),
+        entry("matmul_split", "matmul.cu", "src/repro/kernels/matmul.py:34"),
     ]
     for k in kernels:
         if k["launches"] < 1:

@@ -283,9 +283,10 @@ class SmemBudget(Rule):
     where the caller knows it. Where it does not (a signature carries none,
     and a store record serves f32 and bf16 calls alike), the attention
     kernels are asked for bf16 operands, their smallest staging, and the
-    matmul for both dtypes, the smaller answer (bf16 pads its tensor-core
-    chunks to 16 in k, f32 to 8, and f32 tiles whose tensor-core stage does
-    not fit take the FFMA loop's), so the rule never refuses a config that
+    matmul for both dtypes, the smaller answer (a bf16 tile past 8 rows
+    answers the larger of its wgmma and mma.sync layouts, f32 its mma.sync
+    layout or, where that stage does not fit, the FFMA loop's; tiles of at
+    most 8 rows the split stream's), so the rule never refuses a config that
     fits; the build guard still catches a tile that does not fit the call's
     own dtype.
 
@@ -502,28 +503,72 @@ _SMEM_NEEDS = {
 class TileAlign(Rule):
     """Targets ``gpu`` and ``cost``, the Hopper counterpart of the JAX
     package's ``MxuAlign``: the tile kernels on ``csrc/gemm_f32.cuh`` pad
-    each tile extent to a multiple of its ``ALIGN`` (8), and the f32 matmul's
-    tensor-core route (row tiles past 8) pads rows and columns to its warps'
-    ``TC_PIECE`` x ``TC_PIECE`` (32 x 32) pieces and the k chunk to its
-    ``mma.sync`` k (``MMA_K``): 8 for f32 operands (3xTF32; mm3 and lu are
-    f32 only), 16 for bf16, and where ``ctx.dtype`` is unknown the smaller
-    padding, f32's; the FFMA route pads the chunk only to 4
-    (``kernels/cost.py``). A tile off its grid computes padding in every
-    block. ``axes`` maps each tile param to the dim it tiles: a tile that
-    covers its whole dim pads only the dim's own remainder, which no config
-    avoids, so it is not flagged. ``tc`` names a matmul tile's (rows,
-    columns, k chunk) params; the rows tile decides the route. One stable
-    code a param, ``tile_misaligned:<name>``. Warn-only — the kernels pad
-    and run."""
+    each tile extent to a multiple of its ``ALIGN`` (8). A matmul tile
+    (``tc`` names its rows, columns and k chunk params) pads as the route
+    ``csrc/matmul.cu`` takes for it (``kernels/cost.py:matmul_route``):
+    past 8 rows, ``wgmma`` (bf16, pack on, K and N multiples of 8) pads
+    rows and columns to ``WG_ROWS`` x ``WG_COLS`` (64) and rounds the chunk
+    up with the operands' own k (no padding); ``mma.sync`` pads rows and
+    columns to its warps' ``TC_PIECE`` (32) pieces and the chunk to its k
+    (``MMA_K``: 8 for f32 operands, 16 for bf16; mm3 and lu are f32 only);
+    the split stream (at most 8 rows) pads no chunk. Where ``ctx.dtype``
+    is unknown each param is held to the smaller padding of the dtypes'
+    routes (mm3's and lu's products, ``f32_only``, are f32). A tile off its
+    grid computes padding in every block. ``axes``
+    maps each tile param to the dim it tiles: a tile that covers its whole
+    dim pads only the dim's own remainder, which no config avoids, so it is
+    not flagged. One stable code a param, ``tile_misaligned:<name>``.
+    Warn-only — the kernels pad and run."""
 
-    def __init__(self, axes: Mapping[str, int], tc: tuple[str, str, str] | None = None):
+    def __init__(self, axes: Mapping[str, int], tc: tuple[str, str, str] | None = None,
+                 f32_only: bool = False):
         self.axes = dict(axes)
         self.tc = tc
+        self.f32_only = f32_only
+
+    def _matmul_grids(self, cfg, ctx) -> dict:
+        """param -> (grid, where) of the matmul's route for ``ctx.dtype``,
+        the smaller grid of the two dtypes' routes where it is unknown."""
+        from repro_torch.kernels.cost import MMA_K, TC_PIECE, WG_COLS, WG_ROWS, matmul_route
+
+        rows, cols, k = self.tc
+        rows_v = cfg.get(rows)
+        if not (_is_int(rows_v) and rows_v > 0):
+            return {}
+        dims = ctx.dims if ctx.dims is not None and len(ctx.dims) == 3 else None
+        M, K, N = dims if dims is not None else (rows_v, 8, 8)  # unknown dims: aligned
+        pack = bool(cfg.get("pack", False))
+        per_dtype = []
+        sizes = ((4,) if self.f32_only else (ctx.dtype.itemsize,) if ctx.dtype is not None
+                 else (4, 2))
+        for size in sizes:
+            route = matmul_route(int(M), int(K), int(N), int(rows_v), pack, size)
+            if route == "wgmma":
+                per_dtype.append({rows: (WG_ROWS, "the wgmma route's 64-row warpgroups"),
+                                  cols: (WG_COLS, "the wgmma route's 64-column boxes"),
+                                  k: (1, "")})
+            elif route == "mma_sync":
+                per_dtype.append({rows: (TC_PIECE, f"the mma.sync route's {TC_PIECE} x "
+                                                   f"{TC_PIECE} warp pieces"),
+                                  cols: (TC_PIECE, f"the mma.sync route's {TC_PIECE} x "
+                                                   f"{TC_PIECE} warp pieces"),
+                                  k: (MMA_K[size], f"the mma.sync route's k of "
+                                                   f"{MMA_K[size]}")})
+            else:  # the split stream: no chunk padding
+                per_dtype.append({k: (1, "")})
+        out = {}
+        for name in (rows, cols, k):
+            cands = [d[name] for d in per_dtype if name in d]
+            if len(cands) == len(per_dtype):
+                out[name] = min(cands)
+            elif cands:  # a route that does not pad this param: the smaller padding
+                out[name] = (1, "")
+        return out
 
     def check(self, cfg, ctx):
         if ctx.target not in ("gpu", "cost"):
             return
-        from repro_torch.kernels.cost import ALIGN, MMA_K, TC_PIECE
+        from repro_torch.kernels.cost import ALIGN
 
         def tile(name):
             v = cfg.get(name)
@@ -534,16 +579,11 @@ class TileAlign(Rule):
                 return None
             return v
 
-        grids = dict.fromkeys(self.axes, ALIGN)
+        grids = {name: (ALIGN, "") for name in self.axes}
         if self.tc is not None:
-            rows, cols, k = self.tc
-            if (tile(rows) or 0) > ALIGN:  # the tensor cores' route
-                k_step = (MMA_K[ctx.dtype.itemsize] if ctx.dtype is not None
-                          else min(MMA_K.values()))
-                grids.update({rows: TC_PIECE, cols: TC_PIECE, k: k_step})
-            else:
-                del grids[k]  # the FFMA route's chunk: a multiple of 4
-        for name, grid in grids.items():
+            del grids[self.tc[2]]  # a matmul chunk pads only as its route does
+            grids.update({n: g for n, g in self._matmul_grids(cfg, ctx).items() if g[0] > 1})
+        for name, (grid, where) in grids.items():
             v = tile(name)
             if v is None:
                 continue
@@ -552,9 +592,6 @@ class TileAlign(Rule):
                               f"{name}={v} pads to {-(-v // ALIGN) * ALIGN} on the "
                               f"tile kernels' {ALIGN}-element grid", name)
             elif v % grid:
-                where = (f"the tensor-core matmul's mma k of {grid}"
-                         if self.tc is not None and name == self.tc[2] else
-                         f"the tensor-core matmul's {grid} x {grid} warp pieces")
                 yield Finding(f"tile_misaligned:{name}", WARN,
                               f"{name}={v} pads to {-(-v // grid) * grid} in {where}", name)
 
@@ -651,7 +688,7 @@ KERNEL_RULES: dict[str, tuple[Rule, ...]] = {
         RequiredParams("bm", "bn", "bk"),
         PositiveIntTiles("bm", "bn", "bk"),
         SmemBudget(),
-        TileAlign({"bm": 0, "bn": 4, "bk": 2}, tc=("bm", "bn", "bk")),
+        TileAlign({"bm": 0, "bn": 4, "bk": 2}, tc=("bm", "bn", "bk"), f32_only=True),
         PaddingWaste(),
         GridBound({"bm": 0, "bn": 4, "bk": 2}),
     ),
@@ -659,7 +696,7 @@ KERNEL_RULES: dict[str, tuple[Rule, ...]] = {
         RequiredParams("bs"),
         PositiveIntTiles("bs", "bm", "bn"),
         SmemBudget(),
-        TileAlign({"bm": 0, "bn": 0, "bs": 0}, tc=("bm", "bn", "bs")),
+        TileAlign({"bm": 0, "bn": 0, "bs": 0}, tc=("bm", "bn", "bs"), f32_only=True),
         PaddingWaste(),
         GridBound({"bs": 0}),
     ),

@@ -52,11 +52,15 @@ KERNELS: dict[str, dict[str, tuple[list, type]]] = {
     },
     "matmul": {
         # A, B, O, M, K, N, bm, bn, bk, pack, interchange, in_bf16, out_bf16,
-        # smem limit, stream, the route taken (out: 1 the tensor cores, 0 FFMA)
-        "matmul_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        # smem limit, SM count, stream, the route taken (out: 0 FFMA, 1
+        # mma.sync, 2 wgmma, 3 the split-K stream)
+        "matmul_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                            ctypes.POINTER(_L)], _I),
         # bm, bn, bk, in_bf16, smem limit
         "matmul_smem_bytes": ([_I, _I, _I, _I, _I], _L),
+        # M, K, N, bm, bn, bk, pack, in_bf16, SM count -> the split route's
+        # CTAs a column tile
+        "matmul_splits": ([_I, _I, _I, _I, _I, _I, _I, _I, _I], _I),
     },
     "covariance": {
         # data, mean, O, N, M, bi, bj, bk, fuse_center, interchange, smem limit,

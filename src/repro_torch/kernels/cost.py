@@ -13,10 +13,12 @@ CUDA kernels and their drivers do:
     ``SmemBudget`` this needs the built library, so without a card nothing
     is refused;
   * **compute**: each launch's work over the peak of the route it takes
-    (f32 FFMA on the CUDA cores; 3xTF32 on the tensor cores for the f32
-    matmul past 8 rows, ``csrc/matmul.cu``; FMNMX+FADD for min-plus), on the
-    tile padded to ``ALIGN = 8`` (``csrc/gemm_f32.cuh``; the tensor-core
-    route to its 32 x 32 warp pieces), in waves of blocks over the SMs: the
+    (f32 FFMA on the CUDA cores; for the matmul past 8 rows, ``csrc/matmul.cu``,
+    3xTF32 on ``mma.sync`` in f32 and the bf16 peak on ``wgmma`` or
+    ``mma.sync``, its split stream of at most 8 rows on the CUDA cores;
+    FMNMX+FADD for min-plus), on the tile padded to ``ALIGN = 8``
+    (``csrc/gemm_f32.cuh``; ``mma.sync`` to its 32 x 32 warp pieces,
+    ``wgmma`` to 64), in waves of blocks over the SMs: the
     blocks an SM holds are set by shared memory, threads (2,048 an SM) and
     32 blocks, and a block gets the smaller of its share of the SM and the
     lanes its threads fill (128 an SM);
@@ -47,6 +49,7 @@ from repro_torch.kernels.ops import config_of
 from repro_torch.kernels.util import cdiv
 
 __all__ = ["Hopper", "H100_SXM5", "hopper", "kernel_cost", "KERNEL_COST_FNS",
+           "matmul_route", "matmul_splits",
            "FFMA_FLOPS", "TF32X3_FLOPS", "BF16_FLOPS", "MINMAX_OPS", "HBM_BYTES_PER_SEC",
            "HBM_BYTES", "NVLINK_BYTES_PER_SEC",
            "L2_BYTES_PER_SEC", "LAUNCH_SEC", "PASS_SEC"]
@@ -85,10 +88,28 @@ UNSTAGED_REREAD = 2.0
 
 _F32 = 4
 ALIGN = 8           # csrc/gemm_f32.cuh: tile extents padded to multiples of 8
-TC_PIECE = 32       # csrc/matmul.cu: tensor-core warps hold 32 x 32 pieces
+TC_PIECE = 32       # csrc/matmul.cu: mma.sync warps hold 32 x 32 pieces
 # csrc/matmul.cu: the mma's k (m16n8k8 TF32 for f32 operands, m16n8k16 for
-# bf16), the multiple a tensor-core chunk is padded to
+# bf16), the multiple an mma.sync chunk is padded to
 MMA_K = {4: 8, 2: 16}
+# csrc/matmul.cu's wgmma route (bf16 past 8 rows, pack=True, K and N
+# multiples of 8): rows pad to 64 a warpgroup (64 or 128), columns to the
+# instruction's N (64 or 128); a chunk is bk rounded up to 16 k of the
+# operands (no zeros), so only K's last chunk pads
+WG_ROWS = 64
+WG_COLS = 64
+WG_K = 16
+# csrc/matmul.cu's split route (tiles of at most 8 rows): 128 threads a
+# block, each 16 bytes of columns; up to SPLIT_MAX CTAs a column tile, each
+# at least SPLIT_MIN_KC of K, chosen for the least waves x (a CTA's share of
+# the tile's bytes + SPLIT_FIXED_BYTES); the model takes SPLIT_SLOTS_PER_SM
+# CTAs an SM (the kernel reads its occupancy on the card: 4-5 a SM, clusters
+# of 8 packing 496 of 528 places on an H100)
+SPLIT_THREADS = 128
+SPLIT_MAX = 8
+SPLIT_MIN_KC = 64
+SPLIT_FIXED_BYTES = 32768
+SPLIT_SLOTS_PER_SM = 4
 LANES_PER_SM = 128  # FP32 lanes (4 schedulers x 32)
 THREADS_PER_SM = 2048
 BLOCKS_PER_SM = 32
@@ -206,17 +227,13 @@ def _operands_hbm(hw: Hopper, operands: float, streamed: float) -> float:
 
 def _ffma_gemm(hw, *, M, N, K, bm, bn, bk, smem, out_bytes, extra_hbm=0.0,
                unstaged_a=False, unstaged_b=False, tiles=None, products=1,
-               row_tile=False, in_bytes=_F32):
-    """An FFMA tile product (syr2k, covariance, matmul's FFMA route): the
-    tile padded to ALIGN, RT x RT accumulators a thread (1 x 4 for an 8-row
-    matmul tile), K in bk chunks, ``products`` multiply-adds a term,
-    operands of ``in_bytes`` an element."""
+               in_bytes=_F32):
+    """An FFMA tile product (syr2k, covariance): the tile padded to ALIGN,
+    RT x RT accumulators a thread, K in bk chunks, ``products`` multiply-adds
+    a term, operands of ``in_bytes`` an element."""
     pm, pn = _pad(bm, ALIGN), _pad(bn, ALIGN)
-    if row_tile and pm == ALIGN:            # matmul's 8-row tile: 1 x 4 a thread
-        threads = ALIGN * cdiv(pn, 4)
-    else:
-        rt = _reg_tile(pm, pn)
-        threads = (pm // rt) * (pn // rt)
+    rt = _reg_tile(pm, pn)
+    threads = (pm // rt) * (pn // rt)
     kp = cdiv(K, bk) * bk
     mi, nj = cdiv(M, bm), cdiv(N, bn)
     blocks = tiles if tiles is not None else mi * nj
@@ -232,24 +249,74 @@ def _ffma_gemm(hw, *, M, N, K, bm, bn, bk, smem, out_bytes, extra_hbm=0.0,
                    hbm=hbm, l2=stream + M * N * out_bytes + extra_hbm, smem=smem)
 
 
+def matmul_route(M: int, K: int, N: int, bm: int, pack: bool, in_bytes: int = _F32) -> str:
+    """The route ``csrc/matmul.cu`` takes for a clamped tile (its
+    ``matmul_launch``, operands assumed 16-byte aligned, as the port's
+    tensors are): ``split`` for tiles of at most 8 rows, ``wgmma`` for bf16
+    past 8 rows with pack on and K and N multiples of 8, else ``mma_sync``
+    (the FFMA fallback of f32 128-row tiles with the deepest chunks is not
+    modelled)."""
+    if min(bm, max(M, 1)) <= ALIGN:
+        return "split"
+    if in_bytes == 2 and pack and K % 8 == 0 and N % 8 == 0:
+        return "wgmma"
+    return "mma_sync"
+
+
+def matmul_splits(M: int, K: int, N: int, bm: int, bn: int, pack: bool, sms: int,
+                  in_bytes: int = _F32) -> int:
+    """CTAs the split route puts on one column tile (``csrc/matmul.cu``'s
+    ``split::best_splits``, clamped tiles), with SPLIT_SLOTS_PER_SM CTAs an
+    SM, 15/16 of them in clusters: 1 where the tiles fill half a wave or
+    more of one wave, else the least waves x (a CTA's bytes + its fixed
+    cost)."""
+    tiles = cdiv(M, bm) * cdiv(N, bn)
+    if not pack or SPLIT_SLOTS_PER_SM * sms <= 2 * tiles <= 2 * SPLIT_SLOTS_PER_SM * sms:
+        return 1   # one wave, at least half full: unsplit
+    tile_bytes = K * bn * in_bytes
+    best, best_cost = 1, 0.0
+    for s in range(1, max(1, min(SPLIT_MAX, K // SPLIT_MIN_KC)) + 1):
+        slots = SPLIT_SLOTS_PER_SM * sms * (1 if s == 1 else 15) // (1 if s == 1 else 16)
+        cost = cdiv(tiles * s, slots) * (tile_bytes / s + SPLIT_FIXED_BYTES)
+        if s == 1 or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
 def _matmul_launch(hw, M, K, N, bm, bn, bk, pack, smem, in_bytes=_F32):
     """One ``tiled_matmul`` launch (csrc/matmul.cu), its output in the
-    operands' dtype (``in_bytes`` an element): past 8 rows on the tensor
-    cores (f32 in 3xTF32, the k chunk padded to 8; bf16 one m16n8k16 a step,
-    the chunk padded to 16, at the bf16 peak), 8-row tiles on the FFMA
-    loop; ``pack=False`` reads and writes the O tile once per bk chunk."""
+    operands' dtype (``in_bytes`` an element), on the route the kernel takes
+    (:func:`matmul_route`): the split stream (CUDA cores; B's bytes read
+    once a row tile, its K split over :func:`matmul_splits` CTAs; rows
+    padded to 4 or 8, columns to a thread's 16 bytes), ``wgmma`` at the
+    bf16 peak on its 64-row, 64-column padding, or ``mma.sync`` (f32 in
+    3xTF32, the k chunk padded to 8; bf16 the chunk padded to 16);
+    ``pack=False`` reads and writes the O tile once per bk chunk."""
     bm, bn, bk = min(bm, max(M, 1)), min(bn, max(N, 1)), min(bk, max(K, 1))
     rmw = 0.0 if pack else 2.0 * (cdiv(K, bk) - 1) * M * N * in_bytes
-    if bm <= ALIGN:
-        return _ffma_gemm(hw, M=M, N=N, K=K, bm=bm, bn=bn, bk=bk, smem=smem,
-                          out_bytes=in_bytes, extra_hbm=rmw, row_tile=True,
-                          in_bytes=in_bytes)
-    pm, pn = _pad(bm, TC_PIECE), _pad(bn, TC_PIECE)
-    kp = cdiv(K, bk) * _pad(bk, MMA_K[in_bytes])
     mi, nj = cdiv(M, bm), cdiv(N, bn)
-    a_panel, b_panel = M * nj * K * in_bytes, N * mi * K * in_bytes
     operands = (M + N) * K * in_bytes
     out = M * N * in_bytes
+    a_panel, b_panel = M * nj * K * in_bytes, N * mi * K * in_bytes
+    route = matmul_route(M, K, N, bm, pack, in_bytes)
+    if route == "split":
+        splits = matmul_splits(M, K, N, bm, bn, pack, hw.sms, in_bytes)
+        vw = 16 // in_bytes
+        cg = cdiv(bn, vw)
+        threads = cg * max(1, SPLIT_THREADS // cg)
+        return _Launch(blocks=mi * nj * splits, threads=threads,
+                       work=2.0 * mi * nj * (4 if bm <= 4 else ALIGN) * cg * vw * K,
+                       peak=hw.ffma_flops,
+                       hbm=_operands_hbm(hw, operands, a_panel + b_panel) + out + rmw,
+                       l2=a_panel + b_panel + out + rmw, smem=smem)
+    if route == "wgmma":
+        pm, pn, kc = _pad(bm, WG_ROWS), _pad(bn, WG_COLS), _pad(bk, WG_K)
+        return _Launch(blocks=mi * nj, threads=(pm // WG_ROWS) * 128 + 32,
+                       work=2.0 * mi * nj * pm * pn * cdiv(K, kc) * kc, peak=hw.bf16_flops,
+                       hbm=_operands_hbm(hw, operands, a_panel + b_panel) + out,
+                       l2=a_panel + b_panel + out, smem=smem, tensor_cores=True)
+    pm, pn = _pad(bm, TC_PIECE), _pad(bn, TC_PIECE)
+    kp = cdiv(K, bk) * _pad(bk, MMA_K[in_bytes])
     return _Launch(blocks=mi * nj, threads=(pm // TC_PIECE) * (pn // TC_PIECE) * 32,
                    work=2.0 * mi * nj * pm * pn * kp,
                    peak=hw.tf32x3_flops if in_bytes == _F32 else hw.bf16_flops,

@@ -13,9 +13,22 @@ names and clamping as ``repro.kernels.matmul.tiled_matmul``):
                      ``bk`` chunk's product into the output in its own dtype
                      (a read-modify-write per chunk: looser in bf16).
 
-Row tiles past 8 run on the tensor cores, f32 operands in 3xTF32 and bf16
-ones as they are (one m16n8k16 product a k step); tiles of at most 8 rows
-(the decode's skinny products) on the CUDA cores' FFMA loop.
+The kernel picks its route before the launch and reports it
+(:data:`ROUTES`; counted in ``tiled_matmul.route_launches``):
+
+  * ``split``: tiles of at most 8 rows (the decode's products), f32 or bf16:
+    B streamed from device memory into registers, K split across the CTAs
+    of a thread-block cluster where the column tiles alone leave SMs idle
+    (:func:`matmul_splits`), the partial tiles added in a fixed order through
+    distributed shared memory (the same bits on every call);
+  * ``wgmma``: bf16 tiles past 8 rows with ``pack=True`` and TMA-aligned
+    operands (16-byte bases, K and N multiples of 8): ``wgmma`` behind a TMA
+    ring;
+  * ``mma_sync``: f32 tiles past 8 rows in 3xTF32, and the bf16 ones the
+    ``wgmma`` route does not take (``pack=False``, unaligned operands):
+    ``mma.sync`` behind a ``cp.async`` ring;
+  * ``ffma``: the f32 128-row tiles whose padded tensor-core layout does not
+    fit the shared memory (chunks of 192 or 256).
 """
 
 from __future__ import annotations
@@ -29,12 +42,16 @@ from repro_torch.kernels.util import (
     ConfigRejected,
     check_operand,
     max_shared_memory_per_block,
+    sm_count,
 )
 
 __all__ = ["tiled_matmul", "tiled_matmul_plain", "tiled_matmul_check",
-           "matmul_tile_check", "matmul_smem_bytes"]
+           "matmul_tile_check", "matmul_smem_bytes", "matmul_splits", "reset_route_counts",
+           "ROUTES"]
 
 DTYPES = (torch.float32, torch.bfloat16)
+# matmul_launch's route codes, in order
+ROUTES = ("ffma", "mma_sync", "wgmma", "split")
 
 
 def matmul_smem_bytes(bm: int, bn: int, bk: int, dtype: torch.dtype = torch.float32,
@@ -49,6 +66,19 @@ def matmul_smem_bytes(bm: int, bn: int, bk: int, dtype: torch.dtype = torch.floa
         limit = max_shared_memory_per_block(torch.device("cuda"))
     return build.load("matmul").matmul_smem_bytes(bm, bn, bk, int(dtype == torch.bfloat16),
                                                   int(limit))
+
+
+def matmul_splits(M: int, K: int, N: int, *, bm: int, bn: int, bk: int = 32,
+                  pack: bool = True, dtype: torch.dtype = torch.float32,
+                  device: torch.device | None = None) -> int:
+    """CTAs the split route (tiles of at most 8 rows) puts on one column
+    tile of an (M, K) @ (K, N) product of ``dtype`` operands on ``device``
+    (default: the current card), the tiles already clamped to the shape: 1
+    for pack=False or a tile past 8 rows. The kernel's own rule answers,
+    from the SM count read at run time and its occupancy on the card."""
+    dev = torch.device("cuda") if device is None else device
+    return build.load("matmul").matmul_splits(M, K, N, bm, bn, bk, int(pack),
+                                              int(dtype == torch.bfloat16), sm_count(dev))
 
 
 def tiled_matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bk: int, pack: bool,
@@ -139,16 +169,26 @@ def tiled_matmul(
         err = lib.matmul_launch(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N, bm, bn, bk,
             int(pack), int(interchange), int(a.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), max_shared_memory_per_block(dev), stream,
-            ctypes.byref(route))
+            int(out_dtype == torch.bfloat16), max_shared_memory_per_block(dev),
+            sm_count(dev), stream, ctypes.byref(route))
     build.check(lib, err, "tiled_matmul")
     tiled_matmul.launches += 1
-    if a.dtype == torch.bfloat16 and route.value == 1:  # the route the kernel took
+    taken = ROUTES[route.value]  # the route the kernel took
+    tiled_matmul.route_launches[taken] += 1
+    if a.dtype == torch.bfloat16 and taken in ("mma_sync", "wgmma"):
         tiled_matmul.bf16_tc_launches += 1
     return out
 
 
+def reset_route_counts() -> None:
+    """Zero ``tiled_matmul``'s per-route counts (its ``launches`` too is
+    reset by whoever reads it)."""
+    tiled_matmul.route_launches = dict.fromkeys(ROUTES, 0)
+    tiled_matmul.bf16_tc_launches = 0
+
+
 tiled_matmul.launches = 0  # kernel launches since the last reset (chip_smoke reads it)
-# of them, bf16 operands on the tensor cores (csrc/gemm_bf16.cuh), as
-# matmul_launch reports its route
+# of them, by the route matmul_launch reports, and the bf16 ones on the
+# tensor cores (wgmma or mma.sync)
+tiled_matmul.route_launches = dict.fromkeys(ROUTES, 0)
 tiled_matmul.bf16_tc_launches = 0

@@ -53,11 +53,11 @@ For the serving path's kernels:
     each walking four chunks in turn), and LARGE 32 splits of four blocks
     (512 blocks) either way (``chip_smoke.py`` phase 4 times both);
   * matmul (the model's output projection and unembed): mm3's tiles and
-    f32 accumulation in registers (``pack=True``), on the tensor cores in
-    3xTF32 (4 warps of 32x32 a 64x64 tile); at the decode's 4 rows the
-    64-row tile clamps to 4, an 8-row tile of 128 threads on the FFMA loop
-    (one row of four columns each) that streams its 64 columns of the
-    weight.
+    f32 accumulation in registers (``pack=True``), on the tensor cores (f32
+    in 3xTF32 on mma.sync, 4 warps of 32x32 a 64x64 tile; bf16 on wgmma,
+    one warpgroup); at the decode's 4 rows the 64-row tile clamps to 4: the
+    split stream, 128 threads each streaming 16 bytes of the weight's 64
+    columns, K split over a cluster where the column tiles leave SMs idle.
 
 These are reasoned, not tuned: the campaign's job is to beat them.
 """

@@ -10,7 +10,7 @@ import torch.nn.functional as F
 from repro_torch.core.plopper import ConfigRejected
 
 __all__ = ["ConfigRejected", "cdiv", "pad_to", "unpad", "resolve_device",
-           "max_shared_memory_per_block", "check_operand"]
+           "max_shared_memory_per_block", "sm_count", "check_operand"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -59,6 +59,13 @@ def max_shared_memory_per_block(device: torch.device) -> int:
     props = torch.cuda.get_device_properties(device)
     return int(getattr(props, "shared_memory_per_block_optin",
                        props.shared_memory_per_block))
+
+
+@functools.lru_cache(maxsize=64)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device``, read at run time once per
+    device (the matmul's split route sizes its grid by them)."""
+    return int(torch.cuda.get_device_properties(device).multi_processor_count)
 
 
 def check_operand(name: str, t: torch.Tensor, shape: tuple[int, ...],

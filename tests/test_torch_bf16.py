@@ -177,11 +177,16 @@ def test_the_cost_model_runs_bf16_past_8_rows_on_the_tensor_cores():
     t16, i16 = cost.matmul_cost(cfg, 512, 4096, 4096, dtype=torch.bfloat16)
     assert (i32["peak"], i16["peak"]) == (cost.TF32X3_FLOPS, cost.BF16_FLOPS)
     assert i16["compulsory_bytes"] * 2 == i32["compulsory_bytes"] and t16 < t32
-    # the chunk of 24 pads to the mma's k: 32 for bf16, 24 (a multiple of 8) for f32
+    # f32 on mma.sync: the chunk of 24 is a multiple of its k of 8; bf16 with
+    # pack on takes wgmma, whose chunk of 24 rounds up to 32 k of the
+    # operands (no zeros); with pack off bf16 stays on mma.sync, the chunk
+    # padded to its k of 16 (32)
     chunks = -(-4096 // 24)
     assert i32["padded_work"] == 2.0 * 512 * 4096 * chunks * 24
-    assert i16["padded_work"] == 2.0 * 512 * 4096 * chunks * 32
-    # 8-row tiles: the FFMA loop either way, bf16 reading half the bytes
+    assert i16["padded_work"] == 2.0 * 512 * 4096 * 4096
+    i16_rmw = cost.matmul_cost(dict(cfg, pack=False), 512, 4096, 4096, dtype=torch.bfloat16)[1]
+    assert i16_rmw["padded_work"] == 2.0 * 512 * 4096 * chunks * 32
+    # 8-row tiles: the split stream either way, bf16 reading half the bytes
     d32, d16 = (cost.matmul_cost(dict(cfg, bm=4), 4, 896, 151936, dtype=dt)[1]
                 for dt in (torch.float32, torch.bfloat16))
     assert d32["peak"] == d16["peak"] == cost.FFMA_FLOPS

@@ -151,26 +151,39 @@ def test_syr2k_smem_accounting(cuda):
 
 
 def test_matmul_smem_accounting(cuda):
-    # past 8 rows (tensor cores): A's chunk (bm and bn padded to whole 32
-    # x 32 warp pieces, bk to the mma's k, 8 for f32 and 16 for bf16; A's
-    # rows padded to 32 bytes plus 16) and B's (those k rows of the padded
-    # columns plus 8 elements); 8-row tiles (FFMA): pm and pn padded to 8,
-    # bk to 4; three stages where they fit
+    # past 8 rows on mma.sync: A's chunk (bm and bn padded to whole 32 x 32
+    # warp pieces, bk to the mma's k, 8 for f32 and 16 for bf16; A's rows
+    # padded to 32 bytes plus 16) and B's (those k rows of the padded
+    # columns plus 8 elements), three stages where they fit; a bf16 tile
+    # may also take wgmma (64-row, 64-column padding, the chunk rounded up to
+    # 16, up to 4 stages, 1024 bytes of alignment and the barriers), so it is
+    # asked for the larger of the two; tiles of at most 8 rows (the split
+    # stream): A's 32 KB piece and the block's reduction buffer (rows padded
+    # to 4 or 8, 16 bytes of columns a thread, up to 128 threads)
     def tc(pm, pn, kf, size=4):
         return pm * (-(-kf * size // 32) * 32 + 16) + kf * size * (pn + 8)
+
+    def wgmma(pm, pn, kc, stages=4):
+        return 1024 + 16 * 4 + stages * (pm * kc * 2 + kc * pn * 2)
+
+    def split(tm, bn, size):
+        vw = 16 // size
+        cg = -(-bn // vw)
+        return 32768 + cg * max(1, 128 // cg) * tm * vw * 4
 
     assert matmul_smem_bytes(64, 64, 32, limit=LIMIT) == 3 * tc(64, 64, 32)
     assert matmul_smem_bytes(64, 64, 32, limit=LIMIT) == 3 * (64 * 144 + 32 * 288)
     assert matmul_smem_bytes(48, 80, 24, limit=LIMIT) == 3 * (64 * 112 + 24 * 416)
     assert matmul_smem_bytes(128, 8, 8, limit=LIMIT) == 3 * (128 * 48 + 8 * 160)
     assert matmul_smem_bytes(40, 50, 12, limit=LIMIT) == 3 * tc(64, 64, 16)
-    assert matmul_smem_bytes(4, 64, 32, limit=LIMIT) == 3 * (8 * 144 + 32 * 256)
-    assert matmul_smem_bytes(8, 24, 4, limit=LIMIT) == 3 * (8 * 48 + 4 * 96)
-    assert matmul_smem_bytes(64, 64, 32, torch.bfloat16, LIMIT) == 3 * tc(64, 64, 32, 2)
-    assert matmul_smem_bytes(64, 64, 32, torch.bfloat16, LIMIT) == 3 * (64 * 80 + 32 * 144)
-    assert matmul_smem_bytes(48, 80, 24, torch.bfloat16, LIMIT) == 3 * tc(64, 96, 32, 2)
+    assert matmul_smem_bytes(4, 64, 32, limit=LIMIT) == split(4, 64, 4) == 40960
+    assert matmul_smem_bytes(8, 24, 4, limit=LIMIT) == split(8, 24, 4)
+    assert matmul_smem_bytes(64, 64, 32, torch.bfloat16, LIMIT) == wgmma(64, 64, 32)
+    assert 3 * tc(64, 64, 32, 2) < wgmma(64, 64, 32)
+    assert matmul_smem_bytes(48, 80, 24, torch.bfloat16, LIMIT) == wgmma(64, 128, 32)
     assert matmul_smem_bytes(128, 128, 256, torch.bfloat16, LIMIT) == tc(128, 128, 256, 2)
-    assert matmul_smem_bytes(4, 64, 32, torch.bfloat16, LIMIT) == 3 * (8 * 80 + 32 * 128)
+    assert tc(128, 128, 256, 2) > wgmma(128, 128, 256, stages=1)
+    assert matmul_smem_bytes(4, 64, 32, torch.bfloat16, LIMIT) == split(4, 64, 2) == 49152
     # a tile whose padded tensor-core layout does not fit takes the FFMA
     # loop's: one stage of 112 rows of A and 256 rows of 96 columns
     assert matmul_smem_bytes(112, 96, 256, limit=LIMIT) == 112 * 1040 + 256 * 384
@@ -1248,15 +1261,21 @@ def _profiled_device_sec(fn, calls: int = 3, reps: int = 10) -> float:
 def _queued_device_sec(fn, calls: int = 20) -> float:
     """Device seconds a call of ``fn``: ``calls`` calls queued behind a spin
     kernel between two CUDA events, so the host's launch path overlaps the
-    device's work (chip_smoke.py's phase 7 reads a call so)."""
+    device's work (chip_smoke.py's phase 7 reads a call so). The spin (about
+    10 ms) outlasts the host's path for all the calls, so that none of them
+    waits on the host: a call whose kernel is shorter than its host path
+    (the split matmul at (4, 896) @ (896, 896), about 7 us) would otherwise
+    read the host's pace. The start event must still be pending when the
+    last call is queued."""
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(2_000_000)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(calls):
         fn()
     end.record()
+    assert not start.query(), "the host fell behind the spin"
     end.synchronize()
     return start.elapsed_time(end) / 1e3 / calls
 
@@ -1337,7 +1356,7 @@ def test_clock_ends_at_the_calls_last_launch(cuda):
 
 
 def test_a_small_kernels_objective_is_its_device_time(cuda):
-    # a matmul of some 25 us (the serving shape phase 7 tunes in the
+    # a matmul of a few us (the serving shape phase 7 tunes in the
     # background): its objective is within 1.5x of the call's device time
     # (queued behind a spin), not its launch and return paths on the host
     x, w = _normal(cuda, (4, 896), (896, 896))
@@ -2181,12 +2200,16 @@ def test_matmul_bf16_at_the_served_shapes(cuda, shape, pack):
                                          (64, torch.float32, 0)])
 def test_matmul_counts_the_route_the_kernel_reports(cuda, bm, dtype, tc):
     """bf16_tc_launches counts the launches that matmul_launch reports on
-    the tensor cores with bf16 operands: tiles past 8 rows; 8-row tiles
-    take the FFMA loop, and f32 is not counted."""
+    the tensor cores with bf16 operands: tiles past 8 rows (wgmma); tiles of
+    at most 8 rows take the split stream, and f32 is not counted."""
     a, b = (t.to(dtype) for t in _bf16_operands(cuda, 64, 96, 80, seed=3))
     before = tiled_matmul.bf16_tc_launches
+    routes = dict(tiled_matmul.route_launches)
     tiled_matmul(a, b, bm=bm, bn=64, bk=32)
     assert tiled_matmul.bf16_tc_launches == before + tc
+    want = "split" if bm <= 8 else "wgmma" if dtype == torch.bfloat16 else "mma_sync"
+    assert {k: v - routes[k] for k, v in tiled_matmul.route_launches.items()} == {
+        r: int(r == want) for r in routes}
 
 
 def test_a_bf16_call_runs_a_record_tuned_on_f32_operands(cuda, tmp_path):
@@ -2244,3 +2267,203 @@ def test_bf16_greedy_on_the_card_matches_the_cpu_up_to_a_near_tie(cuda, arch):
         if margin[i] < BF16_MARGIN * scale:
             break
         assert torch.equal(got[:, i], want[:, i]), (arch, i)
+
+
+# ---------------------------------------------------------------------------
+# the matmul's split stream (tiles of at most 8 rows) and its wgmma route
+# (bf16 past 8 rows): every gpu tile, ragged shapes, the route each call takes
+# ---------------------------------------------------------------------------
+
+
+def _operands(device, M, K, N, dtype, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return ((torch.randn(M, K, device=device, generator=g) / K ** 0.5).to(dtype),
+            (torch.randn(K, N, device=device, generator=g) / N ** 0.5).to(dtype))
+
+
+def _routes_of(fn):
+    """The routes matmul_launch reported over fn(), by name."""
+    before = dict(tiled_matmul.route_launches)
+    fn()
+    return {k: v - before[k] for k, v in tiled_matmul.route_launches.items() if v != before[k]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("K,N", [(203, 77), (136, 520)])
+def test_matmul_split_route_at_every_gpu_tile(cuda, dtype, pack, K, N):
+    """M = 1..8 rows (every row tile of the gpu space clamps to M) at every
+    column tile and chunk, either raster order, out in the operands' dtype
+    and in the other; N = 77 is odd (bf16 rows 2-byte aligned: element
+    reads), 203 a ragged K; on a NaN-poisoned output."""
+    from repro_torch.kernels.spaces import GPU_TILES, GPU_TILES_K
+
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    n = 0
+    for M in range(1, 9):
+        a, b = _operands(cuda, M, K, N, dtype, seed=M)
+        for i, (bn, bk) in enumerate((bn, bk) for bn in GPU_TILES for bk in GPU_TILES_K):
+            out = (dtype, other)[i % 2]
+            torch.full((M, N), float("nan"), device=cuda)
+            got = tiled_matmul(a, b, bm=GPU_TILES[i % len(GPU_TILES)], bn=bn, bk=bk, pack=pack,
+                               interchange=bool(i % 3 == 0), out_dtype=out)
+            n += 1
+            assert got.dtype == out and torch.isfinite(got.float()).all()
+            tol = BF16_TOL if out == torch.bfloat16 or (dtype == torch.bfloat16 and not pack) \
+                else F32_TOL
+            _close(got, tiled_matmul_plain(a, b, bk=min(bk, K), pack=pack, out_dtype=out), tol)
+    assert n == 8 * len(GPU_TILES) * len(GPU_TILES_K)
+
+
+def test_matmul_split_route_takes_every_call_of_at_most_8_rows(cuda):
+    for M in (1, 4, 8):
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b = _operands(cuda, M, 96, 1000, dtype)
+            for pack in (True, False):
+                assert _routes_of(lambda: tiled_matmul(a, b, bm=64, bn=64, bk=32,
+                                                       pack=pack)) == {"split": 1}
+    # 8-row tiles of a taller product stream each row tile in turn
+    a, b = _operands(cuda, 20, 896, 1000, torch.bfloat16)
+    got = {}
+    assert _routes_of(lambda: got.setdefault("o", tiled_matmul(a, b, bm=8, bn=40, bk=24))) \
+        == {"split": 1}
+    _close(got["o"], tiled_matmul_plain(a, b, bk=24, pack=True, out_dtype=torch.bfloat16),
+           BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 4096, 4096), (4, 896, 896), (4, 3584, 3584),
+                                   (8, 1280, 51866), (1, 5120, 2048)])
+def test_matmul_split_route_is_bit_identical_over_repeated_calls(cuda, dtype, shape):
+    """The decode's products split K over a cluster: the partial tiles are
+    added in rank order through distributed shared memory, no atomics, so
+    every call gives the same bits (the greedy tokens rely on it)."""
+    from repro_torch.kernels.matmul import matmul_splits
+
+    M, K, N = shape
+    a, b = _operands(cuda, M, K, N, dtype, seed=7)
+    first = tiled_matmul(a, b, bm=64, bn=64, bk=32)
+    for _ in range(4):
+        assert torch.equal(tiled_matmul(a, b, bm=64, bn=64, bk=32), first)
+    _close(first, tiled_matmul_plain(a, b, bk=32, pack=True, out_dtype=dtype),
+           F32_TOL if dtype == torch.float32 else BF16_TOL)
+    if N <= 4096:
+        assert matmul_splits(M, K, N, bm=M, bn=64, dtype=dtype) > 1
+
+
+def test_matmul_split_counts_on_the_card(cuda):
+    """The kernel's split count (its rule on this card's SM count and its
+    occupancy): the decode's output projections split their K (a few dozen
+    column tiles), qwen2's unembed (2,374 tiles, many waves) does not,
+    pack=False never does, and no CTA takes less than 64 of K."""
+    from repro_torch.kernels.matmul import matmul_splits
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for M, K, N in ((4, 4096, 4096), (4, 896, 896), (4, 3584, 3584)):
+            assert 1 < matmul_splits(M, K, N, bm=M, bn=64, dtype=dtype) <= min(8, K // 64)
+            assert matmul_splits(M, K, N, bm=M, bn=64, pack=False, dtype=dtype) == 1
+        assert matmul_splits(4, 896, 151936, bm=4, bn=64, dtype=dtype) == 1
+        assert matmul_splits(4, 100, 64, bm=4, bn=64, dtype=dtype) == 1
+        assert matmul_splits(512, 896, 896, bm=64, bn=64, dtype=dtype) == 1
+
+
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", [(97, 136, 520), (130, 264, 88)])
+def test_matmul_wgmma_route_at_every_gpu_tile(cuda, out, M, K, N):
+    """Every bf16 tile past 8 rows of the gpu space (rows pad to 64 or 128,
+    columns to 64 or 128, chunks round up to 16 k) with pack on: the wgmma
+    route, ragged M and tiles that straddle N, either raster order."""
+    from repro_torch.kernels.spaces import GPU_TILES, GPU_TILES_K
+
+    a, b = _operands(cuda, M, K, N, torch.bfloat16, seed=5)
+    calls = 0
+    for bm in GPU_TILES[1:]:
+        for i, (bn, bk) in enumerate((bn, bk) for bn in GPU_TILES for bk in GPU_TILES_K):
+            got = {}
+            routes = _routes_of(lambda: got.setdefault("o", tiled_matmul(
+                a, b, bm=bm, bn=bn, bk=bk, interchange=bool(i % 2), out_dtype=out)))
+            assert routes == {"wgmma": 1}, (bm, bn, bk)
+            _close(got["o"], tiled_matmul_plain(a, b, bk=bk, pack=True, out_dtype=out),
+                   BF16_TOL if out == torch.bfloat16 else F32_TOL)
+            calls += 1
+    assert calls == (len(GPU_TILES) - 1) * len(GPU_TILES) * len(GPU_TILES_K)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("decode bf16", "split"), ("decode f32", "split"), ("forward bf16", "wgmma"),
+    ("forward bf16 pack off", "mma_sync"), ("N off a multiple of 8", "mma_sync"),
+    ("K off a multiple of 8", "mma_sync"), ("A's base off 16 bytes", "mma_sync"),
+    ("forward f32", "mma_sync"), ("f32 past the tensor cores' layout", "ffma")])
+def test_matmul_reports_the_route_each_shape_takes(cuda, case, want):
+    """The route is chosen before the launch from dtype, tile, shape,
+    alignment and pack, and reported; the hand-overs to mma.sync are the
+    calls TMA cannot take and pack=False. Each agrees with the cost model's
+    route where the bases are aligned."""
+    from repro_torch.kernels import cost
+
+    bf, f32 = torch.bfloat16, torch.float32
+    M, K, N, dtype, cfg = {
+        "decode bf16": (4, 896, 896, bf, {}),
+        "decode f32": (4, 896, 896, f32, {}),
+        "forward bf16": (512, 896, 896, bf, {}),
+        "forward bf16 pack off": (512, 896, 896, bf, dict(pack=False)),
+        "N off a multiple of 8": (256, 1280, 1002, bf, {}),
+        "K off a multiple of 8": (256, 1282, 1000, bf, {}),
+        "A's base off 16 bytes": (256, 896, 896, bf, {}),
+        "forward f32": (512, 896, 896, f32, {}),
+        "f32 past the tensor cores' layout": (150, 300, 140, f32,
+                                              dict(bm=112, bn=96, bk=256)),
+    }[case]
+    a, b = _operands(cuda, M, K, N, dtype, seed=9)
+    if case == "A's base off 16 bytes":
+        flat = torch.empty(M * K + 1, dtype=dtype, device=cuda)
+        flat[1:].copy_(a.reshape(-1))
+        a = flat[1:].view(M, K)
+    full = {**dict(bm=64, bn=64, bk=32, pack=True), **cfg}
+    got = {}
+    assert _routes_of(lambda: got.setdefault("o", tiled_matmul(a, b, **full))) == {want: 1}
+    _close(got["o"], tiled_matmul_plain(a, b, bk=full["bk"], pack=full["pack"],
+                                        out_dtype=dtype),
+           BF16_TOL if dtype == bf else F32_TOL)
+    if case not in ("A's base off 16 bytes", "f32 past the tensor cores' layout"):
+        assert cost.matmul_route(M, K, N, min(full["bm"], M), full["pack"],
+                                 a.element_size()) == want
+
+
+@pytest.mark.parametrize("K", [4096, 16384])
+@pytest.mark.parametrize("bm,bn,bk", [(64, 64, 32), (128, 128, 64), (128, 128, 256)])
+def test_matmul_wgmma_keeps_f32_accuracy_over_a_long_k(cuda, K, bm, bn, bk):
+    """bf16 operands, f32 out, outputs ~N(0, 1): each chunk sums in a fresh
+    tile (the tensor cores' own accumulation, carried across chunks, was
+    7.9e-5 of the output's rms off at K = 16,384), so the wgmma route holds
+    the plain version's f32 sums to F32_TOL, as the 3xTF32 route does."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    a = torch.randn(256, K, generator=g, device=cuda).bfloat16()
+    b = (torch.randn(K, 256, generator=g, device=cuda) / K ** 0.5).bfloat16()
+    got = {}
+    assert _routes_of(lambda: got.setdefault("o", tiled_matmul(
+        a, b, bm=bm, bn=bn, bk=bk, out_dtype=torch.float32))) == {"wgmma": 1}
+    _close(got["o"], tiled_matmul_plain(a, b, bk=bk, pack=True, out_dtype=torch.float32),
+           F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_gpu_tile_still_fits_the_card(cuda, dtype):
+    """No bf16 tile of the gpu space is refused for its shared memory, at 4
+    rows (the split stream) or 512 (the tensor cores), and no f32 tile at 4
+    rows: a record tuned on f32 operands runs on bf16 ones."""
+    from repro_torch.kernels.matmul import matmul_tile_check
+    from repro_torch.kernels.spaces import GPU_TILES, GPU_TILES_K
+
+    limit = max_shared_memory_per_block(cuda)
+    for bm in GPU_TILES:
+        for bn in GPU_TILES:
+            for bk in GPU_TILES_K:
+                # every bf16 tile fits (the larger of its wgmma and mma.sync
+                # layouts); f32 tiles past 8 rows keep their ring layouts,
+                # whose deepest chunks the card refused before as now
+                if dtype == torch.bfloat16 or bm <= 8:
+                    assert 0 < matmul_smem_bytes(bm, bn, bk, dtype, limit) <= limit
+                for M in ((4, 512) if dtype == torch.bfloat16 else (4,)):
+                    matmul_tile_check(M, 4096, 4096, bm=bm, bn=bn, bk=bk, dtype=dtype,
+                                      device=cuda)

@@ -239,12 +239,16 @@ def test_degenerate_p99_exits_1(tmp_path, monkeypatch, capsys, p50, p99):
     if p99 is None:
         # a missing p99 with a p50 that prints: the tripwire reads the p99 first
         monkeypatch.setattr(tsb, "_line", lambda name, r, extra="": name)
+    record = {}
     rc = tsb.main(["--quick", "--device", "cpu", "--reduced", "--store", str(tmp_path / "s"),
                    "--out", str(tmp_path / "b.json"),
-                   "--obs-out", str(tmp_path / "b.obs.jsonl")])
+                   "--obs-out", str(tmp_path / "b.obs.jsonl")], record=record)
     out = capsys.readouterr().out
     assert rc == 1
-    assert ("p50 > p99" if p50 > 1.0 else "degenerate p99") in out
+    reason = "p50 > p99" if p50 > 1.0 else "degenerate p99"
+    assert reason in out
+    # the caller (chip_smoke.py's phase 14) reads why from the record
+    assert reason in record["fail"]
 
 
 def test_main_needs_a_card_without_device_cpu(tmp_path):
