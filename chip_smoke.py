@@ -116,13 +116,14 @@ checks each kernel on the card:
      layer, deepseek 2) on a prompt of 8, beside the least routing margin.
  11. the SSM, hybrid and VLM families (each arch with the launch counts
      set to 0 just before and read just after its served run):
-     mamba2-780m (48 Mamba2 layers), zamba2-1.2b (38 Mamba2 layers, the
-     shared attention block at 7 sites) and qwen2-vl-7b (28 layers, M-RoPE)
-     at full width and full depth in f32 from seeded weights, batch 4,
+     mamba2-780m (48 Mamba2 layers), zamba2-1.2b (7 of its 38 Mamba2 layers,
+     its check depth: phase 17 serves all 38 in bf16; the shared attention
+     block at 2 sites) and qwen2-vl-7b (28 layers, M-RoPE)
+     at full width in f32 from seeded weights, batch 4,
      prompt 128 (two SSD chunks), 16 new tokens, through greedy_decode and a
      DispatchService; the launches per forward and per decode step asserted
-     exactly (mamba2: the unembed's matmul; zamba2: 7 flash calls a forward,
-     7 decode_attention launches a step, 8 matmuls each; qwen2-vl: 196 flash
+     exactly (mamba2: the unembed's matmul; zamba2: a flash call a site and
+     forward, a decode_attention launch a site and step, a matmul more; qwen2-vl: 196 flash
      calls, 28 decode_attention, 29 matmuls), TTFT, ms per decode step beside
      its bytes bound (weights but the embed table, zamba2's shared block once
      a site, the Mamba2 state read and written, the K/V read), the busy share
@@ -146,9 +147,10 @@ checks each kernel on the card:
      (d) a step of mamba2-780m (full depth) and mixtral-8x7b (1 layer); (e)
      an AsyncCheckpointer save of (c)'s 2 GB train state restored bit for
      bit, then `launch.train --reduced` on the card resuming from step 4.
- 13. the audio family: (a) whisper-large-v3 at full width and full depth
-     (32 encoder layers over 1500 frames, 32 decoder layers with
-     cross-attention) in f32 from seeded weights and frames, batch 4,
+ 13. the audio family: (a) whisper-large-v3 at full width, 2 encoder
+     layers over 1500 frames and 2 decoder layers with cross-attention (its
+     check depth: phase 17 serves the 32 + 32 in bf16), in f32 from seeded
+     weights and frames, batch 4,
      prompt 64, 16 new tokens, through greedy_decode and a DispatchService,
      with the launch counts set to 0 just before and read just after: the
      matmul once a forward and once a decode step (the unembed), no
@@ -176,14 +178,15 @@ checks each kernel on the card:
      equal in the default and tuned modes; `launch.obs summarize --metrics`
      on its snapshot; the typical decode signature timed at the tuned and
      the default config beside SDPA; (b) gemma3-1b (a prompt of 520, past
-     its window of 512), minitron-4b and qwen1.5-0.5b at full width and full
-     depth through `launch.serve.serve`, batch 4, 16 new tokens, each with
+     its window of 512), minitron-4b and qwen1.5-0.5b at full width through
+     `launch.serve.serve` at their check depths (6, 2 and 2 layers: phase 17
+     serves every layer in bf16), batch 4, 16 new tokens, each with
      the launch counts set to 0 just before and read just after, asserted
      per forward and per step (gemma3: the matmul alone, its windowed
      attention plain); TTFT, ms per decode step beside its bytes bound, busy
      share, peak memory; the new matmul and attention signatures against
      their plain versions, timed beside torch.matmul and SDPA; the card
-     against the CPU at a cut depth (gemma3 6 layers, one local:global
+     against the CPU at that depth (gemma3 6 layers, one local:global
      period, also its forward past the window; the others 2).
  15. the fleet and the analyzer (each part with the launch counts set to 0
      just before and read just after): (a) two DispatchServices in one
@@ -238,21 +241,31 @@ checks each kernel on the card:
      off, either raster order, out f32 and bf16; the split stream (rows 1,
      4 and 8, f32 and bf16) at every column tile and chunk at mixtral's
      output projection and whisper's unembed, repeated calls bit-identical,
-     and the wgmma route at every tile past 8 rows; (b)
-     qwen2-0.5b, qwen2-vl-7b (full depth), mixtral-8x7b (16 of 32 layers)
-     and mamba2-780m (full depth) served in bf16 at full width through
-     greedy_decode and a DispatchService (batch 4, prompt 128, 16 tokens):
+     and the wgmma route at every tile past 8 rows; (b) the catalog's ten
+     configs served in bf16 at full width through greedy_decode and a
+     DispatchService (batch 4, prompt 128, 16 tokens): qwen2-0.5b,
+     qwen2-vl-7b, mamba2-780m, gemma3-1b, minitron-4b, qwen1.5-0.5b,
+     zamba2-1.2b and whisper-large-v3 (32 + 32 layers over 1500 frames) at
+     full depth, mixtral-8x7b at 16 of 32 layers, deepseek-v2-236b at 6 of
+     60 (its dense layer 0 and 5 MoE layers), the routes asserted per
+     signature (whisper's forward unembed, N = 51,866, on mma.sync):
      TTFT, ms a decode step beside its bf16 bytes bound, tok/s, peak
      memory, busy share and device kernels a step beside the f32 phases'
      figures; each served matmul signature against its plain version, timed
      beside torch.matmul in bf16; the attention kernels at the bf16 model
-     shapes beside SDPA in bf16; a bf16 PagedKVCache round (qwen2-0.5b),
-     its tokens equal each request's solo run up to a near-tie; (c) the
-     card against the CPU in bf16 at phases 10-12's check depths, beside
-     the least router (mixtral) or top-2 logit margin of the card's run:
-     the logits within a share of the largest |logit|, greedy tokens equal
-     up to a near-tie. Phases 11 and 17 share one serving function
-     (serve_arch), in f32 and in bf16.
+     shapes beside SDPA in bf16 (gemma3's hd 256 with its window and
+     whisper's cross-attention over 1500 frames too, which their served
+     runs keep plain); a bf16 PagedKVCache round (qwen2-0.5b), its tokens
+     equal each request's solo run up to a near-tie; (c) the card against
+     the CPU in bf16 at phases 10-14's check depths over the check's prompt
+     and the card's greedy tokens, teacher-forced, beside the least router
+     (MoE) or top-2 logit margin of the card's run: the logits within a
+     share of the largest |logit|, greedy tokens equal up to a near-tie,
+     the argmax equal at every position whose CPU margin clears that share
+     (at least a quarter of them), a MoE position whose experts the card
+     and the CPU chose differently named and left out. Phases 11 and 17
+     share one serving function (serve_arch), phases 13 and 17 another
+     (audio_serve), in f32 and in bf16.
 
 Phases 3 and 4 also hold flash_attention and decode_attention against their
 plain versions at LARGE, at head_dim 256, at head sizes between the
@@ -374,13 +387,14 @@ SERVE = dict(arch="qwen2-0.5b", batch=4, prompt_len=256, gen=32, seed=0)
 MOE_ARCHS = (("mixtral-8x7b", 4, 1), ("deepseek-v2-236b", 3, 2))
 MOE_SERVE = dict(batch=4, prompt_len=128, gen=16, seed=0, check_prompt=8, check_gen=4,
                  paged_lens=(16, 40, 64, 100), paged_rounds=8)
-# phase 11: the SSM, hybrid and VLM families at full width and full depth,
-# f32: (arch, layers of the card-against-CPU check: mamba2 4, zamba2 7 (a
-# segment of 6 and one of 1: both of its shared block's segment shapes),
-# qwen2-vl 2); batch 4, prompt 128 (two SSD chunks of 64), 16 new tokens;
-# the check's prompt, new tokens and SSD chunk (two chunks); the paged
-# round's prompts and rounds (qwen2-vl)
-SSM_ARCHS = (("mamba2-780m", 4), ("zamba2-1.2b", 7), ("qwen2-vl-7b", 2))
+# phase 11: the SSM, hybrid and VLM families at full width, f32: (arch,
+# layers served (None: all), layers of the card-against-CPU check: mamba2 4,
+# zamba2 7 (a segment of 6 and one of 1: both of its shared block's segment
+# shapes), qwen2-vl 2); zamba2 is served at its check depth, since phase 17
+# serves its 38 layers in bf16; batch 4, prompt 128 (two SSD chunks of 64),
+# 16 new tokens; the check's prompt, new tokens and SSD chunk (two chunks);
+# the paged round's prompts and rounds (qwen2-vl)
+SSM_ARCHS = (("mamba2-780m", None, 4), ("zamba2-1.2b", 7, 7), ("qwen2-vl-7b", None, 2))
 SSM_SERVE = dict(batch=4, prompt_len=128, gen=16, seed=0, check_prompt=16, check_gen=4,
                  check_chunk=8, paged_arch="qwen2-vl-7b", paged_lens=(16, 40, 64, 100),
                  paged_rounds=8)
@@ -411,11 +425,12 @@ TRAIN_TOL = dict(loss_rtol=1e-4, gnorm_rtol=1e-3, param=dict(atol=1e-6, rtol=1e-
                  grad_rtol=1e-2, grad_floor=1e-6)
 # remat changes no value: the first step's loss under each policy
 REMAT_RTOL = 1e-6
-# phase 13: the audio family, whisper-large-v3 at full width and full depth
-# (32 encoder layers over 1500 frames, 32 decoder layers with
-# cross-attention), f32: (a) served through greedy_decode and a
-# DispatchService, batch 4, prompt 64, 16 new tokens, the frames drawn from
-# seed + 2 as launch.serve draws them; (c) the card against the CPU at 2 + 2
+# phase 13: the audio family, whisper-large-v3 at full width (32 encoder
+# layers over 1500 frames, 32 decoder layers with cross-attention), f32: (a)
+# served through greedy_decode and a DispatchService at the check's 2 + 2
+# layers (phase 17 serves all 32 + 32 in bf16), batch 4, prompt 64, 16 new
+# tokens, the frames drawn from seed + 2 as launch.serve draws them; (c) the
+# card against the CPU at 2 + 2
 # layers, batch 2, prompt 8, 4 new tokens; (d) one train step at full depth
 # under remat "full" (batch 2 x 128 decoder tokens and the frames; "none"
 # would hold every layer's activations beside 31.3 GB of weights,
@@ -432,9 +447,10 @@ AUDIO_TRAIN = dict(batch=2, seq=128, remat="full", policy_layers=4, check_layers
 # three modes at 24 took 85-110 s of the phase's 196-198 s on an H100 80GB
 # HBM3 at 700 W), and the guard's drift loop; its JSON and obs snapshot
 # written to $CHIP_SMOKE_OUT (default build/); (b)
-# the rest of the dense catalog at full width and full depth through
-# launch.serve.serve, batch 4, 16 new tokens, f32: (arch, prompt, layers of
-# the card-against-CPU check); the check's greedy run at a prompt of 16 (a
+# the rest of the dense catalog at full width through launch.serve.serve,
+# batch 4, 16 new tokens, f32, at the depth of the card-against-CPU check
+# (phase 17 serves every layer in bf16): (arch, prompt, layers served and
+# checked); the check's greedy run at a prompt of 16 (a
 # prompt past gemma3's window there would replay 520 steps on the CPU, 30 s),
 # and for gemma3, whose served prompt crosses its window of 512, the forward's
 # logits at that prompt too; its check at one local:global period (5 local
@@ -527,22 +543,38 @@ TABLE_EVALS = dict(default=20, heat3d=12, learners=30)
 # against its plain version at the served forward products and two ragged
 # shapes; (b) each arch served in bf16 through greedy_decode and a
 # DispatchService: (arch, layers served (None: all), layers of the
-# card-against-CPU check, those of phases 10-11, and phase 12's 2 for
-# qwen2-0.5b); batch 4, prompt 128, 16 new tokens (mixtral's 16 of 32
-# layers: 2.90 GB a layer in bf16, about 47 GB with embed and unembed); the
-# check's prompt, new tokens (prompt + tokens whole SSD chunks) and chunk; the
-# paged round's prompts and rounds (qwen2-0.5b); (c) the card against the CPU
-# in bf16: the logits within BF16_LOGIT_REL of the CPU's largest |logit|
-# (bf16 rounds at other places in cuBLAS and the kernels than on the CPU;
-# about three times the 0.63-0.67% (mamba2 1.75%) measured on an H100 80GB
-# HBM3 at 700 W), greedy tokens equal up to the first step whose CPU top-2
-# margin is under that share
+# card-against-CPU check, those of phases 10, 11, 13 and 14, and phase 12's 2
+# for qwen2-0.5b); batch 4, prompt 128, 16 new tokens (mixtral's 16 of 32
+# layers: 2.90 GB a layer in bf16, about 47 GB with embed and unembed;
+# deepseek's 6 of 60, its dense layer 0 and 5 MoE layers: about 7.9 GB a MoE
+# layer, 43 GB with embed and unembed; whisper 32 + 32 layers over 1500
+# frames from seed + 2); the check's prompt, new tokens (prompt + tokens
+# whole SSD chunks) and chunk; the paged round's prompts and rounds
+# (qwen2-0.5b); (c) the card against the CPU in bf16 over the check's prompt
+# and the card's greedy tokens, teacher-forced: the logits within
+# BF16_LOGIT_REL of the CPU's largest |logit| (bf16 rounds at other places in
+# cuBLAS and the kernels than on the CPU; about three times the largest
+# share measured on an H100 80GB HBM3 at 700 W: dense, moe and vlm
+# 0.63-0.67%, ssm 1.75%, over the prompt alone; audio 0.93% (whisper at
+# 2 + 2) over prompt and tokens; hybrid about twice zamba2's 4.28% at 7
+# layers, as the CPU tests' 8% is: three times would leave the argmax rule
+# below, whose margin is this share, fewer positions than it needs), greedy
+# tokens equal up to the first step whose CPU top-2 margin is under that
+# share, and the argmax equal at every position
+# whose CPU top-2 margin clears it, at least ARGMAX_SHARE of the positions;
+# for the MoE family a position whose experts the card and the CPU chose
+# differently (a routing near-tie in bf16), and the later positions that
+# attend to it through a later layer, are named and left out of both
 BF16_ARCHS = (("qwen2-0.5b", None, 2), ("qwen2-vl-7b", None, 2), ("mixtral-8x7b", 16, 1),
-              ("mamba2-780m", None, 4))
+              ("mamba2-780m", None, 4), ("gemma3-1b", None, 6), ("minitron-4b", None, 2),
+              ("qwen1.5-0.5b", None, 2), ("zamba2-1.2b", None, 7),
+              ("whisper-large-v3", None, 2), ("deepseek-v2-236b", 6, 2))
 BF16_SERVE = dict(batch=4, prompt_len=128, gen=16, seed=0, check_prompt=16, check_gen=8,
                   check_chunk=8, paged_arch="qwen2-0.5b", paged_lens=(16, 24, 32, 40),
                   paged_rounds=8)
-BF16_LOGIT_REL = {"dense": 0.02, "moe": 0.02, "vlm": 0.02, "ssm": 0.04}
+BF16_LOGIT_REL = {"dense": 0.02, "moe": 0.02, "vlm": 0.02, "ssm": 0.04, "hybrid": 0.08,
+                  "audio": 0.03}
+ARGMAX_SHARE = 0.25
 BF16_MATMUL_SHAPES = (("qwen2-0.5b forward output projection", (512, 896, 896)),
                       ("mixtral-8x7b forward output projection", (512, 4096, 4096)),
                       ("qwen2-vl-7b forward output projection", (512, 3584, 3584)),
@@ -1189,6 +1221,10 @@ def tree_bytes(tree: dict) -> int:
                for v in tree.values())
 
 
+def tree_numel(tree: dict) -> int:
+    return sum(tree_numel(v) if isinstance(v, dict) else v.numel() for v in tree.values())
+
+
 def near_tie_steps(what: str, got: list, want: list, margins: list, floor: float) -> int:
     """The steps of ``got`` checked equal to ``want``: up to the first step
     whose margin (the top two logits' gap where ``want`` was chosen) is
@@ -1443,25 +1479,17 @@ def serving(launches: dict, dev) -> float:
 @contextlib.contextmanager
 def routing_margins(out: list):
     """Record, for every ``moe_ffn`` call inside, the least gap between the
-    k-th and (k+1)-th router probability over its tokens (a measurement
-    hook of this script: the call itself runs unchanged)."""
+    k-th and (k+1)-th router probability over its tokens (from
+    router_choices's records, when the block ends)."""
     import torch
 
-    from repro_torch.models import blocks
-
-    orig = blocks.moe_ffn
-
-    def recording(p, x, *, top_k, **kw):
-        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p["router"], dim=-1)
-        top = torch.topk(probs, top_k + 1, dim=-1).values
-        out.append(float((top[:, top_k - 1] - top[:, top_k]).min()))
-        return orig(p, x, top_k=top_k, **kw)
-
-    blocks.moe_ffn = recording
-    try:
+    calls: list = []
+    with router_choices(calls):
         yield
-    finally:
-        blocks.moe_ffn = orig
+    for probs, idx, _ in calls:
+        k = idx.shape[-1]
+        top = torch.topk(probs, k + 1, dim=-1).values
+        out.append(float((top[:, k - 1] - top[:, k]).min()))
 
 
 def expert_bytes(params: dict, cfg) -> tuple[int, int]:
@@ -1609,17 +1637,23 @@ def moe_arch(arch: str, n_layers: int, launches: dict, dev):
 
 def card_vs_cpu(arch: str, cfg, check_layers: int, g, dev, margins_of, margin_what: str,
                 serve: dict, near_tie: float = 0.0, **fw_kw) -> None:
-    """The last check of phases 10, 11 and 17 for one arch: the card against
-    the CPU, same weights drawn from ``serve["seed"]`` in ``cfg.dtype``, at
-    full width with ``check_layers`` layers, a prompt of
-    ``serve["check_prompt"]`` tokens from ``g`` and ``serve["check_gen"]``
-    new ones (``fw_kw`` to the forward), beside the least margin
-    ``margins_of`` records over the card's greedy run (the router's, or the
-    top two logits'): forward logits at LOGIT_TOL and greedy tokens equal;
-    with a ``near_tie`` share (bf16, which rounds at other places in cuBLAS
-    and the kernels than on the CPU), the logits within that share of the
-    CPU's largest |logit| and the tokens equal up to the first step whose
-    top-2 margin in the CPU's teacher-forced logits is under it."""
+    """The last check of phases 10, 11, 14 and 17 for one arch: the card
+    against the CPU, same weights drawn from ``serve["seed"]`` in
+    ``cfg.dtype``, at full width with ``check_layers`` layers (the audio
+    family: as many encoder and decoder layers, over frames from ``g``), a
+    prompt of ``serve["check_prompt"]`` tokens from ``g`` and
+    ``serve["check_gen"]`` new ones (``fw_kw`` to the forward), beside the
+    least margin ``margins_of`` records over the card's greedy run (the
+    router's, or the top two logits'): forward logits at LOGIT_TOL and
+    greedy tokens equal. With a ``near_tie`` share (bf16, which rounds at
+    other places in cuBLAS and the kernels than on the CPU) the forward runs
+    over the prompt and the card's greedy tokens, teacher-forced: the logits
+    within that share of the CPU's largest |logit|, the tokens equal up to
+    the first step whose top-2 margin in the CPU's logits is under it, and
+    the argmax equal at every position whose CPU margin clears it, at least
+    ARGMAX_SHARE of them; a MoE position whose experts the two devices chose
+    differently, and the later ones that attend to it through a later
+    layer, are named and left out of the logits' and the argmax's checks."""
     import dataclasses
 
     import torch
@@ -1629,30 +1663,41 @@ def card_vs_cpu(arch: str, cfg, check_layers: int, g, dev, margins_of, margin_wh
     from repro_torch.serve import greedy_decode
 
     P1, gen1 = serve["check_prompt"], serve["check_gen"]
-    ccfg = dataclasses.replace(cfg, n_layers=check_layers)
+    audio = cfg.family == "audio"
+    ccfg = dataclasses.replace(cfg, n_layers=check_layers,
+                               **({"n_encoder_layers": check_layers} if audio else {}))
     cparams = init_params(ccfg, torch.Generator(device=dev).manual_seed(serve["seed"]))
     svc = DispatchService()
     p1 = torch.randint(0, ccfg.vocab_size, (1, P1), generator=g, device=dev)
+    frames = ({"enc_embed": torch.randn(1, ccfg.encoder_len, ccfg.d_model, generator=g,
+                                        device=dev)} if audio else {})
     margins: list = []
     with margins_of(margins):
         want_toks = greedy_decode(cparams, ccfg, p1, steps=gen1, max_len=P1 + gen1,
-                                  service=svc, **fw_kw)
-    want_logits, _ = forward(cparams, {"tokens": p1}, ccfg, service=svc, **fw_kw)
+                                  service=svc, **frames, **fw_kw)
+    seq = torch.cat([p1, want_toks], 1) if near_tie else p1
+    card_routes: list = []
+    with router_choices(card_routes):
+        want_logits, _ = forward(cparams, {"tokens": seq, **frames}, ccfg, service=svc, **fw_kw)
     cpu = torch.device("cpu")
     cparams_cpu = tree_to(cparams, cpu)
-    want_logits, want_toks = want_logits.cpu(), want_toks.cpu()
+    want_logits, want_toks, seq = want_logits.cpu(), want_toks.cpu(), seq.cpu()
+    frames = {k: v.cpu() for k, v in frames.items()}
     del cparams, svc
     torch.cuda.empty_cache()
     svc_cpu = DispatchService()
-    got_logits, _ = forward(cparams_cpu, {"tokens": p1.cpu()}, ccfg, service=svc_cpu, **fw_kw)
-    got_toks = greedy_decode(cparams_cpu, ccfg, p1.cpu(), steps=gen1, max_len=P1 + gen1,
-                             service=svc_cpu, **fw_kw)
+    cpu_routes: list = []
+    with router_choices(cpu_routes):
+        got_logits, _ = forward(cparams_cpu, {"tokens": seq, **frames}, ccfg, service=svc_cpu,
+                                **fw_kw)
+    got_toks = greedy_decode(cparams_cpu, ccfg, seq[:, :P1], steps=gen1, max_len=P1 + gen1,
+                             service=svc_cpu, **frames, **fw_kw)
+    del cparams_cpu
     what = f"{arch}{' bf16' if near_tie else ''}"
     print(f"  {what} card vs CPU at {check_layers} of {cfg.n_layers} layer(s), prompt {P1}"
           + "".join(f", {k} {v}" for k, v in fw_kw.items()) + f": least {margin_what} "
           f"{min(margins):.3e} (the forward and {P1 + gen1} decode steps on the card)")
     if not near_tie:
-        del cparams_cpu
         compare(f"{arch} logits, card vs CPU (full width, {check_layers} layer(s), prompt {P1})",
                 want_logits, got_logits, LOGIT_TOL)
         if not torch.equal(want_toks, got_toks):
@@ -1661,24 +1706,89 @@ def card_vs_cpu(arch: str, cfg, check_layers: int, g, dev, margins_of, margin_wh
         print(f"  {arch} greedy tokens ({gen1}), card and CPU: {want_toks[0].tolist()} (equal)",
               flush=True)
         return
-    forced = forward(cparams_cpu, {"tokens": torch.cat([p1.cpu(), got_toks], 1)}, ccfg,
-                     **fw_kw)[0][0, P1 - 1:P1 - 1 + gen1].float()
-    del cparams_cpu
-    top = torch.topk(forced, 2, dim=-1).values
-    cpu_margins = (top[:, 0] - top[:, 1]).tolist()
+    # the positions a routing near-tie reaches: a token whose top-k experts
+    # differ between the card and the CPU, a token whose kept experts differ
+    # (a flip moves the later tokens' capacity slots in the experts it
+    # leaves and takes), and, below a MoE layer that is not the last, the
+    # later positions of its row (the layers after it attend to the token)
+    flips = torch.zeros(seq.shape[1], dtype=torch.bool)
+    named = torch.zeros_like(flips)
+    noise = 0.0
+    for i, ((pc, ic, kc), (pp, ip, kp)) in enumerate(zip(card_routes, cpu_routes)):
+        noise = max(noise, float((pc - pp).abs().max()))
+        flips |= (ic != ip).any(-1)
+        moved = (ic != ip).any(-1) | (kc != kp).any(-1)
+        named |= moved if i == len(card_routes) - 1 else torch.cummax(moved.int(), 0).values.bool()
+    top = torch.topk(got_logits[0].float(), 2, dim=-1).values
+    cpu_margins = (top[:, 0] - top[:, 1])                               # (P1 + gen1,)
     scale = float(got_logits.abs().max())
-    diff = float((want_logits.float() - got_logits.float()).abs().max())
-    print(f"  {what} logits max |card - CPU| {diff:.4g} = {diff / scale:.3%} of the CPU's "
-          f"largest |logit| {scale:.4g} (tolerance {near_tie:.0%}); CPU top-2 margins "
-          f"{[round(m, 4) for m in cpu_margins]}", flush=True)
-    if not diff <= near_tie * scale:
-        raise AssertionError(f"{what} logits card vs CPU: {diff:.4g} past {near_tie:.0%} of "
-                             f"{scale:.4g}")
+    diff = (want_logits[0].float() - got_logits[0].float()).abs().amax(-1)
+    kept = float(diff[~named].max()) if bool((~named).any()) else 0.0
+    print(f"  {what} logits over the prompt and the card's {gen1} tokens, teacher-forced: max "
+          f"|card - CPU| {float(diff.max()):.4g} = {float(diff.max()) / scale:.3%} of the CPU's "
+          f"largest |logit| {scale:.4g}, outside the routing near-ties {kept / scale:.3%} "
+          f"(tolerance {near_tie:.0%})"
+          + (f"; routing: {int(flips.sum())} of {flips.numel()} positions took other experts "
+             f"on the card (named near-ties, with the capacity drops they moved: "
+             f"{named.nonzero()[:, 0].tolist()}), router probabilities {noise:.3e} apart at "
+             f"most" if card_routes else ""), flush=True)
+    if not kept <= near_tie * scale:
+        past = ((diff > near_tie * scale) & ~named).nonzero()[:, 0].tolist()
+        raise AssertionError(f"{what} logits card vs CPU: {kept:.4g} past {near_tie:.0%} of "
+                             f"{scale:.4g} outside the routing near-ties, at positions {past}")
+    # a step whose position a routing near-tie reaches counts as a near-tie
+    steps = torch.where(named, -1.0, cpu_margins)[P1 - 1:P1 - 1 + gen1].tolist()
     n = near_tie_steps(f"{what} greedy tokens, card vs CPU", want_toks[0].tolist(),
-                       got_toks[0].tolist(), cpu_margins, near_tie * scale)
+                       got_toks[0].tolist(), steps, near_tie * scale)
     print(f"  {what} greedy tokens ({gen1}), card {want_toks[0].tolist()}, CPU "
           f"{got_toks[0].tolist()}: equal over the first {n} (up to a near-tie under "
-          f"{near_tie * scale:.4g})", flush=True)
+          f"{near_tie * scale:.4g}); CPU top-2 margins {[round(m, 4) for m in steps]}",
+          flush=True)
+    cleared = (cpu_margins > near_tie * scale) & ~named
+    agree = want_logits[0].argmax(-1) == got_logits[0].argmax(-1)
+    need = math.ceil(ARGMAX_SHARE * seq.shape[1])
+    print(f"  {what} teacher-forced argmax, card vs CPU: {int(agree[cleared].sum())} of "
+          f"{int(cleared.sum())} positions whose CPU top-2 margin clears "
+          f"{near_tie * scale:.4g} agree (at least {need} of {seq.shape[1]} must be compared; "
+          f"{int(agree.sum())} of all {seq.shape[1]} agree)", flush=True)
+    if int(cleared.sum()) < need or not bool(agree[cleared].all()):
+        raise AssertionError(f"{what} teacher-forced argmax card vs CPU: "
+                             f"{int(agree[cleared].sum())} of {int(cleared.sum())} compared "
+                             f"positions agree, at least {need} needed")
+
+
+@contextlib.contextmanager
+def router_choices(out: list):
+    """Record, for every ``moe_ffn`` call inside, on the CPU: its router
+    probabilities (T, E), its top-k experts (T, k, sorted) and the experts
+    each token keeps after the capacity drops (T, E), worked out as
+    ``models/moe.py`` works them out (per group of ``group_size`` tokens, C
+    slots an expert in token order); a measurement hook of this script: the
+    call itself runs unchanged."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import blocks
+
+    orig = blocks.moe_ffn
+
+    def recording(p, x, *, top_k, capacity_factor=1.25, group_size=2048, **kw):
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p["router"], dim=-1)
+        idx = torch.topk(probs, top_k, dim=-1).indices
+        T, E = probs.shape
+        G = min(group_size, T)
+        C = max(int(capacity_factor * G * top_k / E), 4)
+        mask = F.one_hot(idx, E).sum(1)
+        keep = torch.cat([(m.cumsum(0) <= C) & (m > 0) for m in mask.split(G)])
+        out.append((probs.cpu(), idx.sort(-1).values.cpu(), keep.cpu()))
+        return orig(p, x, top_k=top_k, capacity_factor=capacity_factor, group_size=group_size,
+                    **kw)
+
+    blocks.moe_ffn = recording
+    try:
+        yield
+    finally:
+        blocks.moe_ffn = orig
 
 
 def released(arch: str, base: int, after: str) -> None:
@@ -1755,13 +1865,15 @@ def logit_margins(out: list):
 
 def served_launches(cfg) -> tuple[dict, dict]:
     """The kernel launches one forward and one decode step of ``cfg`` make,
-    as the code implies them: the SSM family's unembed alone; zamba2's
-    shared block at each site (G flash calls a forward, one decode launch a
-    step, its output projection) and the unembed; a windowed arch (gemma3's
-    local:global schedule) each layer's output projection and the unembed,
-    its attention plain as in the JAX package; qwen2-vl's and the other
-    dense archs' layers as qwen2-0.5b's."""
-    if cfg.family == "ssm":
+    as the code implies them: the SSM family's unembed alone, and MLA's
+    (deepseek: its attention, output projection and experts are plain, as
+    in the JAX package); zamba2's shared block at each site (G flash calls a
+    forward, one decode launch a step, its output projection) and the
+    unembed; a windowed arch (gemma3's local:global schedule, mixtral's
+    window) each layer's output projection and the unembed, its attention
+    plain as in the JAX package; qwen2-vl's and the other dense archs'
+    layers as qwen2-0.5b's."""
+    if cfg.family == "ssm" or cfg.attn_type == "mla":
         return ({"flash_attention": 0, "decode_attention": 0, "tiled_matmul": 1},
                 {"flash_attention": 0, "decode_attention": 0, "tiled_matmul": 1})
     if cfg.sliding_window or cfg.local_global_ratio:
@@ -1884,17 +1996,21 @@ def serve_arch(arch: str, launches: dict, dev, serve: dict, dtype, n_layers: int
                              f"{one_step}")
     fwd_ms, step_ms = host_ms(fwd, iters=3), host_ms(step, iters=10)
     # the bytes a step must move: every weight but the embed table (the
-    # lookup reads B rows), zamba2's shared block once a site (268 MB at its
-    # width: the L2 cannot hold it from one site to the next), the Mamba2
-    # state read and written, the K/V of P + 1 positions read at each
-    # attention site (a windowed arch's attention, plain, at every layer)
+    # lookup reads B rows; every routed expert of a MoE layer), zamba2's
+    # shared block once a site (268 MB at its width: the L2 cannot hold it
+    # from one site to the next), the Mamba2 state read and written, the K/V
+    # of P + 1 positions read at each attention site (a windowed arch's
+    # attention, plain, at every layer; MLA's latent and rotary key at every
+    # layer)
     weights = tree_bytes(params) - params["embed"].numel() * params["embed"].element_size()
     sites = one_step["decode_attention"]
     if fam == "hybrid":
         weights += (sites - 1) * tree_bytes(params["shared_attn"])
     state = 2 * tree_bytes(cache["layers"]) if fam in ("ssm", "hybrid") else 0
-    kv_sites = L if windowed else sites
-    kv = kv_sites * B * (P + 1) * 2 * cfg.n_kv_heads * cfg.hd * dtype.itemsize
+    mla = cfg.attn_type == "mla"
+    kv_sites = L if windowed or mla else sites
+    per_pos = cfg.kv_lora_rank + cfg.qk_rope_dim if mla else 2 * cfg.n_kv_heads * cfg.hd
+    kv = kv_sites * B * (P + 1) * per_pos * dtype.itemsize
     step_bound = (weights + state + kv) / PEAK_HBM_BYTES * 1e3
     dev_ms, by_name = device_time(step)
     n_kernels = sum(c for c, _ in by_name.values())
@@ -1902,14 +2018,17 @@ def serve_arch(arch: str, launches: dict, dev, serve: dict, dtype, n_layers: int
     fig = served_record(L, P, gen, B, timings, step_ms, step_bound, peak, dev_ms, n_kernels)
     print(f"  {what} memory: peak {peak / 1e9:.3f} GB allocated over the served run "
           f"(torch.cuda.max_memory_allocated), weights {tree_bytes(params) / 1e9:.3f} GB "
-          f"{'bf16 (the router, norms and biases f32)' if bf16 else 'f32'}")
+          f"{'bf16 (the router, norms and biases f32)' if bf16 else 'f32'}"
+          + (f", of which the routed experts {expert_bytes(params, cfg)[0] / 1e9:.3f} GB "
+             f"(a step's top-{cfg.top_k}: {expert_bytes(params, cfg)[1] / 1e9:.3f} GB)"
+             if fam == "moe" else ""))
     print(f"  {what} TTFT {fig['ttft_ms']:.2f} ms (forward + the prompt's replay through "
           f"decode_step); forward alone {fwd_ms:.3f} ms host wall")
     print(f"  {what} decode: {fig['step_ms']:.4f} ms per step in the run, "
           f"{step_ms:.4f} ms alone; bound {step_bound:.4f} ms (bytes at 3.35 TB/s: "
           f"{weights / 1e9:.3f} GB of weights, {state / 1e6:.1f} MB of Mamba2 state read and "
-          f"written, {kv / 1e6:.1f} MB of K/V read); {fig['tok_s']:.1f} tok/s over the decode "
-          f"steps")
+          f"written, {kv / 1e6:.1f} MB of {'latent cache' if mla else 'K/V'} read); "
+          f"{fig['tok_s']:.1f} tok/s over the decode steps")
     print(f"  {what} one decode step on the device (torch.profiler): "
           + ("not measured (the profiler recorded no device time)" if dev_ms == 0.0 else
              f"{n_kernels} device kernels, {dev_ms:.4f} ms busy of {step_ms:.4f} ms host "
@@ -1925,16 +2044,25 @@ def serve_arch(arch: str, launches: dict, dev, serve: dict, dtype, n_layers: int
     unembed = params["embed_t"] if cfg.tie_embeddings else params["unembed"]
     sigs = [("decode unembed", B, unembed, "1 per decode step"),
             ("forward unembed", B * P, unembed, "1 per forward")]
-    if fam != "ssm":
+    if fam != "ssm" and not mla:
         wo = params["shared_attn"]["wo"] if fam == "hybrid" else params["layers"]["wo"][0]
         sigs = [("decode output projection", B, wo, f"{kv_sites} per decode step"),
                 ("forward output projection", B * P, wo, f"{kv_sites} per forward")] + sigs
     matmul_signatures(arch, svc, sigs, dev, seed + 2, dtype, rows)
 
     # -- the attention signatures, against their plain versions and timed
-    # (a windowed arch's attention stays plain, as in the JAX package)
-    if fam != "ssm" and not windowed:
+    # (a windowed arch's attention stays plain, as in the JAX package: gemma3's
+    # shapes are held and timed all the same, none launched by the served run)
+    if fam != "ssm" and not windowed and not mla:
         attention_signatures(arch, svc, cfg, B, P, gen, sites, dev, seed, dtype)
+    if cfg.local_global_ratio:   # flash over the prompt (inside the window: causal), and
+        # decode at a position past the window, over a cache of window + P slots
+        K, G, w = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.sliding_window
+        attention_shapes(what, svc, dev, seed + 5, dtype,
+                         (B * K, P, P, cfg.hd, True, f"{G} calls a layer where the forward took "
+                                                     f"the kernel (0: plain)"),
+                         (B, K, G, w + P, cfg.hd, w + P // 2, w,
+                          "a local layer's step (0 a step: plain)"))
 
     # -- a PagedKVCache round against each request's solo run, on
     # per-row positions (qwen2-vl: through M-RoPE's three sections)
@@ -1954,53 +2082,70 @@ def serve_arch(arch: str, launches: dict, dev, serve: dict, dtype, n_layers: int
 
 def attention_signatures(arch: str, svc, cfg, B: int, P: int, gen: int, sites: int, dev,
                          seed: int, dtype=None) -> None:
-    """The attention kernels at an arch's signatures in ``dtype`` (None:
-    f32; bf16 in, f32 math, bf16 out): flash at the prompt (one of G calls
-    a layer or site), decode against the model's (B, S, K, hd) cache read in
-    place at position P (P + 1 slots), each held against its plain version
-    at phase 3's tolerance for the dtype, then queued and timed beside
-    scaled_dot_product_attention in the dtype (a yardstick the port never
-    calls) and the bound; ``sites`` is the attention sites a forward or
-    step."""
+    """The attention kernels at an arch's served signatures in ``dtype``
+    (None: f32; bf16 in, f32 math, bf16 out), through attention_shapes:
+    flash at the prompt (one of G calls a layer or site), decode against
+    the model's (B, P + gen, K, hd) cache at position P; ``sites`` is the
+    attention sites a forward or step."""
+    import torch
+
+    dt = dtype or torch.float32
+    K, hd, G = cfg.n_kv_heads, cfg.hd, cfg.n_heads // cfg.n_kv_heads
+    attention_shapes(f"{arch}{' bf16' if dt == torch.bfloat16 else ''}", svc, dev, seed + 3, dt,
+                     (B * K, P, P, hd, True, f"{G * sites} calls a forward"),
+                     (B, K, G, P + gen, hd, P, 0, f"{sites} a decode step"))
+
+
+def attention_shapes(what: str, svc, dev, seed: int, dtype, flash: tuple,
+                     decode: tuple) -> None:
+    """The attention kernels at one flash and one decode shape in ``dtype``
+    (a served signature, or one whose served run keeps its attention plain,
+    as the JAX package does), each held against its plain version at phase
+    3's tolerance, then queued and timed beside scaled_dot_product_attention
+    in the dtype (a yardstick the port never calls) and the bound: ``flash``
+    = (BH, Sq, Sk, hd, causal, note), ``decode`` = (B, K, G, S, hd, position,
+    window, note) against a (B, S, K, hd) cache read in place."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import CacheRows, decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention_plain
 
-    dt = dtype or torch.float32
-    name, tol = ("bf16", ATTN_BF16_TOL) if dt == torch.bfloat16 else ("f32", ATTN_TOL)
-    what, size = f"{arch}{' bf16' if name == 'bf16' else ''}", dt.itemsize
-    K, hd, G = cfg.n_kv_heads, cfg.hd, cfg.n_heads // cfg.n_kv_heads
-    BH, S = B * K, P + gen
-    q, k, v = (t.to(dt) for t in attention_inputs(BH, P, P, hd, dev, seed + 3))
-    fn = svc.dispatch("flash_attention", q, k, v, causal=True)
-    compare(f"{what} flash_attention ({BH}, {P}, {hd}) causal, against its plain version",
-            fn(q, k, v), flash_attention_plain(q, k, v, causal=True), tol)
+    name, tol = ("bf16", ATTN_BF16_TOL) if dtype == torch.bfloat16 else ("f32", ATTN_TOL)
+    size = dtype.itemsize
+    BH, Sq, Sk, hd, causal, note = flash
+    gq = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(BH, Sq, hd, generator=gq, device=dev).to(dtype)
+    k, v = (torch.randn(BH, Sk, hd, generator=gq, device=dev).to(dtype) for _ in range(2))
+    fn = svc.dispatch("flash_attention", q, k, v, causal=causal)
+    label = f"{what} flash_attention ({BH}, {Sq}, {hd}) over {Sk} keys{' causal' if causal else ''}"
+    compare(f"{label}, against its plain version", fn(q, k, v),
+            flash_attention_plain(q, k, v, causal=causal), tol)
     k_ms = queued_ms(lambda: fn(q, k, v))
-    l_ms = queued_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-    b_ms, b_by = bound(4.0 * BH * P * P * hd * 0.5, size * BH * 4 * P * hd)
-    print(f"  {what} flash_attention ({BH}, {P}, {hd}) causal, {G * sites} calls a "
-          f"forward: kernel " + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
+    l_ms = queued_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+    pairs = Sq * Sk * (0.5 if causal else 1.0)
+    b_ms, b_by = bound(4.0 * BH * pairs * hd, size * BH * (2 * Sq + 2 * Sk) * hd)
+    print(f"  {label}, {note}: kernel " + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
           + f" queued on the device, bound {b_ms:.4f} ms ({b_by}), SDPA {name} "
           + ("not measured" if l_ms is None else f"{l_ms:.4f} ms"), flush=True)
-    gq = torch.Generator(device=dev).manual_seed(seed + 4)
-    qd = torch.randn(BH, G, hd, generator=gq, device=dev).to(dt)
-    kc, vc = (torch.randn(B, S, K, hd, generator=gq, device=dev).to(dt) for _ in range(2))
-    cp = torch.full((BH,), P, dtype=torch.int32, device=dev)
+    B, K, G, S, hd, pos, window, note = decode
+    qd = torch.randn(B * K, G, hd, generator=gq, device=dev).to(dtype)
+    kc, vc = (torch.randn(B, S, K, hd, generator=gq, device=dev).to(dtype) for _ in range(2))
+    cp = torch.full((B * K,), pos, dtype=torch.int32, device=dev)
     kr, vr = CacheRows(kc), CacheRows(vc)
-    fn = svc.dispatch("decode_attention", qd, kr, vr, cp, ring=False, window=0)
-    compare(f"{what} decode_attention ({BH}, {G}, {S}, {hd}) at position {P}, the cache "
-            f"read in place, against its plain version", fn(qd, kr, vr, cp),
-            decode_attention_plain(qd, kr, vr, cp), tol)
+    fn = svc.dispatch("decode_attention", qd, kr, vr, cp, ring=False, window=window)
+    label = (f"{what} decode_attention ({B * K}, {G}, {S}, {hd}) at position {pos}"
+             + (f", window {window}" if window else ""))
+    compare(f"{label}, the cache read in place, against its plain version", fn(qd, kr, vr, cp),
+            decode_attention_plain(qd, kr, vr, cp, window=window), tol)
     krow, vrow = kr.rows().contiguous(), vr.rows().contiguous()
-    mask = torch.arange(S, device=dev)[None, None, :] <= cp[:, None, None]
+    kpos = torch.arange(S, device=dev)[None, None, :]
+    mask = (kpos <= cp[:, None, None]) & ((cp[:, None, None] - kpos < window) if window else True)
     k_ms = queued_ms(lambda: fn(qd, kr, vr, cp))
     l_ms = queued_ms(lambda: F.scaled_dot_product_attention(qd, krow, vrow, attn_mask=mask))
-    slots = BH * (P + 1)
-    b_ms, b_by = bound(4.0 * G * hd * slots, size * (2 * slots * hd + 2 * BH * G * hd))
-    print(f"  {what} decode_attention ({BH}, {G}, {S}, {hd}) at position {P}, {sites} a "
-          f"decode step: kernel " + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
+    slots = B * K * min(pos + 1, window or pos + 1)
+    b_ms, b_by = bound(4.0 * G * hd * slots, size * (2 * slots * hd + 2 * B * K * G * hd))
+    print(f"  {label}, {note}: kernel " + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
           + f" queued on the device, bound {b_ms:.4f} ms ({b_by}), SDPA {name} on the rows "
           + ("not measured" if l_ms is None else f"{l_ms:.4f} ms"), flush=True)
 
@@ -2012,11 +2157,11 @@ def ssm_phase(launches: dict, dev) -> None:
     import torch
 
     t11 = time.perf_counter()
-    for arch, check_layers in SSM_ARCHS:
+    for arch, n_layers, check_layers in SSM_ARCHS:
         t0 = time.perf_counter()
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
-        cfg, g = serve_arch(arch, launches, dev, SSM_SERVE, torch.float32)
+        cfg, g = serve_arch(arch, launches, dev, SSM_SERVE, torch.float32, n_layers)
         released(arch, base, "the served run")
         card_vs_cpu(arch, cfg, check_layers, g, dev, logit_margins,
                     "gap between the top two logits", SSM_SERVE,
@@ -2366,15 +2511,19 @@ def layer_of(stack: dict, i: int) -> dict:
     return {k: layer_of(v, i) if isinstance(v, dict) else v[i] for k, v in stack.items()}
 
 
-def audio_serve(launches: dict, dev):
-    """Phase 13 (a) and (b): whisper-large-v3 at full width and full depth
-    through greedy_decode and a DispatchService, with the launch counts set
-    to 0 just before and read just after (added to ``launches``); then the
-    cross cache a prefill leaves against the encoder's output recomputed,
-    per-call launches and times, the decode step's bytes bound and busy
-    share, and the unembed's two signatures against their plain version and
-    timed. Returns the served config: the model's tensors die with this
-    call's locals."""
+def audio_serve(launches: dict, dev, serve: dict, dtype, n_layers: int | None = None,
+                rows: dict | None = None):
+    """Phases 13 (a) and (b) and 17: whisper-large-v3 at full width in
+    ``dtype`` with ``n_layers`` encoder and decoder layers (None: all)
+    through greedy_decode and a DispatchService, with the launch counts (and
+    the bf16 tensor-core matmul's) set to 0 just before and read just after
+    (added to ``launches``); then the cross cache a prefill leaves against
+    the encoder's output recomputed, per-call launches and times, the decode
+    step's bytes bound and busy share (bf16: beside the f32 phase's
+    figures), the unembed's two signatures against their plain version and
+    timed (``rows``: matmul_signatures's), and in bf16 the cross-attention's
+    shapes. Returns (the served config, the prompt generator): the model's
+    tensors die with this call's locals."""
     import dataclasses
 
     import torch
@@ -2387,17 +2536,22 @@ def audio_serve(launches: dict, dev):
     from repro_torch.models import blocks, decode_step, forward, init_params
     from repro_torch.serve import greedy_decode, prefill
 
-    a = AUDIO
     wrappers = (flash_attention, decode_attention, tiled_matmul)
-    B, P, gen, seed = a["batch"], a["prompt_len"], a["gen"], a["seed"]
-    cfg = dataclasses.replace(get_config(a["arch"]), dtype=torch.float32)
+    B, P, gen, seed = (serve[k] for k in ("batch", "prompt_len", "gen", "seed"))
+    full = get_config(AUDIO["arch"])
+    cfg = dataclasses.replace(full, dtype=dtype, n_layers=n_layers or full.n_layers,
+                              n_encoder_layers=n_layers or full.n_encoder_layers)
+    bf16 = dtype == torch.bfloat16
+    what = f"{cfg.name}{' bf16' if bf16 else ''}"
     L, Le, Se, K, hd = cfg.n_layers, cfg.n_encoder_layers, cfg.encoder_len, cfg.n_kv_heads, cfg.hd
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
     svc = DispatchService()
-    prompt = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device=dev, generator=g)
+    # f32 frames, cast to the config's dtype by the model (the JAX package's
+    # enc_embed.astype(cfg.dtype))
     frames = torch.randn(B, Se, cfg.d_model, device=dev,
                          generator=torch.Generator(device=dev).manual_seed(seed + 2))
 
@@ -2410,25 +2564,30 @@ def audio_serve(launches: dict, dev):
                          timings=timings, enc_embed=frames)
     torch.cuda.synchronize()
     counts = {w.__name__: w.launches for w in wrappers}
+    tc = tiled_matmul.bf16_tc_launches
     peak = torch.cuda.max_memory_allocated()
     if tuple(toks.shape) != (B, gen) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
-        raise AssertionError(f"{cfg.name}: tokens of shape {tuple(toks.shape)} outside the vocab")
+        raise AssertionError(f"{what}: tokens of shape {tuple(toks.shape)} outside the vocab")
     steps = P + gen
-    # the unembed: the forward's B * P rows on mma.sync, each step's B rows
-    # on the split stream (N = 51,866: 4-byte loads)
-    check_routes(cfg.name, {"split": steps, "mma_sync": 1}, launches)
+    # the unembed: the forward's B * P rows on mma.sync in either dtype
+    # (N = 51,866 is not a multiple of 8, which TMA needs: csrc/matmul.cu
+    # hands bf16 to mma.sync), each step's B rows on the split stream
+    # (N % 4 = 2: 8-byte loads in f32, 4-byte in bf16)
+    check_routes(what, {"split": steps, "mma_sync": 1}, launches)
     want = {"flash_attention": 0, "decode_attention": 0, "tiled_matmul": 1 + steps}
-    print(f"  (a) {cfg.name} ({Le} encoder layers over {Se} frames, {L} decoder layers, d "
+    print(f"  (a) {what} ({Le} encoder layers over {Se} frames, {L} decoder layers, d "
           f"{cfg.d_model}, vocab {cfg.vocab_size}), batch {B}, prompt {P}, {gen} tokens: "
-          f"launches over greedy_decode {counts} (expected {want}: the unembed once a forward "
-          f"and once a decode step, {steps} steps; the encoder and decoder layers pass no "
-          f"service, as in the JAX package)")
-    if counts != want:
-        raise AssertionError(f"{cfg.name}: launch counts {counts} != {want}")
+          f"launches over greedy_decode {counts}, of the matmul's {tc} on the bf16 tensor cores "
+          f"(expected {want} and {1 if bf16 else 0}: the unembed once a forward and once a "
+          f"decode step, {steps} steps; the encoder and decoder layers pass no service, as in "
+          f"the JAX package)")
+    if counts != want or tc != (1 if bf16 else 0):
+        raise AssertionError(f"{what}: launch counts {counts}, {tc} != {want}")
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
+    launches["matmul_bf16"] = launches.get("matmul_bf16", 0) + tc
     if svc.stats["build_failed"] or svc.stats["store_default"] == 0:
-        raise AssertionError(f"{cfg.name}: dispatch stats {svc.stats}")
+        raise AssertionError(f"{what}: dispatch stats {svc.stats}")
     print(f"  (a) dispatch stats: {json.dumps(svc.stats)}; first request {toks[0].tolist()}",
           flush=True)
 
@@ -2441,17 +2600,17 @@ def audio_serve(launches: dict, dev):
     if empty:
         raise AssertionError(f"{cfg.name}: the prefill left the cross K/V of decoder layers "
                              f"{empty} zero")
-    enc = frames
+    enc = frames.to(dtype)
     enc_pos = torch.arange(Se, device=dev)[None, :].expand(B, Se)
     for i in range(Le):
         enc, _ = blocks.attn_layer_train(layer_of(params["enc_layers"], i), enc, cfg=cfg,
                                          positions=enc_pos, window=None, causal=False)
     last = layer_of(params["dec_layers"], L - 1)
     for name, w in (("k", last["xk"]), ("v", last["xv"])):
-        compare(f"{cfg.name} cross {name.upper()} of decoder layer {L - 1} after prefill "
+        compare(f"{what} cross {name.upper()} of decoder layer {L - 1} after prefill "
                 f"(max |.| {float(cross[name][L - 1].abs().max()):.3f}), against the encoder's "
                 f"output recomputed @ x{name}", cross[name][L - 1],
-                (enc @ w).reshape(B, Se, K, hd), F32_TOL)
+                (enc.to(dtype) @ w).reshape(B, Se, K, hd), BF16_TOL if bf16 else F32_TOL)
     del enc
 
     # -- per call: launches, times, the decode step's bound and busy share
@@ -2463,7 +2622,7 @@ def audio_serve(launches: dict, dev):
     one = {"flash_attention": 0, "decode_attention": 0, "tiled_matmul": 1}
     print(f"  (a) launches per prefill forward {n_fwd}, per decode step {n_step}")
     if n_fwd != one or n_step != one:
-        raise AssertionError(f"{cfg.name}: per-call launch counts differ from {one}")
+        raise AssertionError(f"{what}: per-call launch counts differ from {one}")
     fwd_ms, step_ms = host_ms(fwd, iters=3), host_ms(step, iters=10)
     # the bytes a step must move: the decoder's weights but xk and xv (the
     # cross K/V are cached), the unembed embed_t (the lookup reads B rows of
@@ -2471,20 +2630,22 @@ def audio_serve(launches: dict, dev):
     dec = params["dec_layers"]
     weights = (tree_bytes(dec) - tree_bytes({"xk": dec["xk"], "xv": dec["xv"]})
                + tree_bytes({"e": params["embed_t"], "n": params["final_norm"]}))
-    cross_b = 2 * L * B * Se * K * hd * 4
-    kv = 2 * L * B * (P + 1) * K * hd * 4
+    size = dtype.itemsize
+    cross_b = 2 * L * B * Se * K * hd * size
+    kv = 2 * L * B * (P + 1) * K * hd * size
     step_bound = (weights + cross_b + kv) / PEAK_HBM_BYTES * 1e3
     dev_ms, by_name = device_time(step)
     n_kernels = sum(c for c, _ in by_name.values())
     top5 = sorted(by_name.items(), key=lambda kv_: -kv_[1][1])[:5]
-    leaves = (tree_bytes(params) - tree_bytes({"e": params["embed_t"]})) // 4  # f32 values
+    leaves = tree_numel(params) - params["embed_t"].numel()
+    fig = served_record(L, P, gen, B, timings, step_ms, step_bound, peak, dev_ms, n_kernels)
     print(f"  (a) memory: peak {peak / 1e9:.3f} GB allocated over the served run "
-          f"(torch.cuda.max_memory_allocated); weights {tree_bytes(params) / 1e9:.3f} GB f32 "
-          f"(tree_bytes), of which the contiguous unembed embed_t "
-          f"{params['embed_t'].numel() * 4 / 1e9:.3f} GB; the leaves but embed_t hold "
-          f"{leaves:,} values, param_count() gives {cfg.param_count():,} (it leaves out the "
-          f"decoder's cross-attention: {leaves - cfg.param_count():,}); cross K/V cache "
-          f"{cross_b / 1e9:.3f} GB")
+          f"(torch.cuda.max_memory_allocated); weights {tree_bytes(params) / 1e9:.3f} GB "
+          f"{'bf16 (norms f32)' if bf16 else 'f32'} (tree_bytes), of which the contiguous "
+          f"unembed embed_t {params['embed_t'].numel() * size / 1e9:.3f} GB; the leaves but "
+          f"embed_t hold {leaves:,} values, param_count() gives {cfg.param_count():,} (it "
+          f"leaves out the decoder's cross-attention: {leaves - cfg.param_count():,}); cross K/V "
+          f"cache {cross_b / 1e9:.3f} GB")
     print(f"  (a) TTFT {timings['prefill_sec'] * 1e3:.2f} ms (forward, the cross K/V written "
           f"by it, + the prompt's replay through decode_step); forward alone {fwd_ms:.3f} ms "
           f"host wall")
@@ -2498,13 +2659,25 @@ def audio_serve(launches: dict, dev):
              f"{n_kernels} device kernels, {dev_ms:.4f} ms busy of {step_ms:.4f} ms host "
              f"wall ({dev_ms / step_ms:.1%})") + "; largest: "
           + "; ".join(f"{k[:50]} x{c} {t:.4f} ms" for k, (c, t) in top5), flush=True)
+    if bf16:
+        print(f"  {what}: {served_line(fig)}; the f32 phase's: "
+              f"{served_line(SERVED.get(cfg.name))}", flush=True)
+    else:
+        SERVED[cfg.name] = fig
 
     # -- (b) the unembed's two signatures (N = 51,866: no operand on 16-byte
     # words), against their plain version, then timed
     matmul_signatures(cfg.name, svc, [("decode unembed", B, params["embed_t"], "1 per decode step"),
                                       ("forward unembed", B * P, params["embed_t"],
-                                       "1 per forward")], dev, seed + 3)
-    return cfg
+                                       "1 per forward")], dev, seed + 3, dtype, rows)
+    if bf16:   # cross-attention's shapes, plain in the served run (no service there)
+        G = cfg.n_heads // K
+        attention_shapes(what, svc, dev, seed + 5, dtype,
+                         (B * K, P, Se, hd, False, f"cross-attention over {Se} frames, {G} "
+                                                   f"call(s) a decoder layer (0: plain)"),
+                         (B, K, G, Se, hd, Se - 1, 0, "a step's cross-attention over the "
+                                                      "cache a prefill fills (0 a step: plain)"))
+    return cfg, g
 
 
 def audio_vs_cpu(cfg, dev) -> None:
@@ -2687,7 +2860,7 @@ def audio_phase(launches: dict, dev) -> None:
     t13 = time.perf_counter()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
-    cfg = audio_serve(launches, dev)
+    cfg, _ = audio_serve(launches, dev, AUDIO, torch.float32, AUDIO["check_layers"])
     released(cfg.name, base, "the served run")
     audio_vs_cpu(cfg, dev)
     released(cfg.name, base, "the card-against-CPU check")
@@ -2864,9 +3037,9 @@ def load_bench(launches: dict, dev) -> None:
               + ("not measured" if l_ms is None else f"{l_ms:.4f} ms"), flush=True)
 
 
-def catalog_arch(arch: str, P: int, launches: dict, dev):
-    """Phase 14 (b) for one arch: serve it at full width and full depth
-    through launch.serve.serve with the launch counts set to 0 just before
+def catalog_arch(arch: str, P: int, n_layers: int, launches: dict, dev):
+    """Phase 14 (b) for one arch: serve it at full width with ``n_layers``
+    layers through launch.serve.serve with the launch counts set to 0 just before
     and read just after (added to ``launches``); then per-call launches and
     times, the decode step's bytes bound and busy share, and the new matmul
     and attention signatures against their plain versions and timed.
@@ -2885,7 +3058,8 @@ def catalog_arch(arch: str, P: int, launches: dict, dev):
 
     wrappers = (flash_attention, decode_attention, tiled_matmul)
     B, gen, seed = (CATALOG_SERVE[k] for k in ("batch", "gen", "seed"))
-    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, dtype=torch.float32, n_layers=n_layers)
     L = cfg.n_layers
     one_fwd, one_step = served_launches(cfg)
     if cfg.local_global_ratio and P <= cfg.sliding_window:
@@ -2895,7 +3069,8 @@ def catalog_arch(arch: str, P: int, launches: dict, dev):
     for w in wrappers:
         w.launches = 0
     reset_routes()
-    r = serve_cli.serve(arch, batch=B, prompt_len=P, gen=gen, seed=seed, device=dev)
+    r = serve_cli.serve(arch, batch=B, prompt_len=P, gen=gen, seed=seed, device=dev,
+                        n_layers=n_layers)
     torch.cuda.synchronize()
     counts = {w.__name__: w.launches for w in wrappers}
     peak = torch.cuda.max_memory_allocated()
@@ -2905,7 +3080,8 @@ def catalog_arch(arch: str, P: int, launches: dict, dev):
         raise AssertionError(f"{arch}: tokens of shape {tuple(toks.shape)} outside the vocab")
     steps = P + gen
     want = {k: one_fwd[k] + one_step[k] * steps for k in one_fwd}
-    print(f"  {arch} ({L} layers, d {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+    print(f"  {arch} ({L} of {full.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} kv, "
           f"hd {cfg.hd}, vocab {cfg.vocab_size}, "
           f"{'tied' if cfg.tie_embeddings else 'untied'}"
           + (f", window {cfg.sliding_window} on {cfg.local_global_ratio} of every "
@@ -2959,6 +3135,9 @@ def catalog_arch(arch: str, P: int, launches: dict, dev):
              f"{n_kernels} device kernels, {dev_ms:.4f} ms busy of {step_ms:.4f} ms host "
              f"wall ({dev_ms / step_ms:.1%})") + "; largest: "
           + "; ".join(f"{k[:50]} x{c} {t:.4f} ms" for k, (c, t) in top5), flush=True)
+    SERVED[arch] = served_record(L, P, gen, B, {"prefill_sec": r["prefill_ms"] / 1e3,
+                                                "decode_sec": r["decode_ms_per_step"] * gen / 1e3},
+                                 step_ms, step_bound, peak, dev_ms, n_kernels)
 
     # -- the new signatures, against their plain versions and timed
     unembed = params["embed_t"] if cfg.tie_embeddings else params["unembed"]
@@ -3011,7 +3190,7 @@ def load_phase(launches: dict, dev) -> None:
         t0 = time.perf_counter()
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
-        cfg, g = catalog_arch(arch, P, launches, dev)
+        cfg, g = catalog_arch(arch, P, check_layers, launches, dev)
         released(arch, base, "the served run")
         card_vs_cpu(arch, cfg, check_layers, g, dev, logit_margins,
                     "gap between the top two logits", CATALOG_SERVE)
@@ -4294,10 +4473,12 @@ def matmul_route_checks(dev, errs: dict) -> None:
 
 def bf16_phase(launches: dict, dev, errs: dict, rows: dict) -> None:
     """Phase 17: the catalog in its own dtype on the card. The bf16 matmul
-    against its plain version, then each arch served in bf16 and checked
-    against the CPU, one after the other (the served model's tensors leave
-    the card before the check's, and the next arch's, are drawn); the
-    kernels line's matmul_bf16 row is mixtral's forward output projection."""
+    against its plain version, then each of the catalog's ten configs
+    served in bf16 (whisper through audio_serve, the others through
+    serve_arch) and checked against the CPU, one after the other (the
+    served model's tensors leave the card before the check's, and the next
+    arch's, are drawn); the kernels line's matmul_bf16 row is mixtral's
+    forward output projection."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4312,7 +4493,11 @@ def bf16_phase(launches: dict, dev, errs: dict, rows: dict) -> None:
         t0 = time.perf_counter()
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
-        cfg, g = serve_arch(arch, launches, dev, BF16_SERVE, torch.bfloat16, n_layers, mm_rows)
+        if get_config(arch).family == "audio":
+            cfg, g = audio_serve(launches, dev, BF16_SERVE, torch.bfloat16, n_layers, mm_rows)
+        else:
+            cfg, g = serve_arch(arch, launches, dev, BF16_SERVE, torch.bfloat16, n_layers,
+                                mm_rows)
         released(arch, base, "the bf16 served run")
         if cfg.family == "moe":
             margins_of, margin_what = routing_margins, (
@@ -5026,8 +5211,8 @@ def main() -> int:
     moe_phase(launches, dev)
 
     # ---- 11. the SSM, hybrid and VLM families -------------------------------------------
-    phase("11. the SSM, hybrid and VLM families on the card: mamba2-780m, zamba2-1.2b and "
-          "qwen2-vl-7b at full width and full depth, f32, through greedy_decode and the "
+    phase("11. the SSM, hybrid and VLM families on the card: mamba2-780m, zamba2-1.2b (7 "
+          "layers) and qwen2-vl-7b at full width, f32, through greedy_decode and the "
           "dispatch service")
     ssm_phase(launches, dev)
 
@@ -5038,15 +5223,15 @@ def main() -> int:
     training_phase(launches, dev)
 
     # ---- 13. the audio family -----------------------------------------------------------
-    phase("13. the audio family on the card: whisper-large-v3 at full width and full depth, "
-          "f32, served through greedy_decode and the dispatch service, and trained")
+    phase("13. the audio family on the card: whisper-large-v3 at full width, f32, served "
+          "through greedy_decode and the dispatch service at 2 + 2 layers, and trained")
     audio_phase(launches, dev)
     hillclimb_join(hill)
 
     # ---- 14. serving under load -----------------------------------------------------------
     phase("14. serving under load: benchmarks/torch_serve_bench.py at full width (einsum, "
-          "default and tuned modes, the guard's drift loop), then gemma3-1b, minitron-4b and "
-          "qwen1.5-0.5b at full width and full depth through launch.serve")
+          "default and tuned modes, the guard's drift loop), then gemma3-1b (6 layers), "
+          "minitron-4b and qwen1.5-0.5b (2) at full width through launch.serve")
     load_phase(launches, dev)
 
     # ---- 15. the fleet and the analyzer ----------------------------------------------------
@@ -5064,7 +5249,9 @@ def main() -> int:
     # ---- 17. the catalog in its own dtype -----------------------------------------------
     phase("17. the catalog in bf16 on the card: the matmul's bf16 wgmma route and split "
           "stream against its plain version, qwen2-0.5b, qwen2-vl-7b, mixtral-8x7b "
-          "(16 layers) and mamba2-780m served in bf16 at full width, the card against the CPU")
+          "(16 layers), mamba2-780m, gemma3-1b, minitron-4b, qwen1.5-0.5b, zamba2-1.2b, "
+          "whisper-large-v3 and deepseek-v2-236b (6 layers) served in bf16 at full width, the "
+          "card against the CPU")
     bf16_phase(launches, dev, errs, rows)
 
     def entry(name, source, replaces):

@@ -81,14 +81,16 @@ __all__ = ["main", "report", "serve", "service_for"]
 
 def serve(arch: str = "qwen2-0.5b", *, reduced: bool = False, batch: int = 4,
           prompt_len: int = 16, gen: int = 32, seed: int = 0, device=None,
-          store: str | None = None, service: DispatchService | None = None) -> dict:
+          store: str | None = None, service: DispatchService | None = None,
+          n_layers: int | None = None) -> dict:
     """Build the model, serve one batch of random prompts, and return the
     generated ids with the run's numbers (see :func:`main`). ``service`` is
     the caller's own (a tuner or a guard attached, say); else one is made on
-    ``store``."""
+    ``store``. ``n_layers`` cuts the config's depth (a Python caller's
+    option; the CLI serves the whole config)."""
     dev = resolve_device(device)
     cfg = get_reduced(arch) if reduced else get_config(arch)
-    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    cfg = dataclasses.replace(cfg, dtype=torch.float32, n_layers=n_layers or cfg.n_layers)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
     if service is None:
         service = service_for(dev, TuningStore(store) if store else None)

@@ -388,6 +388,15 @@ def _maybe_remat(fn, remat: str):
     raise ValueError(f"unknown remat policy {remat!r}")
 
 
+def _embed_scale(cfg: ArchConfig) -> float:
+    """Gemma's embedding scale, sqrt(d_model) rounded to ``cfg.dtype`` first
+    as the JAX package's ``jnp.asarray(d_model ** 0.5, cfg.dtype)`` is (in
+    bf16 33.94 becomes 34.0). Both factors are then ``cfg.dtype`` values, so
+    the product rounds once to the same number in either package; in f32
+    the scale is the same f32 number as before."""
+    return float(torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype))
+
+
 def forward(params: dict, batch: dict, cfg: ArchConfig, *, remat: str = "none",
             attn_chunk: int = 512, ssm_chunk: int = 64, act_spec=None, logits_spec=None,
             service=None, cross_cache: dict | None = None
@@ -416,7 +425,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *, remat: str = "none",
     tokens = batch["tokens"]
     x = constrain(_embed(params["embed"], tokens).to(cfg.dtype), act_spec)
     if cfg.name.startswith("gemma"):
-        x = x * cfg.d_model ** 0.5
+        x = x * _embed_scale(cfg)
     positions = batch.get("positions", None)
     if positions is None:
         positions = make_batch_positions(cfg, tokens)
@@ -644,7 +653,7 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos, cfg: ArchCo
     _known_family(cfg)
     x = constrain(_embed(params["embed"], token).to(cfg.dtype), act_spec)
     if cfg.name.startswith("gemma"):
-        x = x * cfg.d_model ** 0.5
+        x = x * _embed_scale(cfg)
     moe = cfg.family == "moe"
 
     def layer(stack: dict, i: int) -> dict:

@@ -2467,3 +2467,96 @@ def test_every_gpu_tile_still_fits_the_card(cuda, dtype):
                 for M in ((4, 512) if dtype == torch.bfloat16 else (4,)):
                     matmul_tile_check(M, 4096, 4096, bm=bm, bn=bn, bk=bk, dtype=dtype,
                                       device=cuda)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the catalog in bf16: the kernels at its new shapes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,K,G,hd,P", [(4, 1, 4, 256, 128), (4, 8, 3, 128, 128),
+                                        (4, 16, 1, 64, 128), (4, 32, 1, 64, 128)],
+                         ids=["gemma3", "minitron", "qwen1.5", "zamba2"])
+def test_flash_attention_bf16_at_the_catalogs_prompts(cuda, B, K, G, hd, P):
+    """bf16 in, f32 math, bf16 out, at a served prompt's (B*K, P, hd),
+    causal (one of G calls a layer): gemma3's head size 256 (its local
+    layers' window of 512 covers every key of a 128-token prompt, so the
+    mask is the causal one; the served forward keeps a windowed arch's
+    attention plain, as the JAX package), minitron's G = 3 at hd 128,
+    qwen1.5's MHA and zamba2's shared block at hd 64."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v = (t.bfloat16() for t in _normal(cuda, *[(B * K, P, hd)] * 3, seed=31))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True)
+    assert got.dtype == torch.bfloat16 and flash_attention.launches == before + 1
+    _close(got, flash_attention_plain(q, k, v, causal=True), ATTN_BF16_TOL)
+
+
+def test_flash_attention_bf16_over_whispers_frames(cuda):
+    """Cross-attention's shape: a 128-token prompt's queries against 1500
+    frames' keys, not causal, whisper's 20 heads at hd 64, batch 4."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v = (t.bfloat16() for t in _normal(cuda, (80, 128, 64), (80, 1500, 64),
+                                             (80, 1500, 64), seed=32))
+    _close(flash_attention(q, k, v, causal=False),
+           flash_attention_plain(q, k, v, causal=False), ATTN_BF16_TOL)
+
+
+@pytest.mark.parametrize("ring", [False, True], ids=["window", "ring"])
+def test_decode_attention_bf16_at_gemmas_window(cuda, ring):
+    """gemma3's decode shape, (B*K, G, hd) = (4, 4, 256), at position 600
+    past its window of 512: the local layers' mask over a full cache of 640
+    slots (gemma3's own cache: a local:global arch keeps max_len), and the
+    ring of 512 slots a uniform window keeps, past its wrap."""
+    from repro_torch.dispatch import DispatchService
+    from repro_torch.kernels.decode_attention import CacheRows, decode_attention_plain
+
+    S = 512 if ring else 640
+    q, kc, vc = _normal(cuda, (4, 4, 256), (4, S, 1, 256), (4, S, 1, 256), seed=33)
+    q, kc, vc = q.bfloat16(), kc.bfloat16(), vc.bfloat16()
+    cp = torch.full((4,), 600, dtype=torch.int32, device=cuda)
+    cp[1] = 517
+    kr, vr = CacheRows(kc), CacheRows(vc)
+    fn = DispatchService().dispatch("decode_attention", q, kr, vr, cp, ring=ring, window=512)
+    got = fn(q, kr, vr, cp)
+    assert got.dtype == torch.bfloat16
+    _close(got, decode_attention_plain(q, kr, vr, cp, ring=ring, window=512), ATTN_BF16_TOL)
+
+
+def test_decode_attention_bf16_over_whispers_cross_cache(cuda):
+    """A decode step's cross-attention: (B*K, G, hd) = (80, 1, 64) against
+    the (4, 1500, 20, 64) cross K/V a prefill fills, read in place, every
+    frame valid."""
+    from repro_torch.dispatch import DispatchService
+    from repro_torch.kernels.decode_attention import CacheRows, decode_attention_plain
+
+    q, kc, vc = _normal(cuda, (80, 1, 64), (4, 1500, 20, 64), (4, 1500, 20, 64), seed=34)
+    q, kc, vc = q.bfloat16(), kc.bfloat16(), vc.bfloat16()
+    cp = torch.full((80,), 1499, dtype=torch.int32, device=cuda)
+    kr, vr = CacheRows(kc), CacheRows(vc)
+    fn = DispatchService().dispatch("decode_attention", q, kr, vr, cp, ring=False, window=0)
+    _close(fn(q, kr, vr, cp), decode_attention_plain(q, kr, vr, cp), ATTN_BF16_TOL)
+
+
+@pytest.mark.parametrize("M", [4, 512])
+@pytest.mark.parametrize("K,N,forward", [(1152, 262144, "wgmma"), (3072, 256000, "wgmma"),
+                                         (1280, 51866, "mma_sync")],
+                         ids=["gemma3 tied unembed", "minitron unembed", "whisper unembed"])
+def test_matmul_bf16_at_the_catalogs_unembeds(cuda, M, K, N, forward):
+    """The bf16 unembeds at a decode step's 4 rows (the split stream) and a
+    forward's 512 (wgmma, where N is a multiple of 8; whisper's 51,866 is
+    not, and TMA cannot take it: mma.sync), through the dispatch service's
+    default config, each against its plain version and on the route it
+    reports."""
+    from repro_torch.dispatch import DispatchService
+
+    a, b = _operands(cuda, M, K, N, torch.bfloat16, seed=35)
+    fn = DispatchService().dispatch("matmul", a, b)
+    got = {}
+    assert _routes_of(lambda: got.setdefault("o", fn(a, b))) == {"split" if M == 4 else
+                                                                 forward: 1}
+    assert got["o"].dtype == torch.bfloat16
+    _close(got["o"], tiled_matmul_plain(a, b, bk=K, pack=True, out_dtype=torch.bfloat16),
+           BF16_TOL)
